@@ -1,0 +1,104 @@
+"""TTT-MLP fast-weight layer (port of ttt_video_dit_tpu/models/ttt/layer.py:TTTLayer,
+``ttt_mlp`` path).
+
+One direction per call; the caller runs the reverse direction with the same
+parameters (``reverse=True``). The layer permutes the [B, L, D] stream once
+at entry (interleave, with the reverse prep composed in), projects q/k/v and
+the LR-gate logits with plain matmuls, and hands the raw token-major
+projections to the fused TTT-MLP scan (ops/ttt_mlp_kernel.py), which does
+the L2-norm, rope, LN-reconstruction target and the sigmoid gate itself.
+Rope is applied by SLOT of the interleaved layout, never by token: the slot
+tables (identity rows on text, video slot j -> angle j, forward-interleaved
+when multiscene) are the same for both directions.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as Fn
+from torch import nn
+
+from ttt_video_dit_torch.models.ttt.interleave import interleave, undo_interleave
+from ttt_video_dit_torch.ops import ttt_mlp_kernel
+from ttt_video_dit_torch.ops.rope import interleaved_tables_prefixed, precompute_rope_3d
+from ttt_video_dit_tpu.config.model_config import ModelConfig
+from ttt_video_dit_tpu.models.sequence import SequenceMetadata
+
+
+@functools.lru_cache(maxsize=16)
+def scan_rope_tables(meta: SequenceMetadata, head_dim: int, theta: float, mini_batch: int, device: torch.device):
+    """By-slot rope tables [NC, CS, F] float32 for the TTT scan, on ``device``
+    (read-only: shared by every caller)."""
+    L = meta.seq_text_length + meta.num_video_tokens
+    cos, sin = precompute_rope_3d(head_dim, meta.grid_height, meta.grid_width, meta.num_frames, theta)
+    tables = interleaved_tables_prefixed(cos, sin, meta.seq_text_length, L)
+    shape = (L // mini_batch, mini_batch, head_dim)
+    return tuple(interleave(t, meta).reshape(shape).contiguous().to(device) for t in tables)
+
+
+def layer_norm(x, norm: nn.LayerNorm, out_dtype):
+    """flax LayerNorm(dtype=out_dtype, param_dtype=float32): statistics and
+    affine in float32, result in ``out_dtype``."""
+    return Fn.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps).to(out_dtype)
+
+
+class TTTLayer(nn.Module):
+    """Bidirectional-capable TTT-MLP layer. Parameter names mirror the flax tree."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        if config.ssm_layer != "ttt_mlp":
+            raise NotImplementedError(f"ssm_layer={config.ssm_layer!r} is not ported yet (only ttt_mlp)")
+        self.config = config
+        D, H, F = config.model_dim, config.num_heads, config.head_dim
+        self.wq, self.wk, self.wv, self.wo = (nn.Linear(D, D) for _ in range(4))
+        # Per-head learned inner-loop LR gate: sigmoid(x . w + b) * base_lr / F / CS.
+        self.learnable_ttt_lr_weight = nn.Parameter(torch.empty(H, 1, D))
+        self.learnable_ttt_lr_bias = nn.Parameter(torch.zeros(H, 1))
+        self.ttt_norm_weight = nn.Parameter(torch.ones(H, F))
+        self.ttt_norm_bias = nn.Parameter(torch.zeros(H, F))
+        self.post_norm = nn.LayerNorm(D, eps=1e-6)
+        # Fast-weight initial states (learned, shared across the batch).
+        self.W1 = nn.Parameter(torch.empty(H, F, 4 * F))
+        self.b1 = nn.Parameter(torch.zeros(H, 1, 4 * F))
+        self.W2 = nn.Parameter(torch.empty(H, 4 * F, F))
+        self.b2 = nn.Parameter(torch.zeros(H, 1, F))
+
+    @property
+    def eta_scale(self) -> float:
+        """sigmoid(gate) * eta_scale = the reference's eta = lr / CS."""
+        cfg = self.config
+        return cfg.ttt_base_lr / cfg.head_dim / cfg.mini_batch_size
+
+    def token_gate(self, hidden_states):
+        """Pre-sigmoid LR-gate logits [B, H, NC, CS] float32: x . lr_weight +
+        bias, with the weight rounded to the stream dtype and the products
+        accumulated in float32 (the einsum's preferred_element_type)."""
+        cfg = self.config
+        B, L, _ = hidden_states.shape
+        w = self.learnable_ttt_lr_weight[:, 0, :].to(hidden_states.dtype).float()  # [H, D]
+        lr = hidden_states.float() @ w.t() + self.learnable_ttt_lr_bias.reshape(1, 1, -1)  # [B, L, H]
+        return lr.permute(0, 2, 1).reshape(B, cfg.num_heads, L // cfg.mini_batch_size, cfg.mini_batch_size).contiguous()
+
+    def forward(self, hidden_states, meta: SequenceMetadata, reverse: bool = False):
+        cfg = self.config
+        B, L, D = hidden_states.shape
+        H, F, CS = cfg.num_heads, cfg.head_dim, cfg.mini_batch_size
+        if L % CS:
+            raise ValueError(f"Sequence len {L} must be multiple of mini batch size {CS}.")
+        NC = L // CS
+
+        x = interleave(hidden_states, meta, reverse)
+        to_tm = lambda t: t.reshape(B, NC, CS, H * F)  # token-major: a pure reshape
+        XQ, XK, XV = to_tm(self.wq(x)), to_tm(self.wk(x)), to_tm(self.wv(x))
+        gate = self.token_gate(x)
+        rope_cos, rope_sin = scan_rope_tables(meta, F, cfg.rope_theta, CS, x.device)
+
+        scan = ttt_mlp_kernel.ttt_mlp_forward if cfg.use_kernel else ttt_mlp_kernel.ttt_mlp_forward_plain
+        XQW = scan(XQ, XK, XV, gate, rope_cos, rope_sin, self.ttt_norm_weight, self.ttt_norm_bias,
+                   self.W1, self.b1, self.W2, self.b2, self.eta_scale)
+        out = XQW.reshape(B, L, D)
+        out = self.wo(layer_norm(out, self.post_norm, out.dtype))
+        return undo_interleave(out, meta, reverse)
