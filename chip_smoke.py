@@ -105,8 +105,9 @@ def _ttt_inputs(B, H, NC, gen, device, meta=None):
 
 
 def phase_kernels(device) -> list[dict]:
+    from ttt_video_dit_torch import sample
+    from ttt_video_dit_torch.models.dit.dit import sequence_metadata
     from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
-    from ttt_video_dit_tpu.models.sequence import SequenceMetadata
 
     t0 = time.perf_counter()
     gen = torch.Generator(device).manual_seed(0)
@@ -114,8 +115,8 @@ def phase_kernels(device) -> list[dict]:
     records = []
 
     # K1 at the slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables) and ragged.
-    meta = SequenceMetadata(text_length=498, num_frames=13, num_chunks=1, tokens_per_frame=1350,
-                            latent_height=60, latent_width=90)
+    meta = sequence_metadata(sample.model_config(sample.parse_args(SAMPLE_ARGS)), num_frames=13,
+                             latent_height=60, latent_width=90, num_scenes=1, text_length=498)
     for B, H, NC, m in ((2, 48, 1128, meta), (1, 2, 7, None)):
         a = _ttt_inputs(B, H, NC, gen, device, m)
         got = ttt_mlp_kernel.ttt_mlp_forward(**a, eta_scale=eta_scale)
@@ -152,12 +153,10 @@ def phase_kernels(device) -> list[dict]:
 
 
 def phase_dit(device) -> None:
-    from ttt_video_dit_torch.sample import build_model, parse_args
-    from ttt_video_dit_tpu.config.model_config import ModelConfig
+    from ttt_video_dit_torch.sample import build_model, model_config, parse_args
 
     t0 = time.perf_counter()
-    job = parse_args(SAMPLE_ARGS + ["--model.num_layers", "2"])
-    cfg = ModelConfig.get_preset(job.model.size, job.model.video_length, job)
+    cfg = model_config(parse_args(SAMPLE_ARGS + ["--model.num_layers", "2"]))
     model = build_model(cfg, device, seed=1)
     gen = torch.Generator(device).manual_seed(2)
     video = torch.randn(2, 13, 16, 60, 90, generator=gen, device=device)

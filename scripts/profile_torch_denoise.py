@@ -40,11 +40,10 @@ def main() -> None:
         raise SystemExit("needs a CUDA card")
 
     from ttt_video_dit_torch.models.dit import sampler as S
-    from ttt_video_dit_torch.sample import build_model, parse_args
-    from ttt_video_dit_tpu.config.model_config import ModelConfig
+    from ttt_video_dit_torch.sample import build_model, model_config, parse_args
 
     job = parse_args(["--job.config_file", "configs/eval/ttt-mlp/3s.toml"])
-    cfg = ModelConfig.get_preset(job.model.size, job.model.video_length, job)
+    cfg = model_config(job)
     device = torch.device("cuda", 0)
     model = build_model(cfg, device)
     gen = torch.Generator(device).manual_seed(0)

@@ -3,6 +3,7 @@ JAX, the sampling entry refuses to run without a GPU unless the CPU is asked
 for, the kernel wrappers refuse what their kernels do not take, and
 chip_smoke.py fails (printing no result) without a card or outside the repo."""
 
+import ast
 import os
 import pkgutil
 import shutil
@@ -48,6 +49,17 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     assert "ttt_video_dit_torch.sample" in modules and "ttt_video_dit_torch.ops.ttt_mlp_kernel" in modules
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the model only through ttt_video_dit_torch: none of
+    its own import statements names the JAX package or JAX."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert any(n.startswith("ttt_video_dit_torch") for n in names)
+    bad = [n for n in names if n.split(".")[0] in ("ttt_video_dit_tpu", "jax", "jaxlib", "flax")]
+    assert not bad, bad
 
 
 def test_sample_entry_needs_gpu_unless_cpu_is_asked_for(tmp_path, monkeypatch):

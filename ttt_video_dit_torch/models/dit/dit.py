@@ -238,6 +238,18 @@ class FinalLayer(nn.Module):
         return x.reshape(B, t, c, h * p, w * p)
 
 
+def sequence_metadata(config: ModelConfig, num_frames: int, latent_height: int, latent_width: int,
+                      num_scenes: int, text_length: int) -> SequenceMetadata:
+    """The sequence geometry the DiT builds for a [B, num_frames, C, latent_height,
+    latent_width] video and [B, num_scenes, text_length, text_dim] text."""
+    p = config.patch_size
+    return SequenceMetadata(
+        text_length=text_length, num_frames=num_frames, num_chunks=num_scenes,
+        tokens_per_frame=(latent_height // p) * (latent_width // p), latent_height=latent_height,
+        latent_width=latent_width, patch_size=p,
+    )
+
+
 class DiffusionTransformer(nn.Module):
     """The full DiT: (video [B,T,C,H,W], text [B,scenes,S,text_dim], timesteps [B])
     -> latent v-prediction [B,T,C,H,W]."""
@@ -263,11 +275,7 @@ class DiffusionTransformer(nn.Module):
         t_emb = self.time_embed_2(Fn.silu(self.time_embed_0(t_emb)))
 
         text_emb, vid_emb = self.patch_embedding(video, text)
-        meta = SequenceMetadata(
-            text_length=text_length, num_frames=T, num_chunks=num_scenes,
-            tokens_per_frame=vid_emb.shape[1] // T, latent_height=H_lat, latent_width=W_lat,
-            patch_size=cfg.patch_size,
-        )
+        meta = sequence_metadata(cfg, T, H_lat, W_lat, num_scenes, text_length)
         text_emb = text_emb.reshape(B, num_scenes * text_length, cfg.model_dim)
         for layer in self.layers:
             vid_emb, text_emb = layer(vid_emb, text_emb, t_emb, meta)

@@ -25,8 +25,8 @@ import ctypes
 import torch
 
 from ttt_video_dit_torch.ops import _build
-from ttt_video_dit_torch.ops.ln import gelu_bwd, gelu_tanh, ln_fused_l2_bwd, ln_fwd
 from ttt_video_dit_torch.ops.rope import pair_swap
+from ttt_video_dit_torch.ops.ttt_scan import ttt_mlp_step
 
 # Launches of the CUDA kernel (the plain version does not count).
 launches = 0
@@ -57,11 +57,11 @@ def _target_ln(t, lnw, lnb, eps: float = 1e-8):
 
 
 def ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float):
-    """The per-step loop of _mlp_kernel in PyTorch, rounding to XQ's dtype at
-    the kernel's points (XQ/XK after preprocessing, every W.astype(dt), X2c,
-    G1, G2, attn1, attn2, X2_barc, bf16(grad_z2)); products of the rounded
-    operands accumulate in float32. Float32 matmuls must not use TF32 for the
-    kernel comparison (see chip_smoke.py)."""
+    """The per-step loop of _mlp_kernel in PyTorch: the fused preprocessing,
+    then ``ttt_scan.ttt_mlp_step`` rounding to XQ's dtype at the kernel's
+    points (XQ/XK after preprocessing, and the step's own); products of the
+    rounded operands accumulate in float32. Float32 matmuls must not use TF32
+    for the kernel comparison (see chip_smoke.py)."""
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
     dt = XQ.dtype
@@ -69,41 +69,19 @@ def ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, 
     # token-major [B, NC, CS, H*F] -> [NC, B, H, CS, F] float32
     to_hm = lambda x: x.reshape(B, NC, CS, H, F).permute(1, 0, 3, 2, 4).float()
     xq, xk, xv = to_hm(XQ), to_hm(XK), to_hm(XV)
-    eta = (torch.sigmoid(gate.float()) * eta_scale).permute(2, 0, 1, 3)[..., None]  # [NC, B, H, CS, 1]
+    eta = (torch.sigmoid(gate.float()) * eta_scale).permute(2, 0, 1, 3)  # [NC, B, H, CS]
     cos, sin = rope_cos.float(), rope_sin.float()
     lnw = ln_w.float()[None, :, None, :]
     lnb = ln_b.float()[None, :, None, :]
-    W1s, b1s = W1.float().expand(B, *W1.shape), b1.float().expand(B, *b1.shape)
-    W2s, b2s = W2.float().expand(B, *W2.shape), b2.float().expand(B, *b2.shape)
-    tr = lambda x: x.transpose(-1, -2)
+    state = tuple(p.float().expand(B, *p.shape) for p in (W1, b1, W2, b2))
 
     out = torch.empty(NC, B, H, CS, F, dtype=dt, device=XQ.device)
     for n in range(NC):
         XQf = _rope(_l2norm(xq[n]), cos[n], sin[n])
         XKf = _rope(_l2norm(xk[n]), cos[n], sin[n])
         target = _target_ln(xv[n] - XKf, lnw, lnb)
-        XQn, XKn = rnd(XQf), rnd(XKf)
-
-        Z1 = XKn @ rnd(W1s) + b1s
-        X2c = rnd(gelu_tanh(Z1))
-        Z2 = X2c @ rnd(W2s) + b2s
-        grad_z2 = ln_fused_l2_bwd(Z2, target, lnw, lnb)
-        grad_z1 = (rnd(grad_z2) @ tr(rnd(W2s))) * gelu_bwd(Z1)
-        G1 = rnd(eta[n] * grad_z1)
-        G2 = rnd(eta[n] * grad_z2)
-
-        attn1 = rnd(XQn @ tr(XKn))
-        b1n = b1s - G1.sum(dim=-2, keepdim=True)
-        Z1_bar = XQn @ rnd(W1s) - attn1 @ G1 + b1n
-        X2_barc = rnd(gelu_tanh(Z1_bar))
-        attn2 = rnd(X2_barc @ tr(X2c))
-        b2n = b2s - G2.sum(dim=-2, keepdim=True)
-        Z2_bar = X2_barc @ rnd(W2s) - attn2 @ G2 + b2n
-
-        W1s = W1s - tr(XKn) @ G1
-        W2s = W2s - tr(X2c) @ G2
-        b1s, b2s = b1n, b2n
-        out[n] = (XQn + ln_fwd(Z2_bar, lnw, lnb)).to(dt)
+        state, XQW = ttt_mlp_step(state, rnd(XQf), rnd(XKf), target, eta[n], lnw, lnb, rnd)
+        out[n] = XQW.to(dt)
     return out.permute(1, 0, 3, 2, 4).reshape(B, NC, CS, HF)
 
 

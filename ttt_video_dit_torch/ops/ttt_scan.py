@@ -1,10 +1,10 @@
 """Per-token-eta dual-form TTT-MLP scan in plain PyTorch (port of the forward
 half of ttt_video_dit_tpu/ops/ttt_scan.py).
 
-This is the algorithmic reference for the fused TTT-MLP kernel's plain
-version (ops/ttt_mlp_kernel.py): head-major inputs that are already
-preprocessed (L2-norm, rope, LN-reconstruction target), fp32 state, fp32
-products. The eta parameterization is the per-token vector ``lr_j / CS``
+Its step, ``ttt_mlp_step``, is also the body of the fused TTT-MLP kernel's
+plain version (ops/ttt_mlp_kernel.py), which adds the kernel's bf16 rounding
+points. Inputs are head-major and already preprocessed (L2-norm, rope,
+LN-reconstruction target); state and products are fp32. The eta parameterization is the per-token vector ``lr_j / CS``
 (see the JAX module's docstring for why it equals the reference's rank-1
 eta matrix).
 
@@ -19,39 +19,55 @@ import torch
 from ttt_video_dit_torch.ops.ln import gelu_bwd, gelu_tanh, ln_fused_l2_bwd, ln_fwd
 
 
-def ttt_mlp_mini_batch(state, xs, ln_weight, ln_bias):
-    """One dual-form TTT-MLP mini-batch step (2-layer GELU fast-weight net).
-    ``state`` = (W1, b1, W2, b2) in fp32; ``xs`` = (XQ, XK, XV, eta) of one
-    mini-batch. Returns (new_state, XQW) with XQW in fp32."""
-    XQ, XK, XV, eta = (x.float() for x in xs)
-    W1, b1, W2, b2 = state
+def _exact(x):
+    return x
 
-    Z1 = XK @ W1 + b1
-    X2 = gelu_tanh(Z1)
-    Z2 = X2 @ W2 + b2
-    target = XV - XK
+
+def ttt_mlp_step(state, XQ, XK, target, eta, ln_weight, ln_bias, rnd=_exact):
+    """One dual-form TTT-MLP mini-batch step (2-layer GELU fast-weight net) on
+    preprocessed float32 operands: ``state`` = (W1, b1, W2, b2), XQ/XK/target
+    [..., CS, F], eta [..., CS]. ``rnd`` rounds a matmul operand to the compute
+    dtype and back; the default leaves everything float32, and the fused
+    kernel's plain version (ops/ttt_mlp_kernel.py) passes a bf16 rounding, so
+    the step rounds exactly where _mlp_kernel does (W.astype(dt), X2c,
+    bf16(grad_z2), G1, G2, attn1, attn2, X2_barc). Returns (new_state, XQW)
+    with XQW in float32."""
+    W1, b1, W2, b2 = state
+    W1c, W2c = rnd(W1), rnd(W2)
+
+    Z1 = XK @ W1c + b1
+    X2 = rnd(gelu_tanh(Z1))
+    Z2 = X2 @ W2c + b2
 
     grad_z2 = ln_fused_l2_bwd(Z2, target, ln_weight, ln_bias)
-    grad_z1 = (grad_z2 @ W2.transpose(-1, -2)) * gelu_bwd(Z1)
+    grad_z1 = (rnd(grad_z2) @ W2c.transpose(-1, -2)) * gelu_bwd(Z1)
 
     eta_f = eta[..., None]
-    G1 = eta_f * grad_z1
-    G2 = eta_f * grad_z2
+    G1 = rnd(eta_f * grad_z1)
+    G2 = rnd(eta_f * grad_z2)
 
-    attn1 = XQ @ XK.transpose(-1, -2)
+    attn1 = rnd(XQ @ XK.transpose(-1, -2))
     b1_new = b1 - G1.sum(dim=-2, keepdim=True)
-    Z1_bar = XQ @ W1 - attn1 @ G1 + b1_new
-    X2_bar = gelu_tanh(Z1_bar)
+    Z1_bar = XQ @ W1c - attn1 @ G1 + b1_new
+    X2_bar = rnd(gelu_tanh(Z1_bar))
 
-    attn2 = X2_bar @ X2.transpose(-1, -2)
+    attn2 = rnd(X2_bar @ X2.transpose(-1, -2))
     b2_new = b2 - G2.sum(dim=-2, keepdim=True)
-    Z2_bar = X2_bar @ W2 - attn2 @ G2 + b2_new
+    Z2_bar = X2_bar @ W2c - attn2 @ G2 + b2_new
 
     W1_new = W1 - XK.transpose(-1, -2) @ G1
     W2_new = W2 - X2.transpose(-1, -2) @ G2
 
     XQW = XQ + ln_fwd(Z2_bar, ln_weight, ln_bias)
     return (W1_new, b1_new, W2_new, b2_new), XQW
+
+
+def ttt_mlp_mini_batch(state, xs, ln_weight, ln_bias):
+    """One float32 mini-batch step. ``state`` = (W1, b1, W2, b2) in fp32;
+    ``xs`` = (XQ, XK, XV, eta) of one mini-batch, with XV - XK the
+    LN-reconstruction target. Returns (new_state, XQW) with XQW in fp32."""
+    XQ, XK, XV, eta = (x.float() for x in xs)
+    return ttt_mlp_step(state, XQ, XK, XV - XK, eta, ln_weight, ln_bias)
 
 
 def ttt_mlp(XQ, XK, XV, eta, ttt_norm_weight, ttt_norm_bias, W1_init, b1_init, W2_init, b2_init):

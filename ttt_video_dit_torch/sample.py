@@ -40,16 +40,21 @@ def resolve_device(platform: str | None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def build_model(model_config: ModelConfig, device: torch.device, seed: int = 0):
+def model_config(job_config: JobConfig) -> ModelConfig:
+    """The model preset of ``--model.size``/``--model.video_length`` with the job's overrides."""
+    return ModelConfig.get_preset(job_config.model.size, job_config.model.video_length, job_config)
+
+
+def build_model(config: ModelConfig, device: torch.device, seed: int = 0):
     """CogVideoX with random weights from ``seed``, matmul weights cast once
     to the compute dtype."""
     from ttt_video_dit_torch.models.dit.diffusion import CogVideoX
     from ttt_video_dit_torch.models.dit.dit import cast_matmul_weights_, compute_dtype, init_params_
 
     with torch.device(device):
-        model = CogVideoX(model_config)
+        model = CogVideoX(config)
     init_params_(model, torch.Generator(device).manual_seed(seed))
-    cast_matmul_weights_(model, compute_dtype(model_config))
+    cast_matmul_weights_(model, compute_dtype(config))
     return model.eval()
 
 
@@ -68,15 +73,14 @@ def main(job_config: JobConfig) -> dict:
         raise ValueError("--eval.input_file (storyboard json/jsonl) required")
 
     device = resolve_device(job_config.job.platform)
-    model_config = ModelConfig.get_preset(job_config.model.size, job_config.model.video_length, job_config)
-    model_config.use_kernel = True  # the wrappers pick the kernel on CUDA tensors, the plain version on CPU ones
+    cfg = model_config(job_config)
     print(f"device {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
-          f"model d{model_config.model_dim} x {model_config.num_heads} heads x {model_config.num_layers} layers, "
-          f"dtype {model_config.dtype}, TTT mini-batch {model_config.mini_batch_size}", flush=True)
+          f"model d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, "
+          f"dtype {cfg.dtype}, TTT mini-batch {cfg.mini_batch_size}", flush=True)
     print("WARNING: no T5 encoder, random text embeddings; random DiT weights; no VAE (smoke mode)", flush=True)
 
     t0 = time.perf_counter()
-    model = build_model(model_config, device)
+    model = build_model(cfg, device)
     setup_seconds = time.perf_counter() - t0
     print(f"model set-up {setup_seconds:.1f} s", flush=True)
 
@@ -94,7 +98,7 @@ def main(job_config: JobConfig) -> dict:
     eval_seconds, paths = [], []
     for vi, (texts, _neg_texts) in enumerate(storyboards):
         rng_np = np.random.default_rng(vi)
-        pos = rng_np.standard_normal((1, len(texts), eval_cfg.txt_maxlen, model_config.text_dim)).astype(np.float32)
+        pos = rng_np.standard_normal((1, len(texts), eval_cfg.txt_maxlen, cfg.text_dim)).astype(np.float32)
         pos = torch.from_numpy(pos).to(device)
         denoise = S.make_cfg_denoise_fn(model, pos, torch.zeros_like(pos), sigma_interval=job_config.denoiser.num_idx,
                                         quantize_c_noise=job_config.denoiser.quantize_c_noise)
@@ -112,13 +116,13 @@ def main(job_config: JobConfig) -> dict:
         generator = torch.Generator(device).manual_seed(job_config.job.seed + vi)
         with torch.inference_mode():
             latents = sampler(timed_denoise, shape, generator=generator, device=device)
-        latents = latents[0].cpu().numpy() / model_config.scale_factor  # [T, C, H, W]
+        latents = latents[0].cpu().numpy() / cfg.scale_factor  # [T, C, H, W]
         path = os.path.join(eval_cfg.output_dir, f"video_0_{vi}_latents.npy")
         np.save(path, latents)
         paths.append(path)
         print(f"[{vi}] saved latents to {path} (no VAE)", flush=True)
     return {"device": str(device), "setup_seconds": setup_seconds, "eval_seconds": eval_seconds,
-            "latents": paths, "model_config": model_config}
+            "latents": paths, "model_config": cfg}
 
 
 def parse_args(argv=None) -> JobConfig:
