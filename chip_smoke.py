@@ -6,14 +6,29 @@ Phases (each prints one line with its timing; any failure raises and exits
 non-zero, and no result line is printed):
 
 1. device, card name and power limit; build and load the CUDA kernels from
-   ttt_video_dit_torch/csrc/ (nvcc, sm_90a).
+   ttt_video_dit_torch/csrc/ (nvcc, sm_90a, one nvcc per source, all at once).
 2. each kernel against its plain PyTorch version on the card, at the 3 s
-   slice's shapes and at a small ragged shape, with times.
+   slices' shapes and at a small ragged shape, with times, the bound the
+   card sets for the same work, and the time of one PyTorch call computing
+   the same function where there is one: K1 (sampling), K3 (sampling),
+   K1-train and K2 (TTT-MLP training forward and backward), K3 with the
+   log-sum-exp and K4 (attention backward).
 3. one DiffusionTransformer forward at full width (d3072, 48 heads) and
    2 layers, kernel path against the plain functions, same weights.
 4. the sampling entry (ttt_video_dit_torch.sample.main) on
    configs/eval/ttt-mlp/3s.toml at 42 layers, 3 denoise steps; kernel launch
    counts from exactly that run; finite latents of the expected shape.
+5. one training loss + backward of a full-width 2-layer DiT (the 3 s train
+   config), kernel path against the plain path (the same autograd Functions
+   over the plain versions), same weights and draws: relative L2 of the loss
+   and of every parameter's gradient.
+6. the training entry (ttt_video_dit_torch.train.main) on
+   configs/train/ttt-mlp/3s.toml at full width, 4 layers, 3 steps: on the
+   card, finite loss and grad norm at every step, every trainable tensor
+   moved further than weight decay alone would move it (bar those with an
+   all-zero last gradient, named, none of them the TTT state K2 trains), and
+   the launch counts of the training kernels from exactly that run; seconds
+   per step, peak memory, MFU.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
@@ -23,9 +38,11 @@ plain versions are exact float32 references.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -33,18 +50,58 @@ SAMPLE_ARGS = [
     "--job.config_file", "configs/eval/ttt-mlp/3s.toml", "--eval.input_file", "inputs/example.json",
     "--eval.num_denoising_steps", "3", "--guider.num_steps", "3",
 ]
-# |kernel - plain| <= ATOL + RTOL * |plain| elementwise, on bf16 outputs. Both
+TRAIN_ARGS = [
+    "--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "4", "--training.steps", "3",
+    "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
+]
+KERNELS = ("attention_forward", "attention_backward", "ttt_mlp_forward", "ttt_mlp_backward")
+# |kernel - plain| <= ATOL + RTOL * |plain| elementwise, on bf16 outputs. The
 # kernels round at the plain versions' points; what remains is float32
-# summation order (and, for attention, P rounded to bf16 before P V), i.e. a
-# few bf16 ulps of outputs of magnitude up to ~5.
-KERNEL_TOL = {"ttt_mlp_forward": (2e-2, 2e-2), "attention_forward": (2e-2, 2e-2)}
+# summation order (and, for attention, P and dS rounded to bf16 as operands),
+# i.e. a few bf16 ulps of outputs of magnitude up to ~5.
+KERNEL_TOL = {"ttt_mlp_forward": (2e-2, 2e-2), "attention_forward": (2e-2, 2e-2), "ttt_mlp_forward_train": (2e-2, 2e-2),
+              "attention_forward_lse": (2e-2, 2e-2), "attention_backward": (2e-2, 2e-2),
+              "ttt_mlp_backward": (2e-2, 2e-2)}
+# The float32 outputs of the training kernels (K1-train's state checkpoints,
+# K2's gradients), each held by its relative L2 error,
+# ||kernel - plain|| / ||plain|| <= REL_L2_TOL, and by its largest error,
+# max|kernel - plain| <= SCALED_TOL * max|plain|. The checkpoints carry K1's
+# bf16 rounding flips into fp32 sums; K2's weight, bias and LN gradients carry
+# them through the second-order step VJP and span five orders of magnitude, so
+# no one elementwise tolerance fits them. K2's input gradients (dXQ, dXK, dXV,
+# d_gate) are held elementwise as well, by KERNEL_TOL.
+REL_L2_TOL = 1e-2
+SCALED_TOL = {"ttt_mlp_forward_train": 1e-3, "ttt_mlp_backward": 1e-2}
+K2_ELEMENTWISE = ("dXQ", "dXK", "dXV", "d_gate")
+# The TTT layer's parameters whose gradients K2 writes: a training step must
+# move each of them.
+K2_PARAMETERS = (".W1", ".b1", ".W2", ".b2", ".ttt_norm_weight", ".ttt_norm_bias")
+# A trained tensor must move more than this many times as far as weight decay
+# alone would have moved it over the run.
+DECAY_MARGIN = 10.0
+LSE_ATOL = 1e-4  # the log-sum-exp is float32 of values up to ~11
 # Relative L2 error of the 2-layer DiT output, kernel path vs plain path: the
 # bf16 stream carries the kernels' rounding differences through two layers.
 DIT_REL_L2_TOL = 2e-2
+# Relative L2 error of the 2-layer training loss and of each parameter's
+# gradient, kernel path vs plain path: the forward's 3e-3 (phase 3) carried
+# back through two layers of bf16 backward.
+GRAD_REL_L2_TOL = {"loss": 1e-2, "grad": 5e-2}
+# H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s and dense bf16 FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_clocks(when: str) -> None:
+    """The card's SM clock (and its maximum), power draw and temperature, so
+    that times from different calls can be read against the clocks they ran at."""
+    query = "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
+    out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader"], capture_output=True, text=True)
+    log(f"  clocks {when}: {(out.stdout or out.stderr).strip()}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -59,24 +116,55 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, got, want) -> float:
+def compare(name: str, got, want, what: str = "") -> float:
     atol, rtol = KERNEL_TOL[name]
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: kernel output has non-finite values")
+        raise AssertionError(f"{name} {what}: kernel output has non-finite values")
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
     if bad.any():
-        raise AssertionError(f"{name}: {int(bad.sum())} elements outside atol={atol} rtol={rtol}; "
+        raise AssertionError(f"{name} {what}: {int(bad.sum())} elements outside atol={atol} rtol={rtol}; "
                              f"max_abs_err={float(err.max()):.4g}")
     return float(err.max())
+
+
+def compare_scaled(name: str, what: str, got, want) -> tuple[float, float]:
+    """Max abs error and relative L2 error of a float32 training-kernel output."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name} {what}: kernel output has non-finite values")
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    rel = float((got - want).norm() / want.norm())
+    if not rel <= REL_L2_TOL:
+        raise AssertionError(f"{name} {what}: relative L2 error {rel:.4g} > {REL_L2_TOL}")
+    if err > SCALED_TOL[name] * scale:
+        raise AssertionError(f"{name} {what}: max_abs_err {err:.4g} > {SCALED_TOL[name]} x max|plain| {scale:.4g}")
+    return err, rel
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least milliseconds the card could take: max(bytes / HBM rate, flops / bf16 peak)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record(name, source, replaces, err, ms, plain_ms, nbytes, flops, library_ms=None) -> dict:
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"  {name} slice: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+        f"library {'n/a' if library_ms is None else f'{library_ms:.3f} ms'}, max_abs_err {err:.4g}")
+    return dict(name=name, route="cuda", source=f"ttt_video_dit_torch/csrc/{source}", replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def phase_build():
     from ttt_video_dit_torch.ops import _build, attention, ttt_mlp_kernel
 
     t0 = time.perf_counter()
-    for lib in (ttt_mlp_kernel._lib(), attention._lib()):
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.load, KERNELS))
+    for lib in (ttt_mlp_kernel._lib(), ttt_mlp_kernel._lib("ttt_mlp_backward"), attention._lib(),
+                attention._lib("attention_backward")):
         assert lib is not None
     for name, info in _build.build_info.items():
         usage = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
@@ -85,10 +173,10 @@ def phase_build():
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (ttt_mlp_forward dynamic shared memory {smem} bytes)")
 
 
-def _ttt_inputs(B, H, NC, gen, device, meta=None):
+def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16):
     from ttt_video_dit_torch.models.ttt.layer import scan_rope_tables
 
-    CS, F = 16, 64
+    F = 64
     randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=device) * std
     x = lambda: randn(B, NC, CS, H * F).to(torch.bfloat16)
     if meta is None:
@@ -104,17 +192,33 @@ def _ttt_inputs(B, H, NC, gen, device, meta=None):
     )
 
 
+def _ttt_bytes(B, H, NC, CS, F=64):
+    """Bytes a TTT scan must move once: bf16 q/k/v and output, f32 gate, rope
+    tables, LN affine and initial state."""
+    L = NC * CS
+    return 4 * B * L * H * F * 2 + B * H * L * 4 + 2 * L * F * 4 + 2 * H * F * 4 + H * (8 * F * F + 5 * F) * 4
+
+
+def _ttt_flops_per_step(CS, F=64):
+    """Matmul FLOPs of one dual-form TTT-MLP step of one (batch, head)
+    (utils/metrics.py's count): 7 F x 4F products and the CS x CS mixing."""
+    return 56 * CS * F * F + 20 * CS * CS * F
+
+
 def phase_kernels(device) -> list[dict]:
-    from ttt_video_dit_torch import sample
+    import torch.nn.functional as Fn
+
+    from ttt_video_dit_torch import sample, train
     from ttt_video_dit_torch.models.dit.dit import sequence_metadata
     from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
 
     t0 = time.perf_counter()
     gen = torch.Generator(device).manual_seed(0)
-    eta_scale = 0.1 / 64 / 16
     records = []
+    tpu = "ttt_video_dit_tpu/"
 
-    # K1 at the slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables) and ragged.
+    # K1 at the sampling slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables) and ragged.
+    eta_scale = 0.1 / 64 / 16
     meta = sequence_metadata(sample.model_config(sample.parse_args(SAMPLE_ARGS)), num_frames=13,
                              latent_height=60, latent_width=90, num_scenes=1, text_length=498)
     for B, H, NC, m in ((2, 48, 1128, meta), (1, 2, 7, None)):
@@ -125,29 +229,116 @@ def phase_kernels(device) -> list[dict]:
         log(f"  ttt_mlp_forward B={B} H={H} NC={NC}: max_abs_err {err:.4g} (tol {KERNEL_TOL['ttt_mlp_forward']})")
         if NC == 1128:
             k1 = dict(a=a, err=err)
-    k1_ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**k1["a"], eta_scale=eta_scale), 5)
-    k1_plain_ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward_plain(**k1["a"], eta_scale=eta_scale), 1)
-    log(f"  ttt_mlp_forward slice: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
-    records.append(dict(name="ttt_mlp_forward", route="cuda", source="ttt_video_dit_torch/csrc/ttt_mlp_forward.cu",
-                        replaces="ttt_video_dit_tpu/ops/pallas/ttt_forward.py:247", max_abs_err=k1["err"],
-                        ms=k1_ms, plain_ms=k1_plain_ms))
+    ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**k1["a"], eta_scale=eta_scale), 5)
+    plain_ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward_plain(**k1["a"], eta_scale=eta_scale), 1)
+    records.append(record("ttt_mlp_forward", "ttt_mlp_forward.cu", tpu + "ops/pallas/ttt_forward.py:247", k1["err"],
+                          ms, plain_ms, _ttt_bytes(2, 48, 1128, 16), 2 * 48 * 1128 * _ttt_flops_per_step(16)))
+    del k1
 
-    # K3 at the slice ([2, 18048, 48, 64], one window per CFG sample) and ragged (3 windows of 417).
+    # K3 at the sampling slice ([2, 18048, 48, 64], one window per CFG sample) and ragged (3 windows of 417).
+    sdpa = lambda q, k, v: Fn.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     for shape in ((2, 18048, 48, 64), (3, 417, 4, 64)):
         q, k, v = (torch.randn(*shape, generator=gen, device=device).mul(2.0).to(torch.bfloat16) for _ in range(3))
-        got = attention.attention(q, k, v)
-        want = attention.attention_plain(q, k, v)
-        err = compare("attention_forward", got, want)
+        err = compare("attention_forward", attention.attention(q, k, v), attention.attention_plain(q, k, v))
         log(f"  attention_forward {list(shape)}: max_abs_err {err:.4g} (tol {KERNEL_TOL['attention_forward']})")
         if shape[1] == 18048:
             k3 = dict(qkv=(q, k, v), err=err)
-    k3_ms = cuda_ms(lambda: attention.attention(*k3["qkv"]), 5)
-    k3_plain_ms = cuda_ms(lambda: attention.attention_plain(*k3["qkv"]), 1)
-    flops = 4 * 2 * 48 * 18048**2 * 64
-    log(f"  attention_forward slice: kernel {k3_ms:.3f} ms ({flops / k3_ms / 1e9:.1f} TFLOP/s), plain {k3_plain_ms:.3f} ms")
-    records.append(dict(name="attention_forward", route="cuda", source="ttt_video_dit_torch/csrc/attention_forward.cu",
-                        replaces="ttt_video_dit_tpu/ops/attention.py:265", max_abs_err=k3["err"],
-                        ms=k3_ms, plain_ms=k3_plain_ms))
+    BC, S, H, F = 2, 18048, 48, 64
+    ms = cuda_ms(lambda: attention.attention(*k3["qkv"]), 5)
+    plain_ms = cuda_ms(lambda: attention.attention_plain(*k3["qkv"]), 1)
+    lib_ms = cuda_ms(lambda: sdpa(*k3["qkv"]), 5)
+    records.append(record("attention_forward", "attention_forward.cu", tpu + "ops/attention.py:265", k3["err"], ms,
+                          plain_ms, 4 * BC * S * H * F * 2, 4 * BC * H * S * S * F, lib_ms))
+    del k3
+
+    # K1-train and K2 at the training slice (B=1, 48 heads, NC=282 at CS=64, K=16: the last
+    # group has 10 mini-batches; the 3 s training tables) and at a small ragged shape.
+    tcfg = train.model_config(train.parse_args(TRAIN_ARGS))
+    K, CS = tcfg.scan_checkpoint_group_size, tcfg.mini_batch_size
+    eta_scale = tcfg.ttt_base_lr / 64 / CS
+    tmeta = sequence_metadata(tcfg, num_frames=13, latent_height=60, latent_width=90, num_scenes=1, text_length=498)
+    names = ("out", "W1_ck", "b1_ck", "W2_ck", "b2_ck")
+    gnames = ("dXQ", "dXK", "dXV", "d_gate", "dW1", "db1", "dW2", "db2", "dln_w", "dln_b")
+    inputs = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")
+    for B, H, NC, KK, m in ((1, 48, 282, K, tmeta), (1, 2, 5, 2, None)):
+        a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS)
+        got = ttt_mlp_kernel.ttt_mlp_forward_train(**a, eta_scale=eta_scale, checkpoint_group=KK)
+        want = ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=eta_scale, checkpoint_group=KK)
+        out_err = compare("ttt_mlp_forward_train", got[0], want[0])
+        errs = [compare_scaled("ttt_mlp_forward_train", n, g, w) for n, g, w in zip(names[1:], got[1:], want[1:])]
+        log(f"  ttt_mlp_forward_train B={B} H={H} NC={NC} K={KK}: out max_abs_err {out_err:.4g}; "
+            "checkpoints max_abs_err / rel L2 " + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(names[1:], errs)))
+        dout = torch.randn(*a["XQ"].shape, generator=gen, device=device).bfloat16()
+        ins = [a[n] for n in inputs]
+        gk = ttt_mlp_kernel.ttt_mlp_backward(*ins, *want[1:], dout, eta_scale, KK)
+        gp = ttt_mlp_kernel.ttt_mlp_backward_plain(*ins, *want[1:], dout, eta_scale, KK)
+        gerrs = [compare_scaled("ttt_mlp_backward", n, g, w) for n, g, w in zip(gnames, gk, gp)]
+        log(f"  ttt_mlp_backward B={B} H={H} NC={NC} K={KK}: max_abs_err / rel L2 "
+            + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(gnames, gerrs))
+            + f" (tol rel L2 {REL_L2_TOL}; {', '.join(K2_ELEMENTWISE)} also elementwise {KERNEL_TOL['ttt_mlp_backward']})")
+        for n, g, w in zip(gnames, gk, gp):
+            if n in K2_ELEMENTWISE:
+                compare("ttt_mlp_backward", g, w, n)
+        if NC == 282:
+            k12 = dict(a=a, ck=want[1:], dout=dout, err=out_err, gerr=max(e for e, _ in gerrs))
+    a, ck, dout = k12["a"], k12["ck"], k12["dout"]
+    ins = [a[n] for n in inputs]
+    NG = -(-282 // K)
+    ck_bytes = NG * 48 * (8 * 64 * 64 + 5 * 64) * 4
+    ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward_train(**a, eta_scale=eta_scale, checkpoint_group=K), 3)
+    plain_ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=eta_scale, checkpoint_group=K), 1)
+    records.append(record("ttt_mlp_forward_train", "ttt_mlp_forward.cu", tpu + "ops/pallas/ttt_forward.py:247",
+                          k12["err"], ms, plain_ms, _ttt_bytes(1, 48, 282, CS) + ck_bytes,
+                          48 * 282 * _ttt_flops_per_step(CS)))
+    ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward(*ins, *ck, dout, eta_scale, K), 3)
+    plain_ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward_plain(*ins, *ck, dout, eta_scale, K), 1)
+    # K2's operations, those the function (K1's VJP from the checkpoints) needs a step and head: the
+    # forward step once (40 CS F^2 to advance the state, 16 CS F^2 + 20 CS^2 F for the output) and
+    # its VJP (112 CS F^2 + 40 CS^2 F); the kernel's second pass over the state products is its own
+    # choice and not counted. Bytes: K1's inputs, dout and the checkpoints in, the input gradients
+    # (bf16 q/k/v, f32 gate) and the state and LN gradients out.
+    k2_flops = 48 * 282 * (168 * CS * 64 * 64 + 60 * CS * CS * 64)
+    k2_bytes = _ttt_bytes(1, 48, 282, CS) + 2 * 18048 * 3072 * 2 + ck_bytes + 18048 * 48 * 4
+    records.append(record("ttt_mlp_backward", "ttt_mlp_backward.cu", tpu + "ops/pallas/ttt_backward.py:165",
+                          k12["gerr"], ms, plain_ms, k2_bytes, k2_flops))
+    del k12, a, ck, dout, ins
+
+    # K3 with the log-sum-exp at the training slice ([1, 18048, 48, 64]) and K4 there and ragged,
+    # unit-variance inputs: the model's q and k come out of a LayerNorm.
+    for shape in ((1, 18048, 48, 64), (3, 417, 4, 64)):
+        q, k, v, do = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+        out, lse = attention.attention_with_lse(q, k, v)
+        want_out, want_lse = attention.attention_plain(q, k, v, return_lse=True)
+        err3 = compare("attention_forward_lse", out, want_out)
+        lse_err = float((lse - want_lse).abs().max())
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"attention_forward_lse: lse max_abs_err {lse_err:.4g} > {LSE_ATOL}")
+        got = attention.attention_backward(q, k, v, out, lse, do)
+        want = attention.attention_backward_plain(q, k, v, out, lse, do)
+        err4 = max(compare("attention_backward", g, w) for g, w in zip(got, want))
+        log(f"  attention_forward_lse {list(shape)}: max_abs_err out {err3:.4g}, lse {lse_err:.4g}; "
+            f"attention_backward: max_abs_err {err4:.4g} (tol {KERNEL_TOL['attention_backward']})")
+        if shape[1] == 18048:
+            k4 = dict(args=(q, k, v, out, lse, do), err3=err3, err4=err4)
+    q, k, v, out, lse, do = k4["args"]
+    BC, S, H, F = 1, 18048, 48, 64
+    ms = cuda_ms(lambda: attention.attention_with_lse(q, k, v), 5)
+    plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, return_lse=True), 1)
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
+    records.append(record("attention_forward_lse", "attention_forward.cu", tpu + "ops/attention.py:265", k4["err3"],
+                          ms, plain_ms, 4 * BC * S * H * F * 2 + BC * H * S * 4, 4 * BC * H * S * S * F, lib_ms))
+    ms = cuda_ms(lambda: attention.attention_backward(q, k, v, out, lse, do), 3)
+    plain_ms = cuda_ms(lambda: attention.attention_backward_plain(q, k, v, out, lse, do), 1)
+    ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+    lib_out = Fn.scaled_dot_product_attention(ql, kl, vl)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do.transpose(1, 2), retain_graph=True), 3)
+    # The function needs 5 S x S x F products per window and head (Q K^T, dO V^T, P^T dO, dS^T Q,
+    # dS K); the kernel's recompute of the first two in its second kernel is not counted.
+    records.append(record("attention_backward", "attention_backward.cu", tpu + "ops/attention.py:326", k4["err4"],
+                          ms, plain_ms, 5 * BC * S * H * F * 2 + BC * H * S * 4 + 3 * BC * S * H * F * 2,
+                          5 * 2 * BC * H * S * S * F, lib_ms))
+    del k4, q, k, v, out, lse, do, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
     return records
 
@@ -179,25 +370,39 @@ def phase_dit(device) -> None:
     del model
 
 
+def reset_counts() -> None:
+    from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
+
+    ttt_mlp_kernel.launches = ttt_mlp_kernel.train_launches = ttt_mlp_kernel.bwd_launches = 0
+    attention.launches = attention.lse_launches = attention.bwd_launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
+
+    return {"ttt_mlp_forward": ttt_mlp_kernel.launches, "ttt_mlp_forward_train": ttt_mlp_kernel.train_launches,
+            "ttt_mlp_backward": ttt_mlp_kernel.bwd_launches, "attention_forward": attention.launches,
+            "attention_forward_lse": attention.lse_launches, "attention_backward": attention.bwd_launches}
+
+
 def phase_sample(device) -> dict[str, int]:
     import numpy as np
 
     from ttt_video_dit_torch import sample
-    from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     job = sample.parse_args(SAMPLE_ARGS)
-    ttt_mlp_kernel.launches = 0
-    attention.launches = 0
+    reset_counts()
     summary = sample.main(job)
-    counts = {"ttt_mlp_forward": ttt_mlp_kernel.launches, "attention_forward": attention.launches}
+    counts = read_counts()
     cfg = summary["model_config"]
     evals = len(summary["eval_seconds"])
     if summary["device"].split(":")[0] != "cuda":
         raise AssertionError(f"sampling ran on {summary['device']}, not the card")
-    if counts["ttt_mlp_forward"] != 2 * cfg.num_layers * evals or counts["attention_forward"] != cfg.num_layers * evals:
+    expect = {"ttt_mlp_forward": 2 * cfg.num_layers * evals, "attention_forward": cfg.num_layers * evals}
+    if counts != {**dict.fromkeys(counts, 0), **expect}:
         raise AssertionError(f"kernel launches {counts} do not match {cfg.num_layers} layers x {evals} evals")
     latents = np.load(summary["latents"][0])
     if latents.shape != (13, 16, 60, 90) or not np.isfinite(latents).all():
@@ -207,6 +412,118 @@ def phase_sample(device) -> dict[str, int]:
         f"{sum(steady) / len(steady):.3f} s/eval after the first ({summary['eval_seconds'][0]:.3f} s first), "
         f"peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB, launches {counts}, "
         f"latents finite, std {float(latents.std()):.4f}: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_grad(device) -> None:
+    """Loss + backward of a full-width 2-layer DiT (3 s train config), kernel
+    path against the plain path, same weights, batch and draws."""
+    from ttt_video_dit_torch import train
+
+    t0 = time.perf_counter()
+    job = train.parse_args(TRAIN_ARGS)
+    cfg = train.model_config(job)
+    cfg.num_layers = 2
+    model = train.build_model(cfg, device, seed=3)
+    gen = torch.Generator(device).manual_seed(4)
+    vid = torch.randn(1, 13, 16, 60, 90, generator=gen, device=device)
+    text = torch.randn(1, 1, train.synthetic_text_length(cfg), cfg.text_dim, generator=gen, device=device)
+    bounds = (torch.tensor([0], device=device), torch.tensor([1000], device=device))
+    idx, noise = torch.tensor([600], device=device), torch.randn(vid.shape, generator=gen, device=device)
+    results = {}
+    for use_kernel in (True, False):
+        cfg.use_kernel = use_kernel
+        model.zero_grad(set_to_none=True)
+        loss = model(vid, text, bounds, idx=idx, noise=noise).mean()
+        loss.backward()
+        results[use_kernel] = (loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()})
+        torch.cuda.synchronize()
+    (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rels = {}
+    for n, gp in grads_p.items():
+        gk = grads_k[n]
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"gradient of {n} has non-finite values on the kernel path")
+        rels[n] = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
+    log(f"phase 5 training gradients d{cfg.model_dim} x {cfg.num_heads} heads x 2 layers, kernel vs plain: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3g}, tol {GRAD_REL_L2_TOL['loss']}); gradient rel L2 over "
+        f"{len(rels)} parameters: median {sorted(rels.values())[len(rels) // 2]:.3g}, worst "
+        + ", ".join(f"{n} {r:.3g}" for n, r in worst) + f" (tol {GRAD_REL_L2_TOL['grad']}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    if loss_rel > GRAD_REL_L2_TOL["loss"] or worst[0][1] > GRAD_REL_L2_TOL["grad"]:
+        raise AssertionError(f"training gradients, kernel vs plain path: loss rel {loss_rel:.4g}, worst {worst[0]}")
+    del model, results, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
+    """Every trainable tensor of ``model`` must have moved from its initial
+    value in ``fresh`` more than DECAY_MARGIN times as far as weight decay
+    alone would have moved it over ``steps`` steps (for a tensor without
+    weight decay: at all). Only a tensor whose last gradient is all zero may
+    stay (it is named), and never one whose gradient K2 writes. Returns the
+    count of tensors that moved and the names of those excused."""
+    from ttt_video_dit_torch.training.optimizer import flax_path
+
+    lr_sum = {g: sum(optimizer.learning_rates(t)[g] for t in range(steps)) for g in optimizer.schedules}
+    init = dict(fresh.named_parameters())
+    trained, idle, stuck = 0, [], []
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        label = optimizer.labels[flax_path(name)]
+        p0 = init[name].detach().float()
+        moved = float((p.detach().float() - p0).norm())
+        decay_only = lr_sum[label] * optimizer.weight_decay[label] * float(p0.norm())
+        if p.grad is None or not bool(p.grad.any()):
+            if name.endswith(K2_PARAMETERS):
+                stuck.append(f"{name}: zero gradient")
+            idle.append(name)
+        elif moved > DECAY_MARGIN * decay_only:
+            trained += 1
+        else:
+            stuck.append(f"{name}: moved {moved:.3g}, weight decay alone {decay_only:.3g}")
+    if stuck:
+        raise AssertionError(f"parameters not trained ({len(stuck)}): {stuck[:8]}")
+    return trained, idle
+
+
+def phase_train(device) -> dict[str, int]:
+    """The training entry, 4 layers x 3 steps at full width, on the card."""
+    from ttt_video_dit_torch import train
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    job = train.parse_args(TRAIN_ARGS)
+    reset_counts()
+    summary = train.main(job)
+    counts = read_counts()
+    cfg, steps = summary["model_config"], len(summary["losses"])
+    if summary["device"].split(":")[0] != "cuda":
+        raise AssertionError(f"training ran on {summary['device']}, not the card")
+    if steps != 3 or not all(map(math.isfinite, summary["losses"] + summary["grad_norms"])):
+        raise AssertionError(f"losses {summary['losses']} / grad norms {summary['grad_norms']} not 3 finite steps")
+    # Per step and layer: K1-train twice per TTT direction (the forward, and its re-run under the
+    # per-layer recompute), K2 once per direction; K3 with the log-sum-exp twice, K4 once.
+    L = cfg.num_layers
+    expect = {"ttt_mlp_forward_train": 4 * L * steps, "ttt_mlp_backward": 2 * L * steps,
+              "attention_forward_lse": 2 * L * steps, "attention_backward": L * steps}
+    if counts != {**dict.fromkeys(counts, 0), **expect}:
+        raise AssertionError(f"kernel launches {counts} do not match {L} layers x {steps} steps: {expect}")
+    fresh = train.build_model(cfg, torch.device(device), job.job.seed)
+    trained, idle = check_trained(summary["model"], fresh, summary["optimizer"], steps)
+    steady = summary["step_seconds"][1:]
+    mfu = [m for m in summary["mfu"][1:]]
+    log(f"phase 6 train d{cfg.model_dim} x {cfg.num_heads} heads x {L} layers, CS {cfg.mini_batch_size}, K "
+        f"{cfg.scan_checkpoint_group_size}, {steps} steps: {sum(steady) / len(steady):.3f} s/step after the first "
+        f"({summary['step_seconds'][0]:.3f} s first), MFU {100 * sum(mfu) / len(mfu):.2f} % after the first, "
+        f"peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB, losses {[round(x, 5) for x in summary['losses']]}, "
+        f"grad norms {[round(x, 5) for x in summary['grad_norms']]}, {trained} parameter tensors moved more than "
+        f"{DECAY_MARGIN:g}x weight decay alone, zero last gradient (not required to move): {idle or 'none'}, "
+        f"launches {counts}: {time.perf_counter() - t0:.1f} s")
+    del summary, fresh
     return counts
 
 
@@ -222,9 +539,15 @@ def main() -> int:
     log(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x {torch.cuda.device_count()}; tf32 off")
     phase_build()
+    log_clocks("before the kernels")
     records = phase_kernels(device)
+    log_clocks("after the kernels")
     phase_dit(device)
     counts = phase_sample(device)
+    log_clocks("after sampling")
+    phase_grad(device)
+    counts.update({k: v for k, v in phase_train(device).items() if v})
+    log_clocks("after training")
     for r in records:
         r["launches"] = counts[r["name"]]
     print(smi)

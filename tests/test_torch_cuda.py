@@ -7,7 +7,10 @@ no JAX), run them without the JAX-side conftest:
 
 Tolerance, elementwise on the bf16 outputs: |kernel - plain| <= 2e-2 + 2e-2 * |plain|
 (a few bf16 ulps: both sides round at the same points, only the float32
-summation order differs, and attention rounds P to bf16 before P V).
+summation order differs, and attention rounds P, and in the backward dS, to
+bf16 as operands). The training kernels' float32 outputs (state
+checkpoints, gradients) are held by their relative L2 error and by their
+largest error against a share of their scale, stated per test.
 """
 
 import pytest
@@ -71,9 +74,88 @@ def test_attention_kernel_matches_plain(cuda, shape):
     _close(got, attention.attention_plain(q, k, v))
 
 
+def _scaled(got, want, tol, rel_l2=1e-2):
+    """A float32 training-kernel output: relative L2 error within ``rel_l2``
+    and the largest error within ``tol`` of the output's scale."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= rel_l2, f"relative L2 error {rel} > {rel_l2}"
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= tol * scale, f"max_abs_err {err} > {tol} x {scale}"
+
+
+def _train_inputs(cuda, B, H, NC, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    CS, F = 64, 64
+    randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=cuda) * std
+    angles = torch.rand(NC, CS, F // 2, generator=gen, device=cuda) * 6.3
+    return dict(
+        XQ=randn(B, NC, CS, H * F).bfloat16(), XK=randn(B, NC, CS, H * F).bfloat16(),
+        XV=randn(B, NC, CS, H * F).bfloat16(), gate=randn(B, H, NC, CS),
+        rope_cos=torch.cos(angles).repeat_interleave(2, -1).contiguous(),
+        rope_sin=torch.sin(angles).repeat_interleave(2, -1).contiguous(),
+        ln_w=1 + randn(H, F, std=0.1), ln_b=randn(H, F, std=0.1),
+        W1=randn(H, F, 4 * F, std=0.02), b1=randn(H, 1, 4 * F, std=0.02),
+        W2=randn(H, 4 * F, F, std=0.02), b2=randn(H, 1, F, std=0.02),
+    ), randn
+
+
+@pytest.mark.parametrize("B,H,NC,K", [(1, 2, 5, 2), (2, 3, 3, 16)])
+def test_ttt_train_and_backward_kernels_match_plain(cuda, B, H, NC, K):
+    """K1-train (output elementwise; fp32 checkpoints within 1e-2 relative L2
+    and 1e-3 of their scale) and K2 (every gradient within 1e-2 relative L2
+    and 1e-2 of its scale; dXQ/dXK/dXV/d_gate also elementwise) against their
+    plain versions, at CS = 64 with a ragged last checkpoint group."""
+    a, randn = _train_inputs(cuda, B, H, NC, seed=3)
+    scale = 0.1 / 64 / 64
+    before = (ttt_mlp_kernel.train_launches, ttt_mlp_kernel.bwd_launches)
+    got = ttt_mlp_kernel.ttt_mlp_forward_train(**a, eta_scale=scale, checkpoint_group=K)
+    want = ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=scale, checkpoint_group=K)
+    _close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        _scaled(g, w, 1e-3)
+    dout = randn(*a["XQ"].shape).bfloat16()
+    ins = [a[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    grads = ttt_mlp_kernel.ttt_mlp_backward(*ins, *want[1:], dout, scale, K)
+    torch.cuda.synchronize()
+    assert (ttt_mlp_kernel.train_launches, ttt_mlp_kernel.bwd_launches) == (before[0] + 1, before[1] + 1)
+    plain = ttt_mlp_kernel.ttt_mlp_backward_plain(*ins, *want[1:], dout, scale, K)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        _scaled(g, w, 1e-2)
+        if i < 4:  # dXQ, dXK, dXV, d_gate
+            _close(g, w)
+
+
+@pytest.mark.parametrize("shape", [(3, 417, 2, 64), (1, 64, 1, 64), (2, 1000, 3, 64), (1, 5, 2, 64)])
+def test_attention_lse_and_backward_kernels_match_plain(cuda, shape):
+    """K3 with the log-sum-exp (lse within 1e-4) and K4 (dq/dk/dv elementwise),
+    unit-variance inputs (the model's q and k come out of a LayerNorm)."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    q, k, v, dout = (torch.randn(*shape, generator=gen, device=cuda).bfloat16() for _ in range(4))
+    out, lse = attention.attention_with_lse(q, k, v)
+    want_out, want_lse = attention.attention_plain(q, k, v, return_lse=True)
+    _close(out, want_out)
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    before = attention.bwd_launches
+    got = attention.attention_backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert attention.bwd_launches == before + 1
+    for g, w in zip(got, attention.attention_backward_plain(q, k, v, out, lse, dout)):
+        _close(g, w)
+
+
 def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     q = torch.zeros(2, 64, 3, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         attention.attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
     with pytest.raises(ValueError):
         attention.attention(q.float(), q.float(), q.float())
+    lse = torch.zeros(2, 3, 64, device=cuda)
+    with pytest.raises(ValueError):
+        attention.attention_backward(q, q, q, q, lse[:, :2], q)
+    x = torch.zeros(1, 2, 16, 128, device=cuda, dtype=torch.bfloat16)  # CS = 16: the sampling kernel's, not training's
+    z = lambda *s: torch.zeros(*s, device=cuda)
+    with pytest.raises(ValueError):
+        ttt_mlp_kernel.ttt_mlp_forward_train(x, x, x, z(1, 2, 2, 16), z(2, 16, 64), z(2, 16, 64), z(2, 64), z(2, 64),
+                                             z(2, 64, 256), z(2, 1, 256), z(2, 256, 64), z(2, 1, 64), 1e-3, 2)

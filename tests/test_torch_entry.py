@@ -1,7 +1,9 @@
 """PyTorch port entry points on a CPU-only host: the package never imports
-JAX, the sampling entry refuses to run without a GPU unless the CPU is asked
-for, the kernel wrappers refuse what their kernels do not take, and
-chip_smoke.py fails (printing no result) without a card or outside the repo."""
+JAX or the JAX package (at run time, and in any import statement), its own
+config and sequence modules are faithful copies of the JAX package's, the
+sampling entry refuses to run without a GPU unless the CPU is asked for, the
+kernel wrappers refuse what their kernels do not take, and chip_smoke.py
+fails (printing no result) without a card or outside the repo."""
 
 import ast
 import os
@@ -60,6 +62,76 @@ def test_chip_smoke_imports_only_the_port():
     assert any(n.startswith("ttt_video_dit_torch") for n in names)
     bad = [n for n in names if n.split(".")[0] in ("ttt_video_dit_tpu", "jax", "jaxlib", "flax")]
     assert not bad, bad
+
+
+FORBIDDEN = ("ttt_video_dit_tpu", "jax", "jaxlib", "flax", "optax")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    return names + [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+
+
+def test_no_import_statement_names_jax_or_the_jax_package():
+    """Every .py file of the port, and chip_smoke.py, parsed with ast: no
+    import or from-import of ttt_video_dit_tpu, jax, jaxlib, flax or optax."""
+    files = sorted((REPO / "ttt_video_dit_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = {str(f.relative_to(REPO)): m for f in files for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN}
+    assert not bad, bad
+
+
+TRAIN_ARGS = ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "4",
+              "--training.steps", "3", "--parallelism.dp_sharding", "1", "--remat.scan_checkpoint_group_size", "8"]
+EVAL_ARGS = ["--job.config_file", "configs/eval/ttt-mlp/3s.toml", "--eval.input_file", "inputs/example.json",
+             "--model.num_heads", "2", "--eval.txt_maxlen", "16"]
+
+
+@pytest.mark.parametrize("argv,eval_mode", [(TRAIN_ARGS, False), (EVAL_ARGS, True), ([], False)],
+                         ids=["train_toml_and_flags", "eval_toml_and_flags", "defaults"])
+def test_config_copies_match_the_jax_package(monkeypatch, argv, eval_mode):
+    """The port's JobConfig and ModelConfig copies give the JAX package's
+    dataclass fields for the same TOML and flags, and the same presets."""
+    import dataclasses
+
+    from ttt_video_dit_torch.config import job_config as t_job, model_config as t_model
+    from ttt_video_dit_tpu.config import job_config as j_job, model_config as j_model
+
+    monkeypatch.chdir(REPO)
+    jobs = []
+    for mod in (t_job, j_job):
+        job = mod.JobConfig(eval_mode=eval_mode)
+        job.parse_args(list(argv))
+        jobs.append(job)
+    sections = list(jobs[1]._sections)
+    assert sections and list(jobs[0]._sections) == sections
+    for name in sections:
+        assert dataclasses.asdict(getattr(jobs[0], name)) == dataclasses.asdict(getattr(jobs[1], name)), name
+    assert t_model.PREDEFINED_CONFIGS == j_model.PREDEFINED_CONFIGS
+    assert t_model.VIDEO_DURATION_CONFIGS == j_model.VIDEO_DURATION_CONFIGS
+    for size in t_model.PREDEFINED_CONFIGS:
+        got = t_model.ModelConfig.get_preset(size, "3sec", jobs[0])
+        want = j_model.ModelConfig.get_preset(size, "3sec", jobs[1])
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (got.head_dim, got.num_chunks, got.approx_param_count()) == (want.head_dim, want.num_chunks,
+                                                                            want.approx_param_count())
+
+
+@pytest.mark.parametrize("frames,scenes,text,lat", [(13, 1, 498, (60, 90)), (253, 21, 498, (60, 90)), (37, 3, 16, (8, 8))],
+                         ids=["3s", "63s", "tiny_multiscene"])
+def test_sequence_metadata_copy_matches_the_jax_package(frames, scenes, text, lat):
+    """SequenceMetadata's copy gives the same derived geometry (3 s, 63 s, tiny)."""
+    from ttt_video_dit_torch.models.sequence import SequenceMetadata as T
+    from ttt_video_dit_tpu.models.sequence import SequenceMetadata as J
+
+    kw = dict(text_length=text, num_frames=frames, num_chunks=scenes, tokens_per_frame=(lat[0] // 2) * (lat[1] // 2),
+              latent_height=lat[0], latent_width=lat[1])
+    got, want = T(**kw), J(**kw)
+    props = [n for n in dir(J) if isinstance(getattr(J, n), property)]
+    assert len(props) >= 5
+    assert {n: getattr(got, n) for n in props} == {n: getattr(want, n) for n in props}
+    assert hash(got) == hash(T(**kw))
 
 
 def test_sample_entry_needs_gpu_unless_cpu_is_asked_for(tmp_path, monkeypatch):

@@ -19,55 +19,33 @@
 // registers, in the log2 domain. P is rounded to bf16 for the P V product;
 // O, the max and the sum stay fp32. The kernel masks KV columns >= S and
 // skips the store of q rows >= S itself, so the caller pads nothing.
+// Given an lse pointer (training), it also writes each row's natural-log
+// log-sum-exp of the scaled logits, (max + log2(sum)) * ln 2, for the
+// backward (csrc/attention_backward.cu); the sampling launch passes none
+// and writes nothing more.
 // Not yet done (later work): wgmma, TMA loads, double-buffered tiles,
-// ldmatrix, and returning the log-sum-exp for the backward pass.
+// ldmatrix.
 //
-// Layout: q/k/v/o [BC, S, H, 64] bf16, contiguous (the JAX package's layout).
+// Layout: q/k/v/o [BC, S, H, 64] bf16, contiguous (the JAX package's layout);
+// lse [BC, H, S] float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
 
-constexpr int kF = 64;         // head dim
-constexpr int kBM = 64;        // q rows per block
-constexpr int kBN = 64;        // kv rows per tile
-constexpr int kThreads = 128;  // 4 warps x 16 q rows
-constexpr int kLds = kF + 8;   // padded shared-memory row stride, in bf16
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low 16 bits)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 inputs, fp32 accumulate.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace attn;
 
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     int S, int H, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBN * kLds];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBN * kLds];
+                     float* __restrict__ lse, int S, int H, float scale_log2) {
+  __shared__ __align__(16) __nv_bfloat16 Ks[kBM * kLds];
+  __shared__ __align__(16) __nv_bfloat16 Vs[kBM * kLds];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -75,58 +53,30 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int h = blockIdx.y, bc = blockIdx.z;
   const size_t rs = (size_t)H * kF;  // elements between consecutive tokens
   const size_t base = (size_t)bc * S * rs + (size_t)h * kF;
-  const __nv_bfloat16* qb = q + base;
-  const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base;
 
   // Q A-fragments for this warp's 16 rows, kept for the whole kernel.
   const int r0 = blockIdx.x * kBM + warp * 16 + g;
   const int r1 = r0 + 8;
   uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qa[kk][0] = r0 < S ? ld32(qb + r0 * rs + c) : 0u;
-    qa[kk][1] = r1 < S ? ld32(qb + r1 * rs + c) : 0u;
-    qa[kk][2] = r0 < S ? ld32(qb + r0 * rs + c + 8) : 0u;
-    qa[kk][3] = r1 < S ? ld32(qb + r1 * rs + c + 8) : 0u;
-  }
+  load_a_frags(qa, q + base, rs, r0, S, t4);
 
   float oacc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) oacc[nt][j] = 0.f;
+  zero(oacc);
   float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 domain), rows r0 / r1
   float l0 = 0.f, l1 = 0.f;              // this thread's partial row sums
 
-  for (int kv0 = 0; kv0 < S; kv0 += kBN) {
+  for (int kv0 = 0; kv0 < S; kv0 += kBM) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBN * (kF / 8); i += kThreads) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (kv0 + r < S) {
-        kk4 = *reinterpret_cast<const uint4*>(kb + (size_t)(kv0 + r) * rs + c);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (size_t)(kv0 + r) * rs + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * kLds + c) = kk4;
-      *reinterpret_cast<uint4*>(Vs + r * kLds + c) = vv4;
-    }
+    stage_tiles(Ks, Vs, k + base, v + base, rs, kv0, S, tid);
     __syncthreads();
 
     // S = Q K^T for 16 rows x 64 kv columns (8 n-tiles of 8).
     float sacc[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sacc[nt][j] = 0.f;
-      const __nv_bfloat16* krow = Ks + (nt * 8 + g) * kLds + t4 * 2;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mma16816(sacc[nt], qa[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-    }
+    zero(sacc);
+    mma_a_bt(sacc, qa, Ks, g, t4);
 
     // Scale into the log2 domain; mask kv columns past the window.
-    const bool ragged = kv0 + kBN > S;
+    const bool ragged = kv0 + kBM > S;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -169,22 +119,7 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     }
 
     // O += P V. The S accumulator layout is the A-fragment layout of P.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
-      pa[1] = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
-      pa[2] = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = Vs + (kk * 16 + t4 * 2) * kLds + g;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* vp = v0 + nt * 8;
-        const uint32_t b0 = pack_raw(vp[0], vp[kLds]);
-        const uint32_t b1 = pack_raw(vp[8 * kLds], vp[9 * kLds]);
-        mma16816(oacc[nt], pa, b0, b1);
-      }
-    }
+    mma_x_b(oacc, sacc, Vs, g, t4);
   }
 
 #pragma unroll
@@ -200,17 +135,24 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     if (r0 < S) *reinterpret_cast<uint32_t*>(ob + r0 * rs + c) = pack_bf16(oacc[nt][0] * inv0, oacc[nt][1] * inv0);
     if (r1 < S) *reinterpret_cast<uint32_t*>(ob + r1 * rs + c) = pack_bf16(oacc[nt][2] * inv1, oacc[nt][3] * inv1);
   }
+  if (lse != nullptr && t4 == 0) {
+    const float ln2 = 0.6931471805599453f;
+    float* lb = lse + ((size_t)bc * H + h) * S;
+    if (r0 < S) lb[r0] = (m0 + log2f(l0)) * ln2;
+    if (r1 < S) lb[r1] = (m1 + log2f(l1)) * ln2;
+  }
 }
 
 }  // namespace
 
-extern "C" int attention_forward(const void* q, const void* k, const void* v, void* o, int BC, int S, int H,
-                                 float scale, void* stream) {
-  const dim3 grid((S + kBM - 1) / kBM, H, BC);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  attention_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+extern "C" int attention_forward(const void* q, const void* k, const void* v, void* o, void* lse, int BC, int S,
+                                 int H, float scale, void* stream) {
+  const dim3 grid((S + attn::kBM - 1) / attn::kBM, H, BC);
+  const float scale_log2 = scale * attn::kLog2e;
+  attention_fwd_kernel<<<grid, attn::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, H,
+      scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

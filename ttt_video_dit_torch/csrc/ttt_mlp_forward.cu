@@ -1,5 +1,7 @@
-// Fused TTT-MLP forward scan (inference), head_dim F = 64, mini-batch CS = 16,
-// for Hopper (sm_90a).
+// Fused TTT-MLP forward scan, head_dim F = 64, for Hopper (sm_90a): the
+// sampling kernel (mini-batch CS = 16, no state checkpoints) and, at the end
+// of this file, the training kernel (CS = 64, fp32 state checkpoints every K
+// mini-batches for the backward, csrc/ttt_mlp_backward.cu).
 //
 // Replaces: ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_mlp_kernel with
 // _fused_preproc and _eta_from_gate (launched by ttt_mlp_forward, reached
@@ -29,9 +31,9 @@
 // W1 with one thread (Z1, Z1_bar and the W1 update need no barrier between
 // them), and the padded row strides (W2: 65, X2c: 260, XQ/XK: 68 floats)
 // keep the strided reads free of bank conflicts or at most 2-way.
-// No state checkpoints are written (inference needs none; they come with the
-// backward kernel). Not yet done: tensor cores (mma.sync on the bf16
-// operands), prefetching the next step's inputs, more than one scan per SM.
+// The sampling kernel writes no state checkpoints. Not yet done: tensor
+// cores (mma.sync on the bf16 operands), prefetching the next step's inputs,
+// more than one scan per SM.
 //
 // Layouts: xq/xk/xv/out [B, NC, CS, H*F] bf16 (head h = columns h*F..h*F+F);
 // gate [B, H, NC, CS] f32 (pre-sigmoid logits); rope cos/sin [NC, CS, F] f32
@@ -42,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "ttt_mlp_block.cuh"
 
 namespace {
 
@@ -78,22 +82,10 @@ static_assert(kSmemBytes <= 232448, "exceeds the 227 KB shared-memory opt-in");
 static_assert(kOffXQ % 4 == 0 && kOffXK % 4 == 0 && kOffX2c % 4 == 0 && kOffX2b % 4 == 0 &&
               kOffGz2 % 4 == 0 && kOffA1 % 4 == 0 && kOffA2 % 4 == 0, "float4 alignment");
 
-__device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16(x)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  return 0.5f * x * (1.f + tanhf(0.79788456f * x * (1.f + 0.044715f * x * x)));
-}
-
-__device__ __forceinline__ float gelu_bwd(float x) {
-  const float t = tanhf(0.79788456f * x * (1.f + 0.044715f * x * x));
-  return 0.5f * x * ((1.f - t * t) * (0.79788456f + 0.1070322243f * x * x)) + 0.5f * (1.f + t);
-}
+using tttb::bf16r;
+using tttb::gelu_bwd;
+using tttb::gelu_tanh;
+using tttb::warp_sum;
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
@@ -430,6 +422,95 @@ extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, c
       static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
       static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
       static_cast<__nv_bfloat16*>(out), NC, H, eta_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- training
+//
+// ttt_mlp_fwd_train_kernel: the same scan at the training mini-batch
+// CS = 64. At CS = 64 the fp32 step tiles alone are ~256 KiB, so the layout
+// of the sampling kernel (state + tiles in shared memory) does not carry
+// over: the state and the step tiles live in a per-block fp32 workspace in
+// device memory (512 KiB per scan, L2-resident at 48 heads) and the step is
+// the block-level forward_step of ttt_mlp_block.cuh, with the same bf16
+// rounding points. Before mini-batch n with n % K == 0 it writes the fp32
+// state (W1, b1, W2, b2, one bias row, not the TPU's 8 rows x 0.125) as
+// checkpoint n / K; the last group may be shorter than K.
+
+namespace {
+
+struct TrainWork {  // per-(batch, head) fp32 workspace, in floats
+  static constexpr int kW1 = 0, kW2 = kW1 + tttb::kState;
+  static constexpr int kXQ = kW2 + tttb::kState, kXK = kXQ + tttb::kTile, kTG = kXK + tttb::kTile;
+  static constexpr int kZ2 = kTG + tttb::kTile, kGZ2 = kZ2 + tttb::kTile, kG2 = kGZ2 + tttb::kTile;
+  static constexpr int kA1 = kG2 + tttb::kTile, kA2 = kA1 + tttb::kTile;
+  static constexpr int kZ1 = kA2 + tttb::kTile, kX2c = kZ1 + tttb::kWide, kG1 = kX2c + tttb::kWide;
+  static constexpr int kX2b = kG1 + tttb::kWide;
+  static constexpr int kFloats = kX2b + tttb::kWide;
+};
+
+__global__ void __launch_bounds__(tttb::kThreads, 1)
+ttt_mlp_fwd_train_kernel(tttb::ScanArgs a, const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                         const float* __restrict__ W1, const float* __restrict__ b1, const float* __restrict__ W2,
+                         const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, float* __restrict__ w1_ck,
+                         float* __restrict__ b1_ck, float* __restrict__ w2_ck, float* __restrict__ b2_ck,
+                         float* __restrict__ work, int K) {
+  __shared__ __align__(16) float stage[tttb::kStageFloats];
+  __shared__ tttb::Vecs v;
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int NG = (a.NC + K - 1) / K;
+  float* w = work + (size_t)bh * TrainWork::kFloats;
+  float* sW1 = w + TrainWork::kW1;
+  float* sW2 = w + TrainWork::kW2;
+  const tttb::StepTiles t{w + TrainWork::kXQ, w + TrainWork::kXK, w + TrainWork::kTG, w + TrainWork::kZ1,
+                    w + TrainWork::kX2c, w + TrainWork::kG1, w + TrainWork::kX2b, w + TrainWork::kZ2,
+                    w + TrainWork::kGZ2, w + TrainWork::kG2, w + TrainWork::kA1, w + TrainWork::kA2};
+
+  for (int i = tid; i < tttb::kState; i += tttb::kThreads) {
+    sW1[i] = W1[(size_t)h * tttb::kState + i];
+    sW2[i] = W2[(size_t)h * tttb::kState + i];
+  }
+  v.b1[tid] = b1[(size_t)h * tttb::kF4 + tid];
+  if (tid < tttb::kF) {
+    v.b2[tid] = b2[(size_t)h * tttb::kF + tid];
+    v.lnw[tid] = ln_w[(size_t)h * tttb::kF + tid];
+    v.lnb[tid] = ln_b[(size_t)h * tttb::kF + tid];
+  }
+  __syncthreads();
+
+  for (int n = 0; n < a.NC; ++n) {
+    if (n % K == 0) {
+      const size_t g = (size_t)bh * NG + n / K;
+      for (int i = tid; i < tttb::kState; i += tttb::kThreads) {
+        w1_ck[g * tttb::kState + i] = sW1[i];
+        w2_ck[g * tttb::kState + i] = sW2[i];
+      }
+      b1_ck[g * tttb::kF4 + tid] = v.b1[tid];
+      if (tid < tttb::kF) b2_ck[g * tttb::kF + tid] = v.b2[tid];
+      __syncthreads();
+    }
+    tttb::forward_step(a, b, h, n, v, sW1, sW2, t, stage, out);
+  }
+}
+
+}  // namespace
+
+extern "C" long long ttt_mlp_forward_train_workspace_floats() { return TrainWork::kFloats; }
+
+extern "C" int ttt_mlp_forward_train(const void* xq, const void* xk, const void* xv, const void* gate,
+                                     const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
+                                     const void* W1, const void* b1, const void* W2, const void* b2, void* out,
+                                     void* w1_ck, void* b1_ck, void* w2_ck, void* b2_ck, void* work, int B, int NC,
+                                     int H, int K, float eta_scale, void* stream) {
+  const tttb::ScanArgs a{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
+                         static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
+                         static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin), NC, H, eta_scale};
+  ttt_mlp_fwd_train_kernel<<<B * H, tttb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
+      static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(w1_ck), static_cast<float*>(b1_ck),
+      static_cast<float*>(w2_ck), static_cast<float*>(b2_ck), static_cast<float*>(work), K);
   return static_cast<int>(cudaGetLastError());
 }
 

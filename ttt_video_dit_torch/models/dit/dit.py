@@ -4,9 +4,14 @@ bidirectional gated TTT layers (port of ttt_video_dit_tpu/models/dit/dit.py).
 Module and parameter names mirror the flax tree (``layers_i`` becomes
 ``layers.i``), so ``convert.py`` maps a flax checkpoint one to one. The
 residual stream stays in the compute dtype (bf16 on the GPU), as in flax;
-LayerNorm statistics run in float32. The scan-over-layers and remat
-machinery of the JAX module exists for the XLA compile and has no
-counterpart here.
+LayerNorm statistics run in float32. Parameters are float32 masters, cast
+to the compute dtype at each matmul (``Linear``/``Conv2d``), as flax's
+promote_dtype does; sampling casts them once instead
+(:func:`cast_matmul_weights_`). The layers are unrolled (the JAX package's
+``scan_layers = false``); with autograd on, each group of
+``remat_transformer_layer_group_size`` layers runs under
+``torch.utils.checkpoint`` (the JAX remat policy "none": the backward
+re-runs the group's forward, kernels included).
 
 Layouts: video latents [B, T, C, H, W]; text [B, scenes, S, text_dim];
 token streams [B, L, D] with text first.
@@ -17,15 +22,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as Fn
+import torch.utils.checkpoint
 from torch import nn
 
+from ttt_video_dit_torch.config.model_config import ModelConfig
 from ttt_video_dit_torch.models.dit.schedule import timestep_embedding
-from ttt_video_dit_torch.models.ttt.layer import TTTLayer, layer_norm
+from ttt_video_dit_torch.models.sequence import SequenceMetadata
+from ttt_video_dit_torch.models.ttt.layer import Linear, TTTLayer, layer_norm
 from ttt_video_dit_torch.ops import attention as attention_ops
 from ttt_video_dit_torch.ops.ln import gelu_tanh
 from ttt_video_dit_torch.ops.rope import apply_rope_prefixed, precompute_rope_3d
-from ttt_video_dit_tpu.config.model_config import ModelConfig
-from ttt_video_dit_tpu.models.sequence import SequenceMetadata
 
 
 def compute_dtype(config: ModelConfig) -> torch.dtype:
@@ -39,6 +45,14 @@ def modulate(x, shift, scale):
     return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
+class Conv2d(nn.Conv2d):
+    """flax Conv(dtype=compute, param_dtype=float32): weight and bias cast to
+    the input's dtype at each call (see ``Linear``)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class PatchEmbedding(nn.Module):
     """2x2 conv patchify of video latents + linear text projection."""
 
@@ -46,8 +60,8 @@ class PatchEmbedding(nn.Module):
         super().__init__()
         self.config = config
         p = config.patch_size
-        self.vid_proj = nn.Conv2d(config.in_channels, config.model_dim, kernel_size=p, stride=p)
-        self.text_proj = nn.Linear(config.text_dim, config.model_dim)
+        self.vid_proj = Conv2d(config.in_channels, config.model_dim, kernel_size=p, stride=p)
+        self.text_proj = Linear(config.text_dim, config.model_dim)
 
     def forward(self, video, text_encoding):
         dtype = compute_dtype(self.config)
@@ -63,8 +77,8 @@ class MLP(nn.Module):
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        self.layer1 = nn.Linear(config.model_dim, 4 * config.model_dim)
-        self.layer2 = nn.Linear(4 * config.model_dim, config.model_dim)
+        self.layer1 = Linear(config.model_dim, 4 * config.model_dim)
+        self.layer2 = Linear(4 * config.model_dim, config.model_dim)
 
     def forward(self, x):
         return self.layer2(gelu_tanh(self.layer1(x)))
@@ -94,7 +108,7 @@ class SegmentLocalAttention(nn.Module):
         super().__init__()
         self.config = config
         D, F = config.model_dim, config.head_dim
-        self.q, self.k, self.v, self.o = (nn.Linear(D, D) for _ in range(4))
+        self.q, self.k, self.v, self.o = (Linear(D, D) for _ in range(4))
         self.q_norm = nn.LayerNorm(F, eps=config.layer_norm_eps)
         self.k_norm = nn.LayerNorm(F, eps=config.layer_norm_eps)
 
@@ -135,8 +149,12 @@ class SegmentLocalAttention(nn.Module):
         q = apply_rope_prefixed(q, cos, sin, TL, seq_axis=1)
         k = apply_rope_prefixed(k, cos, sin, TL, seq_axis=1)
 
-        attend = attention_ops.attention if cfg.use_kernel else attention_ops.attention_plain
-        attn = attend(q.contiguous(), k.contiguous(), v.contiguous()).reshape(B * C, S, D)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled():  # K3 with the log-sum-exp and K4, or their plain versions
+            attn = attention_ops.attention_train(q, k, v, plain=not cfg.use_kernel)
+        else:
+            attn = (attention_ops.attention if cfg.use_kernel else attention_ops.attention_plain)(q, k, v)
+        attn = attn.reshape(B * C, S, D)
         out = self.o(attn).reshape(B, C, S, D)
 
         out_text = out[:, :, :TL].reshape(B, C * TL, D)
@@ -188,10 +206,10 @@ class TransformerLayer(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         D, Te, eps = config.model_dim, config.time_embed_dim, config.layer_norm_eps
-        self.pre_seq_adaLN_modulation = nn.Linear(Te, 6 * D)
+        self.pre_seq_adaLN_modulation = Linear(Te, 6 * D)
         self.pre_seq_layernorm = nn.LayerNorm(D, eps=eps)
         self.seq_modeling_block = SeqModelingBlock(config)
-        self.pre_mlp_adaLN_modulation = nn.Linear(Te, 6 * D)
+        self.pre_mlp_adaLN_modulation = Linear(Te, 6 * D)
         self.pre_mlp_layernorm = nn.LayerNorm(D, eps=eps)
         self.mlp = MLP(config)
 
@@ -222,9 +240,9 @@ class FinalLayer(nn.Module):
         super().__init__()
         self.config = config
         D, p, c = config.model_dim, config.patch_size, config.out_channels
-        self.adaLN_modulation = nn.Linear(config.time_embed_dim, 2 * D)
+        self.adaLN_modulation = Linear(config.time_embed_dim, 2 * D)
         self.norm = nn.LayerNorm(D, eps=config.layer_norm_eps)
-        self.linear = nn.Linear(D, p * p * c)
+        self.linear = Linear(D, p * p * c)
 
     def forward(self, vid_emb, t_emb, meta: SequenceMetadata):
         cfg = self.config
@@ -258,8 +276,8 @@ class DiffusionTransformer(nn.Module):
         super().__init__()
         self.config = config
         D, Te = config.model_dim, config.time_embed_dim
-        self.time_embed_0 = nn.Linear(D, Te)
-        self.time_embed_2 = nn.Linear(Te, Te)
+        self.time_embed_0 = Linear(D, Te)
+        self.time_embed_2 = Linear(Te, Te)
         self.patch_embedding = PatchEmbedding(config)
         self.layers = nn.ModuleList(TransformerLayer(config) for _ in range(config.num_layers))
         self.transformer_norm = nn.LayerNorm(D, eps=config.layer_norm_eps)
@@ -277,8 +295,18 @@ class DiffusionTransformer(nn.Module):
         text_emb, vid_emb = self.patch_embedding(video, text)
         meta = sequence_metadata(cfg, T, H_lat, W_lat, num_scenes, text_length)
         text_emb = text_emb.reshape(B, num_scenes * text_length, cfg.model_dim)
-        for layer in self.layers:
-            vid_emb, text_emb = layer(vid_emb, text_emb, t_emb, meta)
+        remat = cfg.remat_transformer_layers and torch.is_grad_enabled()
+        group = max(cfg.remat_transformer_layer_group_size, 1)
+        for i in range(0, cfg.num_layers, group):
+            def run(v, t, _layers=self.layers[i : i + group]):
+                for layer in _layers:
+                    v, t = layer(v, t, t_emb, meta)
+                return v, t
+
+            if remat:
+                vid_emb, text_emb = torch.utils.checkpoint.checkpoint(run, vid_emb, text_emb, use_reentrant=False)
+            else:
+                vid_emb, text_emb = run(vid_emb, text_emb)
         vid_emb = layer_norm(vid_emb, self.transformer_norm, dtype)
         return self.final_layer(vid_emb, t_emb, meta)
 

@@ -1,5 +1,6 @@
-"""Diffusion noise schedule, v-prediction scalings and the timestep embedding
-(port of ttt_video_dit_tpu/models/dit/schedule.py, the sampling half).
+"""Diffusion noise schedule, v-prediction scalings, the stratified training
+sigma buckets and the timestep embedding (port of
+ttt_video_dit_tpu/models/dit/schedule.py).
 
 Tables are computed host-side in float64 numpy (matching the reference's
 torch numerics) and returned as float32 numpy arrays.
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -74,6 +76,37 @@ def training_sigma_table(sigma_interval: int = 1000) -> np.ndarray:
     table = ZeroSNRDDPMDiscretization()(sigma_interval, flip=True)
     table.setflags(write=False)
     return table
+
+
+@dataclass(frozen=True)
+class StratifiedSigmaBuckets:
+    """Rank-stratified uniform sigma-index bucketing: each effective rank gets
+    a contiguous slice of [0, sigma_interval), so a global batch covers the
+    noise levels uniformly; precomputed per sample."""
+
+    sigma_interval: int
+    group_num: int
+    group_width: int
+
+    @classmethod
+    def create(cls, sigma_interval: int, effective_world_size: int) -> "StratifiedSigmaBuckets":
+        i = 1
+        while True:
+            if effective_world_size % i != 0 or sigma_interval % (effective_world_size // i) != 0:
+                i += 1
+            else:
+                group_num = effective_world_size // i
+                break
+        return cls(sigma_interval, group_num, effective_world_size // group_num)
+
+    def sample_bounds(self, global_batch_size: int, effective_world_size: int):
+        """Per-sample (start, end) index bounds, shape [B] each (int32 numpy)."""
+        per_rank = max(global_batch_size // effective_world_size, 1)
+        interval = self.sigma_interval // self.group_num
+        ranks = np.arange(global_batch_size) // per_rank
+        group_index = (ranks % effective_world_size) // self.group_width
+        start = (group_index * interval).astype(np.int32)
+        return start, (start + interval).astype(np.int32)
 
 
 def timestep_embedding(timesteps, dim: int, max_period: int = 10000, dtype=torch.float32):

@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from ttt_video_dit_tpu.models.sequence import SequenceMetadata
+from ttt_video_dit_torch.models.sequence import SequenceMetadata
 
 
 def _interleave_order(meta: SequenceMetadata, reverse: bool) -> np.ndarray:
@@ -44,11 +44,14 @@ def _interleave_order(meta: SequenceMetadata, reverse: bool) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _index(meta: SequenceMetadata, reverse: bool, inverse: bool, device: torch.device) -> torch.Tensor:
-    """The gather index on ``device`` (read-only: shared by every caller)."""
+    """The gather index on ``device`` (read-only: shared by every caller; a
+    normal tensor even when first built under inference mode, so that
+    training after sampling in one process can save it for backward)."""
     order = _interleave_order(meta, reverse)
     if inverse:
         order = np.argsort(order)
-    return torch.from_numpy(order.astype(np.int64)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(order.astype(np.int64)).to(device)
 
 
 def interleave(x, meta: SequenceMetadata, reverse: bool = False):

@@ -7,6 +7,10 @@ at entry (interleave, with the reverse prep composed in), projects q/k/v and
 the LR-gate logits with plain matmuls, and hands the raw token-major
 projections to the fused TTT-MLP scan (ops/ttt_mlp_kernel.py), which does
 the L2-norm, rope, LN-reconstruction target and the sigmoid gate itself.
+With autograd on (training), the scan is the K1-train/K2 autograd Function
+(with ``use_kernel = False``, the same Function over their plain versions);
+under no_grad/inference_mode (sampling), the forward-only K1 or its plain
+version.
 Rope is applied by SLOT of the interleaved layout, never by token: the slot
 tables (identity rows on text, video slot j -> angle j, forward-interleaved
 when multiscene) are the same for both directions.
@@ -20,22 +24,34 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
+from ttt_video_dit_torch.config.model_config import ModelConfig
+from ttt_video_dit_torch.models.sequence import SequenceMetadata
 from ttt_video_dit_torch.models.ttt.interleave import interleave, undo_interleave
 from ttt_video_dit_torch.ops import ttt_mlp_kernel
 from ttt_video_dit_torch.ops.rope import interleaved_tables_prefixed, precompute_rope_3d
-from ttt_video_dit_tpu.config.model_config import ModelConfig
-from ttt_video_dit_tpu.models.sequence import SequenceMetadata
 
 
 @functools.lru_cache(maxsize=16)
 def scan_rope_tables(meta: SequenceMetadata, head_dim: int, theta: float, mini_batch: int, device: torch.device):
     """By-slot rope tables [NC, CS, F] float32 for the TTT scan, on ``device``
-    (read-only: shared by every caller)."""
+    (read-only: shared by every caller; normal tensors even when first built
+    under inference mode, see interleave._index)."""
     L = meta.seq_text_length + meta.num_video_tokens
-    cos, sin = precompute_rope_3d(head_dim, meta.grid_height, meta.grid_width, meta.num_frames, theta)
-    tables = interleaved_tables_prefixed(cos, sin, meta.seq_text_length, L)
-    shape = (L // mini_batch, mini_batch, head_dim)
-    return tuple(interleave(t, meta).reshape(shape).contiguous().to(device) for t in tables)
+    with torch.inference_mode(False):
+        cos, sin = precompute_rope_3d(head_dim, meta.grid_height, meta.grid_width, meta.num_frames, theta)
+        tables = interleaved_tables_prefixed(cos, sin, meta.seq_text_length, L)
+        shape = (L // mini_batch, mini_batch, head_dim)
+        return tuple(interleave(t, meta).reshape(shape).contiguous().to(device) for t in tables)
+
+
+class Linear(nn.Linear):
+    """flax Dense(dtype=compute, param_dtype=float32): the float32 master
+    weight and bias are cast to the input's dtype at each call (flax's
+    promote_dtype, one rounding; a no-op once cast_matmul_weights_ has cast
+    them for sampling)."""
+
+    def forward(self, x):
+        return Fn.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def layer_norm(x, norm: nn.LayerNorm, out_dtype):
@@ -53,7 +69,7 @@ class TTTLayer(nn.Module):
             raise NotImplementedError(f"ssm_layer={config.ssm_layer!r} is not ported yet (only ttt_mlp)")
         self.config = config
         D, H, F = config.model_dim, config.num_heads, config.head_dim
-        self.wq, self.wk, self.wv, self.wo = (nn.Linear(D, D) for _ in range(4))
+        self.wq, self.wk, self.wv, self.wo = (Linear(D, D) for _ in range(4))
         # Per-head learned inner-loop LR gate: sigmoid(x . w + b) * base_lr / F / CS.
         self.learnable_ttt_lr_weight = nn.Parameter(torch.empty(H, 1, D))
         self.learnable_ttt_lr_bias = nn.Parameter(torch.zeros(H, 1))
@@ -96,9 +112,14 @@ class TTTLayer(nn.Module):
         gate = self.token_gate(x)
         rope_cos, rope_sin = scan_rope_tables(meta, F, cfg.rope_theta, CS, x.device)
 
-        scan = ttt_mlp_kernel.ttt_mlp_forward if cfg.use_kernel else ttt_mlp_kernel.ttt_mlp_forward_plain
-        XQW = scan(XQ, XK, XV, gate, rope_cos, rope_sin, self.ttt_norm_weight, self.ttt_norm_bias,
-                   self.W1, self.b1, self.W2, self.b2, self.eta_scale)
+        args = (XQ, XK, XV, gate, rope_cos, rope_sin, self.ttt_norm_weight, self.ttt_norm_bias,
+                self.W1, self.b1, self.W2, self.b2, self.eta_scale)
+        if torch.is_grad_enabled():  # K1-train / K2, or with use_kernel=False their plain versions
+            XQW = ttt_mlp_kernel.ttt_mlp_train(*args, cfg.scan_checkpoint_group_size, plain=not cfg.use_kernel)
+        elif cfg.use_kernel:
+            XQW = ttt_mlp_kernel.ttt_mlp_forward(*args)
+        else:
+            XQW = ttt_mlp_kernel.ttt_mlp_forward_plain(*args)
         out = XQW.reshape(B, L, D)
         out = self.wo(layer_norm(out, self.post_norm, out.dtype))
         return undo_interleave(out, meta, reverse)

@@ -1,10 +1,11 @@
 """Build the package's hand-written CUDA kernels and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point. At
-first use it is compiled with nvcc for Hopper (``sm_90a``) into
-``ttt_video_dit_torch/build/`` (a directory git ignores), under a name that
-carries a hash of the source, so an edited source is rebuilt and an
-unchanged one is loaded as built. Nothing is compiled when a module is
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point (it may
+include the shared ``csrc/*.cuh`` headers). At first use it is compiled with
+nvcc for Hopper (``sm_90a``) into ``ttt_video_dit_torch/build/`` (a
+directory git ignores), under a name that carries a hash of the source and
+the headers, so an edited source is rebuilt and an unchanged one is loaded
+as built. Nothing is compiled when a module is
 imported: CPU-only hosts never call :func:`load`.
 """
 
@@ -47,7 +48,10 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     lib_path = BUILD_DIR / f"{name}-{digest}.so"
     t0 = time.perf_counter()
     ptxas = ""

@@ -1,10 +1,14 @@
-"""Window attention forward: the CUDA kernel's wrapper and its plain version.
+"""Window attention: the CUDA kernels' wrappers, their plain versions, and the
+autograd Function that trains through them.
 
 Port of ttt_video_dit_tpu/ops/attention.py:attention (the splash-attention
-forward reached through _splash_padded / _splash_kernel). The kernel is
-``csrc/attention_forward.cu``; it masks the ragged KV edge itself, so the
-splash padding and block tuning have no counterpart here. Attention windows
-ride as batch: q/k/v [B * windows, S, H, F].
+forward K3 and its custom-VJP backward K4, reached through _splash_padded /
+_splash_kernel). The kernels are ``csrc/attention_forward.cu`` (forward,
+optionally writing the log-sum-exp) and ``csrc/attention_backward.cu``; they
+mask the ragged KV edge themselves, so the splash padding and block tuning
+have no counterpart here. Attention windows ride as batch: q/k/v
+[B * windows, S, H, F]; the log-sum-exp is [B * windows, H, S] float32, the
+natural log of the row sums of exp(q k^T / sqrt(F)).
 """
 
 from __future__ import annotations
@@ -15,36 +19,73 @@ import torch
 
 from ttt_video_dit_torch.ops import _build
 
-# Launches of the CUDA kernel (the plain version does not count).
+# Launches of each CUDA kernel (the plain versions do not count): the forward
+# for sampling, the forward that writes the log-sum-exp, the backward.
 launches = 0
+lse_launches = 0
+bwd_launches = 0
 
 KERNEL_HEAD_DIM = 64
 _BLOCK_Q = 256
 
 
-def attention_plain(q, k, v, block_q: int = _BLOCK_Q):
-    """softmax(q k^T / sqrt(F)) v per window and head, in float32, one block
-    of ``block_q`` query rows at a time (the way _chunked bounds its live
-    memory: a full score tensor at S = 18,048 x 48 heads would be ~62 GB in
-    float32). q/k/v [BC, S, H, F]; returns [BC, S, H, F] in q's dtype."""
+def attention_plain(q, k, v, block_q: int = _BLOCK_Q, return_lse: bool = False):
+    """softmax(q k^T / sqrt(F)) v per window and head, in float32 (float64 for
+    float64 inputs), one block of ``block_q`` query rows at a time (the way
+    _chunked bounds its live memory: a full score tensor at S = 18,048 x 48
+    heads would be ~62 GB in float32). q/k/v [BC, S, H, F]; returns
+    [BC, S, H, F] in q's dtype, and with ``return_lse`` also the
+    log-sum-exp [BC, H, S]."""
     BC, S, H, F = q.shape
+    acc = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / (F**0.5)
-    kt = k.float().permute(0, 2, 3, 1)  # [BC, H, F, S]
-    vh = v.float().permute(0, 2, 1, 3)  # [BC, H, S, F]
+    kt = k.to(acc).permute(0, 2, 3, 1)  # [BC, H, F, S]
+    vh = v.to(acc).permute(0, 2, 1, 3)  # [BC, H, S, F]
     out = torch.empty_like(q)
+    lse = torch.empty(BC, H, S, dtype=acc, device=q.device) if return_lse else None
     for s0 in range(0, S, block_q):
-        qb = q[:, s0 : s0 + block_q].float().permute(0, 2, 1, 3) * scale  # [BC, H, bq, F]
-        p = torch.softmax(qb @ kt, dim=-1)
-        out[:, s0 : s0 + block_q] = (p @ vh).permute(0, 2, 1, 3).to(q.dtype)
-    return out
+        qb = q[:, s0 : s0 + block_q].to(acc).permute(0, 2, 1, 3) * scale  # [BC, H, bq, F]
+        logits = qb @ kt
+        out[:, s0 : s0 + block_q] = (torch.softmax(logits, dim=-1) @ vh).permute(0, 2, 1, 3).to(q.dtype)
+        if return_lse:
+            lse[:, :, s0 : s0 + block_q] = torch.logsumexp(logits, dim=-1)
+    return (out, lse) if return_lse else out
 
 
-def _lib():
-    lib = _build.load("attention_forward")
-    fn = lib.attention_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+def attention_backward_plain(q, k, v, out, lse, dout, block_q: int = _BLOCK_Q):
+    """The flash backward's formula in float32 (float64 for float64 inputs),
+    ``block_q`` query rows at a time: P = exp(q k^T / sqrt(F) - lse),
+    D = rowsum(dout * out), dV = P^T dout, dS = P * (dout V^T - D),
+    dQ = dS K / sqrt(F), dK = dS^T Q / sqrt(F). Returns (dq, dk, dv) in q's dtype."""
+    BC, S, H, F = q.shape
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / (F**0.5)
+    hm = lambda x: x.to(acc).permute(0, 2, 1, 3)  # [BC, H, S, F]
+    kh, vh = hm(k), hm(v)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(BC, H, S, F, dtype=acc, device=q.device)
+    dv = torch.zeros(BC, H, S, F, dtype=acc, device=q.device)
+    for s0 in range(0, S, block_q):
+        sl = slice(s0, s0 + block_q)
+        qb, ob, dob = hm(q[:, sl]), hm(out[:, sl]), hm(dout[:, sl])
+        p = torch.exp(qb @ kh.transpose(-1, -2) * scale - lse[:, :, sl, None].to(acc))  # [BC, H, bq, S]
+        D = (dob * ob).sum(dim=-1, keepdim=True)
+        dv += p.transpose(-1, -2) @ dob
+        ds = p * (dob @ vh.transpose(-1, -2) - D)
+        dq[:, sl] = (ds @ kh * scale).permute(0, 2, 1, 3).to(q.dtype)
+        dk += ds.transpose(-1, -2) @ qb * scale
+    back = lambda x: x.permute(0, 2, 1, 3).to(q.dtype)
+    return dq, back(dk), back(dv)
+
+
+def _lib(name: str = "attention_forward"):
+    lib = _build.load(name)
+    if name == "attention_forward" and lib.attention_forward.argtypes is None:
+        lib.attention_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        lib.attention_forward.restype = ctypes.c_int
+    if name == "attention_backward" and lib.attention_backward.argtypes is None:
+        lib.attention_backward.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        lib.attention_backward.restype = ctypes.c_int
     return lib
 
 
@@ -62,21 +103,88 @@ def check_kernel_args(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def attention(q, k, v):
-    """Non-causal attention per window: q/k/v [BC, S, H, F] -> [BC, S, H, F].
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise on arguments it does not take)."""
-    global launches
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
+def _forward(q, k, v, with_lse: bool):
     check_kernel_args(q, k, v)
     BC, S, H, F = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(BC, H, S, dtype=torch.float32, device=q.device) if with_lse else None
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BC, S, H,
-                                    1.0 / (F**0.5), stream)
+        err = lib.attention_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                    lse.data_ptr() if with_lse else None, BC, S, H, 1.0 / (F**0.5), stream)
     _build.check(lib, err, "attention_forward launch")
+    return out, lse
+
+
+def attention(q, k, v):
+    """Non-causal attention per window: q/k/v [BC, S, H, F] -> [BC, S, H, F].
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise on arguments it does not take). Writes no log-sum-exp."""
+    global launches
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    out, _ = _forward(q, k, v, with_lse=False)
     launches += 1
     return out
+
+
+def attention_with_lse(q, k, v):
+    """K3 that also returns the log-sum-exp [BC, H, S] float32 for the backward."""
+    global lse_launches
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, return_lse=True)
+    out, lse = _forward(q, k, v, with_lse=True)
+    lse_launches += 1
+    return out, lse
+
+
+def attention_backward(q, k, v, out, lse, dout):
+    """K4: (dq, dk, dv) of attention from the forward's output and
+    log-sum-exp. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (or raise on arguments it does not take)."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, out, lse, dout)
+    check_kernel_args(q, k, v)
+    check_kernel_args(q, out, dout)
+    BC, S, H, F = q.shape
+    if lse.shape != (BC, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse: expected contiguous ({BC}, {H}, {S}) float32 on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty(BC, H, S, dtype=torch.float32, device=q.device)  # D = rowsum(dout * out)
+    lib = _lib("attention_backward")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.attention_backward(*(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta)),
+                                     BC, S, H, 1.0 / (F**0.5), stream)
+    _build.check(lib, err, "attention_backward launch")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Window attention with its gradient: K3 (with the log-sum-exp) forward,
+    K4 backward; the counterpart of the splash custom VJP (call_fwd/call_bwd).
+    With ``plain``, both passes run the plain versions on any device (chunked,
+    so the backward never holds a full score matrix)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plain):
+        out, lse = attention_plain(q, k, v, return_lse=True) if plain else attention_with_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.plain = plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = attention_backward_plain if ctx.plain else attention_backward
+        return (*bwd(q, k, v, out, lse, dout.to(q.dtype).contiguous()), None)
+
+
+def attention_train(q, k, v, plain: bool = False):
+    """Window attention for training: autograd through K3 and K4 (or, with
+    ``plain``, through their plain versions)."""
+    return AttentionFunction.apply(q, k, v, plain)

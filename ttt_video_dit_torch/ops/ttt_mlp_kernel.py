@@ -1,10 +1,19 @@
-"""Fused TTT-MLP forward scan: the CUDA kernel's wrapper and its plain version.
+"""Fused TTT-MLP scan: the CUDA kernels' wrappers, their plain versions, and
+the autograd Function that trains through them.
 
-Port of ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_mlp_kernel (with
-_fused_preproc and _eta_from_gate), ttt_mlp_forward, and the fused-preproc
-token-major dispatch of ops/pallas/ttt_mlp_kernel.py:ttt_mlp /
-ttt_vjp.py:ttt_mlp_fused_pre, forward only (inference needs no state
-checkpoints). The kernel is ``csrc/ttt_mlp_forward.cu``.
+Port of ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_mlp_kernel (K1, with
+_fused_preproc and _eta_from_gate) and ops/pallas/ttt_backward.py:
+_mlp_bwd_kernel (K2), in the fused-preprocessing, token-major,
+in-kernel-gate form that ttt_vjp.py:ttt_mlp_fused_pre dispatches. Kernels:
+
+- ``ttt_mlp_forward``: K1 for sampling (CS = 16, no state checkpoints),
+  ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward``;
+- ``ttt_mlp_forward_train``: K1 for training (CS = 64), which also writes the
+  fp32 state at the start of every group of K mini-batches (the last group
+  may be ragged), ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward_train``;
+- ``ttt_mlp_backward``: K2, K1's VJP from those checkpoints,
+  ``csrc/ttt_mlp_backward.cu``;
+- ``TTTMLPFunction``: K1-train forward, K2 backward.
 
 Inputs are the RAW token-major projections and the pre-sigmoid LR-gate
 logits; the scan applies L2-norm + rope to q/k, builds the
@@ -15,7 +24,9 @@ Shapes: XQ/XK/XV [B, NC, CS, H*F] (head h = columns h*F..(h+1)*F); gate
 [B, H, NC, CS]; rope_cos/rope_sin [NC, CS, F] float32 (interleaved, identity
 rows on text slots); ln_w/ln_b [H, F]; W1 [H, F, 4F], b1 [H, 1, 4F],
 W2 [H, 4F, F], b2 [H, 1, F] (the learned initial state, shared by every
-batch element). Returns [B, NC, CS, H*F] in XQ's dtype.
+batch element). Outputs [B, NC, CS, H*F] in XQ's dtype. State checkpoints
+are compact fp32: W1 [B, H, NG, F, 4F], b1 [B, H, NG, 1, 4F], W2
+[B, H, NG, 4F, F], b2 [B, H, NG, 1, F], NG = ceil(NC / K).
 """
 
 from __future__ import annotations
@@ -25,17 +36,23 @@ import ctypes
 import torch
 
 from ttt_video_dit_torch.ops import _build
+from ttt_video_dit_torch.ops import ln as ln_ops
+from ttt_video_dit_torch.ops.ln import gelu_bwd, gelu_tanh
 from ttt_video_dit_torch.ops.rope import pair_swap
-from ttt_video_dit_torch.ops.ttt_scan import ttt_mlp_step
+from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_mlp_step
 
-# Launches of the CUDA kernel (the plain version does not count).
+# Launches of each CUDA kernel (the plain versions do not count): K1 for
+# sampling, K1 for training, K2.
 launches = 0
+train_launches = 0
+bwd_launches = 0
 
 KERNEL_HEAD_DIM = 64
 KERNEL_MINI_BATCH = 16
+KERNEL_TRAIN_MINI_BATCH = 64
 
 
-# ------------------------------------------------------------ plain version
+# ------------------------------------------------------------ plain versions
 
 
 def _l2norm(x, eps: float = 1e-12):
@@ -49,84 +66,285 @@ def _rope(x, cos, sin):
 
 
 def _target_ln(t, lnw, lnb, eps: float = 1e-8):
-    """LN-reconstruction normalization: unbiased std, eps added to the std."""
+    """LN-reconstruction normalization, unbiased std with eps added to the
+    std: (target, t_hat, s) with s = sqrt(var) + eps."""
     n = t.shape[-1]
     mu = t.mean(dim=-1, keepdim=True)
     var = t.var(dim=-1, keepdim=True, correction=0) * (n / max(n - 1, 1))
-    return lnw * ((t - mu) / (torch.sqrt(var) + eps)) + lnb
+    s = torch.sqrt(var) + eps
+    t_hat = (t - mu) / s
+    return lnw * t_hat + lnb, t_hat, s
 
 
-def ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float):
+def _acc_dtype(dt):
+    """The dtype the plain versions compute in: float64 for float64 inputs
+    (the autograd checks), else float32."""
+    return torch.promote_types(dt, torch.float32)
+
+
+def _to_head_major(x, H, F):
+    """token-major [B, NC, CS, H*F] -> [NC, B, H, CS, F] in the accumulation dtype."""
+    B, NC, CS, _ = x.shape
+    return x.reshape(B, NC, CS, H, F).permute(1, 0, 3, 2, 4).to(_acc_dtype(x.dtype))
+
+
+def _to_token_major(x):
+    """[NC, B, H, CS, F] -> token-major [B, NC, CS, H*F]."""
+    NC, B, H, CS, F = x.shape
+    return x.permute(1, 0, 3, 2, 4).reshape(B, NC, CS, H * F)
+
+
+def _preproc(xq_raw, xk_raw, xv_raw, cos, sin, lnw, lnb):
+    """The fused preprocessing of one mini-batch (float32): (XQ, XK, target,
+    t_hat, s) from the raw projections."""
+    XQ = _rope(_l2norm(xq_raw), cos, sin)
+    XK = _rope(_l2norm(xk_raw), cos, sin)
+    target, t_hat, s = _target_ln(xv_raw - XK, lnw, lnb)
+    return XQ, XK, target, t_hat, s
+
+
+def ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float,
+                          checkpoint_group: int | None = None):
     """The per-step loop of _mlp_kernel in PyTorch: the fused preprocessing,
     then ``ttt_scan.ttt_mlp_step`` rounding to XQ's dtype at the kernel's
     points (XQ/XK after preprocessing, and the step's own); products of the
     rounded operands accumulate in float32. Float32 matmuls must not use TF32
-    for the kernel comparison (see chip_smoke.py)."""
+    for the kernel comparison (see chip_smoke.py).
+
+    With ``checkpoint_group`` K, also returns the fp32 state at the start of
+    every group of K mini-batches: (out, W1_ck, b1_ck, W2_ck, b2_ck)."""
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
-    dt = XQ.dtype
-    rnd = lambda x: x.to(dt).float()
-    # token-major [B, NC, CS, H*F] -> [NC, B, H, CS, F] float32
-    to_hm = lambda x: x.reshape(B, NC, CS, H, F).permute(1, 0, 3, 2, 4).float()
-    xq, xk, xv = to_hm(XQ), to_hm(XK), to_hm(XV)
-    eta = (torch.sigmoid(gate.float()) * eta_scale).permute(2, 0, 1, 3)  # [NC, B, H, CS]
-    cos, sin = rope_cos.float(), rope_sin.float()
-    lnw = ln_w.float()[None, :, None, :]
-    lnb = ln_b.float()[None, :, None, :]
-    state = tuple(p.float().expand(B, *p.shape) for p in (W1, b1, W2, b2))
+    dt, acc = XQ.dtype, _acc_dtype(XQ.dtype)
+    rnd = lambda x: x.to(dt).to(acc)
+    xq, xk, xv = (_to_head_major(x, H, F) for x in (XQ, XK, XV))
+    eta = (torch.sigmoid(gate.to(acc)) * eta_scale).permute(2, 0, 1, 3)  # [NC, B, H, CS]
+    cos, sin = rope_cos.to(acc), rope_sin.to(acc)
+    lnw = ln_w.to(acc)[None, :, None, :]
+    lnb = ln_b.to(acc)[None, :, None, :]
+    state = tuple(p.to(acc).expand(B, *p.shape) for p in (W1, b1, W2, b2))
 
-    out = torch.empty(NC, B, H, CS, F, dtype=dt, device=XQ.device)
-    for n in range(NC):
-        XQf = _rope(_l2norm(xq[n]), cos[n], sin[n])
-        XKf = _rope(_l2norm(xk[n]), cos[n], sin[n])
-        target = _target_ln(xv[n] - XKf, lnw, lnb)
+    def step(state, n):
+        XQf, XKf, target, _, _ = _preproc(xq[n], xk[n], xv[n], cos[n], sin[n], lnw, lnb)
         state, XQW = ttt_mlp_step(state, rnd(XQf), rnd(XKf), target, eta[n], lnw, lnb, rnd)
-        out[n] = XQW.to(dt)
-    return out.permute(1, 0, 3, 2, 4).reshape(B, NC, CS, HF)
+        return state, XQW.to(dt)
+
+    _, outs, ckpts = scan_mini_batches(step, state, NC, checkpoint_group)
+    out = _to_token_major(torch.stack(outs))
+    if not checkpoint_group:
+        return out
+    return (out, *(torch.stack([c[i] for c in ckpts], dim=2).contiguous() for i in range(4)))
 
 
-# ------------------------------------------------------------ CUDA kernel
+def ttt_mlp_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout,
+                           eta_scale: float, checkpoint_group: int):
+    """K2's algorithm in PyTorch, rounding to XQ's dtype where
+    _mlp_bwd_kernel does. Per checkpoint group, last first: pass A re-runs
+    the forward from the group's checkpoint and stashes each step's state
+    (W in the compute dtype, which is exact: pass B uses W only rounded);
+    pass B walks the group backwards through the hand-derived step VJP
+    (ttt_backward.py:270-414) and carries the state cotangents.
+
+    Returns (dXQ, dXK, dXV [B, NC, CS, H*F] in XQ's dtype, d_gate
+    [B, H, NC, CS] in float32 (float64 for float64 inputs), dW1 [H, F, 4F], db1 [H, 1, 4F], dW2 [H, 4F, F],
+    db2 [H, 1, F], dln_w [H, F], dln_b [H, F]): the initial-state and LN
+    cotangents summed over the batch, as the shared parameters need them."""
+    B, NC, CS, HF = XQ.shape
+    H, F = ln_w.shape
+    K = checkpoint_group
+    NG = W1_ck.shape[2]
+    dt, acc = XQ.dtype, _acc_dtype(XQ.dtype)
+    rnd = lambda x: x.to(dt).to(acc)
+    colsum = lambda x: x.sum(dim=-2, keepdim=True)
+    mm = torch.matmul
+    tr = lambda x: x.transpose(-1, -2)
+    xq, xk, xv, g_out = (_to_head_major(x, H, F) for x in (XQ, XK, XV, dout))
+    sig = torch.sigmoid(gate.to(acc)).permute(2, 0, 1, 3)[..., None]  # [NC, B, H, CS, 1]
+    eta = sig * eta_scale
+    cos, sin = rope_cos.to(acc), rope_sin.to(acc)
+    lnw = ln_w.to(acc)[None, :, None, :]
+    lnb = ln_b.to(acc)[None, :, None, :]
+
+    dxq, dxk, dxv = (torch.empty(NC, B, H, CS, F, dtype=dt, device=XQ.device) for _ in range(3))
+    zeros = lambda *s: torch.zeros(*s, dtype=acc, device=XQ.device)
+    dgate = zeros(NC, B, H, CS)
+    dW1, db1, dW2, db2 = zeros(B, H, F, 4 * F), zeros(B, H, 1, 4 * F), zeros(B, H, 4 * F, F), zeros(B, H, 1, F)
+    dlnw, dlnb = zeros(B, H, 1, F), zeros(B, H, 1, F)
+
+    def forward_step(state, n):
+        XQf, XKf, target, _, _ = _preproc(xq[n], xk[n], xv[n], cos[n], sin[n], lnw, lnb)
+        return ttt_mlp_step(state, rnd(XQf), rnd(XKf), target, eta[n][..., 0], lnw, lnb, rnd)[0], None
+
+    for g in reversed(range(NG)):
+        n0 = g * K
+        # Pass A: the forward from the checkpoint, stashing the state before each step.
+        state = tuple(c[:, :, g].to(acc) for c in (W1_ck, b1_ck, W2_ck, b2_ck))
+        _, _, stash = scan_mini_batches(lambda s, i: forward_step(s, n0 + i), state, min(K, NC - n0), 1)
+        # Pass B: the step VJP, last step first.
+        for i in reversed(range(len(stash))):
+            n, (W1, b1, W2, b2) = n0 + i, stash[i]
+            W1, W2 = rnd(W1), rnd(W2)
+            XQf, XKf, target, t_hat, s_t = _preproc(xq[n], xk[n], xv[n], cos[n], sin[n], lnw, lnb)
+            XQ_, XK_ = rnd(XQf), rnd(XKf)
+            e = eta[n]
+            d_out = g_out[n]
+            # Recompute the step's forward intermediates.
+            Z1 = mm(XK_, W1) + b1
+            phi = gelu_bwd(Z1)
+            X2c = rnd(gelu_tanh(Z1))
+            Z2 = mm(X2c, W2) + b2
+            z2_hat, std2 = ln_ops.ln_stats(Z2)
+            g2 = ln_ops.ln_fused_l2(z2_hat, std2, target, lnw, lnb)
+            P = mm(rnd(g2), tr(W2))
+            g1 = P * phi
+            G1, G2 = rnd(e * g1), rnd(e * g2)
+            A1 = rnd(mm(XQ_, tr(XK_)))
+            Zb1 = mm(XQ_, W1) - mm(A1, G1) + b1 - colsum(G1)
+            Xb2c = rnd(gelu_tanh(Zb1))
+            A2 = rnd(mm(Xb2c, tr(X2c)))
+            Zb2 = mm(Xb2c, W2) - mm(A2, G2) + b2 - colsum(G2)
+            zb2_hat, stdb2 = ln_ops.ln_stats(Zb2)
+
+            # (1) out = XQ + LN(Zb2)
+            dZb2, dgw, dgb = ln_ops.ln_fwd_vjp_rows(zb2_hat, stdb2, lnw, d_out)
+            dlnw += colsum(dgw)
+            dlnb += colsum(dgb)
+            dZb2c = rnd(dZb2)
+            # (2) Zb2 = Xb2 @ W2 - A2 @ G2 + b2'
+            dXb2 = mm(dZb2c, tr(W2))
+            dW2_step = mm(tr(Xb2c), dZb2c)
+            dA2 = -mm(dZb2c, tr(G2))
+            db2_tot = db2 + colsum(dZb2)
+            dG2 = -mm(tr(A2), dZb2c) - db2_tot
+            # (3) A2 = Xb2 @ X2^T
+            dXb2 = dXb2 + mm(rnd(dA2), X2c)
+            dX2 = mm(tr(rnd(dA2)), Xb2c)
+            # (4) Xb2 = gelu(Zb1)
+            dZb1 = gelu_bwd(Zb1) * dXb2
+            dZb1c = rnd(dZb1)
+            # (5) Zb1 = XQ @ W1 - A1 @ G1 + b1'
+            dXQ = d_out + mm(dZb1c, tr(W1))
+            dW1_step = mm(tr(XQ_), dZb1c)
+            dA1 = -mm(dZb1c, tr(G1))
+            db1_tot = db1 + colsum(dZb1)
+            dG1 = -mm(tr(A1), dZb1c) - db1_tot
+            # (6) the state updates W' = W - X^T G (the carries are dW')
+            dX2 = dX2 - mm(G2, tr(rnd(dW2)))
+            dG2 = dG2 - mm(X2c, rnd(dW2))
+            dXK = -mm(G1, tr(rnd(dW1)))
+            dG1 = dG1 - mm(XK_, rnd(dW1))
+            # (7) A1 = XQ @ XK^T
+            dXQ = dXQ + mm(rnd(dA1), XK_)
+            dXK = dXK + mm(tr(rnd(dA1)), XQ_)
+            # (8) G = eta * g
+            de = (dG2 * g2).sum(dim=-1, keepdim=True) + (dG1 * g1).sum(dim=-1, keepdim=True)
+            dg2, dg1 = e * dG2, e * dG1
+            # (9) g1 = (g2 @ W2^T) * gelu'(Z1)
+            dP = dg1 * phi
+            dZ1 = dg1 * P * ln_ops.gelu_bwd2(Z1)
+            dPc = rnd(dP)
+            dg2 = dg2 + mm(dPc, W2)
+            dW2_step = dW2_step + mm(tr(dPc), rnd(g2))
+            # (10) g2 = ln_fused_l2(Z2, target)
+            dZ2, dtarget, dgw2, dgb2 = ln_ops.ln_fused_l2_vjp_rows(z2_hat, std2, target, lnw, lnb, dg2)
+            dlnw += colsum(dgw2)
+            dlnb += colsum(dgb2)
+            # (11) Z2 = X2 @ W2 + b2
+            dZ2c = rnd(dZ2)
+            dX2 = dX2 + mm(dZ2c, tr(W2))
+            dW2_step = dW2_step + mm(tr(X2c), dZ2c)
+            db2_new = db2_tot + colsum(dZ2)
+            # (12) target = LN-reconstruction(XV - XK)
+            dtv, dgw_t, dgb_t = ln_ops.target_ln_vjp(t_hat, s_t, lnw, dtarget)
+            dlnw += colsum(dgw_t)
+            dlnb += colsum(dgb_t)
+            dXK = dXK - dtv
+            # (13) X2 = gelu(Z1)
+            dZ1 = dZ1 + phi * dX2
+            dZ1c = rnd(dZ1)
+            # (14) Z1 = XK @ W1 + b1
+            dXK = dXK + mm(dZ1c, tr(W1))
+            dW1_step = dW1_step + mm(tr(XK_), dZ1c)
+            db1_new = db1_tot + colsum(dZ1)
+            # (15) rope, then the L2 norm, back to the raw projections
+            dxq[n] = ln_ops.l2norm_vjp(xq[n], ln_ops.rope_vjp(dXQ, cos[n], sin[n])).to(dt)
+            dxk[n] = ln_ops.l2norm_vjp(xk[n], ln_ops.rope_vjp(dXK, cos[n], sin[n])).to(dt)
+            dxv[n] = dtv.to(dt)
+            dgate[n] = (de * e * (1.0 - sig[n]))[..., 0]
+            dW1, db1, dW2, db2 = dW1 + dW1_step, db1_new, dW2 + dW2_step, db2_new
+
+    sum_b = lambda x: x.sum(dim=0)
+    return (_to_token_major(dxq), _to_token_major(dxk), _to_token_major(dxv), dgate.permute(1, 2, 0, 3).contiguous(),
+            sum_b(dW1), sum_b(db1), sum_b(dW2), sum_b(db2), sum_b(dlnw)[:, 0], sum_b(dlnb)[:, 0])
 
 
-def _lib():
-    lib = _build.load("ttt_mlp_forward")
-    fn = lib.ttt_mlp_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+# ------------------------------------------------------------ CUDA kernels
+
+
+def _lib(name: str = "ttt_mlp_forward"):
+    lib = _build.load(name)
+    if name == "ttt_mlp_forward" and lib.ttt_mlp_forward.argtypes is None:
+        lib.ttt_mlp_forward.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        lib.ttt_mlp_forward.restype = ctypes.c_int
+        lib.ttt_mlp_forward_train.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
+                                              + [ctypes.c_float, ctypes.c_void_p])
+        lib.ttt_mlp_forward_train.restype = ctypes.c_int
+        lib.ttt_mlp_forward_train_workspace_floats.restype = ctypes.c_longlong
+    if name == "ttt_mlp_backward" and lib.ttt_mlp_backward.argtypes is None:
+        lib.ttt_mlp_backward.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        lib.ttt_mlp_backward.restype = ctypes.c_int
+        lib.ttt_mlp_backward_workspace_bytes.argtypes = [ctypes.c_int]
+        lib.ttt_mlp_backward_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2) -> None:
-    """Raise ValueError unless the arguments are what the CUDA kernel takes:
-    F = 64, CS = 16, bf16 token-major q/k/v, float32 everything else, every
-    tensor contiguous and on one CUDA device, shapes consistent."""
+def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2,
+                      mini_batch: int = KERNEL_MINI_BATCH) -> None:
+    """Raise ValueError unless the arguments are what the CUDA kernels take:
+    F = 64, CS = ``mini_batch`` (16 for sampling, 64 for training), bf16
+    token-major q/k/v, float32 everything else, every tensor contiguous and
+    on one CUDA device, shapes consistent."""
     if XQ.ndim != 4:
         raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
-    if F != KERNEL_HEAD_DIM or CS != KERNEL_MINI_BATCH:
-        raise ValueError(f"the TTT-MLP kernel supports F={KERNEL_HEAD_DIM}, CS={KERNEL_MINI_BATCH}; got F={F}, CS={CS}")
+    if F != KERNEL_HEAD_DIM or CS != mini_batch:
+        raise ValueError(f"this TTT-MLP kernel supports F={KERNEL_HEAD_DIM}, CS={mini_batch}; got F={F}, CS={CS}")
     expected = {
         "XQ": (XQ, (B, NC, CS, H * F), torch.bfloat16), "XK": (XK, (B, NC, CS, H * F), torch.bfloat16),
         "XV": (XV, (B, NC, CS, H * F), torch.bfloat16), "gate": (gate, (B, H, NC, CS), torch.float32),
         "rope_cos": (rope_cos, (NC, CS, F), torch.float32), "rope_sin": (rope_sin, (NC, CS, F), torch.float32),
         "ln_w": (ln_w, (H, F), torch.float32), "ln_b": (ln_b, (H, F), torch.float32),
-        "W1": (W1, (H, F, 4 * F), torch.float32), "b1": (b1, (H, 1, 4 * F), torch.float32),
-        "W2": (W2, (H, 4 * F, F), torch.float32), "b2": (b2, (H, 1, F), torch.float32),
     }
+    if W1 is not None:
+        expected.update({
+            "W1": (W1, (H, F, 4 * F), torch.float32), "b1": (b1, (H, 1, 4 * F), torch.float32),
+            "W2": (W2, (H, 4 * F, F), torch.float32), "b2": (b2, (H, 1, F), torch.float32),
+        })
+    _check_tensors(expected, XQ.device)
+
+
+def _check_tensors(expected, device) -> None:
     for name, (t, shape, dtype) in expected.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
-        if t.device.type != "cuda" or t.device != XQ.device:
-            raise ValueError(f"{name}: expected a tensor on {XQ.device} (CUDA), got {t.device}")
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name}: expected a tensor on {device} (CUDA), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
+def _launch(lib, fn_name: str, tensors, ints, eta_scale: float, device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(*(t.data_ptr() for t in tensors), *ints, float(eta_scale), stream)
+    _build.check(lib, err, f"{fn_name} launch")
+
+
 def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float):
-    """Fused TTT-MLP forward. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (or raise on arguments it does not take)."""
+    """Fused TTT-MLP forward for sampling (no checkpoints). CPU tensors take
+    the plain version; CUDA tensors launch the kernel (or raise on arguments
+    it does not take)."""
     global launches
     if XQ.device.type == "cpu":
         return ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale)
@@ -134,11 +352,110 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
     B, NC, _, _ = XQ.shape
     H = ln_w.shape[0]
     out = torch.empty_like(XQ)
-    lib = _lib()
-    ptrs = [t.data_ptr() for t in (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out)]
-    with torch.cuda.device(XQ.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ttt_mlp_forward(*ptrs, B, NC, H, float(eta_scale), stream)
-    _build.check(lib, err, "ttt_mlp_forward launch")
+    _launch(_lib(), "ttt_mlp_forward", (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out),
+            (B, NC, H), eta_scale, XQ.device)
     launches += 1
     return out
+
+
+def ttt_mlp_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float,
+                          checkpoint_group: int):
+    """Fused TTT-MLP forward for training: (out, W1_ck, b1_ck, W2_ck, b2_ck),
+    the fp32 state at the start of every group of ``checkpoint_group``
+    mini-batches. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (CS = 64) or raise."""
+    global train_launches
+    if XQ.device.type == "cpu":
+        return ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale,
+                                     checkpoint_group=checkpoint_group)
+    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, KERNEL_TRAIN_MINI_BATCH)
+    B, NC, _, _ = XQ.shape
+    H, F = ln_w.shape
+    K = _group(checkpoint_group, NC)
+    NG = -(-NC // K)
+    lib = _lib()
+    out = torch.empty_like(XQ)
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
+    ckpts = (new(B, H, NG, F, 4 * F), new(B, H, NG, 1, 4 * F), new(B, H, NG, 4 * F, F), new(B, H, NG, 1, F))
+    work = new(B * H * lib.ttt_mlp_forward_train_workspace_floats())
+    _launch(lib, "ttt_mlp_forward_train",
+            (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out, *ckpts, work),
+            (B, NC, H, K), eta_scale, XQ.device)
+    train_launches += 1
+    return (out, *ckpts)
+
+
+def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout,
+                     eta_scale: float, checkpoint_group: int):
+    """K2, the fused TTT-MLP backward from K1-train's checkpoints and the
+    output cotangent ``dout``. Returns what :func:`ttt_mlp_backward_plain`
+    returns. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (CS = 64) or raise."""
+    global bwd_launches
+    if XQ.device.type == "cpu":
+        return ttt_mlp_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck,
+                                      dout, eta_scale, checkpoint_group)
+    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, None, None, None, None,
+                      KERNEL_TRAIN_MINI_BATCH)
+    B, NC, CS, HF = XQ.shape
+    H, F = ln_w.shape
+    K = _group(checkpoint_group, NC)
+    NG = -(-NC // K)
+    _check_tensors({
+        "W1_ck": (W1_ck, (B, H, NG, F, 4 * F), torch.float32), "b1_ck": (b1_ck, (B, H, NG, 1, 4 * F), torch.float32),
+        "W2_ck": (W2_ck, (B, H, NG, 4 * F, F), torch.float32), "b2_ck": (b2_ck, (B, H, NG, 1, F), torch.float32),
+        "dout": (dout, (B, NC, CS, HF), torch.bfloat16),
+    }, XQ.device)
+    lib = _lib("ttt_mlp_backward")
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
+    dx = [torch.empty_like(XQ) for _ in range(3)]
+    dgate = new(B, H, NC, CS)
+    grads = (new(B, H, F, 4 * F), new(B, H, 1, 4 * F), new(B, H, 4 * F, F), new(B, H, 1, F), new(B, H, F), new(B, H, F))
+    work = torch.empty(B * H * lib.ttt_mlp_backward_workspace_bytes(K), dtype=torch.uint8, device=XQ.device)
+    _launch(lib, "ttt_mlp_backward",
+            (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout,
+             *dx, dgate, *grads, work),
+            (B, NC, H, K), eta_scale, XQ.device)
+    bwd_launches += 1
+    return (*dx, dgate, *(g.sum(dim=0) for g in grads))
+
+
+def _group(checkpoint_group: int, NC: int) -> int:
+    """The checkpoint group the scan uses: at least 1, at most NC."""
+    return min(max(int(checkpoint_group), 1), NC)
+
+
+class TTTMLPFunction(torch.autograd.Function):
+    """The fused TTT-MLP scan with its gradient: K1-train forward (keeping the
+    state checkpoints), K2 backward; the counterpart of
+    ttt_vjp.py:ttt_mlp_fused_pre. Gradients flow to the raw XQ/XK/XV, the
+    gate logits, ln_w/ln_b and W1/b1/W2/b2; the rope tables get none. With
+    ``plain``, both passes run the plain versions on any device (the
+    reference path that chip_smoke.py holds the kernels' gradients to)."""
+
+    @staticmethod
+    def forward(ctx, XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale, checkpoint_group,
+                plain):
+        K = _group(checkpoint_group, XQ.shape[1])
+        fwd = ttt_mlp_forward_plain if plain else ttt_mlp_forward_train
+        out, *ckpts = fwd(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale, checkpoint_group=K)
+        ctx.save_for_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, *ckpts)
+        ctx.eta_scale, ctx.K, ctx.plain = eta_scale, K, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, *ckpts = ctx.saved_tensors
+        bwd = ttt_mlp_backward_plain if ctx.plain else ttt_mlp_backward
+        dXQ, dXK, dXV, dgate, dW1, db1, dW2, db2, dlnw, dlnb = bwd(
+            XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, *ckpts, dout.to(XQ.dtype).contiguous(),
+            ctx.eta_scale, ctx.K)
+        return dXQ, dXK, dXV, dgate, None, None, dlnw, dlnb, dW1, db1, dW2, db2, None, None, None
+
+
+def ttt_mlp_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float,
+                  checkpoint_group: int, plain: bool = False):
+    """The fused TTT-MLP scan for training: autograd through K1-train and K2
+    (or, with ``plain``, through their plain versions)."""
+    return TTTMLPFunction.apply(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale,
+                                checkpoint_group, plain)

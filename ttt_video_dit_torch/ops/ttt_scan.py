@@ -1,9 +1,12 @@
-"""Per-token-eta dual-form TTT-MLP scan in plain PyTorch (port of the forward
-half of ttt_video_dit_tpu/ops/ttt_scan.py).
+"""Per-token-eta dual-form TTT-MLP scan in plain PyTorch (port of
+ttt_video_dit_tpu/ops/ttt_scan.py).
 
-Its step, ``ttt_mlp_step``, is also the body of the fused TTT-MLP kernel's
-plain version (ops/ttt_mlp_kernel.py), which adds the kernel's bf16 rounding
-points. Inputs are head-major and already preprocessed (L2-norm, rope,
+Its step, ``ttt_mlp_step``, and its loop, ``scan_mini_batches`` (which also
+keeps the state at the start of every checkpoint group of K mini-batches,
+the last group possibly shorter), are the body of the fused TTT-MLP kernels'
+plain versions (ops/ttt_mlp_kernel.py), which add the kernels' bf16
+rounding points; K2's plain version re-runs each group from its checkpoint,
+as the JAX scan's per-group remat does. Inputs are head-major and already preprocessed (L2-norm, rope,
 LN-reconstruction target); state and products are fp32. The eta parameterization is the per-token vector ``lr_j / CS``
 (see the JAX module's docstring for why it equals the reference's rank-1
 eta matrix).
@@ -62,6 +65,20 @@ def ttt_mlp_step(state, XQ, XK, target, eta, ln_weight, ln_bias, rnd=_exact):
     return (W1_new, b1_new, W2_new, b2_new), XQW
 
 
+def scan_mini_batches(step_fn, state, num_mini_batch: int, checkpoint_group: int | None = None):
+    """Run ``step_fn(state, n) -> (state, out)`` for n = 0 .. num_mini_batch - 1.
+    Returns (final_state, outs, checkpoints): with ``checkpoint_group`` K,
+    checkpoints[g] is the state before mini-batch g * K (the states are
+    tuples of tensors that the steps replace, never modify)."""
+    outs, checkpoints = [], []
+    for n in range(num_mini_batch):
+        if checkpoint_group and n % checkpoint_group == 0:
+            checkpoints.append(state)
+        state, out = step_fn(state, n)
+        outs.append(out)
+    return state, outs, checkpoints
+
+
 def ttt_mlp_mini_batch(state, xs, ln_weight, ln_bias):
     """One float32 mini-batch step. ``state`` = (W1, b1, W2, b2) in fp32;
     ``xs`` = (XQ, XK, XV, eta) of one mini-batch, with XV - XK the
@@ -75,8 +92,6 @@ def ttt_mlp(XQ, XK, XV, eta, ttt_norm_weight, ttt_norm_bias, W1_init, b1_init, W
     ln_w = ttt_norm_weight.float()[:, None, :]
     ln_b = ttt_norm_bias.float()[:, None, :]
     state = tuple(s.float() for s in (W1_init, b1_init, W2_init, b2_init))
-    outs = []
-    for n in range(XQ.shape[2]):
-        state, out = ttt_mlp_mini_batch(state, (XQ[:, :, n], XK[:, :, n], XV[:, :, n], eta[:, :, n]), ln_w, ln_b)
-        outs.append(out)
+    step = lambda s, n: ttt_mlp_mini_batch(s, (XQ[:, :, n], XK[:, :, n], XV[:, :, n], eta[:, :, n]), ln_w, ln_b)
+    _, outs, _ = scan_mini_batches(step, state, XQ.shape[2])
     return torch.stack(outs, dim=2).to(XQ.dtype)

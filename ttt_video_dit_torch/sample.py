@@ -24,8 +24,8 @@ import time
 import numpy as np
 import torch
 
-from ttt_video_dit_tpu.config.job_config import JobConfig
-from ttt_video_dit_tpu.config.model_config import ModelConfig
+from ttt_video_dit_torch.config.job_config import JobConfig
+from ttt_video_dit_torch.config.model_config import ModelConfig
 
 
 def resolve_device(platform: str | None) -> torch.device:

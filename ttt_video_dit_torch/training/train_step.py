@@ -1,0 +1,49 @@
+"""One training step (port of ttt_video_dit_tpu/training/train_step.py).
+
+Text dropout, the CogVideoX loss, gradient accumulation over micro-batches,
+then the grouped AdamW (global-norm clip included). The JAX step is one
+jitted function over an immutable state; here the model's parameters and the
+optimizer's moments are updated in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def apply_text_dropout(text, prob: float, generator: torch.Generator | None = None, keep=None):
+    """Zero the whole text conditioning of a sample with probability ``prob``
+    (classifier-free-guidance dropout). ``keep`` [B] (1 keeps, 0 drops)
+    replaces the draw from ``generator``."""
+    if keep is None:
+        if prob <= 0.0:
+            return text
+        keep = torch.rand(text.shape[0], generator=generator, device=text.device) < 1.0 - prob
+    keep = torch.as_tensor(keep, device=text.device).to(text.dtype)
+    return text * keep.reshape(-1, *([1] * (text.ndim - 1)))
+
+
+def train_step(model, optimizer, batch: dict, *, grad_accum_steps: int = 1, text_dropout_prob: float = 0.1,
+               generator: torch.Generator | None = None, draws: list | None = None) -> dict:
+    """One optimizer step on ``batch`` (vid [B, T, C, H, W], text
+    [B, scenes, S, E], sigma_lo/sigma_hi [B]), split into ``grad_accum_steps``
+    micro-batches whose gradients are averaged. Random draws (text-dropout
+    keep mask, sigma index, noise) come from ``generator``; ``draws``, one dict
+    per micro-batch with any of "keep", "idx", "noise", replaces them.
+    Returns {"loss", "grad_norm"} as device scalars (the grad norm before
+    clipping)."""
+    vid, text = batch["vid"], batch["text"]
+    B = vid.shape[0]
+    micro = B // grad_accum_steps
+    optimizer.zero_grad()
+    loss_sum = torch.zeros((), device=vid.device)
+    for i in range(grad_accum_steps):
+        sl = slice(i * micro, (i + 1) * micro)
+        d = draws[i] if draws else {}
+        t = apply_text_dropout(text[sl], text_dropout_prob, generator, d.get("keep"))
+        loss = model(vid[sl], t, (batch["sigma_lo"][sl], batch["sigma_hi"][sl]), generator,
+                     idx=d.get("idx"), noise=d.get("noise")).mean()
+        (loss / grad_accum_steps).backward()
+        loss_sum = loss_sum + loss.detach()
+    grad_norm = optimizer.step()
+    return {"loss": loss_sum / grad_accum_steps, "grad_norm": grad_norm}
