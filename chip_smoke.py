@@ -12,25 +12,30 @@ non-zero, and no result line is printed):
    card sets for the same work, and the time of one PyTorch call computing
    the same function where there is one: K1 (sampling), K3 (sampling),
    K1-train and K2 (TTT-MLP training forward and backward), K3 with the
-   log-sum-exp and K4 (attention backward).
+   log-sum-exp and K4 (attention backward), K5 (TTT-linear, sampling),
+   K5-train and K6 (TTT-linear training forward and backward), K7 (the
+   float32 -> bf16 weight cast, bit-exact).
+Then, for each model variant the repo ships (ttt_mlp, then ttt_linear), on
+its own 3 s TOMLs:
 3. one DiffusionTransformer forward at full width (d3072, 48 heads) and
    2 layers, kernel path against the plain functions, same weights.
-4. the sampling entry (ttt_video_dit_torch.sample.main) on
-   configs/eval/ttt-mlp/3s.toml at 42 layers, 3 denoise steps; kernel launch
-   counts from exactly that run; finite latents of the expected shape.
+4. the sampling entry (ttt_video_dit_torch.sample.main) at 42 layers, 3
+   denoise steps; kernel launch counts from exactly that run; finite latents
+   of the expected shape.
 5. one training loss + backward of a full-width 2-layer DiT (the 3 s train
    config), kernel path against the plain path (the same autograd Functions
    over the plain versions), same weights and draws: relative L2 of the loss
    and of every parameter's gradient.
-6. the training entry (ttt_video_dit_torch.train.main) on
-   configs/train/ttt-mlp/3s.toml at full width, 4 layers, 3 steps: on the
-   card, finite loss and grad norm at every step, every trainable tensor
-   moved further than weight decay alone would move it (bar those with an
-   all-zero last gradient, named, none of them the TTT state K2 trains), and
-   the launch counts of the training kernels from exactly that run; seconds
-   per step, peak memory, MFU.
+6. the training entry (ttt_video_dit_torch.train.main) at full width, 4
+   layers, 3 steps (ttt_mlp: adapter sft; ttt_linear: qkvo): on the card,
+   finite loss and grad norm at every step, every trainable tensor moved
+   further than weight decay alone would move it (bar those with an all-zero
+   last gradient, named, none of them the TTT state K2/K6 train), and the
+   launch counts of the training kernels (K7 included: the TOMLs set
+   scan_layers) from exactly that run; seconds per step, peak memory, MFU.
 
-The second-to-last line is the kernels' JSON record; the last line is
+The second-to-last line is the kernels' JSON record (launches: the sum over
+the main-path runs of phases 4 and 6); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references.
 """
@@ -42,40 +47,52 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-SAMPLE_ARGS = [
-    "--job.config_file", "configs/eval/ttt-mlp/3s.toml", "--eval.input_file", "inputs/example.json",
-    "--eval.num_denoising_steps", "3", "--guider.num_steps", "3",
-]
-TRAIN_ARGS = [
-    "--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "4", "--training.steps", "3",
-    "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
-]
-KERNELS = ("attention_forward", "attention_backward", "ttt_mlp_forward", "ttt_mlp_backward")
+VARIANTS = ("ttt_mlp", "ttt_linear")
+
+
+def sample_args(variant: str) -> list[str]:
+    return ["--job.config_file", f"configs/eval/{variant.replace('_', '-')}/3s.toml", "--eval.input_file",
+            "inputs/example.json", "--eval.num_denoising_steps", "3", "--guider.num_steps", "3"]
+
+
+def train_args(variant: str) -> list[str]:
+    return ["--job.config_file", f"configs/train/{variant.replace('_', '-')}/3s.toml", "--model.num_layers", "4",
+            "--training.steps", "3", "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1",
+            "--parallelism.dp_sharding", "1"]
+
+
+KERNELS = ("attention_forward", "attention_backward", "ttt_mlp_forward", "ttt_mlp_backward", "ttt_linear_forward",
+           "ttt_linear_backward", "convert")
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise, on bf16 outputs. The
 # kernels round at the plain versions' points; what remains is float32
 # summation order (and, for attention, P and dS rounded to bf16 as operands),
 # i.e. a few bf16 ulps of outputs of magnitude up to ~5.
 KERNEL_TOL = {"ttt_mlp_forward": (2e-2, 2e-2), "attention_forward": (2e-2, 2e-2), "ttt_mlp_forward_train": (2e-2, 2e-2),
               "attention_forward_lse": (2e-2, 2e-2), "attention_backward": (2e-2, 2e-2),
-              "ttt_mlp_backward": (2e-2, 2e-2)}
-# The float32 outputs of the training kernels (K1-train's state checkpoints,
-# K2's gradients), each held by its relative L2 error,
-# ||kernel - plain|| / ||plain|| <= REL_L2_TOL, and by its largest error,
-# max|kernel - plain| <= SCALED_TOL * max|plain|. The checkpoints carry K1's
-# bf16 rounding flips into fp32 sums; K2's weight, bias and LN gradients carry
-# them through the second-order step VJP and span five orders of magnitude, so
-# no one elementwise tolerance fits them. K2's input gradients (dXQ, dXK, dXV,
-# d_gate) are held elementwise as well, by KERNEL_TOL.
+              "ttt_mlp_backward": (2e-2, 2e-2), "ttt_linear_forward": (2e-2, 2e-2),
+              "ttt_linear_forward_train": (2e-2, 2e-2), "ttt_linear_backward": (2e-2, 2e-2)}
+# The float32 outputs of the training kernels (K1-train's and K5-train's
+# state checkpoints, K2's and K6's gradients), each held by its relative L2
+# error, ||kernel - plain|| / ||plain|| <= REL_L2_TOL, and by its largest
+# error, max|kernel - plain| <= SCALED_TOL * max|plain|. The checkpoints carry
+# the forward's bf16 rounding flips into fp32 sums; the backwards' weight,
+# bias and LN gradients carry them through the second-order step VJP and span
+# five orders of magnitude, so no one elementwise tolerance fits them. Their
+# input gradients (dXQ, dXK, dXV, d_gate) are held elementwise as well, by
+# KERNEL_TOL. K7 must be bit-exact.
 REL_L2_TOL = 1e-2
-SCALED_TOL = {"ttt_mlp_forward_train": 1e-3, "ttt_mlp_backward": 1e-2}
-K2_ELEMENTWISE = ("dXQ", "dXK", "dXV", "d_gate")
-# The TTT layer's parameters whose gradients K2 writes: a training step must
-# move each of them.
-K2_PARAMETERS = (".W1", ".b1", ".W2", ".b2", ".ttt_norm_weight", ".ttt_norm_bias")
+SCALED_TOL = {"ttt_mlp_forward_train": 1e-3, "ttt_mlp_backward": 1e-2, "ttt_linear_forward_train": 1e-3,
+              "ttt_linear_backward": 1e-2}
+ELEMENTWISE_GRADS = ("dXQ", "dXK", "dXV", "d_gate")
+# The TTT layer's parameters whose gradients K2 (ttt_mlp: all six) or K6
+# (ttt_linear: W1, b1 and the TTT norm) writes: a training step must move
+# each of them.
+TTT_STATE_PARAMETERS = (".W1", ".b1", ".W2", ".b2", ".ttt_norm_weight", ".ttt_norm_bias")
 # A trained tensor must move more than this many times as far as weight decay
 # alone would have moved it over the run.
 DECAY_MARGIN = 10.0
@@ -114,6 +131,16 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(fn(), milliseconds of that one run by CUDA events): for the plain versions, slow enough to run once."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def compare(name: str, got, want, what: str = "") -> float:
@@ -158,22 +185,25 @@ def record(name, source, replaces, err, ms, plain_ms, nbytes, flops, library_ms=
 
 
 def phase_build():
-    from ttt_video_dit_torch.ops import _build, attention, ttt_mlp_kernel
+    from ttt_video_dit_torch.ops import _build, attention, convert, ttt_linear_kernel, ttt_mlp_kernel
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.load, KERNELS))
     for lib in (ttt_mlp_kernel._lib(), ttt_mlp_kernel._lib("ttt_mlp_backward"), attention._lib(),
-                attention._lib("attention_backward")):
+                attention._lib("attention_backward"), ttt_linear_kernel._lib(),
+                ttt_linear_kernel._lib("ttt_linear_backward"), convert._lib()):
         assert lib is not None
     for name, info in _build.build_info.items():
         usage = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: built in {info['seconds']:.1f} s; ptxas: {' | '.join(usage)}")
     smem = _build.load("ttt_mlp_forward").ttt_mlp_forward_smem_bytes()
-    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (ttt_mlp_forward dynamic shared memory {smem} bytes)")
+    smem_k6 = _build.load("ttt_linear_backward").ttt_linear_backward_smem_bytes()
+    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: ttt_mlp_forward {smem} bytes, "
+        f"ttt_linear_backward {smem_k6} bytes)")
 
 
-def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16):
+def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16, variant="ttt_mlp"):
     from ttt_video_dit_torch.models.ttt.layer import scan_rope_tables
 
     F = 64
@@ -184,170 +214,253 @@ def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16):
         cos, sin = (t.repeat_interleave(2, dim=-1).contiguous() for t in (torch.cos(angles), torch.sin(angles)))
     else:
         cos, sin = scan_rope_tables(meta, F, 10000.0, CS, device)
-    return dict(
-        XQ=x(), XK=x(), XV=x(), gate=randn(B, H, NC, CS), rope_cos=cos, rope_sin=sin,
-        ln_w=1.0 + randn(H, F, std=0.1), ln_b=randn(H, F, std=0.1),
-        W1=randn(H, F, 4 * F, std=0.02), b1=randn(H, 1, 4 * F, std=0.02),
-        W2=randn(H, 4 * F, F, std=0.02), b2=randn(H, 1, F, std=0.02),
-    )
+    a = dict(XQ=x(), XK=x(), XV=x(), gate=randn(B, H, NC, CS), rope_cos=cos, rope_sin=sin,
+             ln_w=1.0 + randn(H, F, std=0.1), ln_b=randn(H, F, std=0.1))
+    if variant == "ttt_linear":
+        return dict(a, W1=randn(H, F, F, std=0.02), b1=randn(H, 1, F, std=0.02))
+    return dict(a, W1=randn(H, F, 4 * F, std=0.02), b1=randn(H, 1, 4 * F, std=0.02),
+                W2=randn(H, 4 * F, F, std=0.02), b2=randn(H, 1, F, std=0.02))
 
 
-def _ttt_bytes(B, H, NC, CS, F=64):
-    """Bytes a TTT scan must move once: bf16 q/k/v and output, f32 gate, rope
-    tables, LN affine and initial state."""
+# Per variant: the state's names, the fp32 floats of one head's state, and the TPU kernels it replaces
+# (forward, backward). ttt_mlp: W1 [F, 4F], b1 [4F], W2 [4F, F], b2 [F]; ttt_linear: W1 [F, F], b1 [F].
+TTT = {
+    "ttt_mlp": (("W1", "b1", "W2", "b2"), lambda F: 8 * F * F + 5 * F,
+                ("ops/pallas/ttt_forward.py:247", "ops/pallas/ttt_backward.py:165")),
+    "ttt_linear": (("W1", "b1"), lambda F: F * F + F,
+                   ("ops/pallas/ttt_forward.py:187", "ops/pallas/ttt_backward.py:431")),
+}
+TPU = "ttt_video_dit_tpu/"
+SEQ = 18048  # tokens of the 3 s shape: 498 text + 13 frames x 30 x 45
+
+
+def _ttt_bytes(variant, B, H, NC, CS, F=64, bf16_tensors=4):
+    """Bytes a TTT scan must move once: ``bf16_tensors`` token-major bf16
+    tensors (q/k/v and the output), f32 gate, rope tables, LN affine and the
+    variant's initial state."""
     L = NC * CS
-    return 4 * B * L * H * F * 2 + B * H * L * 4 + 2 * L * F * 4 + 2 * H * F * 4 + H * (8 * F * F + 5 * F) * 4
+    return bf16_tensors * B * L * H * F * 2 + B * H * L * 4 + 2 * L * F * 4 + 2 * H * F * 4 + H * TTT[variant][1](F) * 4
 
 
-def _ttt_flops_per_step(CS, F=64):
-    """Matmul FLOPs of one dual-form TTT-MLP step of one (batch, head)
-    (utils/metrics.py's count): 7 F x 4F products and the CS x CS mixing."""
+def _ttt_flops_per_step(variant, CS, F=64):
+    """Matmul FLOPs of one dual-form step of one (batch, head). ttt_mlp
+    (utils/metrics.py's count): 7 F x 4F products and the CS x CS mixing.
+    ttt_linear: Z1 = XK W, XQ W and the update XK^T G (F x F), attn and
+    attn @ G (CS x CS)."""
+    if variant == "ttt_linear":
+        return 6 * CS * F * F + 4 * CS * CS * F
     return 56 * CS * F * F + 20 * CS * CS * F
+
+
+def _ttt_bwd_flops_per_step(variant, CS, F=64):
+    """The operations the backward (the forward's VJP from its checkpoints)
+    needs a step and head: the forward step once and its VJP; each kernel's
+    re-run of the state update in pass A is its own choice and not counted.
+    ttt_mlp (K2): 40 CS F^2 to advance the state, 16 CS F^2 + 20 CS^2 F for
+    the output, VJP 112 CS F^2 + 40 CS^2 F. ttt_linear (K6): 6 CS F^2 +
+    4 CS^2 F, VJP ten products (dZb1 W^T, XQ^T dZb1, dZb1 Gs^T, A1^T dZb1,
+    Gs dW^T, XK dW, dA1 XK, dA1^T XQ, dZ1 W^T, XK^T dZ1) 12 CS F^2 + 8 CS^2 F."""
+    if variant == "ttt_linear":
+        return 18 * CS * F * F + 12 * CS * CS * F
+    return 168 * CS * F * F + 60 * CS * CS * F
+
+
+def _ttt_module(variant):
+    from ttt_video_dit_torch.ops import ttt_linear_kernel, ttt_mlp_kernel
+
+    return ttt_linear_kernel if variant == "ttt_linear" else ttt_mlp_kernel
+
+
+def _sampling_meta(variant):
+    from ttt_video_dit_torch import sample
+    from ttt_video_dit_torch.models.dit.dit import sequence_metadata
+
+    cfg = sample.model_config(sample.parse_args(sample_args(variant)))
+    return cfg, sequence_metadata(cfg, num_frames=13, latent_height=60, latent_width=90, num_scenes=1,
+                                  text_length=498)
+
+
+def _training_meta(variant):
+    from ttt_video_dit_torch import train
+    from ttt_video_dit_torch.models.dit.dit import sequence_metadata
+
+    cfg = train.model_config(train.parse_args(train_args(variant)))
+    return cfg, sequence_metadata(cfg, num_frames=13, latent_height=60, latent_width=90, num_scenes=1,
+                                  text_length=498)
+
+
+def check_ttt_forward(variant, gen, device) -> dict:
+    """K1 or K5 at the sampling slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables) and ragged."""
+    mod, name = _ttt_module(variant), f"{variant}_forward"
+    kernel, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    cfg, meta = _sampling_meta(variant)
+    CS = cfg.mini_batch_size
+    eta_scale = cfg.ttt_base_lr / 64 / CS
+    for B, H, NC, m in ((2, 48, SEQ // CS, meta), (1, 2, 7, None)):
+        a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS, variant=variant)
+        got = kernel(**a, eta_scale=eta_scale)
+        want, plain_ms = timed(lambda: plain(**a, eta_scale=eta_scale))
+        err = compare(name, got, want)
+        log(f"  {name} B={B} H={H} NC={NC}: max_abs_err {err:.4g} (tol {KERNEL_TOL[name]})")
+        if m is not None:
+            sl = dict(a=a, err=err, plain_ms=plain_ms, NC=NC)
+    ms = cuda_ms(lambda: kernel(**sl["a"], eta_scale=eta_scale), 5)
+    return record(name, f"{name}.cu", TPU + TTT[variant][2][0], sl["err"], ms, sl["plain_ms"],
+                  _ttt_bytes(variant, 2, 48, sl["NC"], CS), 2 * 48 * sl["NC"] * _ttt_flops_per_step(variant, CS))
+
+
+def check_ttt_training(variant, gen, device) -> list[dict]:
+    """K1-train and K2, or K5-train and K6, at the training slice (B=1, 48
+    heads, the TOML's CS and K: ttt_mlp NC=282 at CS=64, K=16, last group 10;
+    ttt_linear NC=1128 at CS=16, K=4; the 3 s training tables) and at a
+    small ragged shape (NC=7, K=3: the last group has one step)."""
+    mod = _ttt_module(variant)
+    fwd, bwd = f"{variant}_forward_train", f"{variant}_backward"
+    fwd_k, bwd_k = getattr(mod, fwd), getattr(mod, bwd)
+    fwd_p, bwd_p = getattr(mod, f"{variant}_forward_plain"), getattr(mod, f"{variant}_backward_plain")
+    state = TTT[variant][0]
+    cfg, meta = _training_meta(variant)
+    K, CS = cfg.scan_checkpoint_group_size, cfg.mini_batch_size
+    eta_scale = cfg.ttt_base_lr / 64 / CS
+    names = tuple(f"{n}_ck" for n in state)
+    gnames = ELEMENTWISE_GRADS + tuple(f"d{n}" for n in state) + ("dln_w", "dln_b")
+    inputs = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")
+    for B, H, NC, KK, m in ((1, 48, SEQ // CS, K, meta), (1, 2, 7, 3, None)):
+        a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS, variant=variant)
+        got = fwd_k(**a, eta_scale=eta_scale, checkpoint_group=KK)
+        want, fwd_plain_ms = timed(lambda: fwd_p(**a, eta_scale=eta_scale, checkpoint_group=KK))
+        out_err = compare(fwd, got[0], want[0])
+        errs = [compare_scaled(fwd, n, g, w) for n, g, w in zip(names, got[1:], want[1:])]
+        log(f"  {fwd} B={B} H={H} NC={NC} K={KK}: out max_abs_err {out_err:.4g}; checkpoints max_abs_err / "
+            "rel L2 " + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(names, errs)))
+        dout = torch.randn(*a["XQ"].shape, generator=gen, device=device).bfloat16()
+        ins = [a[n] for n in inputs]
+        gk = bwd_k(*ins, *want[1:], dout, eta_scale, KK)
+        gp, bwd_plain_ms = timed(lambda: bwd_p(*ins, *want[1:], dout, eta_scale, KK))
+        gerrs = [compare_scaled(bwd, n, g, w) for n, g, w in zip(gnames, gk, gp)]
+        log(f"  {bwd} B={B} H={H} NC={NC} K={KK}: max_abs_err / rel L2 "
+            + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(gnames, gerrs))
+            + f" (tol rel L2 {REL_L2_TOL}; {', '.join(ELEMENTWISE_GRADS)} also elementwise {KERNEL_TOL[bwd]})")
+        for n, g, w in zip(gnames, gk, gp):
+            if n in ELEMENTWISE_GRADS:
+                compare(bwd, g, w, n)
+        if m is not None:
+            sl = dict(a=a, ck=want[1:], dout=dout, err=out_err, gerr=max(e for e, _ in gerrs), NC=NC,
+                      fwd_plain_ms=fwd_plain_ms, bwd_plain_ms=bwd_plain_ms)
+    a, ck, dout, NC = sl["a"], sl["ck"], sl["dout"], sl["NC"]
+    ins = [a[n] for n in inputs]
+    ck_bytes = -(-NC // K) * 48 * TTT[variant][1](64) * 4
+    fwd_ms = cuda_ms(lambda: fwd_k(**a, eta_scale=eta_scale, checkpoint_group=K), 3)
+    bwd_ms = cuda_ms(lambda: bwd_k(*ins, *ck, dout, eta_scale, K), 3)
+    # Backward bytes: q/k/v and dout in, dXQ/dXK/dXV out (bf16), the gate in and d_gate out, the
+    # tables, LN affine, checkpoints and initial-state-sized gradients.
+    return [record(fwd, f"{variant}_forward.cu", TPU + TTT[variant][2][0], sl["err"], fwd_ms, sl["fwd_plain_ms"],
+                   _ttt_bytes(variant, 1, 48, NC, CS) + ck_bytes, 48 * NC * _ttt_flops_per_step(variant, CS)),
+            record(bwd, f"{variant}_backward.cu", TPU + TTT[variant][2][1], sl["gerr"], bwd_ms, sl["bwd_plain_ms"],
+                   _ttt_bytes(variant, 1, 48, NC, CS, bf16_tensors=7) + ck_bytes + NC * CS * 48 * 4,
+                   48 * NC * _ttt_bwd_flops_per_step(variant, CS))]
 
 
 def phase_kernels(device) -> list[dict]:
     import torch.nn.functional as Fn
 
-    from ttt_video_dit_torch import sample, train
-    from ttt_video_dit_torch.models.dit.dit import sequence_metadata
-    from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
+    from ttt_video_dit_torch.ops import attention, convert
 
     t0 = time.perf_counter()
     gen = torch.Generator(device).manual_seed(0)
-    records = []
-    tpu = "ttt_video_dit_tpu/"
-
-    # K1 at the sampling slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables) and ragged.
-    eta_scale = 0.1 / 64 / 16
-    meta = sequence_metadata(sample.model_config(sample.parse_args(SAMPLE_ARGS)), num_frames=13,
-                             latent_height=60, latent_width=90, num_scenes=1, text_length=498)
-    for B, H, NC, m in ((2, 48, 1128, meta), (1, 2, 7, None)):
-        a = _ttt_inputs(B, H, NC, gen, device, m)
-        got = ttt_mlp_kernel.ttt_mlp_forward(**a, eta_scale=eta_scale)
-        want = ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=eta_scale)
-        err = compare("ttt_mlp_forward", got, want)
-        log(f"  ttt_mlp_forward B={B} H={H} NC={NC}: max_abs_err {err:.4g} (tol {KERNEL_TOL['ttt_mlp_forward']})")
-        if NC == 1128:
-            k1 = dict(a=a, err=err)
-    ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**k1["a"], eta_scale=eta_scale), 5)
-    plain_ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward_plain(**k1["a"], eta_scale=eta_scale), 1)
-    records.append(record("ttt_mlp_forward", "ttt_mlp_forward.cu", tpu + "ops/pallas/ttt_forward.py:247", k1["err"],
-                          ms, plain_ms, _ttt_bytes(2, 48, 1128, 16), 2 * 48 * 1128 * _ttt_flops_per_step(16)))
-    del k1
+    records = [check_ttt_forward("ttt_mlp", gen, device)]
 
     # K3 at the sampling slice ([2, 18048, 48, 64], one window per CFG sample) and ragged (3 windows of 417).
     sdpa = lambda q, k, v: Fn.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-    for shape in ((2, 18048, 48, 64), (3, 417, 4, 64)):
+    for shape in ((2, SEQ, 48, 64), (3, 417, 4, 64)):
         q, k, v = (torch.randn(*shape, generator=gen, device=device).mul(2.0).to(torch.bfloat16) for _ in range(3))
-        err = compare("attention_forward", attention.attention(q, k, v), attention.attention_plain(q, k, v))
+        want, plain_ms = timed(lambda: attention.attention_plain(q, k, v))
+        err = compare("attention_forward", attention.attention(q, k, v), want)
         log(f"  attention_forward {list(shape)}: max_abs_err {err:.4g} (tol {KERNEL_TOL['attention_forward']})")
-        if shape[1] == 18048:
-            k3 = dict(qkv=(q, k, v), err=err)
-    BC, S, H, F = 2, 18048, 48, 64
+        if shape[1] == SEQ:
+            k3 = dict(qkv=(q, k, v), err=err, plain_ms=plain_ms)
+    BC, S, H, F = 2, SEQ, 48, 64
     ms = cuda_ms(lambda: attention.attention(*k3["qkv"]), 5)
-    plain_ms = cuda_ms(lambda: attention.attention_plain(*k3["qkv"]), 1)
     lib_ms = cuda_ms(lambda: sdpa(*k3["qkv"]), 5)
-    records.append(record("attention_forward", "attention_forward.cu", tpu + "ops/attention.py:265", k3["err"], ms,
-                          plain_ms, 4 * BC * S * H * F * 2, 4 * BC * H * S * S * F, lib_ms))
+    records.append(record("attention_forward", "attention_forward.cu", TPU + "ops/attention.py:265", k3["err"], ms,
+                          k3["plain_ms"], 4 * BC * S * H * F * 2, 4 * BC * H * S * S * F, lib_ms))
     del k3
-
-    # K1-train and K2 at the training slice (B=1, 48 heads, NC=282 at CS=64, K=16: the last
-    # group has 10 mini-batches; the 3 s training tables) and at a small ragged shape.
-    tcfg = train.model_config(train.parse_args(TRAIN_ARGS))
-    K, CS = tcfg.scan_checkpoint_group_size, tcfg.mini_batch_size
-    eta_scale = tcfg.ttt_base_lr / 64 / CS
-    tmeta = sequence_metadata(tcfg, num_frames=13, latent_height=60, latent_width=90, num_scenes=1, text_length=498)
-    names = ("out", "W1_ck", "b1_ck", "W2_ck", "b2_ck")
-    gnames = ("dXQ", "dXK", "dXV", "d_gate", "dW1", "db1", "dW2", "db2", "dln_w", "dln_b")
-    inputs = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")
-    for B, H, NC, KK, m in ((1, 48, 282, K, tmeta), (1, 2, 5, 2, None)):
-        a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS)
-        got = ttt_mlp_kernel.ttt_mlp_forward_train(**a, eta_scale=eta_scale, checkpoint_group=KK)
-        want = ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=eta_scale, checkpoint_group=KK)
-        out_err = compare("ttt_mlp_forward_train", got[0], want[0])
-        errs = [compare_scaled("ttt_mlp_forward_train", n, g, w) for n, g, w in zip(names[1:], got[1:], want[1:])]
-        log(f"  ttt_mlp_forward_train B={B} H={H} NC={NC} K={KK}: out max_abs_err {out_err:.4g}; "
-            "checkpoints max_abs_err / rel L2 " + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(names[1:], errs)))
-        dout = torch.randn(*a["XQ"].shape, generator=gen, device=device).bfloat16()
-        ins = [a[n] for n in inputs]
-        gk = ttt_mlp_kernel.ttt_mlp_backward(*ins, *want[1:], dout, eta_scale, KK)
-        gp = ttt_mlp_kernel.ttt_mlp_backward_plain(*ins, *want[1:], dout, eta_scale, KK)
-        gerrs = [compare_scaled("ttt_mlp_backward", n, g, w) for n, g, w in zip(gnames, gk, gp)]
-        log(f"  ttt_mlp_backward B={B} H={H} NC={NC} K={KK}: max_abs_err / rel L2 "
-            + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(gnames, gerrs))
-            + f" (tol rel L2 {REL_L2_TOL}; {', '.join(K2_ELEMENTWISE)} also elementwise {KERNEL_TOL['ttt_mlp_backward']})")
-        for n, g, w in zip(gnames, gk, gp):
-            if n in K2_ELEMENTWISE:
-                compare("ttt_mlp_backward", g, w, n)
-        if NC == 282:
-            k12 = dict(a=a, ck=want[1:], dout=dout, err=out_err, gerr=max(e for e, _ in gerrs))
-    a, ck, dout = k12["a"], k12["ck"], k12["dout"]
-    ins = [a[n] for n in inputs]
-    NG = -(-282 // K)
-    ck_bytes = NG * 48 * (8 * 64 * 64 + 5 * 64) * 4
-    ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward_train(**a, eta_scale=eta_scale, checkpoint_group=K), 3)
-    plain_ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=eta_scale, checkpoint_group=K), 1)
-    records.append(record("ttt_mlp_forward_train", "ttt_mlp_forward.cu", tpu + "ops/pallas/ttt_forward.py:247",
-                          k12["err"], ms, plain_ms, _ttt_bytes(1, 48, 282, CS) + ck_bytes,
-                          48 * 282 * _ttt_flops_per_step(CS)))
-    ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward(*ins, *ck, dout, eta_scale, K), 3)
-    plain_ms = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward_plain(*ins, *ck, dout, eta_scale, K), 1)
-    # K2's operations, those the function (K1's VJP from the checkpoints) needs a step and head: the
-    # forward step once (40 CS F^2 to advance the state, 16 CS F^2 + 20 CS^2 F for the output) and
-    # its VJP (112 CS F^2 + 40 CS^2 F); the kernel's second pass over the state products is its own
-    # choice and not counted. Bytes: K1's inputs, dout and the checkpoints in, the input gradients
-    # (bf16 q/k/v, f32 gate) and the state and LN gradients out.
-    k2_flops = 48 * 282 * (168 * CS * 64 * 64 + 60 * CS * CS * 64)
-    k2_bytes = _ttt_bytes(1, 48, 282, CS) + 2 * 18048 * 3072 * 2 + ck_bytes + 18048 * 48 * 4
-    records.append(record("ttt_mlp_backward", "ttt_mlp_backward.cu", tpu + "ops/pallas/ttt_backward.py:165",
-                          k12["gerr"], ms, plain_ms, k2_bytes, k2_flops))
-    del k12, a, ck, dout, ins
+    records += check_ttt_training("ttt_mlp", gen, device)
 
     # K3 with the log-sum-exp at the training slice ([1, 18048, 48, 64]) and K4 there and ragged,
     # unit-variance inputs: the model's q and k come out of a LayerNorm.
-    for shape in ((1, 18048, 48, 64), (3, 417, 4, 64)):
+    for shape in ((1, SEQ, 48, 64), (3, 417, 4, 64)):
         q, k, v, do = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
         out, lse = attention.attention_with_lse(q, k, v)
-        want_out, want_lse = attention.attention_plain(q, k, v, return_lse=True)
+        (want_out, want_lse), fwd_plain_ms = timed(lambda: attention.attention_plain(q, k, v, return_lse=True))
         err3 = compare("attention_forward_lse", out, want_out)
         lse_err = float((lse - want_lse).abs().max())
         if not lse_err <= LSE_ATOL:
             raise AssertionError(f"attention_forward_lse: lse max_abs_err {lse_err:.4g} > {LSE_ATOL}")
         got = attention.attention_backward(q, k, v, out, lse, do)
-        want = attention.attention_backward_plain(q, k, v, out, lse, do)
+        want, bwd_plain_ms = timed(lambda: attention.attention_backward_plain(q, k, v, out, lse, do))
         err4 = max(compare("attention_backward", g, w) for g, w in zip(got, want))
         log(f"  attention_forward_lse {list(shape)}: max_abs_err out {err3:.4g}, lse {lse_err:.4g}; "
             f"attention_backward: max_abs_err {err4:.4g} (tol {KERNEL_TOL['attention_backward']})")
-        if shape[1] == 18048:
-            k4 = dict(args=(q, k, v, out, lse, do), err3=err3, err4=err4)
+        if shape[1] == SEQ:
+            k4 = dict(args=(q, k, v, out, lse, do), err3=err3, err4=err4, fwd_plain_ms=fwd_plain_ms,
+                      bwd_plain_ms=bwd_plain_ms)
     q, k, v, out, lse, do = k4["args"]
-    BC, S, H, F = 1, 18048, 48, 64
+    BC = 1
     ms = cuda_ms(lambda: attention.attention_with_lse(q, k, v), 5)
-    plain_ms = cuda_ms(lambda: attention.attention_plain(q, k, v, return_lse=True), 1)
     lib_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
-    records.append(record("attention_forward_lse", "attention_forward.cu", tpu + "ops/attention.py:265", k4["err3"],
-                          ms, plain_ms, 4 * BC * S * H * F * 2 + BC * H * S * 4, 4 * BC * H * S * S * F, lib_ms))
+    records.append(record("attention_forward_lse", "attention_forward.cu", TPU + "ops/attention.py:265", k4["err3"],
+                          ms, k4["fwd_plain_ms"], 4 * BC * S * H * F * 2 + BC * H * S * 4, 4 * BC * H * S * S * F,
+                          lib_ms))
     ms = cuda_ms(lambda: attention.attention_backward(q, k, v, out, lse, do), 3)
-    plain_ms = cuda_ms(lambda: attention.attention_backward_plain(q, k, v, out, lse, do), 1)
     ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
     lib_out = Fn.scaled_dot_product_attention(ql, kl, vl)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do.transpose(1, 2), retain_graph=True), 3)
     # The function needs 5 S x S x F products per window and head (Q K^T, dO V^T, P^T dO, dS^T Q,
     # dS K); the kernel's recompute of the first two in its second kernel is not counted.
-    records.append(record("attention_backward", "attention_backward.cu", tpu + "ops/attention.py:326", k4["err4"],
-                          ms, plain_ms, 5 * BC * S * H * F * 2 + BC * H * S * 4 + 3 * BC * S * H * F * 2,
+    records.append(record("attention_backward", "attention_backward.cu", TPU + "ops/attention.py:326", k4["err4"],
+                          ms, k4["bwd_plain_ms"], 5 * BC * S * H * F * 2 + BC * H * S * 4 + 3 * BC * S * H * F * 2,
                           5 * 2 * BC * H * S * S * F, lib_ms))
     del k4, q, k, v, out, lse, do, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
+
+    records.append(check_ttt_forward("ttt_linear", gen, device))
+    records += check_ttt_training("ttt_linear", gen, device)
+    torch.cuda.empty_cache()
+
+    # K7 on a [12288, 3072] float32 weight (the MLP's layer2, [out, in]) and on a ragged size; the
+    # first elements are ties, subnormals, signed zeros, +-inf, NaN and values past the bf16 maximum.
+    special = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 3.4e38, -3.39e38, 1e-40, -1e-45, 1.00390625,
+                            1.01171875, -1.00390625, 3.0e-39], device=device)
+    for shape in ((12288, 3072), (7, 5)):
+        w = torch.randn(*shape, generator=gen, device=device) * 0.02
+        w.view(-1)[: min(special.numel(), w.numel())] = special[: w.numel()]
+        got = convert.convert_f32_bf16(w)
+        want, plain_ms = timed(lambda: convert.convert_f32_bf16_plain(w))
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            raise AssertionError(f"convert_f32_bf16 {list(shape)}: {bad} elements differ from .to(torch.bfloat16)")
+        log(f"  convert_f32_bf16 {list(shape)}: bit-identical to .to(torch.bfloat16)")
+        if shape[0] == 12288:
+            k7 = dict(w=w, plain_ms=plain_ms)
+    w = k7["w"]
+    ms = cuda_ms(lambda: convert.convert_f32_bf16(w), 20)
+    lib_ms = cuda_ms(lambda: w.to(torch.bfloat16), 20)
+    # Bound: 4 bytes read and 2 written an element, one conversion an element (bytes bound it);
+    # max_abs_err 0: the check above is bit-for-bit.
+    records.append(record("convert_f32_bf16", "convert.cu", TPU + "ops/pallas/convert.py:45", 0.0, ms, k7["plain_ms"],
+                          6 * w.numel(), w.numel(), lib_ms))
+    del k7, w
     torch.cuda.empty_cache()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
     return records
 
 
-def phase_dit(device) -> None:
+def phase_dit(device, variant) -> None:
     from ttt_video_dit_torch.sample import build_model, model_config, parse_args
 
     t0 = time.perf_counter()
-    cfg = model_config(parse_args(SAMPLE_ARGS + ["--model.num_layers", "2"]))
+    cfg = model_config(parse_args(sample_args(variant) + ["--model.num_layers", "2"]))
     model = build_model(cfg, device, seed=1)
     gen = torch.Generator(device).manual_seed(2)
     video = torch.randn(2, 13, 16, 60, 90, generator=gen, device=device)
@@ -360,32 +473,37 @@ def phase_dit(device) -> None:
             outs[use_kernel] = model.dit(video.to(torch.bfloat16), text, timesteps).float()
     ref, got = outs[False], outs[True]
     if not torch.isfinite(got).all():
-        raise AssertionError("DiT kernel-path output has non-finite values")
+        raise AssertionError(f"{variant} DiT kernel-path output has non-finite values")
     rel = float((got - ref).norm() / ref.norm())
     if rel > DIT_REL_L2_TOL:
-        raise AssertionError(f"DiT kernel path vs plain path: relative L2 error {rel:.4g} > {DIT_REL_L2_TOL}")
-    log(f"phase 3 DiT d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, kernel vs plain: "
+        raise AssertionError(f"{variant} DiT kernel path vs plain path: relative L2 error {rel:.4g} > {DIT_REL_L2_TOL}")
+    log(f"phase 3 {variant} DiT d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, kernel vs plain: "
         f"rel L2 {rel:.4g} (tol {DIT_REL_L2_TOL}), max_abs_err {float((got - ref).abs().max()):.4g}: "
         f"{time.perf_counter() - t0:.1f} s")
     del model
 
 
 def reset_counts() -> None:
-    from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
+    from ttt_video_dit_torch.ops import attention, convert, ttt_linear_kernel, ttt_mlp_kernel
 
     ttt_mlp_kernel.launches = ttt_mlp_kernel.train_launches = ttt_mlp_kernel.bwd_launches = 0
+    ttt_linear_kernel.launches = ttt_linear_kernel.train_launches = ttt_linear_kernel.bwd_launches = 0
     attention.launches = attention.lse_launches = attention.bwd_launches = 0
+    convert.launches = 0
 
 
 def read_counts() -> dict[str, int]:
-    from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
+    from ttt_video_dit_torch.ops import attention, convert, ttt_linear_kernel, ttt_mlp_kernel
 
     return {"ttt_mlp_forward": ttt_mlp_kernel.launches, "ttt_mlp_forward_train": ttt_mlp_kernel.train_launches,
-            "ttt_mlp_backward": ttt_mlp_kernel.bwd_launches, "attention_forward": attention.launches,
-            "attention_forward_lse": attention.lse_launches, "attention_backward": attention.bwd_launches}
+            "ttt_mlp_backward": ttt_mlp_kernel.bwd_launches, "ttt_linear_forward": ttt_linear_kernel.launches,
+            "ttt_linear_forward_train": ttt_linear_kernel.train_launches,
+            "ttt_linear_backward": ttt_linear_kernel.bwd_launches, "attention_forward": attention.launches,
+            "attention_forward_lse": attention.lse_launches, "attention_backward": attention.bwd_launches,
+            "convert_f32_bf16": convert.launches}
 
 
-def phase_sample(device) -> dict[str, int]:
+def phase_sample(device, variant) -> dict[str, int]:
     import numpy as np
 
     from ttt_video_dit_torch import sample
@@ -393,7 +511,7 @@ def phase_sample(device) -> dict[str, int]:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    job = sample.parse_args(SAMPLE_ARGS)
+    job = sample.parse_args(sample_args(variant))
     reset_counts()
     summary = sample.main(job)
     counts = read_counts()
@@ -401,27 +519,29 @@ def phase_sample(device) -> dict[str, int]:
     evals = len(summary["eval_seconds"])
     if summary["device"].split(":")[0] != "cuda":
         raise AssertionError(f"sampling ran on {summary['device']}, not the card")
-    expect = {"ttt_mlp_forward": 2 * cfg.num_layers * evals, "attention_forward": cfg.num_layers * evals}
+    # Per eval and layer: the TTT scan once per direction, attention once.
+    expect = {f"{variant}_forward": 2 * cfg.num_layers * evals, "attention_forward": cfg.num_layers * evals}
     if counts != {**dict.fromkeys(counts, 0), **expect}:
         raise AssertionError(f"kernel launches {counts} do not match {cfg.num_layers} layers x {evals} evals")
     latents = np.load(summary["latents"][0])
     if latents.shape != (13, 16, 60, 90) or not np.isfinite(latents).all():
         raise AssertionError(f"latents {latents.shape} not finite of shape (13, 16, 60, 90)")
     steady = summary["eval_seconds"][1:] or summary["eval_seconds"]
-    log(f"phase 4 sample d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, {evals} evals: "
+    log(f"phase 4 {variant} sample d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, {evals} evals: "
         f"{sum(steady) / len(steady):.3f} s/eval after the first ({summary['eval_seconds'][0]:.3f} s first), "
-        f"peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB, launches {counts}, "
-        f"latents finite, std {float(latents.std()):.4f}: {time.perf_counter() - t0:.1f} s")
+        f"peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, latents finite, std {float(latents.std()):.4f}: "
+        f"{time.perf_counter() - t0:.1f} s")
     return counts
 
 
-def phase_grad(device) -> None:
+def phase_grad(device, variant) -> None:
     """Loss + backward of a full-width 2-layer DiT (3 s train config), kernel
     path against the plain path, same weights, batch and draws."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
-    job = train.parse_args(TRAIN_ARGS)
+    job = train.parse_args(train_args(variant))
     cfg = train.model_config(job)
     cfg.num_layers = 2
     model = train.build_model(cfg, device, seed=3)
@@ -447,8 +567,8 @@ def phase_grad(device) -> None:
             raise AssertionError(f"gradient of {n} has non-finite values on the kernel path")
         rels[n] = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
     worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
-    log(f"phase 5 training gradients d{cfg.model_dim} x {cfg.num_heads} heads x 2 layers, kernel vs plain: loss "
-        f"{loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3g}, tol {GRAD_REL_L2_TOL['loss']}); gradient rel L2 over "
+    log(f"phase 5 {variant} training gradients d{cfg.model_dim} x {cfg.num_heads} heads x 2 layers, kernel vs plain: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3g}, tol {GRAD_REL_L2_TOL['loss']}); gradient rel L2 over "
         f"{len(rels)} parameters: median {sorted(rels.values())[len(rels) // 2]:.3g}, worst "
         + ", ".join(f"{n} {r:.3g}" for n, r in worst) + f" (tol {GRAD_REL_L2_TOL['grad']}): "
         f"{time.perf_counter() - t0:.1f} s")
@@ -463,8 +583,9 @@ def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
     value in ``fresh`` more than DECAY_MARGIN times as far as weight decay
     alone would have moved it over ``steps`` steps (for a tensor without
     weight decay: at all). Only a tensor whose last gradient is all zero may
-    stay (it is named), and never one whose gradient K2 writes. Returns the
-    count of tensors that moved and the names of those excused."""
+    stay (it is named), and never one of the TTT state and norm that K2 or K6
+    trains. Returns the count of tensors that moved and the names of those
+    excused."""
     from ttt_video_dit_torch.training.optimizer import flax_path
 
     lr_sum = {g: sum(optimizer.learning_rates(t)[g] for t in range(steps)) for g in optimizer.schedules}
@@ -478,7 +599,7 @@ def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
         moved = float((p.detach().float() - p0).norm())
         decay_only = lr_sum[label] * optimizer.weight_decay[label] * float(p0.norm())
         if p.grad is None or not bool(p.grad.any()):
-            if name.endswith(K2_PARAMETERS):
+            if name.endswith(TTT_STATE_PARAMETERS):
                 stuck.append(f"{name}: zero gradient")
             idle.append(name)
         elif moved > DECAY_MARGIN * decay_only:
@@ -490,13 +611,13 @@ def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
     return trained, idle
 
 
-def phase_train(device) -> dict[str, int]:
+def phase_train(device, variant) -> dict[str, int]:
     """The training entry, 4 layers x 3 steps at full width, on the card."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    job = train.parse_args(TRAIN_ARGS)
+    job = train.parse_args(train_args(variant))
     reset_counts()
     summary = train.main(job)
     counts = read_counts()
@@ -505,24 +626,30 @@ def phase_train(device) -> dict[str, int]:
         raise AssertionError(f"training ran on {summary['device']}, not the card")
     if steps != 3 or not all(map(math.isfinite, summary["losses"] + summary["grad_norms"])):
         raise AssertionError(f"losses {summary['losses']} / grad norms {summary['grad_norms']} not 3 finite steps")
-    # Per step and layer: K1-train twice per TTT direction (the forward, and its re-run under the
-    # per-layer recompute), K2 once per direction; K3 with the log-sum-exp twice, K4 once.
+    # Per step and layer: the training TTT forward twice per direction (the forward, and its re-run
+    # under the per-layer recompute), its backward once per direction; K3 with the log-sum-exp twice,
+    # K4 once; with scan_layers, K7 once per 2-D layer weight and forward, twice over (recompute):
+    # adaLN x 2, attention q/k/v/o, MLP x 2, and the TTT wq/wk/wv/wo once per direction = 16.
     L = cfg.num_layers
-    expect = {"ttt_mlp_forward_train": 4 * L * steps, "ttt_mlp_backward": 2 * L * steps,
+    expect = {f"{variant}_forward_train": 4 * L * steps, f"{variant}_backward": 2 * L * steps,
               "attention_forward_lse": 2 * L * steps, "attention_backward": L * steps}
+    if cfg.scan_layers:
+        expect["convert_f32_bf16"] = 2 * 16 * L * steps
     if counts != {**dict.fromkeys(counts, 0), **expect}:
         raise AssertionError(f"kernel launches {counts} do not match {L} layers x {steps} steps: {expect}")
     fresh = train.build_model(cfg, torch.device(device), job.job.seed)
     trained, idle = check_trained(summary["model"], fresh, summary["optimizer"], steps)
+    frozen = sum(1 for p in summary["model"].parameters() if not p.requires_grad)
     steady = summary["step_seconds"][1:]
     mfu = [m for m in summary["mfu"][1:]]
-    log(f"phase 6 train d{cfg.model_dim} x {cfg.num_heads} heads x {L} layers, CS {cfg.mini_batch_size}, K "
-        f"{cfg.scan_checkpoint_group_size}, {steps} steps: {sum(steady) / len(steady):.3f} s/step after the first "
-        f"({summary['step_seconds'][0]:.3f} s first), MFU {100 * sum(mfu) / len(mfu):.2f} % after the first, "
-        f"peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB, losses {[round(x, 5) for x in summary['losses']]}, "
-        f"grad norms {[round(x, 5) for x in summary['grad_norms']]}, {trained} parameter tensors moved more than "
-        f"{DECAY_MARGIN:g}x weight decay alone, zero last gradient (not required to move): {idle or 'none'}, "
-        f"launches {counts}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 6 {variant} train d{cfg.model_dim} x {cfg.num_heads} heads x {L} layers, CS {cfg.mini_batch_size}, "
+        f"K {cfg.scan_checkpoint_group_size}, adapter {cfg.adapter_method}, {steps} steps: "
+        f"{sum(steady) / len(steady):.3f} s/step after the first ({summary['step_seconds'][0]:.3f} s first), MFU "
+        f"{100 * sum(mfu) / len(mfu):.2f} % after the first, peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB, "
+        f"losses {[round(x, 5) for x in summary['losses']]}, grad norms {[round(x, 5) for x in summary['grad_norms']]}, "
+        f"{trained} trainable parameter tensors moved more than {DECAY_MARGIN:g}x weight decay alone ({frozen} "
+        f"frozen), zero last gradient (not required to move): {idle or 'none'}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }: {time.perf_counter() - t0:.1f} s")
     del summary, fresh
     return counts
 
@@ -542,14 +669,18 @@ def main() -> int:
     log_clocks("before the kernels")
     records = phase_kernels(device)
     log_clocks("after the kernels")
-    phase_dit(device)
-    counts = phase_sample(device)
-    log_clocks("after sampling")
-    phase_grad(device)
-    counts.update({k: v for k, v in phase_train(device).items() if v})
-    log_clocks("after training")
+    counts = Counter()
+    for variant in VARIANTS:
+        phase_dit(device, variant)
+        counts.update(phase_sample(device, variant))
+        log_clocks(f"after {variant} sampling")
+        phase_grad(device, variant)
+        counts.update(phase_train(device, variant))
+        log_clocks(f"after {variant} training")
     for r in records:
         r["launches"] = counts[r["name"]]
+        if not r["launches"]:
+            raise AssertionError(f"kernel {r['name']} was not launched on the main path")
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
 """Where one denoise eval of the PyTorch port spends its time on a CUDA card.
 
-Builds the 3 s sampling model (configs/eval/ttt-mlp/3s.toml, random weights),
-runs one warm-up CFG-doubled denoise eval, then one eval under torch.profiler,
-and prints the eval's wall time, the summed device-kernel time (kernels run
-on one stream, so the sum is the busy time), the idle share, the time per
-kernel family and the top kernels.
+Builds the 3 s sampling model (configs/eval/ttt-mlp/3s.toml, or the TOML
+given with --job.config_file, e.g. configs/eval/ttt-linear/3s.toml; random
+weights), runs one warm-up CFG-doubled denoise eval, then one eval under
+torch.profiler, and prints the eval's wall time, the summed device-kernel
+time (kernels run on one stream, so the sum is the busy time), the idle
+share, the time per kernel family and the top kernels.
 
-    python scripts/profile_torch_denoise.py
+    python scripts/profile_torch_denoise.py [--job.config_file TOML]
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FAMILIES = (
     ("ttt_mlp_forward (K1)", ("ttt_mlp_fwd",)),
+    ("ttt_linear_forward (K5)", ("ttt_linear_fwd",)),
     ("attention_forward (K3)", ("attention_fwd",)),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("conv (cuDNN)", ("conv", "cudnn")),
@@ -35,14 +37,14 @@ def family(name: str) -> str:
     return "elementwise / reduction / copy"
 
 
-def main() -> None:
+def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
 
     from ttt_video_dit_torch.models.dit import sampler as S
     from ttt_video_dit_torch.sample import build_model, model_config, parse_args
 
-    job = parse_args(["--job.config_file", "configs/eval/ttt-mlp/3s.toml"])
+    job = parse_args(argv if "--job.config_file" in argv else ["--job.config_file", "configs/eval/ttt-mlp/3s.toml"] + argv)
     cfg = model_config(job)
     device = torch.device("cuda", 0)
     model = build_model(cfg, device)
@@ -68,7 +70,7 @@ def main() -> None:
             k[0] += 1
             k[1] += (evt.time_range.end - evt.time_range.start) / 1e6
     busy = sum(t for _, t in kernels.values())
-    print(f"d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, CFG batch 2: "
+    print(f"{cfg.ssm_layer} d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, CFG batch 2: "
           f"eval wall {wall:.4f} s, device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}")
     fams = {}
     for name, (n, t) in kernels.items():
@@ -83,4 +85,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,13 +1,14 @@
 """Where one training step of the PyTorch port spends its time on a CUDA card.
 
-Builds the 3 s training model (configs/train/ttt-mlp/3s.toml at full width,
-cut to 4 layers as chip_smoke.py runs it; random weights, synthetic batch of
-1), takes one warm-up step, then one step under torch.profiler, and prints
-the step's wall time, the summed device-kernel time (kernels run on one
-stream, so the sum is the busy time), the idle share, the time per kernel
-family and the top kernels.
+Builds the 3 s training model (configs/train/ttt-mlp/3s.toml, or the TOML
+given with --job.config_file, e.g. configs/train/ttt-linear/3s.toml; full
+width, cut to 4 layers as chip_smoke.py runs it; random weights, synthetic
+batch of 1), takes one warm-up step, then one step under torch.profiler, and
+prints the step's wall time, the summed device-kernel time (kernels run on
+one stream, so the sum is the busy time), the idle share, the time per
+kernel family and the top kernels.
 
-    python scripts/profile_torch_train.py [--model.num_layers N]
+    python scripts/profile_torch_train.py [--job.config_file TOML] [--model.num_layers N]
 """
 
 from __future__ import annotations
@@ -23,14 +24,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FAMILIES = (
     ("ttt_mlp_forward_train (K1-train)", ("ttt_mlp_fwd_train",)),
     ("ttt_mlp_backward (K2)", ("ttt_mlp_bwd",)),
+    ("ttt_linear_forward_train (K5-train)", ("ttt_linear_fwd",)),
+    ("ttt_linear_backward (K6)", ("ttt_linear_bwd",)),
+    ("convert_f32_bf16 (K7)", ("convert_kernel",)),
     ("attention_forward_lse (K3)", ("attention_fwd",)),
     ("attention_backward (K4)", ("attn_bwd",)),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("conv (cuDNN)", ("conv", "cudnn")),
 )
 TRAIN_ARGS = [
-    "--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "4", "--training.steps", "2",
-    "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
+    "--model.num_layers", "4", "--training.steps", "2", "--training.global_batch_size", "1",
+    "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
 ]
 
 
@@ -51,11 +55,12 @@ def main(argv) -> None:
     from ttt_video_dit_torch.training.setup import make_example_batch
     from ttt_video_dit_torch.training.train_step import train_step
 
-    job = train.parse_args(TRAIN_ARGS + argv)
+    toml = [] if "--job.config_file" in argv else ["--job.config_file", "configs/train/ttt-mlp/3s.toml"]
+    job = train.parse_args(toml + TRAIN_ARGS + argv)
     cfg = train.model_config(job)
     device = torch.device("cuda", 0)
     model = train.build_model(cfg, device, seed=0)
-    opt = build_optimizer_from_config(model, job)
+    opt = build_optimizer_from_config(model, job, cfg.adapter_method)
     batch = make_example_batch(cfg, 1, train.synthetic_text_length(cfg), seed=0, device=device)
     gen = torch.Generator(device).manual_seed(1)
     step = lambda: train_step(model, opt, batch, generator=gen)
@@ -76,7 +81,7 @@ def main(argv) -> None:
             k[0] += 1
             k[1] += (evt.time_range.end - evt.time_range.start) / 1e6
     busy = sum(t for _, t in kernels.values())
-    print(f"train step d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, batch 1, L "
+    print(f"train step {cfg.ssm_layer} d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, batch 1, L "
           f"{cfg.num_chunks * train.synthetic_text_length(cfg) + cfg.compressed_num_frames * cfg.tokens_per_frame}: "
           f"step wall {wall:.4f} s, device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}")
     fams = {}

@@ -10,14 +10,15 @@ Tolerance, elementwise on the bf16 outputs: |kernel - plain| <= 2e-2 + 2e-2 * |p
 summation order differs, and attention rounds P, and in the backward dS, to
 bf16 as operands). The training kernels' float32 outputs (state
 checkpoints, gradients) are held by their relative L2 error and by their
-largest error against a share of their scale, stated per test.
+largest error against a share of their scale, stated per test. The
+weight conversion (K7) must be bit-identical to ``.to(torch.bfloat16)``.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel  # noqa: E402
+from ttt_video_dit_torch.ops import attention, convert, ttt_linear_kernel, ttt_mlp_kernel  # noqa: E402
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -145,6 +146,71 @@ def test_attention_lse_and_backward_kernels_match_plain(cuda, shape):
         _close(g, w)
 
 
+def _linear_inputs(cuda, B, H, NC, seed):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    CS, F = 16, 64
+    randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=cuda) * std
+    angles = torch.rand(NC, CS, F // 2, generator=gen, device=cuda) * 6.3
+    return dict(
+        XQ=randn(B, NC, CS, H * F).bfloat16(), XK=randn(B, NC, CS, H * F).bfloat16(),
+        XV=randn(B, NC, CS, H * F).bfloat16(), gate=randn(B, H, NC, CS),
+        rope_cos=torch.cos(angles).repeat_interleave(2, -1).contiguous(),
+        rope_sin=torch.sin(angles).repeat_interleave(2, -1).contiguous(),
+        ln_w=1 + randn(H, F, std=0.1), ln_b=randn(H, F, std=0.1),
+        W1=randn(H, F, F, std=0.02), b1=randn(H, 1, F, std=0.02),
+    ), randn
+
+
+@pytest.mark.parametrize("B,H,NC,K", [(2, 3, 9, 4), (1, 2, 5, 2), (1, 2, 3, 16)])
+def test_ttt_linear_kernels_match_plain(cuda, B, H, NC, K):
+    """K5 for sampling (output elementwise), K5 for training (output
+    elementwise; fp32 checkpoints within 1e-2 relative L2 and 1e-3 of their
+    scale) and K6 (every gradient within 1e-2 relative L2 and 1e-2 of its
+    scale; dXQ/dXK/dXV/d_gate also elementwise) against their plain versions,
+    with a ragged last checkpoint group where K does not divide NC."""
+    a, randn = _linear_inputs(cuda, B, H, NC, seed=4)
+    scale = 1.0 / 64 / 16
+    before = (ttt_linear_kernel.launches, ttt_linear_kernel.train_launches, ttt_linear_kernel.bwd_launches)
+    _close(ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=scale),
+           ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=scale))
+    got = ttt_linear_kernel.ttt_linear_forward_train(**a, eta_scale=scale, checkpoint_group=K)
+    want = ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=scale, checkpoint_group=K)
+    _close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        _scaled(g, w, 1e-3)
+    dout = randn(*a["XQ"].shape).bfloat16()
+    ins = [a[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    grads = ttt_linear_kernel.ttt_linear_backward(*ins, *want[1:], dout, scale, K)
+    torch.cuda.synchronize()
+    after = (ttt_linear_kernel.launches, ttt_linear_kernel.train_launches, ttt_linear_kernel.bwd_launches)
+    assert after == tuple(x + 1 for x in before)
+    plain = ttt_linear_kernel.ttt_linear_backward_plain(*ins, *want[1:], dout, scale, K)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        _scaled(g, w, 1e-2)
+        if i < 4:  # dXQ, dXK, dXV, d_gate
+            _close(g, w)
+
+
+SPECIAL = [0.0, -0.0, float("inf"), float("-inf"), float("nan"), 3.4e38, -3.39e38, 1e-40, -1e-45, 1.00390625,
+           1.01171875, -1.00390625, 3.0e-39]
+
+
+@pytest.mark.parametrize("shape", [(3072, 512), (5, 7), (1, 13)])
+def test_convert_kernel_is_bit_identical(cuda, shape):
+    """K7 against .to(torch.bfloat16), bit for bit (int16 views): random
+    values and, at the front, ties, subnormals, signed zeros, +-inf, NaN and
+    values past the bf16 maximum; sizes with and without a ragged tail."""
+    gen = torch.Generator(cuda).manual_seed(5)
+    x = torch.randn(*shape, generator=gen, device=cuda) * 100
+    n = min(len(SPECIAL), x.numel())
+    x.view(-1)[:n] = torch.tensor(SPECIAL[:n], device=cuda)
+    before = convert.launches
+    got = convert.convert_f32_bf16(x)
+    torch.cuda.synchronize()
+    assert convert.launches == before + 1 and got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got.view(torch.int16), convert.convert_f32_bf16_plain(x).view(torch.int16))
+
+
 def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     q = torch.zeros(2, 64, 3, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -159,3 +225,12 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ttt_mlp_kernel.ttt_mlp_forward_train(x, x, x, z(1, 2, 2, 16), z(2, 16, 64), z(2, 16, 64), z(2, 64), z(2, 64),
                                              z(2, 64, 256), z(2, 1, 256), z(2, 256, 64), z(2, 1, 64), 1e-3, 2)
+    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6)
+    a["W1"] = torch.zeros(2, 64, 256, device=cuda)  # a TTT-MLP state
+    with pytest.raises(ValueError):
+        ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=1e-3)
+    w = torch.zeros(64, 32, device=cuda)
+    with pytest.raises(ValueError):
+        convert.convert_f32_bf16(w.t())  # not contiguous
+    with pytest.raises(ValueError):
+        convert.convert_f32_bf16(w.double())

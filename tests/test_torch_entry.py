@@ -51,6 +51,7 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     assert "ttt_video_dit_torch.sample" in modules and "ttt_video_dit_torch.ops.ttt_mlp_kernel" in modules
+    assert "ttt_video_dit_torch.ops.ttt_linear_kernel" in modules and "ttt_video_dit_torch.ops.convert" in modules
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -86,10 +87,14 @@ TRAIN_ARGS = ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num
               "--training.steps", "3", "--parallelism.dp_sharding", "1", "--remat.scan_checkpoint_group_size", "8"]
 EVAL_ARGS = ["--job.config_file", "configs/eval/ttt-mlp/3s.toml", "--eval.input_file", "inputs/example.json",
              "--model.num_heads", "2", "--eval.txt_maxlen", "16"]
+LINEAR_TRAIN_ARGS = ["--job.config_file", "configs/train/ttt-linear/3s.toml", "--model.num_layers", "4"]
+LINEAR_EVAL_ARGS = ["--job.config_file", "configs/eval/ttt-linear/3s.toml", "--eval.input_file", "inputs/example.json"]
 
 
-@pytest.mark.parametrize("argv,eval_mode", [(TRAIN_ARGS, False), (EVAL_ARGS, True), ([], False)],
-                         ids=["train_toml_and_flags", "eval_toml_and_flags", "defaults"])
+@pytest.mark.parametrize("argv,eval_mode", [(TRAIN_ARGS, False), (EVAL_ARGS, True), ([], False),
+                                            (LINEAR_TRAIN_ARGS, False), (LINEAR_EVAL_ARGS, True)],
+                         ids=["train_toml_and_flags", "eval_toml_and_flags", "defaults", "linear_train_toml",
+                              "linear_eval_toml"])
 def test_config_copies_match_the_jax_package(monkeypatch, argv, eval_mode):
     """The port's JobConfig and ModelConfig copies give the JAX package's
     dataclass fields for the same TOML and flags, and the same presets."""

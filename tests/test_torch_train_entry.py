@@ -3,9 +3,9 @@ CPU-only host, and the pieces around the train step that need no JAX draws:
 the entry runs at a tiny size when the CPU is asked for, raises without a
 card otherwise, and refuses each flag whose feature is not ported; text
 dropout zeroes whole samples; a model trains after sampling in one process;
-convert.py carries a training-config flax tree (scan_layers = false) onto the
-port's model, so the JAX and port train steps can start from the same
-weights.
+convert.py carries a training-config flax tree (the TOMLs' scan_layers =
+true: layers stacked, unstacked by the converter) onto the port's unrolled
+model, so the JAX and port train steps can start from the same weights.
 """
 
 import dataclasses
@@ -102,21 +102,39 @@ def test_training_after_sampling_in_one_process():
     assert torch.isfinite(loss) and all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
 
 
-def test_convert_maps_a_training_config_tree(monkeypatch):
-    """convert.py carries every leaf of a training-config flax tree (the 3 s
-    train TOML at tiny width, scan_layers = false, as JAX's init_params builds
-    it) onto the port's model from the same flags: strict load, equal values."""
-    monkeypatch.chdir(REPO)
+def _check_training_config_tree(argv):
     job = JJob()
-    job.parse_args(TINY_TRAIN)
-    jcfg = dataclasses.replace(JModel.get_preset(job.model.size, job.model.video_length, job), scan_layers=False)
-    tcfg = train.model_config(train.parse_args(TINY_TRAIN))
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    job.parse_args(argv)
+    jcfg = JModel.get_preset(job.model.size, job.model.video_length, job)
+    tcfg = train.model_config(train.parse_args(argv))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg) and jcfg.scan_layers
     tl = train.synthetic_text_length(tcfg)
     params = j_setup.init_params(CogVideoX(jcfg), jcfg, None, jax.random.PRNGKey(0), text_length=tl)
+    assert "scan_layers" in params["params"]["dit"]
     port = convert.load_flax_params(TorchCogVideoX(tcfg), jax.tree.map(np.asarray, params))
     sd, flat = port.state_dict(), convert.flax_to_state_dict(jax.tree.map(np.asarray, params))
-    assert len(sd) == len(flat) == len(jax.tree.leaves(params))
+    n_stacked = sum(len(x) for x in jax.tree.leaves(params["params"]["dit"]["scan_layers"]))
+    n_other = len(jax.tree.leaves(params)) - len(jax.tree.leaves(params["params"]["dit"]["scan_layers"]))
+    assert len(sd) == len(flat) == n_stacked + n_other
     for name, value in flat.items():
         np.testing.assert_array_equal(sd[name].numpy(), value.numpy())
     assert any(name.startswith("dit.layers.1.") for name in sd) and not any("scan" in name for name in sd)
+    return sd
+
+
+def test_convert_maps_a_training_config_tree(monkeypatch):
+    """convert.py carries every leaf of a training-config flax tree (the 3 s
+    TTT-MLP train TOML at tiny width, scan_layers = true: each layer leaf
+    stacked over the layers, as JAX's init_params builds it) onto the port's
+    unrolled model from the same flags: strict load, equal values."""
+    monkeypatch.chdir(REPO)
+    _check_training_config_tree(TINY_TRAIN)
+
+
+def test_convert_maps_a_ttt_linear_training_config_tree(monkeypatch):
+    """The same for the 3 s TTT-linear train TOML (W1 [H, F, F], no W2)."""
+    monkeypatch.chdir(REPO)
+    argv = [a.replace("ttt-mlp", "ttt-linear") for a in TINY_TRAIN]
+    argv[argv.index("--model.mini_batch_size") + 1] = "16"
+    sd = _check_training_config_tree(argv)
+    assert sd["dit.layers.1.seq_modeling_block.ssm.W1"].shape == (2, 64, 64)

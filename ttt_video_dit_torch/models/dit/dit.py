@@ -7,8 +7,11 @@ residual stream stays in the compute dtype (bf16 on the GPU), as in flax;
 LayerNorm statistics run in float32. Parameters are float32 masters, cast
 to the compute dtype at each matmul (``Linear``/``Conv2d``), as flax's
 promote_dtype does; sampling casts them once instead
-(:func:`cast_matmul_weights_`). The layers are unrolled (the JAX package's
-``scan_layers = false``); with autograd on, each group of
+(:func:`cast_matmul_weights_`). The layers are always unrolled; with
+``scan_layers`` (the training TOMLs) the JAX package scans them and casts
+their 2-D Dense kernels through a Pallas kernel (K7), and the port casts
+the layer stack's ``Linear`` weights through its CUDA counterpart
+(``Linear.pin``, ops/convert.py). With autograd on, each group of
 ``remat_transformer_layer_group_size`` layers runs under
 ``torch.utils.checkpoint`` (the JAX remat policy "none": the backward
 re-runs the group's forward, kernels included).
@@ -280,6 +283,10 @@ class DiffusionTransformer(nn.Module):
         self.time_embed_2 = Linear(Te, Te)
         self.patch_embedding = PatchEmbedding(config)
         self.layers = nn.ModuleList(TransformerLayer(config) for _ in range(config.num_layers))
+        if config.scan_layers:  # the JAX pin covers the stacked layers' 2-D Dense kernels
+            for m in self.layers.modules():
+                if isinstance(m, Linear):
+                    m.pin = config
         self.transformer_norm = nn.LayerNorm(D, eps=config.layer_norm_eps)
         self.final_layer = FinalLayer(config)
 
@@ -332,9 +339,10 @@ def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.normal_(lin.weight, 0.0, 0.02, generator=generator)
                 nn.init.zeros_(lin.bias)
                 ttt_owned.add(lin)
-            for p in (m.learnable_ttt_lr_weight, m.W1, m.W2):
+            mlp = m.config.ssm_layer == "ttt_mlp"
+            for p in [m.learnable_ttt_lr_weight, m.W1] + ([m.W2] if mlp else []):
                 nn.init.normal_(p, 0.0, 0.02, generator=generator)
-            for p in (m.learnable_ttt_lr_bias, m.ttt_norm_bias, m.b1, m.b2):
+            for p in [m.learnable_ttt_lr_bias, m.ttt_norm_bias, m.b1] + ([m.b2] if mlp else []):
                 nn.init.zeros_(p)
             nn.init.ones_(m.ttt_norm_weight)
         elif isinstance(m, nn.Linear) and m not in ttt_owned:

@@ -1,16 +1,17 @@
-"""TTT-MLP fast-weight layer (port of ttt_video_dit_tpu/models/ttt/layer.py:TTTLayer,
-``ttt_mlp`` path).
+"""TTT fast-weight layer (port of ttt_video_dit_tpu/models/ttt/layer.py:TTTLayer,
+``ttt_linear`` and ``ttt_mlp``).
 
 One direction per call; the caller runs the reverse direction with the same
 parameters (``reverse=True``). The layer permutes the [B, L, D] stream once
 at entry (interleave, with the reverse prep composed in), projects q/k/v and
 the LR-gate logits with plain matmuls, and hands the raw token-major
-projections to the fused TTT-MLP scan (ops/ttt_mlp_kernel.py), which does
-the L2-norm, rope, LN-reconstruction target and the sigmoid gate itself.
-With autograd on (training), the scan is the K1-train/K2 autograd Function
-(with ``use_kernel = False``, the same Function over their plain versions);
-under no_grad/inference_mode (sampling), the forward-only K1 or its plain
-version.
+projections to the fused TTT scan (ops/ttt_linear_kernel.py for
+``ttt_linear``, ops/ttt_mlp_kernel.py for ``ttt_mlp``), which does the
+L2-norm, rope, LN-reconstruction target and the sigmoid gate itself. With
+autograd on (training), the scan is the training kernels' autograd Function
+(K5-train/K6, K1-train/K2; with ``use_kernel = False``, the same Function
+over their plain versions); under no_grad/inference_mode (sampling), the
+forward-only K5 or K1, or its plain version.
 Rope is applied by SLOT of the interleaved layout, never by token: the slot
 tables (identity rows on text, video slot j -> angle j, forward-interleaved
 when multiscene) are the same for both directions.
@@ -27,7 +28,7 @@ from torch import nn
 from ttt_video_dit_torch.config.model_config import ModelConfig
 from ttt_video_dit_torch.models.sequence import SequenceMetadata
 from ttt_video_dit_torch.models.ttt.interleave import interleave, undo_interleave
-from ttt_video_dit_torch.ops import ttt_mlp_kernel
+from ttt_video_dit_torch.ops import convert, ttt_linear_kernel, ttt_mlp_kernel
 from ttt_video_dit_torch.ops.rope import interleaved_tables_prefixed, precompute_rope_3d
 
 
@@ -48,10 +49,20 @@ class Linear(nn.Linear):
     """flax Dense(dtype=compute, param_dtype=float32): the float32 master
     weight and bias are cast to the input's dtype at each call (flax's
     promote_dtype, one rounding; a no-op once cast_matmul_weights_ has cast
-    them for sampling)."""
+    them for sampling). A Linear of the layer stack of a ``scan_layers``
+    model carries the config in ``pin``: its weight is cast through K7
+    (ops/convert.py, or its plain version with ``use_kernel = False``), as
+    the JAX pin (dit.py:_make_scan_param_pin) casts the stacked Dense
+    kernels; its bias keeps ``.to``."""
+
+    pin = None
 
     def forward(self, x):
-        return Fn.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        if self.pin is None:
+            weight = self.weight.to(x.dtype)
+        else:
+            weight = convert.opaque_convert(self.weight, x.dtype, plain=not self.pin.use_kernel)
+        return Fn.linear(x, weight, self.bias.to(x.dtype))
 
 
 def layer_norm(x, norm: nn.LayerNorm, out_dtype):
@@ -61,12 +72,12 @@ def layer_norm(x, norm: nn.LayerNorm, out_dtype):
 
 
 class TTTLayer(nn.Module):
-    """Bidirectional-capable TTT-MLP layer. Parameter names mirror the flax tree."""
+    """Bidirectional-capable TTT layer. Parameter names mirror the flax tree."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.ssm_layer != "ttt_mlp":
-            raise NotImplementedError(f"ssm_layer={config.ssm_layer!r} is not ported yet (only ttt_mlp)")
+        if config.ssm_layer not in ("ttt_linear", "ttt_mlp"):
+            raise ValueError(f"No ttt layer of type {config.ssm_layer}")
         self.config = config
         D, H, F = config.model_dim, config.num_heads, config.head_dim
         self.wq, self.wk, self.wv, self.wo = (Linear(D, D) for _ in range(4))
@@ -77,10 +88,14 @@ class TTTLayer(nn.Module):
         self.ttt_norm_bias = nn.Parameter(torch.zeros(H, F))
         self.post_norm = nn.LayerNorm(D, eps=1e-6)
         # Fast-weight initial states (learned, shared across the batch).
-        self.W1 = nn.Parameter(torch.empty(H, F, 4 * F))
-        self.b1 = nn.Parameter(torch.zeros(H, 1, 4 * F))
-        self.W2 = nn.Parameter(torch.empty(H, 4 * F, F))
-        self.b2 = nn.Parameter(torch.zeros(H, 1, F))
+        if config.ssm_layer == "ttt_linear":
+            self.W1 = nn.Parameter(torch.empty(H, F, F))
+            self.b1 = nn.Parameter(torch.zeros(H, 1, F))
+        else:
+            self.W1 = nn.Parameter(torch.empty(H, F, 4 * F))
+            self.b1 = nn.Parameter(torch.zeros(H, 1, 4 * F))
+            self.W2 = nn.Parameter(torch.empty(H, 4 * F, F))
+            self.b2 = nn.Parameter(torch.zeros(H, 1, F))
 
     @property
     def eta_scale(self) -> float:
@@ -112,14 +127,21 @@ class TTTLayer(nn.Module):
         gate = self.token_gate(x)
         rope_cos, rope_sin = scan_rope_tables(meta, F, cfg.rope_theta, CS, x.device)
 
-        args = (XQ, XK, XV, gate, rope_cos, rope_sin, self.ttt_norm_weight, self.ttt_norm_bias,
-                self.W1, self.b1, self.W2, self.b2, self.eta_scale)
-        if torch.is_grad_enabled():  # K1-train / K2, or with use_kernel=False their plain versions
-            XQW = ttt_mlp_kernel.ttt_mlp_train(*args, cfg.scan_checkpoint_group_size, plain=not cfg.use_kernel)
+        if cfg.ssm_layer == "ttt_linear":  # K5-train / K6, K5
+            train, forward, plain = (ttt_linear_kernel.ttt_linear_train, ttt_linear_kernel.ttt_linear_forward,
+                                     ttt_linear_kernel.ttt_linear_forward_plain)
+            state = (self.W1, self.b1)
+        else:  # K1-train / K2, K1
+            train, forward, plain = (ttt_mlp_kernel.ttt_mlp_train, ttt_mlp_kernel.ttt_mlp_forward,
+                                     ttt_mlp_kernel.ttt_mlp_forward_plain)
+            state = (self.W1, self.b1, self.W2, self.b2)
+        args = (XQ, XK, XV, gate, rope_cos, rope_sin, self.ttt_norm_weight, self.ttt_norm_bias, *state, self.eta_scale)
+        if torch.is_grad_enabled():  # the training kernels, or with use_kernel=False their plain versions
+            XQW = train(*args, cfg.scan_checkpoint_group_size, plain=not cfg.use_kernel)
         elif cfg.use_kernel:
-            XQW = ttt_mlp_kernel.ttt_mlp_forward(*args)
+            XQW = forward(*args)
         else:
-            XQW = ttt_mlp_kernel.ttt_mlp_forward_plain(*args)
+            XQW = plain(*args)
         out = XQW.reshape(B, L, D)
         out = self.wo(layer_norm(out, self.post_norm, out.dtype))
         return undo_interleave(out, meta, reverse)

@@ -1,0 +1,322 @@
+"""Fused TTT-linear scan: the CUDA kernels' wrappers, their plain versions,
+and the autograd Function that trains through them.
+
+Port of ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_linear_kernel (K5, with
+_fused_preproc and _eta_from_gate) and ops/pallas/ttt_backward.py:
+_linear_bwd_kernel (K6), in the fused-preprocessing, token-major,
+in-kernel-gate form that ttt_vjp.py:ttt_linear_fused_pre dispatches.
+Kernels (mini-batch CS = 16 for both sampling and training):
+
+- ``ttt_linear_forward``: K5 for sampling (no state checkpoints),
+  ``csrc/ttt_linear_forward.cu``;
+- ``ttt_linear_forward_train``: K5 for training, which also writes the fp32
+  state at the start of every group of K mini-batches (the last group may be
+  ragged), the same kernel;
+- ``ttt_linear_backward``: K6, K5's VJP from those checkpoints,
+  ``csrc/ttt_linear_backward.cu``;
+- ``TTTLinearFunction``: K5-train forward, K6 backward.
+
+Inputs are the RAW token-major projections and the pre-sigmoid LR-gate
+logits, as for the TTT-MLP kernels (ops/ttt_mlp_kernel.py). Shapes:
+XQ/XK/XV [B, NC, CS, H*F]; gate [B, H, NC, CS]; rope_cos/rope_sin
+[NC, CS, F] float32; ln_w/ln_b [H, F]; W1 [H, F, F], b1 [H, 1, F] (the
+learned initial state, shared by every batch element). Outputs
+[B, NC, CS, H*F] in XQ's dtype. State checkpoints are compact fp32:
+W1 [B, H, NG, F, F], b1 [B, H, NG, 1, F], NG = ceil(NC / K).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ttt_video_dit_torch.ops import _build
+from ttt_video_dit_torch.ops import ln as ln_ops
+from ttt_video_dit_torch.ops.ttt_mlp_kernel import (
+    _acc_dtype,
+    _check_tensors,
+    _group,
+    _launch,
+    _preproc,
+    _to_head_major,
+    _to_token_major,
+    scan_forward_plain,
+)
+from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_linear_step
+
+# Launches of each CUDA kernel (the plain versions do not count): K5 for
+# sampling, K5 for training, K6.
+launches = 0
+train_launches = 0
+bwd_launches = 0
+
+KERNEL_HEAD_DIM = 64
+KERNEL_MINI_BATCH = 16
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale: float,
+                             checkpoint_group: int | None = None):
+    """K5's plain version: the per-step loop of _linear_kernel
+    (``ops/ttt_mlp_kernel.py:scan_forward_plain`` over
+    ``ttt_scan.ttt_linear_step``), rounding to XQ's dtype where the kernel
+    does. With ``checkpoint_group`` K: (out, W1_ck, b1_ck)."""
+    return scan_forward_plain(ttt_linear_step, (W1, b1), XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b,
+                              eta_scale, checkpoint_group)
+
+
+def ttt_linear_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout,
+                              eta_scale: float, checkpoint_group: int):
+    """K6's algorithm in PyTorch, rounding to XQ's dtype where
+    _linear_bwd_kernel does. Per checkpoint group, last first: pass A re-runs
+    the forward from the group's checkpoint and stashes each step's state;
+    pass B walks the group backwards through the step VJP of
+    ttt_backward.py:501-584, line by line, and carries the state cotangents.
+
+    Returns (dXQ, dXK, dXV [B, NC, CS, H*F] in XQ's dtype, d_gate
+    [B, H, NC, CS] in float32 (float64 for float64 inputs), dW1 [H, F, F],
+    db1 [H, 1, F], dln_w [H, F], dln_b [H, F]): the initial-state and LN
+    cotangents summed over the batch, as the shared parameters need them."""
+    B, NC, CS, HF = XQ.shape
+    H, F = ln_w.shape
+    K = checkpoint_group
+    NG = W1_ck.shape[2]
+    dt, acc = XQ.dtype, _acc_dtype(XQ.dtype)
+    rnd = lambda x: x.to(dt).to(acc)
+    colsum = lambda x: x.sum(dim=-2, keepdim=True)
+    mm = torch.matmul
+    tr = lambda x: x.transpose(-1, -2)
+    xq, xk, xv, g_out = (_to_head_major(x, H, F) for x in (XQ, XK, XV, dout))
+    sig = torch.sigmoid(gate.to(acc)).permute(2, 0, 1, 3)[..., None]  # [NC, B, H, CS, 1]
+    eta = sig * eta_scale
+    cos, sin = rope_cos.to(acc), rope_sin.to(acc)
+    lnw = ln_w.to(acc)[None, :, None, :]
+    lnb = ln_b.to(acc)[None, :, None, :]
+
+    dxq, dxk, dxv = (torch.empty(NC, B, H, CS, F, dtype=dt, device=XQ.device) for _ in range(3))
+    zeros = lambda *s: torch.zeros(*s, dtype=acc, device=XQ.device)
+    dgate = zeros(NC, B, H, CS)
+    dW1, db1 = zeros(B, H, F, F), zeros(B, H, 1, F)
+    dlnw, dlnb = zeros(B, H, 1, F), zeros(B, H, 1, F)
+
+    def forward_step(state, n):
+        XQf, XKf, target, _, _ = _preproc(xq[n], xk[n], xv[n], cos[n], sin[n], lnw, lnb)
+        return ttt_linear_step(state, rnd(XQf), rnd(XKf), target, eta[n][..., 0], lnw, lnb, rnd)[0], None
+
+    for g in reversed(range(NG)):
+        n0 = g * K
+        # Pass A: the forward from the checkpoint, stashing the state before each step.
+        state = (W1_ck[:, :, g].to(acc), b1_ck[:, :, g].to(acc))
+        _, _, stash = scan_mini_batches(lambda s, i: forward_step(s, n0 + i), state, min(K, NC - n0), 1)
+        # Pass B: the step VJP, last step first.
+        for i in reversed(range(len(stash))):
+            n, (W1, b1) = n0 + i, stash[i]
+            W1 = rnd(W1)
+            XQf, XKf, target, t_hat, s_t = _preproc(xq[n], xk[n], xv[n], cos[n], sin[n], lnw, lnb)
+            XQ_, XK_ = rnd(XQf), rnd(XKf)
+            e = eta[n]
+            d_out = g_out[n]
+
+            Z1 = mm(XK_, W1) + b1
+            z1_hat, std1 = ln_ops.ln_stats(Z1)
+            g1 = ln_ops.ln_fused_l2(z1_hat, std1, target, lnw, lnb)
+            Gs = rnd(e * g1)
+            A1 = rnd(mm(XQ_, tr(XK_)))
+            Zb1 = mm(XQ_, W1) - mm(A1, Gs) + b1 - colsum(Gs)
+            zb1_hat, stdb1 = ln_ops.ln_stats(Zb1)
+
+            # out = XQ + LN(Zb1)
+            dZb1, dgw, dgb = ln_ops.ln_fwd_vjp_rows(zb1_hat, stdb1, lnw, d_out)
+            dlnw += colsum(dgw)
+            dlnb += colsum(dgb)
+            dZb1c = rnd(dZb1)
+            # Zb1 = XQ @ W1 - A1 @ Gs + b1'
+            dXQ = d_out + mm(dZb1c, tr(W1))
+            dW1_step = mm(tr(XQ_), dZb1c)
+            dA1 = -mm(dZb1c, tr(Gs))
+            db1_tot = db1 + colsum(dZb1)
+            dG = -mm(tr(A1), dZb1c) - db1_tot
+            # W1' = W1 - XK^T Gs (the carry is dW1')
+            dW1_step = dW1_step + dW1
+            dXK = -mm(Gs, tr(rnd(dW1)))
+            dG = dG - mm(XK_, rnd(dW1))
+            # A1 = XQ @ XK^T
+            dXQ = dXQ + mm(rnd(dA1), XK_)
+            dXK = dXK + mm(tr(rnd(dA1)), XQ_)
+            # Gs = eta * g1
+            de = (dG * g1).sum(dim=-1, keepdim=True)
+            dg1 = e * dG
+            # g1 = ln_fused_l2(Z1, target)
+            dZ1, dtarget, dgw2, dgb2 = ln_ops.ln_fused_l2_vjp_rows(z1_hat, std1, target, lnw, lnb, dg1)
+            dlnw += colsum(dgw2)
+            dlnb += colsum(dgb2)
+            # target = LN-reconstruction(XV - XK)
+            dtv, dgw_t, dgb_t = ln_ops.target_ln_vjp(t_hat, s_t, lnw, dtarget)
+            dlnw += colsum(dgw_t)
+            dlnb += colsum(dgb_t)
+            dXK = dXK - dtv
+            # Z1 = XK @ W1 + b1
+            dZ1c = rnd(dZ1)
+            dXK = dXK + mm(dZ1c, tr(W1))
+            dW1_step = dW1_step + mm(tr(XK_), dZ1c)
+            db1_new = db1_tot + colsum(dZ1)
+            # rope, then the L2 norm, back to the raw projections
+            dxq[n] = ln_ops.l2norm_vjp(xq[n], ln_ops.rope_vjp(dXQ, cos[n], sin[n])).to(dt)
+            dxk[n] = ln_ops.l2norm_vjp(xk[n], ln_ops.rope_vjp(dXK, cos[n], sin[n])).to(dt)
+            dxv[n] = dtv.to(dt)
+            dgate[n] = (de * e * (1.0 - sig[n]))[..., 0]
+            dW1, db1 = dW1_step, db1_new
+
+    sum_b = lambda x: x.sum(dim=0)
+    return (_to_token_major(dxq), _to_token_major(dxk), _to_token_major(dxv), dgate.permute(1, 2, 0, 3).contiguous(),
+            sum_b(dW1), sum_b(db1), sum_b(dlnw)[:, 0], sum_b(dlnb)[:, 0])
+
+
+# ------------------------------------------------------------ CUDA kernels
+
+
+def _lib(name: str = "ttt_linear_forward"):
+    lib = _build.load(name)
+    if name == "ttt_linear_forward" and lib.ttt_linear_forward.argtypes is None:
+        lib.ttt_linear_forward.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                                           + [ctypes.c_float, ctypes.c_void_p])
+        lib.ttt_linear_forward.restype = ctypes.c_int
+    if name == "ttt_linear_backward" and lib.ttt_linear_backward.argtypes is None:
+        lib.ttt_linear_backward.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 4
+                                            + [ctypes.c_float, ctypes.c_void_p])
+        lib.ttt_linear_backward.restype = ctypes.c_int
+        lib.ttt_linear_backward_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1) -> None:
+    """Raise ValueError unless the arguments are what the CUDA kernels take:
+    F = 64, CS = 16, bf16 token-major q/k/v, float32 everything else, every
+    tensor contiguous and on one CUDA device, shapes consistent (W1/b1 may be
+    None for the backward, which starts from checkpoints)."""
+    if XQ.ndim != 4:
+        raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
+    B, NC, CS, HF = XQ.shape
+    H, F = ln_w.shape
+    if F != KERNEL_HEAD_DIM or CS != KERNEL_MINI_BATCH:
+        raise ValueError(f"the TTT-linear kernels support F={KERNEL_HEAD_DIM}, CS={KERNEL_MINI_BATCH}; "
+                         f"got F={F}, CS={CS}")
+    expected = {
+        "XQ": (XQ, (B, NC, CS, H * F), torch.bfloat16), "XK": (XK, (B, NC, CS, H * F), torch.bfloat16),
+        "XV": (XV, (B, NC, CS, H * F), torch.bfloat16), "gate": (gate, (B, H, NC, CS), torch.float32),
+        "rope_cos": (rope_cos, (NC, CS, F), torch.float32), "rope_sin": (rope_sin, (NC, CS, F), torch.float32),
+        "ln_w": (ln_w, (H, F), torch.float32), "ln_b": (ln_b, (H, F), torch.float32),
+    }
+    if W1 is not None:
+        expected.update({"W1": (W1, (H, F, F), torch.float32), "b1": (b1, (H, 1, F), torch.float32)})
+    _check_tensors(expected, XQ.device)
+
+
+def _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, K):
+    """Launch K5; K = 0 writes no checkpoints. Returns (out, W1_ck, b1_ck)."""
+    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1)
+    B, NC, _, _ = XQ.shape
+    H, F = ln_w.shape
+    NG = -(-NC // K) if K else 0
+    out = torch.empty_like(XQ)
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
+    ckpts = (new(B, H, NG, F, F), new(B, H, NG, 1, F))
+    _launch(_lib(), "ttt_linear_forward", (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, out, *ckpts),
+            (B, NC, H, K), eta_scale, XQ.device)
+    return out, *ckpts
+
+
+def ttt_linear_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale: float):
+    """Fused TTT-linear forward for sampling (no checkpoints). CPU tensors
+    take the plain version; CUDA tensors launch the kernel (or raise on
+    arguments it does not take)."""
+    global launches
+    if XQ.device.type == "cpu":
+        return ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale)
+    out = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, 0)[0]
+    launches += 1
+    return out
+
+
+def ttt_linear_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale: float,
+                             checkpoint_group: int):
+    """Fused TTT-linear forward for training: (out, W1_ck, b1_ck), the fp32
+    state at the start of every group of ``checkpoint_group`` mini-batches.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    global train_launches
+    if XQ.device.type == "cpu":
+        return ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
+                                        checkpoint_group=checkpoint_group)
+    result = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
+                      _group(checkpoint_group, XQ.shape[1]))
+    train_launches += 1
+    return result
+
+
+def ttt_linear_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout, eta_scale: float,
+                        checkpoint_group: int):
+    """K6, the fused TTT-linear backward from K5-train's checkpoints and the
+    output cotangent ``dout``. Returns what :func:`ttt_linear_backward_plain`
+    returns. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    global bwd_launches
+    if XQ.device.type == "cpu":
+        return ttt_linear_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout,
+                                         eta_scale, checkpoint_group)
+    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, None, None)
+    B, NC, CS, HF = XQ.shape
+    H, F = ln_w.shape
+    K = _group(checkpoint_group, NC)
+    NG = -(-NC // K)
+    _check_tensors({
+        "W1_ck": (W1_ck, (B, H, NG, F, F), torch.float32), "b1_ck": (b1_ck, (B, H, NG, 1, F), torch.float32),
+        "dout": (dout, (B, NC, CS, HF), torch.bfloat16),
+    }, XQ.device)
+    new = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype, device=XQ.device)
+    dx = [torch.empty_like(XQ) for _ in range(3)]
+    dgate = new(B, H, NC, CS)
+    grads = (new(B, H, F, F), new(B, H, 1, F), new(B, H, F), new(B, H, F))
+    stash = (new(B * H * K * F * F, dtype=torch.bfloat16), new(B * H * K * F))
+    _launch(_lib("ttt_linear_backward"), "ttt_linear_backward",
+            (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout, *dx, dgate, *grads, *stash),
+            (B, NC, H, K), eta_scale, XQ.device)
+    bwd_launches += 1
+    return (*dx, dgate, *(g.sum(dim=0) for g in grads))
+
+
+class TTTLinearFunction(torch.autograd.Function):
+    """The fused TTT-linear scan with its gradient: K5-train forward (keeping
+    the state checkpoints), K6 backward; the counterpart of
+    ttt_vjp.py:ttt_linear_fused_pre. Gradients flow to the raw XQ/XK/XV, the
+    gate logits, ln_w/ln_b and W1/b1; the rope tables get none. With
+    ``plain``, both passes run the plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, checkpoint_group, plain):
+        K = _group(checkpoint_group, XQ.shape[1])
+        fwd = ttt_linear_forward_plain if plain else ttt_linear_forward_train
+        out, *ckpts = fwd(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, checkpoint_group=K)
+        ctx.save_for_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, *ckpts)
+        ctx.eta_scale, ctx.K, ctx.plain = eta_scale, K, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, *ckpts = ctx.saved_tensors
+        bwd = ttt_linear_backward_plain if ctx.plain else ttt_linear_backward
+        dXQ, dXK, dXV, dgate, dW1, db1, dlnw, dlnb = bwd(
+            XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, *ckpts, dout.to(XQ.dtype).contiguous(),
+            ctx.eta_scale, ctx.K)
+        return dXQ, dXK, dXV, dgate, None, None, dlnw, dlnb, dW1, db1, None, None, None
+
+
+def ttt_linear_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale: float,
+                     checkpoint_group: int, plain: bool = False):
+    """The fused TTT-linear scan for training: autograd through K5-train and
+    K6 (or, with ``plain``, through their plain versions)."""
+    return TTTLinearFunction.apply(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
+                                   checkpoint_group, plain)

@@ -103,16 +103,19 @@ def _preproc(xq_raw, xk_raw, xv_raw, cos, sin, lnw, lnb):
     return XQ, XK, target, t_hat, s
 
 
-def ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float,
-                          checkpoint_group: int | None = None):
-    """The per-step loop of _mlp_kernel in PyTorch: the fused preprocessing,
-    then ``ttt_scan.ttt_mlp_step`` rounding to XQ's dtype at the kernel's
-    points (XQ/XK after preprocessing, and the step's own); products of the
-    rounded operands accumulate in float32. Float32 matmuls must not use TF32
-    for the kernel comparison (see chip_smoke.py).
+def scan_forward_plain(step_fn, state, XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, eta_scale: float,
+                       checkpoint_group: int | None = None):
+    """The per-step loop of the fused forward kernels in PyTorch: the fused
+    preprocessing, then ``step_fn`` (``ttt_scan.ttt_mlp_step`` or
+    ``ttt_linear_step``) rounding to XQ's dtype at the kernel's points
+    (XQ/XK after preprocessing, and the step's own); products of the rounded
+    operands accumulate in float32. ``state`` is the initial state's
+    parameters, shared by the batch. Float32 matmuls must not use TF32 for
+    the kernel comparison (see chip_smoke.py).
 
     With ``checkpoint_group`` K, also returns the fp32 state at the start of
-    every group of K mini-batches: (out, W1_ck, b1_ck, W2_ck, b2_ck)."""
+    every group of K mini-batches: (out, *state checkpoints), each
+    [B, H, NG, ...]."""
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
     dt, acc = XQ.dtype, _acc_dtype(XQ.dtype)
@@ -122,18 +125,27 @@ def ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, 
     cos, sin = rope_cos.to(acc), rope_sin.to(acc)
     lnw = ln_w.to(acc)[None, :, None, :]
     lnb = ln_b.to(acc)[None, :, None, :]
-    state = tuple(p.to(acc).expand(B, *p.shape) for p in (W1, b1, W2, b2))
+    state = tuple(p.to(acc).expand(B, *p.shape) for p in state)
 
     def step(state, n):
         XQf, XKf, target, _, _ = _preproc(xq[n], xk[n], xv[n], cos[n], sin[n], lnw, lnb)
-        state, XQW = ttt_mlp_step(state, rnd(XQf), rnd(XKf), target, eta[n], lnw, lnb, rnd)
+        state, XQW = step_fn(state, rnd(XQf), rnd(XKf), target, eta[n], lnw, lnb, rnd)
         return state, XQW.to(dt)
 
     _, outs, ckpts = scan_mini_batches(step, state, NC, checkpoint_group)
     out = _to_token_major(torch.stack(outs))
     if not checkpoint_group:
         return out
-    return (out, *(torch.stack([c[i] for c in ckpts], dim=2).contiguous() for i in range(4)))
+    return (out, *(torch.stack([c[i] for c in ckpts], dim=2).contiguous() for i in range(len(state))))
+
+
+def ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float,
+                          checkpoint_group: int | None = None):
+    """K1's plain version (:func:`scan_forward_plain` over
+    ``ttt_scan.ttt_mlp_step``): the output, and with ``checkpoint_group``
+    (out, W1_ck, b1_ck, W2_ck, b2_ck)."""
+    return scan_forward_plain(ttt_mlp_step, (W1, b1, W2, b2), XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b,
+                              eta_scale, checkpoint_group)
 
 
 def ttt_mlp_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout,

@@ -11,7 +11,7 @@ weights is not ported yet and is refused.
 The device is CUDA. Without a GPU the entry raises, unless ``--job.platform cpu``
 asks for the CPU explicitly.
 
-Usage:
+Usage (configs/eval/ttt-linear/3s.toml for the TTT-linear variant):
     python -m ttt_video_dit_torch.sample --job.config_file configs/eval/ttt-mlp/3s.toml \\
         --eval.input_file inputs/example.json --eval.num_denoising_steps 3 --guider.num_steps 3
 """

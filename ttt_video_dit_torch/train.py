@@ -8,10 +8,13 @@ stratified sigma bounds, text dropout, the v-prediction loss, gradient
 accumulation, global-norm clipping and the grouped AdamW. It logs loss, grad
 norm, seconds per step and MFU (against the H100's dense bf16 peak).
 
-The layers are unrolled (the JAX package's ``scan_layers = false``) and each
-runs under ``torch.utils.checkpoint`` (remat policy "none": the backward
-re-runs the layer's forward and kernels). On the card the TTT scans run K1
-(training) and K2, attention runs K3 (with the log-sum-exp) and K4.
+The layers are unrolled and each runs under ``torch.utils.checkpoint``
+(remat policy "none": the backward re-runs the layer's forward and
+kernels). On the card the TTT scans run K5 (training) and K6 for
+``ttt_linear``, K1 (training) and K2 for ``ttt_mlp``; attention runs K3
+(with the log-sum-exp) and K4; under the TOMLs' ``scan_layers = true`` the
+layer stack's 2-D weights are cast to bf16 through K7 at each forward, as
+the JAX package's scanned stack casts them.
 
 The device is CUDA. Without a GPU the entry raises, unless ``--job.platform cpu``
 asks for the CPU explicitly. Not ported yet, and refused with
@@ -20,7 +23,8 @@ resume and pretrained weights (``--checkpoint.resume``,
 ``--checkpoint.init_state_dir``), and more than one device
 (``--parallelism.*`` sizes other than 1).
 
-Usage (one H100, the 3 s stage cut to 4 layers):
+Usage (one H100, the 3 s stage cut to 4 layers; configs/train/ttt-linear/3s.toml
+for the TTT-linear variant):
     python -m ttt_video_dit_torch.train --job.config_file configs/train/ttt-mlp/3s.toml \\
         --model.num_layers 4 --training.steps 3 --training.global_batch_size 1 \\
         --parallelism.dp_replicate 1 --parallelism.dp_sharding 1
@@ -39,10 +43,9 @@ from ttt_video_dit_torch.sample import resolve_device
 
 
 def model_config(job_config: JobConfig) -> ModelConfig:
-    """The model preset with the job's overrides, layers unrolled."""
-    cfg = ModelConfig.get_preset(job_config.model.size, job_config.model.video_length, job_config)
-    cfg.scan_layers = False
-    return cfg
+    """The model preset with the job's overrides (the port unrolls the
+    layers whatever ``scan_layers`` says; it sets the K7 cast, see above)."""
+    return ModelConfig.get_preset(job_config.model.size, job_config.model.video_length, job_config)
 
 
 def refuse_unported(job_config: JobConfig) -> None:
@@ -102,7 +105,8 @@ def main(job_config: JobConfig) -> dict:
     print(f"device {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
           f"model d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, dtype {cfg.dtype}, "
           f"TTT mini-batch {cfg.mini_batch_size}, checkpoint group {cfg.scan_checkpoint_group_size}, "
-          f"adapter {adapter}; layers unrolled, per-layer recompute", flush=True)
+          f"adapter {adapter}; layers unrolled, per-layer recompute"
+          f"{', layer weights cast through K7' if cfg.scan_layers else ''}", flush=True)
     if job_config.checkpoint.interval:
         print(f"WARNING: --checkpoint.interval {job_config.checkpoint.interval}: checkpoint saving is not ported; "
               "no checkpoint is written", flush=True)
