@@ -178,8 +178,9 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 def record(name, source, replaces, err, ms, plain_ms, nbytes, flops, library_ms=None) -> dict:
     bound_ms, bound_by = bound(nbytes, flops)
+    library = "n/a" if library_ms is None else f"{library_ms:.3f} ms (kernel / library {ms / library_ms:.2f}x)"
     log(f"  {name} slice: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
-        f"library {'n/a' if library_ms is None else f'{library_ms:.3f} ms'}, max_abs_err {err:.4g}")
+        f"library {library}, max_abs_err {err:.4g}")
     return dict(name=name, route="cuda", source=f"ttt_video_dit_torch/csrc/{source}", replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -416,8 +417,7 @@ def phase_kernels(device) -> list[dict]:
     ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
     lib_out = Fn.scaled_dot_product_attention(ql, kl, vl)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do.transpose(1, 2), retain_graph=True), 3)
-    # The function needs 5 S x S x F products per window and head (Q K^T, dO V^T, P^T dO, dS^T Q,
-    # dS K); the kernel's recompute of the first two in its second kernel is not counted.
+    # The function needs 5 S x S x F products per window and head (Q K^T, dO V^T, P^T dO, dS^T Q, dS K).
     records.append(record("attention_backward", "attention_backward.cu", TPU + "ops/attention.py:326", k4["err4"],
                           ms, k4["bwd_plain_ms"], 5 * BC * S * H * F * 2 + BC * H * S * 4 + 3 * BC * S * H * F * 2,
                           5 * 2 * BC * H * S * S * F, lib_ms))

@@ -64,7 +64,15 @@ def test_ttt_kernel_matches_plain(cuda, B, H, NC):
     _close(got, ttt_mlp_kernel.ttt_mlp_forward_plain(**args, eta_scale=1e-4))
 
 
-@pytest.mark.parametrize("shape", [(3, 417, 2, 64), (1, 64, 1, 64), (2, 1000, 3, 64), (1, 5, 2, 64)])
+# Window lengths around the kernels' tiles (K3: 192 q rows a block and 128 kv
+# rows a step; K4: 128 kv rows a block and 64 q rows a step), with several
+# windows and heads, besides the shapes of the first kernels.
+TILE_EDGES = [(2, 1, 2, 64), (3, 63, 2, 64), (2, 127, 3, 64), (2, 128, 2, 64), (3, 129, 2, 64), (2, 192, 2, 64),
+              (2, 193, 3, 64), (2, 255, 3, 64)]
+ATTENTION_SHAPES = [(3, 417, 2, 64), (1, 64, 1, 64), (2, 1000, 3, 64), (1, 5, 2, 64)] + TILE_EDGES
+
+
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES)
 def test_attention_kernel_matches_plain(cuda, shape):
     gen = torch.Generator(cuda).manual_seed(1)
     q, k, v = (torch.randn(*shape, generator=gen, device=cuda).mul(2).bfloat16() for _ in range(3))
@@ -128,7 +136,7 @@ def test_ttt_train_and_backward_kernels_match_plain(cuda, B, H, NC, K):
             _close(g, w)
 
 
-@pytest.mark.parametrize("shape", [(3, 417, 2, 64), (1, 64, 1, 64), (2, 1000, 3, 64), (1, 5, 2, 64)])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES)
 def test_attention_lse_and_backward_kernels_match_plain(cuda, shape):
     """K3 with the log-sum-exp (lse within 1e-4) and K4 (dq/dk/dv elementwise),
     unit-variance inputs (the model's q and k come out of a LayerNorm)."""
@@ -144,6 +152,23 @@ def test_attention_lse_and_backward_kernels_match_plain(cuda, shape):
     assert attention.bwd_launches == before + 1
     for g, w in zip(got, attention.attention_backward_plain(q, k, v, out, lse, dout)):
         _close(g, w)
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 3, 64), (3, 129, 2, 64)])
+def test_attention_backward_kernel_reruns_agree(cuda, shape):
+    """K4 twice on the same inputs: dk and dv are sums in a fixed order and
+    must be bit-identical; dq is added across blocks in float32 in an order
+    that changes from run to run, so the two dq agree within the elementwise
+    tolerance (and each is held to the plain version)."""
+    gen = torch.Generator(cuda).manual_seed(7)
+    q, k, v, dout = (torch.randn(*shape, generator=gen, device=cuda).bfloat16() for _ in range(4))
+    out, lse = attention.attention_with_lse(q, k, v)
+    first = attention.attention_backward(q, k, v, out, lse, dout)
+    second = attention.attention_backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    _close(second[0], first[0])
+    _close(second[0], attention.attention_backward_plain(q, k, v, out, lse, dout)[0])
 
 
 def _linear_inputs(cuda, B, H, NC, seed):

@@ -178,7 +178,7 @@ def test_ttt_kernel_rejects_what_it_does_not_take(case):
             ttt_mlp_kernel.ttt_mlp_forward(*args, eta_scale=1e-3)
 
 
-@pytest.mark.parametrize("case", ["cpu_tensors", "head_dim_128", "float32", "mismatched_shapes"])
+@pytest.mark.parametrize("case", ["cpu_tensors", "head_dim_128", "float32", "mismatched_shapes", "too_many_heads"])
 def test_attention_kernel_rejects_what_it_does_not_take(case):
     shape, dtype, device = (2, 33, 3, 64), torch.bfloat16, "meta"
     if case == "cpu_tensors":
@@ -187,9 +187,11 @@ def test_attention_kernel_rejects_what_it_does_not_take(case):
         shape = (2, 33, 3, 128)
     elif case == "float32":
         dtype = torch.float32
+    elif case == "too_many_heads":  # heads ride on a grid dimension of at most 65,535 blocks
+        shape = (1, 4, 65536, 64)
     q = torch.zeros(shape, dtype=dtype, device=device)
     k = torch.zeros((2, 34, 3, 64) if case == "mismatched_shapes" else shape, dtype=dtype, device=device)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="65,535" if case == "too_many_heads" else None):
         attention.check_kernel_args(q, k, q)
     if device == "meta":
         with pytest.raises(ValueError):

@@ -84,16 +84,22 @@ def _lib(name: str = "attention_forward"):
         lib.attention_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
         lib.attention_forward.restype = ctypes.c_int
     if name == "attention_backward" and lib.attention_backward.argtypes is None:
-        lib.attention_backward.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        lib.attention_backward.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                                           + [ctypes.c_float, ctypes.c_void_p])
         lib.attention_backward.restype = ctypes.c_int
     return lib
 
 
 def check_kernel_args(q, k, v) -> None:
     """Raise ValueError unless q/k/v are what the CUDA kernel takes: equal
-    [BC, S, H, 64] bf16 shapes, contiguous, 16-byte aligned, on one CUDA device."""
+    [BC, S, H, 64] bf16 shapes, contiguous, 16-byte aligned, on one CUDA
+    device, with BC and H within a grid dimension (65,535). The kernels read
+    them by TMA, which needs a 16-byte-aligned base and strides that are
+    multiples of 16 bytes: contiguous [..., H, 64] bf16 has 128 and H x 128."""
     if q.ndim != 4 or q.shape[-1] != KERNEL_HEAD_DIM:
         raise ValueError(f"the attention kernel takes [BC, S, H, {KERNEL_HEAD_DIM}], got {tuple(q.shape)}")
+    if q.shape[0] > 65535 or q.shape[2] > 65535:
+        raise ValueError(f"the attention kernel takes at most 65,535 windows and heads, got {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: expected {tuple(q.shape)} bfloat16, got {tuple(t.shape)} {t.dtype}")
@@ -154,10 +160,11 @@ def attention_backward(q, k, v, out, lse, dout):
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(BC, H, S, dtype=torch.float32, device=q.device)  # D = rowsum(dout * out)
+    dq_acc = torch.zeros(BC, H, S, F, dtype=torch.float32, device=q.device)  # head-major: the kernel adds dS K tiles
     lib = _lib("attention_backward")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_backward(*(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta)),
+        err = lib.attention_backward(*(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta, dq_acc)),
                                      BC, S, H, 1.0 / (F**0.5), stream)
     _build.check(lib, err, "attention_backward launch")
     bwd_launches += 1
