@@ -10,7 +10,9 @@ non-zero, and no result line is printed):
 2. each kernel against its plain PyTorch version on the card, at the 3 s
    slices' shapes and at a small ragged shape, with times, the bound the
    card sets for the same work, and the time of one PyTorch call computing
-   the same function where there is one: K1 (sampling), K3 (sampling),
+   the same function where there is one: K1 (sampling; also at 3 x 48
+   scans and at a large eta, where the state update must move the output),
+   K3 (sampling),
    K1-train and K2 (TTT-MLP training forward and backward), K3 with the
    log-sum-exp and K4 (attention backward), K5 (TTT-linear, sampling),
    K5-train and K6 (TTT-linear training forward and backward), K7 (the
@@ -97,6 +99,10 @@ TTT_STATE_PARAMETERS = (".W1", ".b1", ".W2", ".b2", ".ttt_norm_weight", ".ttt_no
 # alone would have moved it over the run.
 DECAY_MARGIN = 10.0
 LSE_ATOL = 1e-4  # the log-sum-exp is float32 of values up to ~11
+# K1's large-eta case: the plain output must lie at least this many
+# tolerances from the eta = 0 output, or the case could not see a wrong
+# state update.
+MOVED_TOLS = 10
 # Relative L2 error of the 2-layer DiT output, kernel path vs plain path: the
 # bf16 stream carries the kernels' rounding differences through two layers.
 DIT_REL_L2_TOL = 2e-2
@@ -290,19 +296,38 @@ def _training_meta(variant):
                                   text_length=498)
 
 
+def in_tolerances(name: str, a, b) -> float:
+    """max |a - b| / (ATOL + RTOL |b|), elementwise: how many of the kernel's tolerances apart."""
+    atol, rtol = KERNEL_TOL[name]
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
 def check_ttt_forward(variant, gen, device) -> dict:
-    """K1 or K5 at the sampling slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables) and ragged."""
+    """K1 or K5 at the sampling slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables) and ragged; K1 also
+    at 3 x 48 scans (more blocks than SMs) and at an eta 1,000x the slice's, where the plain output must move at
+    least MOVED_TOLS tolerances away from the eta = 0 output (so a wrong state update cannot hide)."""
     mod, name = _ttt_module(variant), f"{variant}_forward"
     kernel, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
     cfg, meta = _sampling_meta(variant)
     CS = cfg.mini_batch_size
     eta_scale = cfg.ttt_base_lr / 64 / CS
-    for B, H, NC, m in ((2, 48, SEQ // CS, meta), (1, 2, 7, None)):
+    cases = [(2, 48, SEQ // CS, meta, eta_scale), (1, 2, 7, None, eta_scale)]
+    if variant == "ttt_mlp":
+        cases += [(3, 48, 4, None, eta_scale), (1, 2, 17, None, 1000 * eta_scale)]
+    for B, H, NC, m, eta in cases:
         a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS, variant=variant)
-        got = kernel(**a, eta_scale=eta_scale)
-        want, plain_ms = timed(lambda: plain(**a, eta_scale=eta_scale))
+        got = kernel(**a, eta_scale=eta)
+        want, plain_ms = timed(lambda: plain(**a, eta_scale=eta))
         err = compare(name, got, want)
-        log(f"  {name} B={B} H={H} NC={NC}: max_abs_err {err:.4g} (tol {KERNEL_TOL[name]})")
+        moved = ""
+        if eta != eta_scale:
+            tols = in_tolerances(name, want, plain(**a, eta_scale=0.0))
+            if tols < MOVED_TOLS:
+                raise AssertionError(f"{name} eta_scale={eta:.4g}: the plain output moved only {tols:.3g} "
+                                     f"tolerances from the eta = 0 output (at least {MOVED_TOLS} needed)")
+            moved = f"; the plain output {tols:.1f} tolerances from eta = 0's"
+        log(f"  {name} B={B} H={H} NC={NC} eta_scale={eta:.4g}: max_abs_err {err:.4g} (tol {KERNEL_TOL[name]}){moved}")
         if m is not None:
             sl = dict(a=a, err=err, plain_ms=plain_ms, NC=NC)
     ms = cuda_ms(lambda: kernel(**sl["a"], eta_scale=eta_scale), 5)
@@ -444,8 +469,8 @@ def phase_kernels(device) -> list[dict]:
         if shape[0] == 12288:
             k7 = dict(w=w, plain_ms=plain_ms)
     w = k7["w"]
-    ms = cuda_ms(lambda: convert.convert_f32_bf16(w), 20)
-    lib_ms = cuda_ms(lambda: w.to(torch.bfloat16), 20)
+    ms = cuda_ms(lambda: convert.convert_f32_bf16(w), 50)
+    lib_ms = cuda_ms(lambda: w.to(torch.bfloat16), 50)
     # Bound: 4 bytes read and 2 written an element, one conversion an element (bytes bound it);
     # max_abs_err 0: the check above is bit-for-bit.
     records.append(record("convert_f32_bf16", "convert.cu", TPU + "ops/pallas/convert.py:45", 0.0, ms, k7["plain_ms"],

@@ -1,0 +1,130 @@
+"""Times of K1 (the TTT-MLP sampling scan) and K7 (the float32 -> bf16 weight cast) on a CUDA card.
+
+At the 3 s slices' shapes (chip_smoke.py's): K1 at [B 2, NC 1,128, CS 16,
+48 heads x 64] with eta_scale 0.1 / 64 / 16, and K7 on a [12288, 3072]
+float32 weight beside ``.to(torch.bfloat16)`` on the same tensor, the two
+timed in turns (--rounds rounds of --k7-reps launches each, after one
+untimed round). Times are means
+by CUDA events after one warm-up; K7's and ``.to``'s device times are also
+read once from torch.profiler, so the wrapper's host time is not in them.
+Prints one JSON line.
+
+    python scripts/bench_torch_kernels.py [--reps N] [--k7-reps N] [--rounds N] [--tree DIR]
+
+With --parent DIR (an unpacked checkout of another commit), it runs itself
+four times in turn, on DIR's port, on this one, on this one and on DIR's
+again, each in its own process on the same card, and prints the four lines
+and the mean of each side:
+
+    python scripts/bench_torch_kernels.py --parent output/parent
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NC, CS, H, F = 1128, 16, 48, 64
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_us(fn, reps: int) -> float | None:
+    """Mean device time of the kernel ``fn`` launches, by torch.profiler (None if it shows none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [ev.device_time for ev in prof.key_averages() if ev.count == reps and ev.device_time > 0]
+    return max(times) if times else None
+
+
+def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from ttt_video_dit_torch.ops import convert, ttt_mlp_kernel
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device).manual_seed(0)
+    randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=device) * std
+    angles = torch.rand(NC, CS, F // 2, generator=gen, device=device) * 6.3
+    a = dict(XQ=randn(2, NC, CS, H * F).bfloat16(), XK=randn(2, NC, CS, H * F).bfloat16(),
+             XV=randn(2, NC, CS, H * F).bfloat16(), gate=randn(2, H, NC, CS),
+             rope_cos=torch.cos(angles).repeat_interleave(2, -1).contiguous(),
+             rope_sin=torch.sin(angles).repeat_interleave(2, -1).contiguous(),
+             ln_w=1 + randn(H, F, std=0.1), ln_b=randn(H, F, std=0.1), W1=randn(H, F, 4 * F, std=0.02),
+             b1=randn(H, 1, 4 * F, std=0.02), W2=randn(H, 4 * F, F, std=0.02), b2=randn(H, 1, F, std=0.02))
+    out = {"tree": os.path.dirname(os.path.dirname(os.path.abspath(convert.__file__))), "card": smi}
+    out["K1_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**a, eta_scale=0.1 / 64 / 16), reps)
+    del a
+
+    w = randn(12288, 3072)
+    k7, to = (lambda: convert.convert_f32_bf16(w)), (lambda: w.to(torch.bfloat16))
+    k7_ms, to_ms = [], []
+    cuda_ms(k7, k7_reps), cuda_ms(to, k7_reps)  # a round untimed: the first after K1 ran slow
+    for _ in range(rounds):
+        k7_ms.append(cuda_ms(k7, k7_reps))
+        to_ms.append(cuda_ms(to, k7_reps))
+    out["K7_ms"], out["K7_to_ms"] = sum(k7_ms) / rounds, sum(to_ms) / rounds
+    out["K7_rounds_ms"], out["K7_to_rounds_ms"] = k7_ms, to_ms
+    out["K7_device_us"], out["K7_to_device_us"] = device_us(k7, k7_reps), device_us(to, k7_reps)
+    return out
+
+
+def compare(parent: str, args) -> None:
+    runs = []
+    for tree in (parent, ROOT, ROOT, parent):
+        tree = os.path.abspath(tree)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--reps", str(args.reps), "--k7-reps",
+                               str(args.k7_reps), "--rounds", str(args.rounds), "--tree", tree],
+                              cwd=tree, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"run on {tree} failed:\n{proc.stdout}\n{proc.stderr}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    for side, pair in (("parent", (runs[0], runs[3])), ("this tree", (runs[1], runs[2]))):
+        keys = [key for key in pair[0] if isinstance(pair[0][key], float) and isinstance(pair[1][key], float)]
+        print(f"{side} mean: " + ", ".join(f"{key} {sum(r[key] for r in pair) / 2:.4f}" for key in keys))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=5, help="K1 launches timed")
+    ap.add_argument("--k7-reps", type=int, default=50, help="K7 (and .to) launches a round")
+    ap.add_argument("--rounds", type=int, default=4, help="rounds of K7 then .to")
+    ap.add_argument("--tree", default=ROOT, help="the checkout whose port is timed (default: this one)")
+    ap.add_argument("--parent", help="an unpacked checkout of another commit to compare with")
+    args = ap.parse_args()
+    if args.parent:
+        compare(args.parent, args)
+    else:
+        print(json.dumps(measure(args.tree, args.reps, args.k7_reps, args.rounds)))
+
+
+if __name__ == "__main__":
+    main()

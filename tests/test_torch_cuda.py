@@ -42,13 +42,12 @@ def _close(got, want):
     assert bool((err <= ATOL + RTOL * want.abs()).all()), f"max_abs_err {float(err.max())}"
 
 
-@pytest.mark.parametrize("B,H,NC", [(1, 3, 9), (2, 2, 1)])
-def test_ttt_kernel_matches_plain(cuda, B, H, NC):
-    gen = torch.Generator(cuda).manual_seed(0)
+def _ttt_inputs(cuda, B, H, NC, seed=0):
+    gen = torch.Generator(cuda).manual_seed(seed)
     CS, F = 16, 64
     randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=cuda) * std
     angles = torch.rand(NC, CS, F // 2, generator=gen, device=cuda) * 6.3
-    args = dict(
+    return dict(
         XQ=randn(B, NC, CS, H * F).bfloat16(), XK=randn(B, NC, CS, H * F).bfloat16(),
         XV=randn(B, NC, CS, H * F).bfloat16(), gate=randn(B, H, NC, CS),
         rope_cos=torch.cos(angles).repeat_interleave(2, -1).contiguous(),
@@ -57,11 +56,46 @@ def test_ttt_kernel_matches_plain(cuda, B, H, NC):
         W1=randn(H, F, 4 * F, std=0.02), b1=randn(H, 1, 4 * F, std=0.02),
         W2=randn(H, 4 * F, F, std=0.02), b2=randn(H, 1, F, std=0.02),
     )
+
+
+# (B, H, NC): one and two mini-batches, 17 (more than the kernel's two-stage
+# ring wraps in a step), and 3 x 48 scans, more blocks than the H100's 132 SMs.
+@pytest.mark.parametrize("B,H,NC", [(1, 3, 9), (2, 2, 1), (1, 2, 1), (2, 3, 2), (2, 2, 17), (3, 48, 3)])
+def test_ttt_kernel_matches_plain(cuda, B, H, NC):
+    args = _ttt_inputs(cuda, B, H, NC)
     before = ttt_mlp_kernel.launches
     got = ttt_mlp_kernel.ttt_mlp_forward(**args, eta_scale=1e-4)
     torch.cuda.synchronize()
     assert ttt_mlp_kernel.launches == before + 1
     _close(got, ttt_mlp_kernel.ttt_mlp_forward_plain(**args, eta_scale=1e-4))
+
+
+def _in_tolerances(a, b):
+    """max |a - b| / (ATOL + RTOL |b|), elementwise: how many tolerances apart."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (ATOL + RTOL * b.abs())).max())
+
+
+@pytest.mark.parametrize("eta_scale", [0.1, 1.0])
+def test_ttt_kernel_sees_the_state_update(cuda, eta_scale):
+    """K1 at an eta 1,000x and 10,000x the slice's, where the state the scan
+    carries moves the output far: the plain output is at least 10
+    tolerances away from the eta_scale = 0 output and, in the last
+    mini-batch, from the output of a scan whose state never changes (each
+    mini-batch run from the initial state). The kernel stays within one."""
+    B, H, NC = 1, 2, 17
+    a = _ttt_inputs(cuda, B, H, NC, seed=8)
+    got = ttt_mlp_kernel.ttt_mlp_forward(**a, eta_scale=eta_scale)
+    want = ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=eta_scale)
+    _close(got, want)
+    assert _in_tolerances(want, ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=0.0)) >= 10
+    last = {k: v for k, v in a.items()}
+    for k in ("XQ", "XK", "XV"):
+        last[k] = a[k][:, NC - 1:].contiguous()
+    last["gate"] = a["gate"][:, :, NC - 1:].contiguous()
+    last["rope_cos"], last["rope_sin"] = a["rope_cos"][NC - 1:], a["rope_sin"][NC - 1:]
+    frozen = ttt_mlp_kernel.ttt_mlp_forward_plain(**last, eta_scale=eta_scale)
+    assert _in_tolerances(want[:, NC - 1:], frozen) >= 10
 
 
 # Window lengths around the kernels' tiles (K3: 192 q rows a block and 128 kv
@@ -220,11 +254,12 @@ SPECIAL = [0.0, -0.0, float("inf"), float("-inf"), float("nan"), 3.4e38, -3.39e3
            1.01171875, -1.00390625, 3.0e-39]
 
 
-@pytest.mark.parametrize("shape", [(3072, 512), (5, 7), (1, 13)])
+@pytest.mark.parametrize("shape", [(3072, 512), (5, 7), (1, 13), (3, 4099)])
 def test_convert_kernel_is_bit_identical(cuda, shape):
     """K7 against .to(torch.bfloat16), bit for bit (int16 views): random
     values and, at the front, ties, subnormals, signed zeros, +-inf, NaN and
-    values past the bf16 maximum; sizes with and without a ragged tail."""
+    values past the bf16 maximum; sizes with and without a ragged tail (and
+    one with whole 4,096-element tiles and a tail)."""
     gen = torch.Generator(cuda).manual_seed(5)
     x = torch.randn(*shape, generator=gen, device=cuda) * 100
     n = min(len(SPECIAL), x.numel())
@@ -250,6 +285,10 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ttt_mlp_kernel.ttt_mlp_forward_train(x, x, x, z(1, 2, 2, 16), z(2, 16, 64), z(2, 16, 64), z(2, 64), z(2, 64),
                                              z(2, 64, 256), z(2, 1, 256), z(2, 256, 64), z(2, 1, 64), 1e-3, 2)
+    k1 = _ttt_inputs(cuda, 1, 2, 2)
+    k1["XQ"] = torch.zeros(2 * 16 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 2, 16, 128)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        ttt_mlp_kernel.ttt_mlp_forward(**k1, eta_scale=1e-3)
     a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6)
     a["W1"] = torch.zeros(2, 64, 256, device=cuda)  # a TTT-MLP state
     with pytest.raises(ValueError):

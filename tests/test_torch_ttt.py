@@ -116,6 +116,42 @@ def test_plain_scan_matches_composed_scan_oracle(rng):
     np.testing.assert_allclose(_port(a, scale), want_tm, **TOL)
 
 
+def _in_tolerances(a, b, tol=2e-2):
+    """max |a - b| / (tol + tol |b|), elementwise: how many of the CUDA
+    kernel's tolerances (2e-2 absolute and relative) apart two outputs are."""
+    return float(np.max(np.abs(a - b) / (tol + tol * np.abs(b))))
+
+
+@pytest.mark.parametrize("NC,scale", [(17, 0.1), (9, 1e-4), (5, 1.0)])
+def test_plain_scan_output_moves_with_eta_and_state(rng, NC, scale):
+    """The guard the CUDA kernel's tests rely on: with bf16 q/k/v at F=64,
+    CS=16, K1's plain output is at least 10 of the kernel's tolerances away
+    from the eta_scale = 0 output and, in the last mini-batch, from a scan
+    whose state never changes (that mini-batch run from the initial state),
+    so a kernel that got the dual-form terms or the state update wrong
+    could not pass within one tolerance."""
+    B, H, CS, F = 1, 2, 16, 64
+    a = _ttt_args(rng, B, H, NC, CS, F)
+    out = _port(a, scale, torch.bfloat16)
+    assert _in_tolerances(out, _port(a, 0.0, torch.bfloat16)) >= 10
+    last = dict(a, XQ=a["XQ"][:, -1:], XK=a["XK"][:, -1:], XV=a["XV"][:, -1:], gate=a["gate"][:, :, -1:],
+                rope_cos=a["rope_cos"][-1:], rope_sin=a["rope_sin"][-1:])
+    assert _in_tolerances(out[:, -1:], _port(last, scale, torch.bfloat16)) >= 10
+
+
+@pytest.mark.parametrize("scale", [0.1, 1.0])
+def test_plain_scan_matches_pallas_kernel_bf16_large_eta(rng, scale):
+    """K1's plain version against the Pallas kernel (interpret mode) with
+    bf16 q/k/v at F=64, CS=16 and an eta 1,000x and 10,000x the 3 s
+    sampling slice's, where the carried state moves the output most (the
+    eta the CUDA kernel's state-update tests use): within 1e-2 absolute and
+    relative."""
+    B, H, NC, CS, F = 1, 2, 6, 16, 64
+    a = _ttt_args(rng, B, H, NC, CS, F)
+    np.testing.assert_allclose(_port(a, scale, torch.bfloat16), _pallas(a, scale, 3, jnp.bfloat16), rtol=1e-2,
+                               atol=1e-2)
+
+
 def test_wrapper_takes_plain_version_on_cpu(rng):
     a = _ttt_args(rng, 1, 2, 3, 8, 16)
     got = ttt_mlp_kernel.ttt_mlp_forward(**{k: _t(v) for k, v in a.items()}, eta_scale=1e-3).numpy()

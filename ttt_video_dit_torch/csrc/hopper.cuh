@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks of the window-attention kernels
-// (attention_forward.cu, attention_backward.cu), written as raw PTX: tensor
-// maps for the Tensor Memory Accelerator (TMA), mbarriers, TMA loads,
-// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors,
-// and register reallocation between warpgroups (setmaxnreg).
+// (attention_forward.cu, attention_backward.cu) and the TTT-MLP sampling
+// scan (ttt_mlp_forward.cu), written as raw PTX: tensor maps for the Tensor
+// Memory Accelerator (TMA), mbarriers, TMA loads, warpgroup matrix
+// multiplies (wgmma) with their shared-memory descriptors, register
+// reallocation between warpgroups (setmaxnreg); and the warp-level pieces:
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix, movmatrix and
+// cp.async.
 //
 // Every tile the kernels stage is rows of 64 bf16 (128 bytes) loaded by TMA
 // with the 128-byte swizzle, into shared memory aligned to 1024 bytes: row r
@@ -264,6 +267,66 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// ---- warp-level tensor-core pieces
+// Fragment layouts of mma.sync m16n8k16 (lane = 4 g + t): A (16 x 16, row
+// major) a[0] = (row g, cols 2t, 2t+1), a[1] = (row g + 8, same cols),
+// a[2] = (row g, cols 2t + 8, 2t + 9), a[3] = (row g + 8, cols 2t + 8, 2t + 9);
+// B (16 x 8, k x n) b0 = (k 2t, 2t+1; n g), b1 = (k 2t + 8, 2t + 9; n g);
+// C / D (16 x 8, fp32) d[0], d[1] = (row g, cols 2t, 2t+1), d[2], d[3] = row
+// g + 8. A bf16 pair packs the lower column into the low 16 bits. Each 8 x 8
+// quarter of these is the layout that ldmatrix loads and movmatrix
+// transposes.
+
+// d += A B on the tensor cores (bf16 operands, fp32 accumulation).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The address lane ``lane`` gives ldmatrix .x4 for the four 8 x 8 blocks
+// (rows 0-7, cols c0..c0+7), (rows 8-15, c0), (rows 0-7, c0 + 8), (rows 8-15,
+// c0 + 8) of a row-major bf16 tile with row stride ``ld``: without .trans the
+// A fragment of the 16 x 16 block at column c0; with .trans the B fragments
+// (b0, b1) of n-tiles c0 / 8 and c0 / 8 + 1 of a [k][n] row-major tile.
+__device__ __forceinline__ const __nv_bfloat16* ldsm_row(const __nv_bfloat16* tile, int ld, int c0, int lane) {
+  return tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 + (lane >> 4) * 8;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// The transpose of the 8 x 8 bf16 block whose fragment this lane holds.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// 16 bytes global -> shared, through L2 only (cp.async.cg); completes per commit group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 }  // namespace hopper

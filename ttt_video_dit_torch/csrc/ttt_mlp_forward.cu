@@ -14,37 +14,60 @@
 //
 // What bounds it on the H100: the scan is sequential in NC, so one block owns
 // one (batch, head) scan and the limit is the latency of one mini-batch step
-// inside an SM. Each step does ~4 Mflop of small (16-row) products against
-// 128 KiB of fp32 state, so it is bound by shared-memory bandwidth and by the
-// ~10 block-wide barriers per step, not by device memory (the step reads
-// ~6 KiB of inputs and writes 2 KiB). At B = 2 the grid is 96 blocks on 132
-// SMs: a third of the card idles.
+// inside an SM, not device memory (a step reads ~6 KiB and writes 2 KiB) and
+// not the card's FLOP/s (a step is ~4 Mflop, under a microsecond on one SM's
+// tensor cores). At B = 2 the grid is 96 blocks on 132 SMs. What a step costs
+// is its chain of dependent products, the shared-memory traffic between them
+// and the waits across warps.
 //
-// Design: the fp32 state (W1, W2, b1, b2) lives in dynamic shared memory for
-// the whole scan (~205 KiB with the step tiles, under the 227 KB opt-in set
-// with cudaFuncSetAttribute); it never round-trips device memory between
-// mini-batches. Products use fp32 FMAs on operands rounded to bf16 exactly
-// where _mlp_kernel rounds them (XQ/XK after preprocessing, every
-// W.astype(dt), X2c, G1, G2, attn1, attn2, X2_barc, bf16(grad_z2)), so each
-// product is exact and only the fp32 summation order differs from the Pallas
-// kernel and from the plain version. Thread-to-data maps keep every column of
-// W1 with one thread (Z1, Z1_bar and the W1 update need no barrier between
-// them), and the padded row strides (W2: 65, X2c: 260, XQ/XK: 68 floats)
-// keep the strided reads free of bank conflicts or at most 2-way.
-// The sampling kernel writes no state checkpoints. Not yet done: tensor
-// cores (mma.sync on the bf16 operands), prefetching the next step's inputs,
-// more than one scan per SM.
+// Design (one block per scan: 8 consumer warps and a producer warpgroup):
+// - Every product runs on the tensor cores, mma.sync m16n8k16 (bf16 operands,
+//   fp32 accumulation); CS = 16 is one m16 tile. Operands are rounded to bf16
+//   exactly where _mlp_kernel rounds them (XQ/XK after preprocessing, every
+//   W.astype(dt), X2c, bf16(grad_z2), G1, G2, attn1, attn2, X2_barc), so only
+//   the fp32 summation order differs from the plain version.
+// - The fp32 state lives in registers in the mma accumulator layout. Warp w
+//   owns hidden units 32w..32w+31: the matching 32 rows of W1^T and of W2
+//   (64 + 64 fp32 registers a thread). Held as W1^T, the accumulator of the
+//   update W1^T -= G1^T XK is, packed to bf16 pairs (cvt.rn.bf16x2), the B
+//   fragment of Z1 = XK W1 and Z1_bar = XQ W1; W2's accumulator is the B
+//   fragment of grad_z1 = grad_z2 W2^T as it stands and, after one movmatrix
+//   per 8 x 8 block, of Z2 = X2c W2 and Z2_bar. G1, gelu'(Z1), b1 and the W1
+//   update for a warp's hidden units never leave the warp; G1^T and X2c^T
+//   (the A operands of the updates, and G1 as the B of attn1 G1) are
+//   movmatrix transposes of the warp's own fragments.
+// - Three named-barrier waits a step among the consumer warps, plus the wait
+//   for the prepared mini-batch: (1) Z2's partial sums over the warps' hidden
+//   units are in shared memory; (2) grad_z2 and G2 (row-wise LN backward,
+//   each warp two rows) are; (3) Z2_bar's and attn2's partial sums are.
+//   Each warp then finishes two rows (attn2 @ G2, b2, LN) and stores them.
+// - The producer warpgroup prepares the next mini-batch while the consumers
+//   run this one: each of its warps cp.async-loads 4 rows of q/k/v, gate and
+//   rope one mini-batch further ahead into a raw ring, then computes their
+//   L2-norm, rope, target LN and eta; after a named barrier among the four,
+//   one warp computes attn1 = bf16(XQ XK^T) on the tensor cores. The results
+//   go into a two-stage ring of prepared mini-batches, each stage signalled
+//   on an mbarrier ("full") and released by the consumers on another
+//   ("empty"). Output rows go out as plain stores nobody waits on.
+// - Registers: 12 warps put 3 on each of the SM's four schedulers, which
+//   caps a thread at 168 registers at launch; setmaxnreg then moves the
+//   producers' (down to 40) to the consumers (up to 232), whose state alone
+//   is 128. With 168 for every warp, or the producers cut to 24, ptxas
+//   spilled over 500 bytes a thread and the kernel ran 1.7-2.2x slower on
+//   the H100 (PERF.md).
 //
 // Layouts: xq/xk/xv/out [B, NC, CS, H*F] bf16 (head h = columns h*F..h*F+F);
 // gate [B, H, NC, CS] f32 (pre-sigmoid logits); rope cos/sin [NC, CS, F] f32
 // (interleaved, identity rows on text slots); ln_w/ln_b [H, F] f32;
 // W1 [H, F, 4F], b1 [H, 1, 4F], W2 [H, 4F, F], b2 [H, 1, F] f32 (the initial
-// state, shared by every batch element).
+// state, shared by every batch element). Every pointer 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "hopper.cuh"
 #include "ttt_mlp_block.cuh"
 
 namespace {
@@ -52,356 +75,478 @@ namespace {
 constexpr int kF = 64;
 constexpr int kF4 = 4 * kF;
 constexpr int kCS = 16;
-constexpr int kThreads = 256;  // 8 warps; one thread per column of W1
-constexpr int kLdW2 = kF + 1;  // W2 row stride: thread j reads row j conflict-free
-constexpr int kLdX = kF + 4;   // XQ / XK row stride (16-byte aligned rows)
-constexpr int kLdX2 = kF4 + 4; // X2c row stride (16-byte aligned rows)
+constexpr int kWarps = 8;                     // consumer warps
+constexpr int kCols = kF4 / kWarps;           // hidden units a consumer warp owns
+constexpr int kConsumers = 32 * kWarps;       // consumer threads
+constexpr int kThreads = kConsumers + 128;    // + the producer warpgroup
+// Registers a thread: 168 at launch (12 warps, 3 on each of the SM's four
+// schedulers); setmaxnreg then moves the producer warpgroup's to the consumers.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kLdB = kF + 8;   // row stride of the bf16 [CS][F] tiles (144 bytes: ldmatrix without bank conflicts)
+constexpr int kLdP = kF + 8;   // row stride of the fp32 [CS][F] partial sums
+constexpr int kLdA = kCS + 8;  // row stride of the fp32 [CS][CS] partial sums
+constexpr int kStages = 2;
+constexpr int kConsumerBar = 1;  // named barrier of the consumer warps
+constexpr uint32_t kSignBits = 0x80008000u;
+static_assert(kCols == 32, "the fragment maps below assume 32 hidden units a warp");
 
-// Shared-memory carve-up, in floats.
-constexpr int kOffW1 = 0;                        // [F][4F]
-constexpr int kOffW2 = kOffW1 + kF * kF4;        // [4F][kLdW2]
-constexpr int kOffB1 = kOffW2 + kF4 * kLdW2;     // [4F]
-constexpr int kOffB2 = kOffB1 + kF4;             // [F]
-constexpr int kOffLnW = kOffB2 + kF;             // [F]
-constexpr int kOffLnB = kOffLnW + kF;            // [F]
-constexpr int kOffEta = kOffLnB + kF;            // [CS]
-constexpr int kOffXQ = kOffEta + kCS;            // [CS][kLdX]   bf16-rounded XQ
-constexpr int kOffXK = kOffXQ + kCS * kLdX;      // [CS][kLdX]   bf16-rounded XK
-constexpr int kOffTgt = kOffXK + kCS * kLdX;     // [CS][F]      LN-reconstruction target
-constexpr int kOffX2c = kOffTgt + kCS * kF;      // [CS][kLdX2]  bf16(gelu(Z1))
-constexpr int kOffG1 = kOffX2c + kCS * kLdX2;    // [CS][4F]     gelu'(Z1), then G1
-constexpr int kOffX2b = kOffG1 + kCS * kF4;      // [CS][4F]     bf16(gelu(Z1_bar))
-constexpr int kOffZ2 = kOffX2b + kCS * kF4;      // [CS][F]      Z2, then Z2_bar
-constexpr int kOffGz2 = kOffZ2 + kCS * kF;       // [CS][F]      bf16(grad_z2)
-constexpr int kOffG2 = kOffGz2 + kCS * kF;       // [CS][F]      G2
-constexpr int kOffA1 = kOffG2 + kCS * kF;        // [CS][CS]     bf16(attn1)
-constexpr int kOffA2 = kOffA1 + kCS * kCS;       // [CS][CS]     bf16(attn2)
-constexpr int kSmemFloats = kOffA2 + kCS * kCS;
-constexpr int kSmemBytes = kSmemFloats * 4;
+struct RawStage {  // one mini-batch as loaded, for one (batch, head)
+  __nv_bfloat16 q[kCS * kF], k[kCS * kF], v[kCS * kF];
+  float cos[kCS * kF], sin[kCS * kF];
+  float gate[kCS];
+};
+
+struct PrepStage {  // one mini-batch as the step takes it
+  __nv_bfloat16 xq[kCS * kLdB], xk[kCS * kLdB];  // bf16(XQ), bf16(XK)
+  float tgt[kCS * kF];                            // LN-reconstruction target
+  float eta[kCS];
+  uint32_t neg_attn1[32 * 4];  // -bf16(XQ XK^T) as mma A fragments, lane-major
+};
+
+struct Smem {
+  RawStage raw[kStages];
+  PrepStage prep[kStages];
+  float z2p[kWarps][kCS * kLdP];   // each warp's share of Z2
+  float z2bp[kWarps][kCS * kLdP];  // ... of Z2_bar (without attn2 @ G2 and b2)
+  float a2p[kWarps][kCS * kLdA];   // ... of attn2
+  __nv_bfloat16 gz2[kCS * kLdB];   // bf16(grad_z2)
+  __nv_bfloat16 g2[kCS * kLdB];    // G2 = bf16(eta * grad_z2)
+  uint64_t full[kStages], empty[kStages];
+};
+constexpr int kSmemBytes = sizeof(Smem);
 static_assert(kSmemBytes <= 232448, "exceeds the 227 KB shared-memory opt-in");
-static_assert(kOffXQ % 4 == 0 && kOffXK % 4 == 0 && kOffX2c % 4 == 0 && kOffX2b % 4 == 0 &&
-              kOffGz2 % 4 == 0 && kOffA1 % 4 == 0 && kOffA2 % 4 == 0, "float4 alignment");
+static_assert(sizeof(RawStage) % 16 == 0 && sizeof(PrepStage) % 16 == 0, "16-byte aligned stages");
 
+struct Args {
+  const __nv_bfloat16 *xq, *xk, *xv;
+  const float *gate, *rope_cos, *rope_sin, *ln_w, *ln_b, *W1, *b1, *W2, *b2;
+  __nv_bfloat16* out;
+  int NC, H;
+  float eta_scale;
+};
+
+using hopper::ldsm_row;
+using hopper::mma_bf16_16816;
+using hopper::movmatrix_trans;
+using hopper::pack_bf16;
 using tttb::bf16r;
-using tttb::gelu_bwd;
-using tttb::gelu_tanh;
 using tttb::warp_sum;
 
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+// gelu(x) rounded for the next product, and gelu'(x); one tanh for both (the
+// expressions of tttb::gelu_tanh and tttb::gelu_bwd).
+__device__ __forceinline__ float gelu_and_grad(float x, float& grad) {
+  const float t = tanhf(0.79788456f * x * (1.f + 0.044715f * x * x));
+  grad = 0.5f * x * ((1.f - t * t) * (0.79788456f + 0.1070322243f * x * x)) + 0.5f * (1.f + t);
+  return 0.5f * x * (1.f + t);
+}
 
-__global__ void __launch_bounds__(kThreads, 1)
-ttt_mlp_fwd_kernel(const __nv_bfloat16* __restrict__ xq, const __nv_bfloat16* __restrict__ xk,
-                   const __nv_bfloat16* __restrict__ xv, const float* __restrict__ gate,
-                   const float* __restrict__ rope_cos, const float* __restrict__ rope_sin,
-                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                   const float* __restrict__ W1, const float* __restrict__ b1,
-                   const float* __restrict__ W2, const float* __restrict__ b2,
-                   __nv_bfloat16* __restrict__ out, int NC, int H, float eta_scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* sW1 = smem + kOffW1;
-  float* sW2 = smem + kOffW2;
-  float* sB1 = smem + kOffB1;
-  float* sB2 = smem + kOffB2;
-  float* sLnW = smem + kOffLnW;
-  float* sLnB = smem + kOffLnB;
-  float* sEta = smem + kOffEta;
-  float* sXQ = smem + kOffXQ;
-  float* sXK = smem + kOffXK;
-  float* sTgt = smem + kOffTgt;
-  float* sX2c = smem + kOffX2c;
-  float* sG1 = smem + kOffG1;
-  float* sX2b = smem + kOffX2b;
-  float* sZ2 = smem + kOffZ2;
-  float* sGz2 = smem + kOffGz2;
-  float* sG2 = smem + kOffG2;
-  float* sA1 = smem + kOffA1;
-  float* sA2 = smem + kOffA2;
+__device__ __forceinline__ float2 bf2f(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const size_t HF = (size_t)H * kF;
+__device__ __forceinline__ void st_bf2(__nv_bfloat16* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
 
-  // Initial state and LN affine for head h.
-  for (int i = tid; i < kF * kF4; i += kThreads) sW1[i] = W1[(size_t)h * kF * kF4 + i];
-  for (int i = tid; i < kF4 * kF; i += kThreads) sW2[(i / kF) * kLdW2 + i % kF] = W2[(size_t)h * kF4 * kF + i];
-  sB1[tid] = b1[(size_t)h * kF4 + tid];
-  if (tid < kF) {
-    sB2[tid] = b2[(size_t)h * kF + tid];
-    sLnW[tid] = ln_w[(size_t)h * kF + tid];
-    sLnB[tid] = ln_b[(size_t)h * kF + tid];
+// Keep the compiler from reusing packed copies of the state across the step
+// (it would hold 64 more registers): the state "changes" here.
+template <int A, int B, int C>
+__device__ __forceinline__ void fence_state(float (&w)[A][B][C]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+#pragma unroll
+      for (int k = 0; k < C; ++k) asm volatile("" : "+f"(w[i][j][k]));
+}
+
+// ---- producer (4 warps; warp pw prepares rows 4 pw .. 4 pw + 3 of each mini-batch)
+constexpr int kRowsPerProducer = kCS / 4;
+constexpr int kProducerBar = 2;  // named barrier of the producer warpgroup
+
+__device__ __forceinline__ void load_raw(RawStage& r, const Args& a, int b, int h, int n, int pw, int lane) {
+  const size_t HF = (size_t)a.H * kF;
+  const int row = kRowsPerProducer * pw + (lane >> 3), c = (lane & 7) * 8;  // 4 rows x 8 chunks of 16 bytes
+  const size_t go = (((size_t)b * a.NC + n) * kCS + row) * HF + (size_t)h * kF + c;
+  hopper::cp_async16(r.q + row * kF + c, a.xq + go);
+  hopper::cp_async16(r.k + row * kF + c, a.xk + go);
+  hopper::cp_async16(r.v + row * kF + c, a.xv + go);
+  const size_t to = ((size_t)n * kCS + kRowsPerProducer * pw) * kF;
+  const int i = kRowsPerProducer * pw * kF;
+#pragma unroll
+  for (int j = lane * 4; j < kRowsPerProducer * kF; j += 128) {
+    hopper::cp_async16(r.cos + i + j, a.rope_cos + to + j);
+    hopper::cp_async16(r.sin + i + j, a.rope_sin + to + j);
   }
-  __syncthreads();
+  if (lane == 0) hopper::cp_async16(r.gate + kRowsPerProducer * pw, a.gate + (((size_t)b * a.H + h) * a.NC + n) * kCS + kRowsPerProducer * pw);
+  hopper::cp_async_commit();
+}
 
-  const int f0 = 2 * lane;  // the feature pair this lane owns in row-wise phases
-  const float lw0 = sLnW[f0], lw1 = sLnW[f0 + 1], lb0 = sLnB[f0], lb1 = sLnB[f0 + 1];
+// L2-norm, rope, target LN and eta of this warp's rows (lane = features 2 lane, 2 lane + 1).
+__device__ __forceinline__ void prepare_rows(PrepStage& p, const RawStage& r, float eta_scale, float2 lw, float2 lb,
+                                             int pw, int lane) {
+  const int f0 = 2 * lane;
+#pragma unroll 2
+  for (int row = kRowsPerProducer * pw; row < kRowsPerProducer * (pw + 1); ++row) {
+    const float2 q = bf2f(r.q + row * kF + f0), k = bf2f(r.k + row * kF + f0), v = bf2f(r.v + row * kF + f0);
+    const float2 c = *reinterpret_cast<const float2*>(r.cos + row * kF + f0);
+    const float2 s = *reinterpret_cast<const float2*>(r.sin + row * kF + f0);
+    // L2-norm: x / max(||x||, 1e-12); rope: x*cos + (x@R)*sin, (x@R) = (-x1, x0).
+    const float dq = fmaxf(sqrtf(warp_sum(q.x * q.x + q.y * q.y)), 1e-12f);
+    const float dk = fmaxf(sqrtf(warp_sum(k.x * k.x + k.y * k.y)), 1e-12f);
+    const float qn0 = q.x / dq, qn1 = q.y / dq, kn0 = k.x / dk, kn1 = k.y / dk;
+    const float XQ0 = qn0 * c.x + (-qn1) * s.x, XQ1 = qn1 * c.y + qn0 * s.y;
+    const float XK0 = kn0 * c.x + (-kn1) * s.x, XK1 = kn1 * c.y + kn0 * s.y;
+    // LN-reconstruction target: unbiased std, eps added to the std.
+    const float t0 = v.x - XK0, t1 = v.y - XK1;
+    const float mu = warp_sum(t0 + t1) * (1.f / kF);
+    const float d0 = t0 - mu, d1 = t1 - mu;
+    const float var = warp_sum(d0 * d0 + d1 * d1) * (1.f / kF) * ((float)kF / (kF - 1));
+    const float sd = sqrtf(var) + 1e-8f;
+    *reinterpret_cast<float2*>(p.tgt + row * kF + f0) = make_float2(lw.x * (d0 / sd) + lb.x, lw.y * (d1 / sd) + lb.y);
+    st_bf2(p.xq + row * kLdB + f0, XQ0, XQ1);
+    st_bf2(p.xk + row * kLdB + f0, XK0, XK1);
+  }
+  if (lane < kRowsPerProducer) {
+    const int row = kRowsPerProducer * pw + lane;
+    p.eta[row] = (1.f / (1.f + expf(-r.gate[row]))) * eta_scale;
+  }
+}
 
-  for (int n = 0; n < NC; ++n) {
-    // ---- A: preprocessing. Warp w owns rows 2w, 2w+1; lane owns features f0, f0+1.
+// attn1 = bf16(XQ XK^T) on the tensor cores, stored negated as the A fragment of the step's attn1 @ G1.
+__device__ __forceinline__ void prepare_attn1(PrepStage& p, int lane) {
+  float acc[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kF / 16; ++kk) {
+    uint32_t qa[4], kb[4];
+    hopper::ldsm_x4(qa, ldsm_row(p.xq, kLdB, kk * 16, lane));
+    // B = XK rows (k = feature, n = token): blocks (tokens 0-7, k), (0-7, k + 8), (8-15, k), (8-15, k + 8).
+    hopper::ldsm_x4(kb, p.xk + ((lane & 7) + (lane >> 4) * 8) * kLdB + kk * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16_16816(acc[0], qa, kb[0], kb[1]);
+    mma_bf16_16816(acc[1], qa, kb[2], kb[3]);
+  }
+  // The accumulator's two n-tiles are the A fragment of the 16 x 16 attn1.
+  const uint4 na = make_uint4(pack_bf16(acc[0][0], acc[0][1]) ^ kSignBits, pack_bf16(acc[0][2], acc[0][3]) ^ kSignBits,
+                              pack_bf16(acc[1][0], acc[1][1]) ^ kSignBits, pack_bf16(acc[1][2], acc[1][3]) ^ kSignBits);
+  *reinterpret_cast<uint4*>(p.neg_attn1 + lane * 4) = na;
+}
+
+__device__ void producer(Smem& S, const Args& a, int b, int h, int pw, int lane) {
+  const float2 lw = *reinterpret_cast<const float2*>(a.ln_w + (size_t)h * kF + 2 * lane);
+  const float2 lb = *reinterpret_cast<const float2*>(a.ln_b + (size_t)h * kF + 2 * lane);
+  load_raw(S.raw[0], a, b, h, 0, pw, lane);
+  for (int n = 0; n < a.NC; ++n) {
+    const int s = n & 1;
+    __syncwarp();  // every lane is done with raw[s ^ 1] (mini-batch n - 1)
+    if (n + 1 < a.NC) {
+      load_raw(S.raw[s ^ 1], a, b, h, n + 1, pw, lane);
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncwarp();  // this warp's rows of raw[s] (mini-batch n) have landed
+    if (n >= kStages) hopper::mbar_wait(&S.empty[s], ((n >> 1) - 1) & 1);
+    prepare_rows(S.prep[s], S.raw[s], a.eta_scale, lw, lb, pw, lane);
+    hopper::named_sync(kProducerBar, 128);
+    if (pw == 0) prepare_attn1(S.prep[s], lane);
+    hopper::mbar_arrive(&S.full[s]);
+  }
+}
+
+// ---- consumers
+// Warp w, lane = 4 g + t. Register maps (hidden unit j = 32 w + ...):
+//   w1[m][f][..]: W1^T rows j = 16 m + g (elements 0, 1) and 16 m + g + 8 (2, 3), features 8 f + 2t, 8 f + 2t + 1;
+//   w2[m][f][..]: W2 rows j = 16 m + g (0, 1) and 16 m + g + 8 (2, 3), the same features;
+//   per-token products over the warp's units ([16 tokens] x [32 units], n-tile u of 8 units): rows g (0, 1) and
+//   g + 8 (2, 3), units 8 u + 2t, 8 u + 2t + 1; bias1[u][0..1] the matching b1.
+// The B fragment (k = feature, n = unit) of X @ W1 for n-tile u, k-tile kk: pairs of w1[u / 2][2 kk (+1)], the row
+// half u % 2; the same map on w2 gives the B fragment of grad_z2 @ W2^T.
+__device__ __forceinline__ uint32_t state_b(const float (&w)[2][8][4], int u, int f) {
+  const int m = u >> 1, half = (u & 1) * 2;
+  return pack_bf16(w[m][f][half], w[m][f][half + 1]);
+}
+
+// acc[u] += A (16 x 64, bf16 row-major tile in shared memory) @ bf16(W) over the warp's 4 n-tiles of units.
+__device__ __forceinline__ void tokens_by_state(float (&acc)[4][4], const __nv_bfloat16* tile,
+                                                const float (&w)[2][8][4], int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kF / 16; ++kk) {
+    uint32_t a[4];
+    hopper::ldsm_x4(a, ldsm_row(tile, kLdB, kk * 16, lane));
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mma_bf16_16816(acc[u], a, state_b(w, u, 2 * kk), state_b(w, u, 2 * kk + 1));
+  }
+}
+
+// The warp's share of X @ bf16(W2) ([16 tokens] x [64 features], summed over its 32 units), written to ``dst``:
+// A = x (the warp's [16] x [32] bf16 fragments, x[u][0] rows g, x[u][1] rows g + 8), B = W2's blocks transposed.
+__device__ __forceinline__ void units_by_w2(float* dst, const uint32_t (&x)[4][2], const float (&w2)[2][8][4],
+                                            int g, int t) {
+#pragma unroll
+  for (int f = 0; f < kF / 8; ++f) {
+    float acc[4] = {};
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {
+      const uint32_t a[4] = {x[2 * kh][0], x[2 * kh][1], x[2 * kh + 1][0], x[2 * kh + 1][1]};
+      mma_bf16_16816(acc, a, movmatrix_trans(pack_bf16(w2[kh][f][0], w2[kh][f][1])),
+                     movmatrix_trans(pack_bf16(w2[kh][f][2], w2[kh][f][3])));
+    }
+    *reinterpret_cast<float2*>(dst + g * kLdP + 8 * f + 2 * t) = make_float2(acc[0], acc[1]);
+    *reinterpret_cast<float2*>(dst + (g + 8) * kLdP + 8 * f + 2 * t) = make_float2(acc[2], acc[3]);
+  }
+}
+
+// w[m][f] -= x^T @ y: x^T the A operand (negated transposes of the warp's [16 tokens] x [32 units] fragments),
+// y a [16 tokens][64] bf16 row-major tile in shared memory as B.
+__device__ __forceinline__ void update_state(float (&w)[2][8][4], const uint32_t (&xt)[4][2],
+                                             const __nv_bfloat16* y, int lane) {
+  uint32_t a[2][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    a[m][0] = xt[2 * m][0] ^ kSignBits;
+    a[m][1] = xt[2 * m + 1][0] ^ kSignBits;
+    a[m][2] = xt[2 * m][1] ^ kSignBits;
+    a[m][3] = xt[2 * m + 1][1] ^ kSignBits;
+  }
+#pragma unroll
+  for (int fp = 0; fp < kF / 16; ++fp) {
+    uint32_t bb[4];
+    hopper::ldsm_x4_trans(bb, ldsm_row(y, kLdB, fp * 16, lane));
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      mma_bf16_16816(w[m][2 * fp], a[m], bb[0], bb[1]);
+      mma_bf16_16816(w[m][2 * fp + 1], a[m], bb[2], bb[3]);
+    }
+  }
+}
+
+__device__ void consumer(Smem& S, const Args& a, int b, int h, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3, f0 = 2 * lane;
+  const int j0 = warp * kCols;  // the warp's first hidden unit
+  const size_t HF = (size_t)a.H * kF;
+
+  float w1[2][8][4], w2[2][8][4], bias1[4][2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int j = j0 + 16 * m + g + 8 * hr, c = 8 * f + 2 * t;
+        w1[m][f][2 * hr] = a.W1[((size_t)h * kF + c) * kF4 + j];
+        w1[m][f][2 * hr + 1] = a.W1[((size_t)h * kF + c + 1) * kF4 + j];
+        const float2 v = *reinterpret_cast<const float2*>(a.W2 + ((size_t)h * kF4 + j) * kF + c);
+        w2[m][f][2 * hr] = v.x;
+        w2[m][f][2 * hr + 1] = v.y;
+      }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 v = *reinterpret_cast<const float2*>(a.b1 + (size_t)h * kF4 + j0 + 8 * u + 2 * t);
+    bias1[u][0] = v.x;
+    bias1[u][1] = v.y;
+  }
+  float2 b2 = *reinterpret_cast<const float2*>(a.b2 + (size_t)h * kF + f0);
+  const float2 lw = *reinterpret_cast<const float2*>(a.ln_w + (size_t)h * kF + f0);
+  const float2 lb = *reinterpret_cast<const float2*>(a.ln_b + (size_t)h * kF + f0);
+
+  for (int n = 0; n < a.NC; ++n) {
+    const int s = n & 1;
+    PrepStage& p = S.prep[s];
+    hopper::mbar_wait(&S.full[s], (n >> 1) & 1);
+
+    // Z1 = XK @ bf16(W1) + b1; keep gelu'(Z1) and X2c = bf16(gelu(Z1)).
+    float z[4][4] = {}, gp[4][4];
+    uint32_t x2[4][2];
+    tokens_by_state(z, p.xk, w1, lane);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[e] = gelu_and_grad(z[u][e] + bias1[u][e & 1], gp[u][e]);
+      x2[u][0] = pack_bf16(y[0], y[1]);
+      x2[u][1] = pack_bf16(y[2], y[3]);
+    }
+    // Z2's share: X2c @ bf16(W2) over the warp's units.
+    units_by_w2(S.z2p[warp], x2, w2, g, t);
+    fence_state(w1);
+    fence_state(w2);
+    hopper::named_sync(kConsumerBar, kConsumers);  // wait 1: Z2's shares
+
+    // grad_z2 = ln_fused_l2_bwd(Z2, target) for rows 2 warp, 2 warp + 1 (eps 1e-8 on the biased var).
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      const int r = warp * 2 + rr;
-      const size_t xo = (((size_t)b * NC + n) * kCS + r) * HF + (size_t)h * kF + f0;
-      const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xq + xo));
-      const float2 k = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xk + xo));
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xv + xo));
-      const size_t to = ((size_t)n * kCS + r) * kF + f0;
-      const float2 c = *reinterpret_cast<const float2*>(rope_cos + to);
-      const float2 s = *reinterpret_cast<const float2*>(rope_sin + to);
-
-      // L2-norm: x / max(||x||, 1e-12); rope: x*cos + (x@R)*sin, (x@R) = (-x1, x0).
-      const float dq = fmaxf(sqrtf(warp_sum(q.x * q.x + q.y * q.y)), 1e-12f);
-      const float dk = fmaxf(sqrtf(warp_sum(k.x * k.x + k.y * k.y)), 1e-12f);
-      const float qn0 = q.x / dq, qn1 = q.y / dq, kn0 = k.x / dk, kn1 = k.y / dk;
-      const float XQ0 = qn0 * c.x + (-qn1) * s.x, XQ1 = qn1 * c.y + qn0 * s.y;
-      const float XK0 = kn0 * c.x + (-kn1) * s.x, XK1 = kn1 * c.y + kn0 * s.y;
-
-      // LN-reconstruction target: unbiased std, eps added to the std.
-      const float t0 = v.x - XK0, t1 = v.y - XK1;
-      const float mu = warp_sum(t0 + t1) * (1.f / kF);
-      const float d0 = t0 - mu, d1 = t1 - mu;
-      const float var = warp_sum(d0 * d0 + d1 * d1) * (1.f / kF) * ((float)kF / (kF - 1));
-      const float sd = sqrtf(var) + 1e-8f;
-      sTgt[r * kF + f0] = lw0 * (d0 / sd) + lb0;
-      sTgt[r * kF + f0 + 1] = lw1 * (d1 / sd) + lb1;
-      sXQ[r * kLdX + f0] = bf16r(XQ0);
-      sXQ[r * kLdX + f0 + 1] = bf16r(XQ1);
-      sXK[r * kLdX + f0] = bf16r(XK0);
-      sXK[r * kLdX + f0 + 1] = bf16r(XK1);
-      if (lane == 0) {
-        const float gl = gate[(((size_t)b * H + h) * NC + n) * kCS + r];
-        sEta[r] = (1.f / (1.f + expf(-gl))) * eta_scale;
+      const int r = 2 * warp + rr;
+      float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float2 v = *reinterpret_cast<const float2*>(S.z2p[w] + r * kLdP + f0);
+        x0 += v.x;
+        x1 += v.y;
       }
-    }
-    __syncthreads();
-
-    // ---- B: Z1 = XK @ bf16(W1) + b1 (thread = column c of 4F). Keep gelu'(Z1), bf16(gelu(Z1)).
-    {
-      const int c = tid;
-      float acc[kCS];
-#pragma unroll
-      for (int r = 0; r < kCS; ++r) acc[r] = 0.f;
-      for (int k = 0; k < kF; k += 4) {
-        const float w0 = bf16r(sW1[(k + 0) * kF4 + c]), w1 = bf16r(sW1[(k + 1) * kF4 + c]);
-        const float w2 = bf16r(sW1[(k + 2) * kF4 + c]), w3 = bf16r(sW1[(k + 3) * kF4 + c]);
-#pragma unroll
-        for (int r = 0; r < kCS; ++r) {
-          const float4 x = ld4(sXK + r * kLdX + k);
-          acc[r] += x.x * w0;
-          acc[r] += x.y * w1;
-          acc[r] += x.z * w2;
-          acc[r] += x.w * w3;
-        }
-      }
-      const float bias = sB1[c];
-#pragma unroll
-      for (int r = 0; r < kCS; ++r) {
-        const float z = acc[r] + bias;
-        sG1[r * kF4 + c] = gelu_bwd(z);
-        sX2c[r * kLdX2 + c] = bf16r(gelu_tanh(z));
-      }
-    }
-    __syncthreads();
-
-    // ---- C: Z2 = X2c @ bf16(W2) + b2 (thread = column c of F, 4 rows).
-    {
-      const int c = tid & (kF - 1), r0 = (tid >> 6) * 4;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < kF4; k += 4) {
-        const float w0 = bf16r(sW2[(k + 0) * kLdW2 + c]), w1 = bf16r(sW2[(k + 1) * kLdW2 + c]);
-        const float w2 = bf16r(sW2[(k + 2) * kLdW2 + c]), w3 = bf16r(sW2[(k + 3) * kLdW2 + c]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 x = ld4(sX2c + (r0 + i) * kLdX2 + k);
-          acc[i] += x.x * w0;
-          acc[i] += x.y * w1;
-          acc[i] += x.z * w2;
-          acc[i] += x.w * w3;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sZ2[(r0 + i) * kF + c] = acc[i] + sB2[c];
-    }
-    __syncthreads();
-
-    // ---- D: grad_z2 = ln_fused_l2_bwd(Z2, target) (row-wise; eps 1e-8 on the biased var).
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = warp * 2 + rr;
-      const float x0 = sZ2[r * kF + f0], x1 = sZ2[r * kF + f0 + 1];
+      x0 += b2.x;
+      x1 += b2.y;
       const float mu = warp_sum(x0 + x1) * (1.f / kF);
       const float d0 = x0 - mu, d1 = x1 - mu;
       const float sd = sqrtf(warp_sum(d0 * d0 + d1 * d1) * (1.f / kF) + 1e-8f);
       const float xh0 = d0 / sd, xh1 = d1 / sd;
-      const float gx0 = (lw0 * xh0 + lb0 - sTgt[r * kF + f0]) * lw0;
-      const float gx1 = (lw1 * xh1 + lb1 - sTgt[r * kF + f0 + 1]) * lw1;
+      const float2 tg = *reinterpret_cast<const float2*>(p.tgt + r * kF + f0);
+      const float gx0 = (lw.x * xh0 + lb.x - tg.x) * lw.x;
+      const float gx1 = (lw.y * xh1 + lb.y - tg.y) * lw.y;
       const float s1 = warp_sum(gx0 + gx1);
       const float s2 = warp_sum(gx0 * xh0 + gx1 * xh1);
       const float g0 = (1.f / kF) * (kF * gx0 - s1 - xh0 * s2) / sd;
       const float g1 = (1.f / kF) * (kF * gx1 - s1 - xh1 * s2) / sd;
-      const float eta = sEta[r];
-      sGz2[r * kF + f0] = bf16r(g0);
-      sGz2[r * kF + f0 + 1] = bf16r(g1);
-      sG2[r * kF + f0] = bf16r(eta * g0);
-      sG2[r * kF + f0 + 1] = bf16r(eta * g1);
+      const float eta = p.eta[r];
+      st_bf2(S.gz2 + r * kLdB + f0, g0, g1);
+      st_bf2(S.g2 + r * kLdB + f0, eta * g0, eta * g1);
     }
-    __syncthreads();
+    hopper::named_sync(kConsumerBar, kConsumers);  // wait 2: bf16(grad_z2) and G2
 
-    // ---- E: G1 = bf16(eta * (bf16(grad_z2) @ bf16(W2)^T * gelu'(Z1))) (thread = column j of 4F);
-    //         attn1 = bf16(XQ @ XK^T).
+    // G1 = bf16(eta * (bf16(grad_z2) @ bf16(W2)^T * gelu'(Z1))) on the warp's units; b1 -= colsum(G1).
+    uint32_t g1[4][2], g1t[4][2];
     {
-      const int j = tid;
-      float acc[kCS];
+      float gz[4][4] = {};
+      tokens_by_state(gz, S.gz2, w2, lane);
+      fence_state(w2);
+      const float eta_lo = p.eta[g], eta_hi = p.eta[g + 8];
 #pragma unroll
-      for (int r = 0; r < kCS; ++r) acc[r] = 0.f;
-      for (int f = 0; f < kF; f += 4) {
-        const float w0 = bf16r(sW2[j * kLdW2 + f + 0]), w1 = bf16r(sW2[j * kLdW2 + f + 1]);
-        const float w2 = bf16r(sW2[j * kLdW2 + f + 2]), w3 = bf16r(sW2[j * kLdW2 + f + 3]);
+      for (int u = 0; u < 4; ++u) {
+        g1[u][0] = pack_bf16(eta_lo * (gz[u][0] * gp[u][0]), eta_lo * (gz[u][1] * gp[u][1]));
+        g1[u][1] = pack_bf16(eta_hi * (gz[u][2] * gp[u][2]), eta_hi * (gz[u][3] * gp[u][3]));
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&g1[u][0]));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&g1[u][1]));
+        float c0 = lo.x + hi.x, c1 = lo.y + hi.y;
 #pragma unroll
-        for (int r = 0; r < kCS; ++r) {
-          const float4 gz = ld4(sGz2 + r * kF + f);
-          acc[r] += gz.x * w0;
-          acc[r] += gz.y * w1;
-          acc[r] += gz.z * w2;
-          acc[r] += gz.w * w3;
+        for (int off = 4; off < 32; off <<= 1) {
+          c0 += __shfl_xor_sync(0xffffffffu, c0, off);
+          c1 += __shfl_xor_sync(0xffffffffu, c1, off);
         }
+        bias1[u][0] -= c0;
+        bias1[u][1] -= c1;
+        // G1^T blocks: (unit 8u + g, tokens 2t, 2t + 1) and (..., tokens 8 + 2t, 9 + 2t).
+        g1t[u][0] = movmatrix_trans(g1[u][0]);
+        g1t[u][1] = movmatrix_trans(g1[u][1]);
       }
-#pragma unroll
-      for (int r = 0; r < kCS; ++r) sG1[r * kF4 + j] = bf16r(sEta[r] * (acc[r] * sG1[r * kF4 + j]));
-
-      const int ar = tid >> 4, ac = tid & (kCS - 1);
-      float a = 0.f;
-      for (int k = 0; k < kF; k += 4) {
-        const float4 x = ld4(sXQ + ar * kLdX + k), y = ld4(sXK + ac * kLdX + k);
-        a += x.x * y.x;
-        a += x.y * y.y;
-        a += x.z * y.z;
-        a += x.w * y.w;
-      }
-      sA1[ar * kCS + ac] = bf16r(a);
     }
-    __syncthreads();
 
-    // ---- F: per column c of 4F (one thread owns it): b1 -= colsum(G1);
-    //         Z1_bar = XQ @ bf16(W1) - attn1 @ G1 + b1; X2_barc = bf16(gelu(Z1_bar));
-    //         W1 -= XK^T @ G1.
+    // Z1_bar = XQ @ bf16(W1) - attn1 @ G1 + b1 (the new b1); X2_barc = bf16(gelu(Z1_bar)).
+    uint32_t xb[4][2];
     {
-      const int c = tid;
-      float g1[kCS];
-      float colsum = 0.f;
+      float zb[4][4] = {};
+      tokens_by_state(zb, p.xq, w1, lane);
+      const uint4 nv = *reinterpret_cast<const uint4*>(p.neg_attn1 + lane * 4);
+      const uint32_t na[4] = {nv.x, nv.y, nv.z, nv.w};
 #pragma unroll
-      for (int r = 0; r < kCS; ++r) {
-        g1[r] = sG1[r * kF4 + c];
-        colsum += g1[r];
-      }
-      const float b1n = sB1[c] - colsum;
-      sB1[c] = b1n;
-
-      float acc[kCS];
+      for (int u = 0; u < 4; ++u) {
+        mma_bf16_16816(zb[u], na, g1t[u][0], g1t[u][1]);
+        float y[4], unused;
 #pragma unroll
-      for (int r = 0; r < kCS; ++r) acc[r] = 0.f;
-      for (int k = 0; k < kF; k += 4) {
-        const float w0 = bf16r(sW1[(k + 0) * kF4 + c]), w1 = bf16r(sW1[(k + 1) * kF4 + c]);
-        const float w2 = bf16r(sW1[(k + 2) * kF4 + c]), w3 = bf16r(sW1[(k + 3) * kF4 + c]);
-#pragma unroll
-        for (int r = 0; r < kCS; ++r) {
-          const float4 x = ld4(sXQ + r * kLdX + k);
-          acc[r] += x.x * w0;
-          acc[r] += x.y * w1;
-          acc[r] += x.z * w2;
-          acc[r] += x.w * w3;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kCS; ++r) {
-        float ag = 0.f;
-#pragma unroll
-        for (int s = 0; s < kCS; ++s) ag += sA1[r * kCS + s] * g1[s];
-        sX2b[r * kF4 + c] = bf16r(gelu_tanh((acc[r] - ag) + b1n));
-      }
-      for (int k = 0; k < kF; ++k) {
-        float d = 0.f;
-#pragma unroll
-        for (int r = 0; r < kCS; ++r) d += sXK[r * kLdX + k] * g1[r];
-        sW1[k * kF4 + c] -= d;
+        for (int e = 0; e < 4; ++e) y[e] = gelu_and_grad(zb[u][e] + bias1[u][e & 1], unused);
+        xb[u][0] = pack_bf16(y[0], y[1]);
+        xb[u][1] = pack_bf16(y[2], y[3]);
       }
     }
-    __syncthreads();
+    // W1^T -= G1^T @ XK.
+    update_state(w1, g1t, p.xk, lane);
 
-    // ---- G: attn2 = bf16(X2_barc @ X2c^T); b2 -= colsum(G2).
+    // attn2's share: X2_barc @ X2c^T over the warp's units (B = X2c's own fragments).
     {
-      const int ar = tid >> 4, ac = tid & (kCS - 1);
-      float a = 0.f;
-      for (int k = 0; k < kF4; k += 4) {
-        const float4 x = ld4(sX2b + ar * kF4 + k), y = ld4(sX2c + ac * kLdX2 + k);
-        a += x.x * y.x;
-        a += x.y * y.y;
-        a += x.z * y.z;
-        a += x.w * y.w;
-      }
-      sA2[ar * kCS + ac] = bf16r(a);
-      if (tid < kF) {
-        float colsum = 0.f;
+      float a2[2][4] = {};
 #pragma unroll
-        for (int r = 0; r < kCS; ++r) colsum += sG2[r * kF + tid];
-        sB2[tid] -= colsum;
+      for (int kh = 0; kh < 2; ++kh) {
+        const uint32_t xa[4] = {xb[2 * kh][0], xb[2 * kh][1], xb[2 * kh + 1][0], xb[2 * kh + 1][1]};
+        mma_bf16_16816(a2[0], xa, x2[2 * kh][0], x2[2 * kh + 1][0]);
+        mma_bf16_16816(a2[1], xa, x2[2 * kh][1], x2[2 * kh + 1][1]);
+      }
+      float* dst = S.a2p[warp];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        *reinterpret_cast<float2*>(dst + g * kLdA + 8 * nt + 2 * t) = make_float2(a2[nt][0], a2[nt][1]);
+        *reinterpret_cast<float2*>(dst + (g + 8) * kLdA + 8 * nt + 2 * t) = make_float2(a2[nt][2], a2[nt][3]);
       }
     }
-    __syncthreads();
-
-    // ---- H: Z2_bar = X2_barc @ bf16(W2) - attn2 @ G2 + b2 (thread = column c of F, 4 rows).
+    // Z2_bar's share: X2_barc @ bf16(W2); then W2 -= X2c^T @ G2.
+    units_by_w2(S.z2bp[warp], xb, w2, g, t);
     {
-      const int c = tid & (kF - 1), r0 = (tid >> 6) * 4;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < kF4; k += 4) {
-        const float w0 = bf16r(sW2[(k + 0) * kLdW2 + c]), w1 = bf16r(sW2[(k + 1) * kLdW2 + c]);
-        const float w2 = bf16r(sW2[(k + 2) * kLdW2 + c]), w3 = bf16r(sW2[(k + 3) * kLdW2 + c]);
+      uint32_t x2t[4][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 x = ld4(sX2b + (r0 + i) * kF4 + k);
-          acc[i] += x.x * w0;
-          acc[i] += x.y * w1;
-          acc[i] += x.z * w2;
-          acc[i] += x.w * w3;
-        }
+      for (int u = 0; u < 4; ++u) {
+        x2t[u][0] = movmatrix_trans(x2[u][0]);
+        x2t[u][1] = movmatrix_trans(x2[u][1]);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float ag = 0.f;
-#pragma unroll
-        for (int s = 0; s < kCS; ++s) ag += sA2[(r0 + i) * kCS + s] * sG2[s * kF + c];
-        sZ2[(r0 + i) * kF + c] = (acc[i] - ag) + sB2[c];
-      }
+      update_state(w2, x2t, S.g2, lane);
     }
-    __syncthreads();
+    hopper::named_sync(kConsumerBar, kConsumers);  // wait 3: Z2_bar's and attn2's shares
 
-    // ---- I: W2 -= X2c^T @ G2 (thread = column c, rows j = jg, jg+4, ...);
-    //         out = XQ + LN(Z2_bar) (row-wise, eps 1e-8 on the biased var).
-    {
-      const int c = tid & (kF - 1), jg = tid >> 6;
-      float g2[kCS];
+    // Rows 2 warp, 2 warp + 1: attn2 = bf16(sum of shares); b2 -= colsum(G2);
+    // Z2_bar = shares - attn2 @ G2 + b2; out = XQ + LN(Z2_bar) (eps 1e-8 on the biased var).
+    float ar[2] = {0.f, 0.f};
+    if (lane < kCS) {
 #pragma unroll
-      for (int r = 0; r < kCS; ++r) g2[r] = sG2[r * kF + c];
-      for (int j = jg; j < kF4; j += 4) {
-        float d = 0.f;
+      for (int rr = 0; rr < 2; ++rr) {
 #pragma unroll
-        for (int r = 0; r < kCS; ++r) d += sX2c[r * kLdX2 + j] * g2[r];
-        sW2[j * kLdW2 + c] -= d;
+        for (int w = 0; w < kWarps; ++w) ar[rr] += S.a2p[w][(2 * warp + rr) * kLdA + lane];
+        ar[rr] = bf16r(ar[rr]);
       }
     }
+    float2 cs = make_float2(0.f, 0.f), ag[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+#pragma unroll
+    for (int sr = 0; sr < kCS; ++sr) {
+      const float2 gv = bf2f(S.g2 + sr * kLdB + f0);
+      cs.x += gv.x;
+      cs.y += gv.y;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float as = __shfl_sync(0xffffffffu, ar[rr], sr);
+        ag[rr].x += as * gv.x;
+        ag[rr].y += as * gv.y;
+      }
+    }
+    b2.x -= cs.x;
+    b2.y -= cs.y;
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      const int r = warp * 2 + rr;
-      const float x0 = sZ2[r * kF + f0], x1 = sZ2[r * kF + f0 + 1];
+      const int r = 2 * warp + rr;
+      float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float2 v = *reinterpret_cast<const float2*>(S.z2bp[w] + r * kLdP + f0);
+        x0 += v.x;
+        x1 += v.y;
+      }
+      x0 = (x0 - ag[rr].x) + b2.x;
+      x1 = (x1 - ag[rr].y) + b2.y;
       const float mu = warp_sum(x0 + x1) * (1.f / kF);
       const float d0 = x0 - mu, d1 = x1 - mu;
       const float sd = sqrtf(warp_sum(d0 * d0 + d1 * d1) * (1.f / kF) + 1e-8f);
-      const float o0 = sXQ[r * kLdX + f0] + (lw0 * (d0 / sd) + lb0);
-      const float o1 = sXQ[r * kLdX + f0 + 1] + (lw1 * (d1 / sd) + lb1);
-      const size_t xo = (((size_t)b * NC + n) * kCS + r) * HF + (size_t)h * kF + f0;
-      *reinterpret_cast<__nv_bfloat162*>(out + xo) = __floats2bfloat162_rn(o0, o1);
+      const float2 q = bf2f(p.xq + r * kLdB + f0);
+      const size_t xo = (((size_t)b * a.NC + n) * kCS + r) * HF + (size_t)h * kF + f0;
+      st_bf2(a.out + xo, q.x + (lw.x * (d0 / sd) + lb.x), q.y + (lw.y * (d1 / sd) + lb.y));
     }
-    __syncthreads();
+    hopper::mbar_arrive(&S.empty[s]);  // this thread is done with prep[s]
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ttt_mlp_fwd_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&S.full[s], 128);         // every producer thread
+      hopper::mbar_init(&S.empty[s], kConsumers);  // every consumer thread
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (warp >= kWarps) {  // the producer warpgroup
+    hopper::reg_dealloc<kProducerRegs>();
+    producer(S, a, b, h, warp - kWarps, lane);
+  } else {
+    hopper::reg_alloc<kConsumerRegs>();
+    consumer(S, a, b, h, warp, lane);
   }
 }
 
@@ -415,22 +560,22 @@ extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, c
                                int B, int NC, int H, float eta_scale, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(ttt_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ttt_mlp_fwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
-      static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
-      static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin),
-      static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
-      static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
-      static_cast<__nv_bfloat16*>(out), NC, H, eta_scale);
+  const Args a{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
+               static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
+               static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin),
+               static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
+               static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
+               static_cast<__nv_bfloat16*>(out), NC, H, eta_scale};
+  ttt_mlp_fwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- training
 //
 // ttt_mlp_fwd_train_kernel: the same scan at the training mini-batch
-// CS = 64. At CS = 64 the fp32 step tiles alone are ~256 KiB, so the layout
-// of the sampling kernel (state + tiles in shared memory) does not carry
-// over: the state and the step tiles live in a per-block fp32 workspace in
+// CS = 64. At CS = 64 the fp32 step tiles alone are ~256 KiB, so the step's
+// tiles cannot stay on chip as the sampling kernel's do: the state and the
+// step tiles live in a per-block fp32 workspace in
 // device memory (512 KiB per scan, L2-resident at 48 heads) and the step is
 // the block-level forward_step of ttt_mlp_block.cuh, with the same bf16
 // rounding points. Before mini-batch n with n % K == 0 it writes the fp32

@@ -360,7 +360,10 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
     global launches
     if XQ.device.type == "cpu":
         return ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale)
-    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
+    args = (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
+    check_kernel_args(*args)
+    if any(t.data_ptr() % 16 for t in args):  # the kernel copies 16-byte chunks (cp.async)
+        raise ValueError("ttt_mlp_forward takes 16-byte aligned tensors")
     B, NC, _, _ = XQ.shape
     H = ln_w.shape[0]
     out = torch.empty_like(XQ)
