@@ -13,7 +13,8 @@ non-zero, and no result line is printed):
    the same function where there is one: K1 (sampling; also at 3 x 48
    scans and at a large eta, where the state update must move the output),
    K3 (sampling),
-   K1-train and K2 (TTT-MLP training forward and backward), K3 with the
+   K1-train and K2 (TTT-MLP training forward and backward; also at a
+   large eta), K3 with the
    log-sum-exp and K4 (attention backward), K5 (TTT-linear, sampling),
    K5-train and K6 (TTT-linear training forward and backward), K7 (the
    float32 -> bf16 weight cast, bit-exact).
@@ -204,10 +205,13 @@ def phase_build():
     for name, info in _build.build_info.items():
         usage = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: built in {info['seconds']:.1f} s; ptxas: {' | '.join(usage)}")
-    smem = _build.load("ttt_mlp_forward").ttt_mlp_forward_smem_bytes()
-    smem_k6 = _build.load("ttt_linear_backward").ttt_linear_backward_smem_bytes()
-    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: ttt_mlp_forward {smem} bytes, "
-        f"ttt_linear_backward {smem_k6} bytes)")
+    fwd = _build.load("ttt_mlp_forward")
+    smem = {"ttt_mlp_forward": fwd.ttt_mlp_forward_smem_bytes(),
+            "ttt_mlp_forward_train": fwd.ttt_mlp_forward_train_smem_bytes(),
+            "ttt_mlp_backward": _build.load("ttt_mlp_backward").ttt_mlp_backward_smem_bytes(),
+            "ttt_linear_backward": _build.load("ttt_linear_backward").ttt_linear_backward_smem_bytes()}
+    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: "
+        + ", ".join(f"{k} {v} bytes" for k, v in smem.items()) + ")")
 
 
 def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16, variant="ttt_mlp"):
@@ -339,7 +343,9 @@ def check_ttt_training(variant, gen, device) -> list[dict]:
     """K1-train and K2, or K5-train and K6, at the training slice (B=1, 48
     heads, the TOML's CS and K: ttt_mlp NC=282 at CS=64, K=16, last group 10;
     ttt_linear NC=1128 at CS=16, K=4; the 3 s training tables) and at a
-    small ragged shape (NC=7, K=3: the last group has one step)."""
+    small ragged shape (NC=7, K=3: the last group has one step); K1-train
+    and K2 also there at an eta 4,096x the slice's, where the plain output
+    must lie MOVED_TOLS tolerances from the eta = 0 output."""
     mod = _ttt_module(variant)
     fwd, bwd = f"{variant}_forward_train", f"{variant}_backward"
     fwd_k, bwd_k = getattr(mod, fwd), getattr(mod, bwd)
@@ -351,20 +357,34 @@ def check_ttt_training(variant, gen, device) -> list[dict]:
     names = tuple(f"{n}_ck" for n in state)
     gnames = ELEMENTWISE_GRADS + tuple(f"d{n}" for n in state) + ("dln_w", "dln_b")
     inputs = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")
-    for B, H, NC, KK, m in ((1, 48, SEQ // CS, K, meta), (1, 2, 7, 3, None)):
+    cases = [(1, 48, SEQ // CS, K, meta, eta_scale), (1, 2, 7, 3, None, eta_scale)]
+    if variant == "ttt_mlp":  # an eta 4,096x the slice's, where a wrong state update or eta path shows
+        cases.append((1, 2, 7, 3, None, 4096 * eta_scale))
+    for B, H, NC, KK, m, eta in cases:
+        # The large-eta case (the last) draws from its own generator, so the caller's generator, and with it
+        # the inputs of the kernels checked after these, advance as they did without it.
+        if eta != eta_scale:
+            gen = torch.Generator(device).manual_seed(5)
         a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS, variant=variant)
-        got = fwd_k(**a, eta_scale=eta_scale, checkpoint_group=KK)
-        want, fwd_plain_ms = timed(lambda: fwd_p(**a, eta_scale=eta_scale, checkpoint_group=KK))
+        got = fwd_k(**a, eta_scale=eta, checkpoint_group=KK)
+        want, fwd_plain_ms = timed(lambda: fwd_p(**a, eta_scale=eta, checkpoint_group=KK))
         out_err = compare(fwd, got[0], want[0])
         errs = [compare_scaled(fwd, n, g, w) for n, g, w in zip(names, got[1:], want[1:])]
-        log(f"  {fwd} B={B} H={H} NC={NC} K={KK}: out max_abs_err {out_err:.4g}; checkpoints max_abs_err / "
-            "rel L2 " + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(names, errs)))
+        moved = ""
+        if eta != eta_scale:
+            tols = in_tolerances(fwd, want[0], fwd_p(**a, eta_scale=0.0))
+            if tols < MOVED_TOLS:
+                raise AssertionError(f"{fwd} eta_scale={eta:.4g}: the plain output moved only {tols:.3g} "
+                                     f"tolerances from the eta = 0 output (at least {MOVED_TOLS} needed)")
+            moved = f"; the plain output {tols:.1f} tolerances from eta = 0's"
+        log(f"  {fwd} B={B} H={H} NC={NC} K={KK} eta_scale={eta:.4g}: out max_abs_err {out_err:.4g}; checkpoints "
+            "max_abs_err / rel L2 " + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(names, errs)) + moved)
         dout = torch.randn(*a["XQ"].shape, generator=gen, device=device).bfloat16()
         ins = [a[n] for n in inputs]
-        gk = bwd_k(*ins, *want[1:], dout, eta_scale, KK)
-        gp, bwd_plain_ms = timed(lambda: bwd_p(*ins, *want[1:], dout, eta_scale, KK))
+        gk = bwd_k(*ins, *want[1:], dout, eta, KK)
+        gp, bwd_plain_ms = timed(lambda: bwd_p(*ins, *want[1:], dout, eta, KK))
         gerrs = [compare_scaled(bwd, n, g, w) for n, g, w in zip(gnames, gk, gp)]
-        log(f"  {bwd} B={B} H={H} NC={NC} K={KK}: max_abs_err / rel L2 "
+        log(f"  {bwd} B={B} H={H} NC={NC} K={KK} eta_scale={eta:.4g}: max_abs_err / rel L2 "
             + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(gnames, gerrs))
             + f" (tol rel L2 {REL_L2_TOL}; {', '.join(ELEMENTWISE_GRADS)} also elementwise {KERNEL_TOL[bwd]})")
         for n, g, w in zip(gnames, gk, gp):

@@ -1,7 +1,10 @@
-"""Times of K1 (the TTT-MLP sampling scan) and K7 (the float32 -> bf16 weight cast) on a CUDA card.
+"""Times of K1 (the TTT-MLP sampling scan), K1-train and K2 (the TTT-MLP training scan and its backward) and K7
+(the float32 -> bf16 weight cast) on a CUDA card.
 
 At the 3 s slices' shapes (chip_smoke.py's): K1 at [B 2, NC 1,128, CS 16,
-48 heads x 64] with eta_scale 0.1 / 64 / 16, and K7 on a [12288, 3072]
+48 heads x 64] with eta_scale 0.1 / 64 / 16; K1-train at [B 1, NC 282,
+CS 64, 48 heads x 64], K 16, eta_scale 0.1 / 64 / 64, and K2 from its
+checkpoints (--reps launches each); K7 on a [12288, 3072]
 float32 weight beside ``.to(torch.bfloat16)`` on the same tensor, the two
 timed in turns (--rounds rounds of --k7-reps launches each, after one
 untimed round). Times are means
@@ -29,6 +32,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NC, CS, H, F = 1128, 16, 48, 64
+NC_TRAIN, CS_TRAIN, K_TRAIN = 282, 64, 16
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -83,6 +87,23 @@ def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
     out["K1_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**a, eta_scale=0.1 / 64 / 16), reps)
     del a
 
+    # K1-train and K2 at the training slice; K2 from K1-train's checkpoints.
+    angles = torch.rand(NC_TRAIN, CS_TRAIN, F // 2, generator=gen, device=device) * 6.3
+    t = dict(XQ=randn(1, NC_TRAIN, CS_TRAIN, H * F).bfloat16(), XK=randn(1, NC_TRAIN, CS_TRAIN, H * F).bfloat16(),
+             XV=randn(1, NC_TRAIN, CS_TRAIN, H * F).bfloat16(), gate=randn(1, H, NC_TRAIN, CS_TRAIN),
+             rope_cos=torch.cos(angles).repeat_interleave(2, -1).contiguous(),
+             rope_sin=torch.sin(angles).repeat_interleave(2, -1).contiguous(),
+             ln_w=1 + randn(H, F, std=0.1), ln_b=randn(H, F, std=0.1), W1=randn(H, F, 4 * F, std=0.02),
+             b1=randn(H, 1, 4 * F, std=0.02), W2=randn(H, 4 * F, F, std=0.02), b2=randn(H, 1, F, std=0.02))
+    eta = 0.1 / 64 / 64
+    fwd = lambda: ttt_mlp_kernel.ttt_mlp_forward_train(**t, eta_scale=eta, checkpoint_group=K_TRAIN)
+    out["K1_train_ms"] = cuda_ms(fwd, reps)
+    ck = fwd()[1:]
+    dout = randn(*t["XQ"].shape).bfloat16()
+    ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    out["K2_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward(*ins, *ck, dout, eta, K_TRAIN), reps)
+    del t, ck, dout, ins
+
     w = randn(12288, 3072)
     k7, to = (lambda: convert.convert_f32_bf16(w)), (lambda: w.to(torch.bfloat16))
     k7_ms, to_ms = [], []
@@ -114,7 +135,7 @@ def compare(parent: str, args) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=5, help="K1 launches timed")
+    ap.add_argument("--reps", type=int, default=5, help="K1, K1-train and K2 launches timed")
     ap.add_argument("--k7-reps", type=int, default=50, help="K7 (and .to) launches a round")
     ap.add_argument("--rounds", type=int, default=4, help="rounds of K7 then .to")
     ap.add_argument("--tree", default=ROOT, help="the checkout whose port is timed (default: this one)")

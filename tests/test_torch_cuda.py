@@ -144,17 +144,21 @@ def _train_inputs(cuda, B, H, NC, seed):
     ), randn
 
 
-@pytest.mark.parametrize("B,H,NC,K", [(1, 2, 5, 2), (2, 3, 3, 16)])
-def test_ttt_train_and_backward_kernels_match_plain(cuda, B, H, NC, K):
+# The training slice's eta_scale (ttt_base_lr 0.1 / 64 / 64), and 4,096x and 40,960x it, where the state update
+# moves the output far (the plain output then lies at least 10 tolerances from the eta = 0 output).
+@pytest.mark.parametrize("B,H,NC,K,scale", [(1, 2, 5, 2, 0.1 / 64 / 64), (2, 3, 3, 16, 0.1 / 64 / 64),
+                                            (1, 2, 5, 2, 0.1), (1, 2, 5, 2, 1.0)])
+def test_ttt_train_and_backward_kernels_match_plain(cuda, B, H, NC, K, scale):
     """K1-train (output elementwise; fp32 checkpoints within 1e-2 relative L2
     and 1e-3 of their scale) and K2 (every gradient within 1e-2 relative L2
     and 1e-2 of its scale; dXQ/dXK/dXV/d_gate also elementwise) against their
     plain versions, at CS = 64 with a ragged last checkpoint group."""
     a, randn = _train_inputs(cuda, B, H, NC, seed=3)
-    scale = 0.1 / 64 / 64
     before = (ttt_mlp_kernel.train_launches, ttt_mlp_kernel.bwd_launches)
     got = ttt_mlp_kernel.ttt_mlp_forward_train(**a, eta_scale=scale, checkpoint_group=K)
     want = ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=scale, checkpoint_group=K)
+    if scale >= 0.1:
+        assert _in_tolerances(want[0], ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=0.0)) >= 10
     _close(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         _scaled(g, w, 1e-3)
@@ -289,6 +293,24 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     k1["XQ"] = torch.zeros(2 * 16 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 2, 16, 128)
     with pytest.raises(ValueError):  # not 16-byte aligned
         ttt_mlp_kernel.ttt_mlp_forward(**k1, eta_scale=1e-3)
+    # Each training and TTT-linear wrapper refuses a contiguous tensor one bf16 element off a 16-byte boundary.
+    off = lambda t: torch.zeros(t.numel() + 1, device=cuda, dtype=t.dtype)[1:].view(t.shape)
+    ta, _ = _train_inputs(cuda, 1, 2, 3, seed=6)
+    with pytest.raises(ValueError, match="16-byte"):
+        ttt_mlp_kernel.ttt_mlp_forward_train(**dict(ta, XK=off(ta["XK"])), eta_scale=1e-3, checkpoint_group=2)
+    ck = ttt_mlp_kernel.ttt_mlp_forward_plain(**ta, eta_scale=1e-3, checkpoint_group=2)[1:]
+    tins = [ta[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    with pytest.raises(ValueError, match="16-byte"):
+        ttt_mlp_kernel.ttt_mlp_backward(*tins, *ck, off(ta["XQ"]), 1e-3, 2)
+    la, _ = _linear_inputs(cuda, 1, 2, 3, seed=6)
+    with pytest.raises(ValueError, match="16-byte"):
+        ttt_linear_kernel.ttt_linear_forward(**dict(la, XV=off(la["XV"])), eta_scale=1e-3)
+    with pytest.raises(ValueError, match="16-byte"):
+        ttt_linear_kernel.ttt_linear_forward_train(**dict(la, XQ=off(la["XQ"])), eta_scale=1e-3, checkpoint_group=2)
+    lck = ttt_linear_kernel.ttt_linear_forward_plain(**la, eta_scale=1e-3, checkpoint_group=2)[1:]
+    lins = [la[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    with pytest.raises(ValueError, match="16-byte"):
+        ttt_linear_kernel.ttt_linear_backward(*lins, *lck, off(la["XQ"]), 1e-3, 2)
     a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6)
     a["W1"] = torch.zeros(2, 64, 256, device=cuda)  # a TTT-MLP state
     with pytest.raises(ValueError):

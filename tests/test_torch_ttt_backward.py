@@ -205,6 +205,84 @@ def test_k2_plain_matches_pallas_bf16(rng, CS, NC, K):
         _close_scaled(g.float().numpy(), w, 2e-2)
 
 
+LARGE_ETA = [0.1, 1.0]  # eta_scale 4,096x and 40,960x the 3 s training slice's (ttt_base_lr / 64 / 64)
+
+
+@pytest.mark.parametrize("scale", LARGE_ETA)
+def test_k1_train_plain_matches_pallas_bf16_large_eta(rng, scale):
+    """K1-train's plain version against the Pallas kernel (interpret) at the
+    CUDA kernel's shape (bf16 q/k/v, F = CS = 64) and at the large eta where
+    the carried state moves the output most (the eta of the CUDA kernel's
+    state-update checks): output within 1e-2 absolute and relative, fp32
+    checkpoints within 1e-3 of their scale (bf16 rounding flips from float32
+    summation order, grown by the larger updates)."""
+    B, H, NC, CS, F, K = 1, 2, 3, 64, 64, 2
+    a = _args(rng, B, H, NC, CS, F)
+    got = tk.ttt_mlp_forward_plain(**_torch(a, torch.bfloat16), eta_scale=scale, checkpoint_group=K)
+    want = _jax_forward(a, scale, K, jnp.bfloat16)
+    np.testing.assert_allclose(got[0].float().numpy(), np.asarray(want[0].astype(jnp.float32)), rtol=1e-2, atol=1e-2)
+    for g, w in zip(got[1:], _port_ckpts(want[1:])):
+        _close_scaled(g.numpy(), w.numpy(), 1e-3)
+
+
+@pytest.mark.parametrize("scale", LARGE_ETA)
+def test_k2_plain_matches_pallas_bf16_large_eta(rng, scale):
+    """K2's plain version against the Pallas backward (interpret) at F = CS =
+    64, bf16, large eta, from the same checkpoints: every gradient within
+    2e-2 of its scale, as at the slice's eta."""
+    B, H, NC, CS, F, K = 1, 2, 3, 64, 64, 2
+    a = _args(rng, B, H, NC, CS, F)
+    jck = _jax_forward(a, scale, K, jnp.bfloat16)[1:]
+    dout = rng.standard_normal(a["XQ"].shape).astype(f32)
+    t = _torch(a, torch.bfloat16)
+    got = tk.ttt_mlp_backward_plain(*(t[k] for k in IN), *_port_ckpts(jck),
+                                    torch.from_numpy(dout).bfloat16(), scale, K)
+    want = _jax_backward(a, jck, dout, scale, K, jnp.bfloat16)
+    for g, w in zip(got, want):
+        _close_scaled(g.float().numpy(), w, 2e-2)
+
+
+def _tolerances_apart(a, b, atol, rtol):
+    """max |a - b| / (atol + rtol |b|): how many of a tolerance two results are apart."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+@pytest.mark.parametrize("scale", LARGE_ETA)
+def test_training_plain_versions_move_with_eta(rng, scale):
+    """The guard the CUDA training kernels' large-eta checks rely on: at bf16,
+    F = CS = 64, K1-train's plain output is at least 10 of the kernels'
+    elementwise tolerances (2e-2 + 2e-2 |x|) from its eta_scale = 0 output,
+    its later checkpoints at least 10 of the checkpoint tolerance (1e-3 of
+    their scale) from eta = 0's, and K2's d_gate is far from 0 (at eta = 0 it
+    is exactly 0), so a kernel that drops or garbles the state update, or the
+    eta path of the backward, cannot pass."""
+    B, H, NC, CS, F, K = 1, 2, 3, 64, 64, 2
+    t = _torch(_args(rng, B, H, NC, CS, F), torch.bfloat16)
+    got = tk.ttt_mlp_forward_plain(**t, eta_scale=scale, checkpoint_group=K)
+    still = tk.ttt_mlp_forward_plain(**t, eta_scale=0.0, checkpoint_group=K)
+    assert _tolerances_apart(got[0], still[0], 2e-2, 2e-2) >= 10
+    for g, s in zip(got[1:], still[1:]):  # group 1 starts after K updates
+        scale_ck = float(g[:, :, 1:].abs().max())
+        assert float((g[:, :, 1:] - s[:, :, 1:]).abs().max()) >= 10 * 1e-3 * scale_ck
+    dout = torch.from_numpy(rng.standard_normal(t["XQ"].shape).astype(f32)).bfloat16()
+    dgate = tk.ttt_mlp_backward_plain(*(t[k] for k in IN), *got[1:], dout, scale, K)[3]
+    assert float(dgate.abs().max()) >= 10 * 2e-2
+
+
+def test_check_aligned_refuses_an_offset_view():
+    """The wrappers' 16-byte rule: a contiguous view one bf16 element into its
+    storage is refused, the storage itself and a view 8 elements in are taken
+    (data_ptr works on the CPU)."""
+    base = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
+    tk.check_aligned("x", base)
+    tk.check_aligned("x", base[8:])
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.check_aligned("x", base[1:])
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.check_aligned("x", torch.zeros(9)[1:])
+
+
 def _f64_inputs(B=2, H=2, NC=5, CS=4, F=8):
     g = torch.Generator().manual_seed(0)
     r = lambda *s, std=1.0: torch.randn(*s, generator=g, dtype=torch.float64) * std

@@ -69,6 +69,7 @@
 
 #include "hopper.cuh"
 #include "ttt_mlp_block.cuh"
+#include "ttt_mlp_train_step.cuh"
 
 namespace {
 
@@ -131,15 +132,9 @@ using hopper::mma_bf16_16816;
 using hopper::movmatrix_trans;
 using hopper::pack_bf16;
 using tttb::bf16r;
+using tttb::gelu_and_grad;
 using tttb::warp_sum;
-
-// gelu(x) rounded for the next product, and gelu'(x); one tanh for both (the
-// expressions of tttb::gelu_tanh and tttb::gelu_bwd).
-__device__ __forceinline__ float gelu_and_grad(float x, float& grad) {
-  const float t = tanhf(0.79788456f * x * (1.f + 0.044715f * x * x));
-  grad = 0.5f * x * ((1.f - t * t) * (0.79788456f + 0.1070322243f * x * x)) + 0.5f * (1.f + t);
-  return 0.5f * x * (1.f + t);
-}
+using ttts::fence_state;
 
 __device__ __forceinline__ float2 bf2f(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -147,18 +142,6 @@ __device__ __forceinline__ float2 bf2f(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ void st_bf2(__nv_bfloat16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
-
-// Keep the compiler from reusing packed copies of the state across the step
-// (it would hold 64 more registers): the state "changes" here.
-template <int A, int B, int C>
-__device__ __forceinline__ void fence_state(float (&w)[A][B][C]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i)
-#pragma unroll
-    for (int j = 0; j < B; ++j)
-#pragma unroll
-      for (int k = 0; k < C; ++k) asm volatile("" : "+f"(w[i][j][k]));
 }
 
 // ---- producer (4 warps; warp pw prepares rows 4 pw .. 4 pw + 3 of each mini-batch)
@@ -570,92 +553,126 @@ extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, c
   return static_cast<int>(cudaGetLastError());
 }
 
+
 // ---------------------------------------------------------------- training
 //
-// ttt_mlp_fwd_train_kernel: the same scan at the training mini-batch
-// CS = 64. At CS = 64 the fp32 step tiles alone are ~256 KiB, so the step's
-// tiles cannot stay on chip as the sampling kernel's do: the state and the
-// step tiles live in a per-block fp32 workspace in
-// device memory (512 KiB per scan, L2-resident at 48 heads) and the step is
-// the block-level forward_step of ttt_mlp_block.cuh, with the same bf16
-// rounding points. Before mini-batch n with n % K == 0 it writes the fp32
-// state (W1, b1, W2, b2, one bias row, not the TPU's 8 rows x 0.125) as
+// ttt_mlp_fwd_train_kernel (K1-train): the same scan at the training
+// mini-batch CS = 64. Before mini-batch n with n % K == 0 it writes the fp32
+// state (W1, b1, W2, b2; one bias row, not the TPU's 8 rows x 0.125) as
 // checkpoint n / K; the last group may be shorter than K.
+//
+// What bounds it: as for the sampling kernel, the latency of one step inside
+// one SM (the scan is sequential; a step is ~20 Mflop and reads ~40 KiB), at
+// B = 1 on 48 of the 132 SMs.
+//
+// Design: ttt_mlp_train_step.cuh's tensor-core step with the output. One
+// block of 12 warps per (batch, head): 8 consumer warps hold the fp32 state in
+// registers and run the step; the producer warpgroup (4 warps, 16 rows each)
+// reads the raw q/k/v, gate and rope rows of the next mini-batch from device
+// memory and prepares them (L2-norm, rope, target LN, eta) into a two-stage
+// ring signalled by full/empty mbarriers: bf16 XQ/XK and eta in shared
+// memory, the fp32 targets (16 KiB a stage) in a 32 KiB workspace a scan
+// that stays in the L2. The step's tiles stay in shared memory (TrainSmem,
+// ~208 KiB).
 
 namespace {
 
-struct TrainWork {  // per-(batch, head) fp32 workspace, in floats
-  static constexpr int kW1 = 0, kW2 = kW1 + tttb::kState;
-  static constexpr int kXQ = kW2 + tttb::kState, kXK = kXQ + tttb::kTile, kTG = kXK + tttb::kTile;
-  static constexpr int kZ2 = kTG + tttb::kTile, kGZ2 = kZ2 + tttb::kTile, kG2 = kGZ2 + tttb::kTile;
-  static constexpr int kA1 = kG2 + tttb::kTile, kA2 = kA1 + tttb::kTile;
-  static constexpr int kZ1 = kA2 + tttb::kTile, kX2c = kZ1 + tttb::kWide, kG1 = kX2c + tttb::kWide;
-  static constexpr int kX2b = kG1 + tttb::kWide;
-  static constexpr int kFloats = kX2b + tttb::kWide;
+namespace ts = ttts;
+
+struct TrainSmem {
+  static constexpr int kTok = ts::tile_elems<ts::kF>(ts::kCS), kWide = ts::tile_elems<ts::kF4>(ts::kCS);
+  __nv_bfloat16 xq[2][kTok], xk[2][kTok];  // the prepared ring (the targets go through the workspace)
+  float eta[2][ts::kCS];
+  __nv_bfloat16 x2c[kWide], x2b[kWide], g1[kWide], w2s[ts::tile_elems<ts::kF>(ts::kF4)];
+  float z2[ts::kCS * ts::kLdZ];
+  __nv_bfloat16 gz2[kTok], g2[kTok];
+  float b1[ts::kF4];
+  uint64_t full[2], empty[2];
 };
+constexpr int kTrainSmemBytes = sizeof(TrainSmem);
+static_assert(kTrainSmemBytes <= 232448, "exceeds the 227 KB shared-memory opt-in");
 
-__global__ void __launch_bounds__(tttb::kThreads, 1)
-ttt_mlp_fwd_train_kernel(tttb::ScanArgs a, const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                         const float* __restrict__ W1, const float* __restrict__ b1, const float* __restrict__ W2,
-                         const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, float* __restrict__ w1_ck,
-                         float* __restrict__ b1_ck, float* __restrict__ w2_ck, float* __restrict__ b2_ck,
-                         float* __restrict__ work, int K) {
-  __shared__ __align__(16) float stage[tttb::kStageFloats];
-  __shared__ tttb::Vecs v;
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int NG = (a.NC + K - 1) / K;
-  float* w = work + (size_t)bh * TrainWork::kFloats;
-  float* sW1 = w + TrainWork::kW1;
-  float* sW2 = w + TrainWork::kW2;
-  const tttb::StepTiles t{w + TrainWork::kXQ, w + TrainWork::kXK, w + TrainWork::kTG, w + TrainWork::kZ1,
-                    w + TrainWork::kX2c, w + TrainWork::kG1, w + TrainWork::kX2b, w + TrainWork::kZ2,
-                    w + TrainWork::kGZ2, w + TrainWork::kG2, w + TrainWork::kA1, w + TrainWork::kA2};
+struct TrainArgs {
+  tttb::ScanArgs a;
+  const float *ln_w, *ln_b, *W1, *b1, *W2, *b2;
+  __nv_bfloat16* out;
+  float *w1_ck, *b1_ck, *w2_ck, *b2_ck;
+  float* work;  // per scan, the two stages of the LN-reconstruction targets [2][CS][F]
+  int K;
+};
+constexpr int kTrainWorkFloats = 2 * ts::kCS * ts::kF;
 
-  for (int i = tid; i < tttb::kState; i += tttb::kThreads) {
-    sW1[i] = W1[(size_t)h * tttb::kState + i];
-    sW2[i] = W2[(size_t)h * tttb::kState + i];
-  }
-  v.b1[tid] = b1[(size_t)h * tttb::kF4 + tid];
-  if (tid < tttb::kF) {
-    v.b2[tid] = b2[(size_t)h * tttb::kF + tid];
-    v.lnw[tid] = ln_w[(size_t)h * tttb::kF + tid];
-    v.lnb[tid] = ln_b[(size_t)h * tttb::kF + tid];
+__global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(const TrainArgs A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TrainSmem& S = *reinterpret_cast<TrainSmem*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x, b = bh / A.a.H, h = bh % A.a.H, NC = A.a.NC;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&S.full[s], 128);
+      hopper::mbar_init(&S.empty[s], ts::kConsumers);
+    }
+    hopper::fence_barrier_init();
   }
   __syncthreads();
-
-  for (int n = 0; n < a.NC; ++n) {
-    if (n % K == 0) {
-      const size_t g = (size_t)bh * NG + n / K;
-      for (int i = tid; i < tttb::kState; i += tttb::kThreads) {
-        w1_ck[g * tttb::kState + i] = sW1[i];
-        w2_ck[g * tttb::kState + i] = sW2[i];
-      }
-      b1_ck[g * tttb::kF4 + tid] = v.b1[tid];
-      if (tid < tttb::kF) b2_ck[g * tttb::kF + tid] = v.b2[tid];
-      __syncthreads();
+  if (warp >= ts::kWarps) {  // the producer warpgroup
+    hopper::reg_dealloc<ts::kProducerRegs>();
+    for (int n = 0; n < NC; ++n) {
+      const int s = n & 1;
+      if (n >= 2) hopper::mbar_wait(&S.empty[s], ((n >> 1) - 1) & 1);
+      const ts::Prep p{S.xq[s], S.xk[s], A.work + ((size_t)bh * 2 + s) * ts::kCS * ts::kF, S.eta[s], nullptr, nullptr,
+                       nullptr};
+      ts::prepare_rows<16>(p, A.a, A.ln_w, A.ln_b, b, h, n, warp - ts::kWarps, lane);
+      hopper::mbar_arrive(&S.full[s]);
     }
-    tttb::forward_step(a, b, h, n, v, sW1, sW2, t, stage, out);
+    return;
+  }
+  hopper::reg_alloc<ts::kConsumerRegs>();
+  constexpr int kState = ts::kF * ts::kF4;
+  const int NG = (NC + A.K - 1) / A.K;
+  ts::State st;
+  ts::load_state(st, A.W1 + (size_t)h * kState, A.b1 + (size_t)h * ts::kF4, A.W2 + (size_t)h * kState,
+                 A.b2 + (size_t)h * ts::kF, S.w2s, S.b1, warp, lane);
+  const ts::Tiles T{S.x2c, S.x2b, S.w2s, S.z2, S.gz2, S.g2, S.g1, S.b1};
+  const size_t HF = (size_t)A.a.H * ts::kF;
+  for (int n = 0; n < NC; ++n) {
+    const int s = n & 1;
+    if (n % A.K == 0) {
+      const size_t g = (size_t)bh * NG + n / A.K;
+      ts::save_state(st, S.b1, A.w1_ck + g * kState, A.b1_ck + g * ts::kF4, A.w2_ck + g * kState, A.b2_ck + g * ts::kF,
+                     warp, lane);
+    }
+    hopper::mbar_wait(&S.full[s], (n >> 1) & 1);
+    const ts::Prep p{S.xq[s], S.xk[s], A.work + ((size_t)bh * 2 + s) * ts::kCS * ts::kF, S.eta[s], nullptr, nullptr,
+                     nullptr};
+    ts::forward_step<true>(st, p, T, A.ln_w + (size_t)h * ts::kF, A.ln_b + (size_t)h * ts::kF, A.out, ((size_t)b * NC + n) * ts::kCS * HF + (size_t)h * ts::kF, HF,
+                           warp, lane);
+    hopper::mbar_arrive(&S.empty[s]);
   }
 }
 
 }  // namespace
 
-extern "C" long long ttt_mlp_forward_train_workspace_floats() { return TrainWork::kFloats; }
+extern "C" int ttt_mlp_forward_train_smem_bytes() { return kTrainSmemBytes; }
+
+extern "C" long long ttt_mlp_forward_train_workspace_floats() { return kTrainWorkFloats; }
 
 extern "C" int ttt_mlp_forward_train(const void* xq, const void* xk, const void* xv, const void* gate,
                                      const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
                                      const void* W1, const void* b1, const void* W2, const void* b2, void* out,
                                      void* w1_ck, void* b1_ck, void* w2_ck, void* b2_ck, void* work, int B, int NC,
                                      int H, int K, float eta_scale, void* stream) {
-  const tttb::ScanArgs a{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
-                         static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
-                         static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin), NC, H, eta_scale};
-  ttt_mlp_fwd_train_kernel<<<B * H, tttb::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
-      static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(w1_ck), static_cast<float*>(b1_ck),
-      static_cast<float*>(w2_ck), static_cast<float*>(b2_ck), static_cast<float*>(work), K);
+  cudaError_t err =
+      cudaFuncSetAttribute(ttt_mlp_fwd_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTrainSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TrainArgs A{{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
+                     static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
+                     static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin), NC, H, eta_scale},
+                    static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
+                    static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
+                    static_cast<__nv_bfloat16*>(out), static_cast<float*>(w1_ck), static_cast<float*>(b1_ck),
+                    static_cast<float*>(w2_ck), static_cast<float*>(b2_ck), static_cast<float*>(work), K};
+  ttt_mlp_fwd_train_kernel<<<B * H, ts::kThreads, kTrainSmemBytes, static_cast<cudaStream_t>(stream)>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -336,6 +336,16 @@ def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, 
     _check_tensors(expected, XQ.device)
 
 
+ALIGNMENT = 16  # bytes: the TTT kernels copy 16-byte chunks (cp.async) and read 8-byte vectors
+
+
+def check_aligned(name: str, t) -> None:
+    """Raise ValueError unless ``t``'s data starts on a 16-byte boundary (a
+    contiguous view at an odd offset would fault the kernel, not raise)."""
+    if t.data_ptr() % ALIGNMENT:
+        raise ValueError(f"{name} must start on a {ALIGNMENT}-byte boundary (data_ptr {t.data_ptr():#x})")
+
+
 def _check_tensors(expected, device) -> None:
     for name, (t, shape, dtype) in expected.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
@@ -344,6 +354,7 @@ def _check_tensors(expected, device) -> None:
             raise ValueError(f"{name}: expected a tensor on {device} (CUDA), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        check_aligned(name, t)
 
 
 def _launch(lib, fn_name: str, tensors, ints, eta_scale: float, device) -> None:
@@ -362,8 +373,6 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
         return ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale)
     args = (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
     check_kernel_args(*args)
-    if any(t.data_ptr() % 16 for t in args):  # the kernel copies 16-byte chunks (cp.async)
-        raise ValueError("ttt_mlp_forward takes 16-byte aligned tensors")
     B, NC, _, _ = XQ.shape
     H = ln_w.shape[0]
     out = torch.empty_like(XQ)
