@@ -15,9 +15,10 @@ non-zero, and no result line is printed):
    K3 (sampling),
    K1-train and K2 (TTT-MLP training forward and backward; also at a
    large eta), K3 with the
-   log-sum-exp and K4 (attention backward), K5 (TTT-linear, sampling),
-   K5-train and K6 (TTT-linear training forward and backward), K7 (the
-   float32 -> bf16 weight cast, bit-exact).
+   log-sum-exp and K4 (attention backward), K5 (TTT-linear, sampling; also
+   at 3 x 48 scans and at a large eta), K5-train and K6 (TTT-linear
+   training forward and backward; also at a large eta and at 3 x 48
+   scans), K7 (the float32 -> bf16 weight cast, bit-exact).
 Then, for each model variant the repo ships (ttt_mlp, then ttt_linear), on
 its own 3 s TOMLs:
 3. one DiffusionTransformer forward at full width (d3072, 48 heads) and
@@ -104,6 +105,9 @@ LSE_ATOL = 1e-4  # the log-sum-exp is float32 of values up to ~11
 # tolerances from the eta = 0 output, or the case could not see a wrong
 # state update.
 MOVED_TOLS = 10
+# The training checks' large eta, as a multiple of the slice's: ttt_mlp 4,096 x 0.1 / 64 / 64 = 0.1, ttt_linear
+# 100 x 1.0 / 64 / 16 = 0.098 (the sampling checks take 1,000x the slice's: 0.098 and 0.98).
+LARGE_ETA_FACTOR = {"ttt_mlp": 4096, "ttt_linear": 100}
 # Relative L2 error of the 2-layer DiT output, kernel path vs plain path: the
 # bf16 stream carries the kernels' rounding differences through two layers.
 DIT_REL_L2_TOL = 2e-2
@@ -209,6 +213,7 @@ def phase_build():
     smem = {"ttt_mlp_forward": fwd.ttt_mlp_forward_smem_bytes(),
             "ttt_mlp_forward_train": fwd.ttt_mlp_forward_train_smem_bytes(),
             "ttt_mlp_backward": _build.load("ttt_mlp_backward").ttt_mlp_backward_smem_bytes(),
+            "ttt_linear_forward": _build.load("ttt_linear_forward").ttt_linear_forward_smem_bytes(),
             "ttt_linear_backward": _build.load("ttt_linear_backward").ttt_linear_backward_smem_bytes()}
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: "
         + ", ".join(f"{k} {v} bytes" for k, v in smem.items()) + ")")
@@ -308,19 +313,21 @@ def in_tolerances(name: str, a, b) -> float:
 
 
 def check_ttt_forward(variant, gen, device) -> dict:
-    """K1 or K5 at the sampling slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables) and ragged; K1 also
-    at 3 x 48 scans (more blocks than SMs) and at an eta 1,000x the slice's, where the plain output must move at
-    least MOVED_TOLS tolerances away from the eta = 0 output (so a wrong state update cannot hide)."""
+    """K1 or K5 at the sampling slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables), ragged, at 3 x 48
+    scans (more blocks than SMs) and at an eta 1,000x the slice's, where the plain output must move at least
+    MOVED_TOLS tolerances away from the eta = 0 output (so a wrong state update cannot hide)."""
     mod, name = _ttt_module(variant), f"{variant}_forward"
     kernel, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
     cfg, meta = _sampling_meta(variant)
     CS = cfg.mini_batch_size
     eta_scale = cfg.ttt_base_lr / 64 / CS
-    cases = [(2, 48, SEQ // CS, meta, eta_scale), (1, 2, 7, None, eta_scale)]
-    if variant == "ttt_mlp":
-        cases += [(3, 48, 4, None, eta_scale), (1, 2, 17, None, 1000 * eta_scale)]
-    for B, H, NC, m, eta in cases:
-        a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS, variant=variant)
+    cases = [(2, 48, SEQ // CS, meta, eta_scale), (1, 2, 7, None, eta_scale), (3, 48, 4, None, eta_scale),
+             (1, 2, 17, None, 1000 * eta_scale)]
+    for i, (B, H, NC, m, eta) in enumerate(cases):
+        # ttt_linear's cases after the first two draw from their own generators, so the caller's generator, and
+        # with it the inputs of the kernels checked after these, advance as they did without them.
+        g = torch.Generator(device).manual_seed(6 + i) if variant == "ttt_linear" and i >= 2 else gen
+        a = _ttt_inputs(B, H, NC, g, device, m, CS=CS, variant=variant)
         got = kernel(**a, eta_scale=eta)
         want, plain_ms = timed(lambda: plain(**a, eta_scale=eta))
         err = compare(name, got, want)
@@ -343,9 +350,10 @@ def check_ttt_training(variant, gen, device) -> list[dict]:
     """K1-train and K2, or K5-train and K6, at the training slice (B=1, 48
     heads, the TOML's CS and K: ttt_mlp NC=282 at CS=64, K=16, last group 10;
     ttt_linear NC=1128 at CS=16, K=4; the 3 s training tables) and at a
-    small ragged shape (NC=7, K=3: the last group has one step); K1-train
-    and K2 also there at an eta 4,096x the slice's, where the plain output
-    must lie MOVED_TOLS tolerances from the eta = 0 output."""
+    small ragged shape (NC=7, K=3: the last group has one step), also at a
+    large eta (LARGE_ETA_FACTOR x the slice's), where the plain output must
+    lie MOVED_TOLS tolerances from the eta = 0 output; K5-train and K6 also
+    at 3 x 48 scans (more blocks than SMs)."""
     mod = _ttt_module(variant)
     fwd, bwd = f"{variant}_forward_train", f"{variant}_backward"
     fwd_k, bwd_k = getattr(mod, fwd), getattr(mod, bwd)
@@ -357,14 +365,15 @@ def check_ttt_training(variant, gen, device) -> list[dict]:
     names = tuple(f"{n}_ck" for n in state)
     gnames = ELEMENTWISE_GRADS + tuple(f"d{n}" for n in state) + ("dln_w", "dln_b")
     inputs = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")
-    cases = [(1, 48, SEQ // CS, K, meta, eta_scale), (1, 2, 7, 3, None, eta_scale)]
-    if variant == "ttt_mlp":  # an eta 4,096x the slice's, where a wrong state update or eta path shows
-        cases.append((1, 2, 7, 3, None, 4096 * eta_scale))
-    for B, H, NC, KK, m, eta in cases:
-        # The large-eta case (the last) draws from its own generator, so the caller's generator, and with it
-        # the inputs of the kernels checked after these, advance as they did without it.
-        if eta != eta_scale:
-            gen = torch.Generator(device).manual_seed(5)
+    cases = [(1, 48, SEQ // CS, K, meta, eta_scale), (1, 2, 7, 3, None, eta_scale),
+             (1, 2, 7, 3, None, LARGE_ETA_FACTOR[variant] * eta_scale)]
+    if variant == "ttt_linear":
+        cases.append((3, 48, 4, 3, None, eta_scale))
+    for i, (B, H, NC, KK, m, eta) in enumerate(cases):
+        # The cases after the first two draw from their own generators, so the caller's generator, and with it
+        # the inputs of the kernels checked after these, advance as they did without them.
+        if i >= 2:
+            gen = torch.Generator(device).manual_seed(5 + 2 * (i - 2))
         a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS, variant=variant)
         got = fwd_k(**a, eta_scale=eta, checkpoint_group=KK)
         want, fwd_plain_ms = timed(lambda: fwd_p(**a, eta_scale=eta, checkpoint_group=KK))

@@ -1,10 +1,12 @@
-"""Times of K1 (the TTT-MLP sampling scan), K1-train and K2 (the TTT-MLP training scan and its backward) and K7
-(the float32 -> bf16 weight cast) on a CUDA card.
+"""Times of K1 (the TTT-MLP sampling scan), K1-train and K2 (the TTT-MLP training scan and its backward), K5,
+K5-train and K6 (the same for TTT-linear) and K7 (the float32 -> bf16 weight cast) on a CUDA card.
 
 At the 3 s slices' shapes (chip_smoke.py's): K1 at [B 2, NC 1,128, CS 16,
 48 heads x 64] with eta_scale 0.1 / 64 / 16; K1-train at [B 1, NC 282,
 CS 64, 48 heads x 64], K 16, eta_scale 0.1 / 64 / 64, and K2 from its
-checkpoints (--reps launches each); K7 on a [12288, 3072]
+checkpoints; K5 at [B 2, NC 1,128, CS 16, 48 heads x 64] with eta_scale
+1.0 / 64 / 16; K5-train at [B 1, NC 1,128, CS 16], K 4, the same eta, and
+K6 from its checkpoints (--reps launches each); K7 on a [12288, 3072]
 float32 weight beside ``.to(torch.bfloat16)`` on the same tensor, the two
 timed in turns (--rounds rounds of --k7-reps launches each, after one
 untimed round). Times are means
@@ -33,6 +35,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NC, CS, H, F = 1128, 16, 48, 64
 NC_TRAIN, CS_TRAIN, K_TRAIN = 282, 64, 16
+K_LINEAR = 4
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -67,7 +70,7 @@ def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
-    from ttt_video_dit_torch.ops import convert, ttt_mlp_kernel
+    from ttt_video_dit_torch.ops import convert, ttt_linear_kernel, ttt_mlp_kernel
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -104,6 +107,27 @@ def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
     out["K2_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward(*ins, *ck, dout, eta, K_TRAIN), reps)
     del t, ck, dout, ins
 
+    # K5 at the sampling slice; K5-train and K6 at the training slice, K6 from K5-train's checkpoints.
+    eta = 1.0 / 64 / 16
+    for B, key in ((2, "K5_ms"), (1, "K5_train_ms")):
+        angles = torch.rand(NC, CS, F // 2, generator=gen, device=device) * 6.3
+        t = dict(XQ=randn(B, NC, CS, H * F).bfloat16(), XK=randn(B, NC, CS, H * F).bfloat16(),
+                 XV=randn(B, NC, CS, H * F).bfloat16(), gate=randn(B, H, NC, CS),
+                 rope_cos=torch.cos(angles).repeat_interleave(2, -1).contiguous(),
+                 rope_sin=torch.sin(angles).repeat_interleave(2, -1).contiguous(),
+                 ln_w=1 + randn(H, F, std=0.1), ln_b=randn(H, F, std=0.1), W1=randn(H, F, F, std=0.02),
+                 b1=randn(H, 1, F, std=0.02))
+        if B == 2:
+            out[key] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_forward(**t, eta_scale=eta), reps)
+            continue
+        fwd = lambda: ttt_linear_kernel.ttt_linear_forward_train(**t, eta_scale=eta, checkpoint_group=K_LINEAR)
+        out[key] = cuda_ms(fwd, reps)
+        ck = fwd()[1:]
+        dout = randn(*t["XQ"].shape).bfloat16()
+        ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+        out["K6_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_backward(*ins, *ck, dout, eta, K_LINEAR), reps)
+    del t, ck, dout, ins
+
     w = randn(12288, 3072)
     k7, to = (lambda: convert.convert_f32_bf16(w)), (lambda: w.to(torch.bfloat16))
     k7_ms, to_ms = [], []
@@ -135,7 +159,7 @@ def compare(parent: str, args) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=5, help="K1, K1-train and K2 launches timed")
+    ap.add_argument("--reps", type=int, default=5, help="K1, K1-train, K2, K5, K5-train and K6 launches timed")
     ap.add_argument("--k7-reps", type=int, default=50, help="K7 (and .to) launches a round")
     ap.add_argument("--rounds", type=int, default=4, help="rounds of K7 then .to")
     ap.add_argument("--tree", default=ROOT, help="the checkout whose port is timed (default: this one)")

@@ -224,15 +224,23 @@ def _linear_inputs(cuda, B, H, NC, seed):
     ), randn
 
 
-@pytest.mark.parametrize("B,H,NC,K", [(2, 3, 9, 4), (1, 2, 5, 2), (1, 2, 3, 16)])
-def test_ttt_linear_kernels_match_plain(cuda, B, H, NC, K):
+# The slice's eta_scale (ttt_base_lr 1.0 / 64 / 16), and 100x and 1,000x it, where the state update moves the
+# output far (the plain output then lies at least 10 tolerances from the eta = 0 output). Besides the first
+# shapes: 3 x 48 scans (more blocks than the H100's 132 SMs), NC = 1, and NC = 17 (the two-stage ring wraps
+# eight times; K = 5 leaves a last group of two).
+@pytest.mark.parametrize("B,H,NC,K,scale", [(2, 3, 9, 4, 1 / 1024), (1, 2, 5, 2, 1 / 1024), (1, 2, 3, 16, 1 / 1024),
+                                            (3, 48, 3, 2, 1 / 1024), (1, 2, 1, 1, 1 / 1024), (2, 2, 17, 5, 1 / 1024),
+                                            (1, 2, 7, 3, 0.1), (1, 2, 7, 3, 1.0)])
+def test_ttt_linear_kernels_match_plain(cuda, B, H, NC, K, scale):
     """K5 for sampling (output elementwise), K5 for training (output
     elementwise; fp32 checkpoints within 1e-2 relative L2 and 1e-3 of their
     scale) and K6 (every gradient within 1e-2 relative L2 and 1e-2 of its
     scale; dXQ/dXK/dXV/d_gate also elementwise) against their plain versions,
     with a ragged last checkpoint group where K does not divide NC."""
     a, randn = _linear_inputs(cuda, B, H, NC, seed=4)
-    scale = 1.0 / 64 / 16
+    if scale >= 0.1:
+        want = ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=scale)
+        assert _in_tolerances(want, ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=0.0)) >= 10
     before = (ttt_linear_kernel.launches, ttt_linear_kernel.train_launches, ttt_linear_kernel.bwd_launches)
     _close(ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=scale),
            ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=scale))

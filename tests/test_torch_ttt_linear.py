@@ -133,6 +133,71 @@ def test_k5_plain_matches_pallas_bf16(rng, NC, K):
         _close_scaled(g.numpy(), w.numpy(), 1e-4)
 
 
+LARGE_ETA = [0.1, 1.0]  # eta_scale 100x and 1,000x the 3 s slice's (ttt_base_lr 1.0 / 64 / 16)
+MOVED_TOLS = 10  # the large-eta cases' plain outputs lie at least this many tolerances from eta = 0's
+
+
+@pytest.mark.parametrize("scale", LARGE_ETA)
+@pytest.mark.parametrize("part", ["out", "checkpoints"])
+def test_k5_plain_matches_pallas_bf16_large_eta(rng, part, scale):
+    """K5's plain version against the Pallas kernel (interpret) at the CUDA
+    kernel's shape (bf16 q/k/v, F = 64, CS = 16) and at the large eta where the
+    carried state moves the output most (the eta of the CUDA kernels'
+    state-update checks): the sampling output (no checkpoint group) within
+    1e-2 absolute and relative, K5-train's fp32 checkpoints within 1e-3 of
+    their scale (bf16 rounding flips from float32 summation order, grown by
+    the larger updates)."""
+    B, H, NC, CS, F, K = 1, 2, 5, 16, 64, 2
+    a = _args(rng, B, H, NC, CS, F)
+    want = _jax_forward(a, scale, K, jnp.bfloat16)
+    if part == "out":
+        got = tk.ttt_linear_forward_plain(**_torch(a, torch.bfloat16), eta_scale=scale)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want[0].astype(jnp.float32)), rtol=1e-2,
+                                   atol=1e-2)
+    else:
+        got = tk.ttt_linear_forward_plain(**_torch(a, torch.bfloat16), eta_scale=scale, checkpoint_group=K)
+        for g, w in zip(got[1:], _port_ckpts(want[1:])):
+            _close_scaled(g.numpy(), w.numpy(), 1e-3)
+
+
+def _tolerances_apart(a, b, atol=2e-2, rtol=2e-2):
+    """max |a - b| / (atol + rtol |b|): how many of a tolerance two results are apart."""
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+@pytest.mark.parametrize("scale", LARGE_ETA)
+@pytest.mark.parametrize("what", ["out", "checkpoints", "d_gate", "dW1", "dXK", "dXV"])
+def test_plain_versions_move_with_eta(rng, what, scale):
+    """The guard the CUDA kernels' large-eta checks rely on: at bf16, F = 64,
+    CS = 16, each plain output lies at least MOVED_TOLS of the kernels'
+    tolerances from its eta_scale = 0 value: K5's output (2e-2 + 2e-2 |x|
+    elementwise), K5-train's later checkpoints (1e-3 of their scale), K6's
+    d_gate (exactly 0 at eta = 0; 2e-2), dW1 (1e-2 of its scale), and dXK and
+    dXV (elementwise, as the output). So a kernel that drops or garbles the
+    state update, or the eta path of the backward, cannot pass."""
+    B, H, NC, CS, F, K = 1, 2, 5, 16, 64, 2
+    t = _torch(_args(rng, B, H, NC, CS, F), torch.bfloat16)
+    got = tk.ttt_linear_forward_plain(**t, eta_scale=scale, checkpoint_group=K)
+    still = tk.ttt_linear_forward_plain(**t, eta_scale=0.0, checkpoint_group=K)
+    if what == "out":
+        assert _tolerances_apart(got[0], still[0]) >= MOVED_TOLS
+    elif what == "checkpoints":
+        for g, s in zip(got[1:], still[1:]):  # group 1 starts after K updates
+            assert float((g[:, :, 1:] - s[:, :, 1:]).abs().max()) >= MOVED_TOLS * 1e-3 * float(g[:, :, 1:].abs().max())
+    else:
+        dout = torch.from_numpy(rng.standard_normal(t["XQ"].shape).astype(f32)).bfloat16()
+        ins = [t[k] for k in IN]
+        grads = dict(zip(GRADS, tk.ttt_linear_backward_plain(*ins, *got[1:], dout, scale, K)))
+        base = dict(zip(GRADS, tk.ttt_linear_backward_plain(*ins, *still[1:], dout, 0.0, K)))
+        if what == "d_gate":
+            assert float(grads["d_gate"].abs().max()) >= MOVED_TOLS * 2e-2
+        elif what == "dW1":
+            assert float((grads["dW1"] - base["dW1"]).abs().max()) >= MOVED_TOLS * 1e-2 * float(grads["dW1"].abs().max())
+        else:
+            assert _tolerances_apart(grads[what], base[what]) >= MOVED_TOLS
+
+
 def _preprocessed(a, scale):
     """The composed XLA-side preprocessing of the JAX layer (L2-norm, by-slot
     rope, LN target + XK, sigmoid gate): head-major XQ, XK, XV, eta."""
@@ -222,6 +287,59 @@ def test_k6_plain_matches_pallas_bf16(rng, NC, K):
         _close_scaled(g.float().numpy(), w, 2e-2)
 
 
+@pytest.mark.parametrize("scale", LARGE_ETA)
+def test_k6_plain_matches_pallas_bf16_large_eta(rng, scale):
+    """K6's plain version against the Pallas backward (interpret) at F = 64,
+    CS = 16, bf16, large eta, from the same checkpoints: every gradient within
+    2e-2 of its scale, as at the slice's eta."""
+    B, H, NC, CS, F, K = 1, 2, 5, 16, 64, 2
+    a = _args(rng, B, H, NC, CS, F)
+    jck = _jax_forward(a, scale, K, jnp.bfloat16)[1:]
+    dout = rng.standard_normal(a["XQ"].shape).astype(f32)
+    t = _torch(a, torch.bfloat16)
+    got = tk.ttt_linear_backward_plain(*(t[k] for k in IN), *_port_ckpts(jck), torch.from_numpy(dout).bfloat16(),
+                                       scale, K)
+    want = _jax_backward(a, jck, dout, scale, K, jnp.bfloat16)
+    for g, w in zip(got, want):
+        _close_scaled(g.float().numpy(), w, 2e-2)
+
+
+# (NC, K): one mini-batch; one step a group; one group; a group longer than the scan (the wrappers and the
+# Pallas kernels take K = NC); a last group of one step.
+EDGES = {"nc1": (1, 1), "k1": (4, 1), "k_eq_nc": (4, 4), "k_gt_nc": (3, 8), "last_group_1": (7, 3)}
+
+
+@pytest.mark.parametrize("edge", list(EDGES))
+@pytest.mark.parametrize("kernel", ["k5_train", "k6"])
+def test_training_wrappers_match_pallas_at_edge_shapes(rng, kernel, edge):
+    """The training wrappers on CPU tensors (the plain versions) against the
+    Pallas kernels (interpret) at the CUDA kernels' shape (bf16, F = 64,
+    CS = 16, the slice's eta) and at the edges of the checkpoint grouping:
+    K5-train's output within 1e-2 absolute and relative and its checkpoints
+    within 1e-3 of their scale (bf16 rounding flips of Gs from float32
+    summation order, carried into the fp32 state over up to 7 steps); every
+    K6 gradient within 2e-2 of its scale."""
+    NC, K = EDGES[edge]
+    B, H, CS, F = 1, 2, 16, 64
+    a = _args(rng, B, H, NC, CS, F)
+    scale = 1.0 / F / CS
+    t = _torch(a, torch.bfloat16)
+    want = _jax_forward(a, scale, K, jnp.bfloat16)
+    got = tk.ttt_linear_forward_train(**t, eta_scale=scale, checkpoint_group=K)
+    assert got[1].shape[2] == -(-NC // K)
+    if kernel == "k5_train":
+        np.testing.assert_allclose(got[0].float().numpy(), np.asarray(want[0].astype(jnp.float32)), rtol=1e-2,
+                                   atol=1e-2)
+        for g, w in zip(got[1:], _port_ckpts(want[1:])):
+            _close_scaled(g.numpy(), w.numpy(), 1e-3)
+        return
+    dout = rng.standard_normal(a["XQ"].shape).astype(f32)
+    grads = tk.ttt_linear_backward(*(t[k] for k in IN), *_port_ckpts(want[1:]), torch.from_numpy(dout).bfloat16(),
+                                   scale, K)
+    for g, w in zip(grads, _jax_backward(a, want[1:], dout, scale, K, jnp.bfloat16)):
+        _close_scaled(g.float().numpy(), w, 2e-2)
+
+
 def _f64_inputs(B=2, H=2, NC=5, CS=4, F=8):
     g = torch.Generator().manual_seed(0)
     r = lambda *s, std=1.0: torch.randn(*s, generator=g, dtype=torch.float64) * std
@@ -267,6 +385,71 @@ def test_function_gradients_match_autograd_float64():
     np.testing.assert_array_equal(out.detach().numpy(), ref.detach().numpy())
     for g, w in zip(got, want):
         _close_scaled(g.numpy(), w.numpy(), 1e-9)
+
+
+@pytest.mark.parametrize("scale", [3.125, 31.25])
+@pytest.mark.parametrize("K", [2, 5])
+def test_k6_plain_matches_autograd_float64_large_eta(K, scale):
+    """K6's plain version against torch.autograd through K5-train's plain
+    version, float64, at an eta 100x and 1,000x the slice's relative to this
+    shape (1 / F / CS = 1 / 32), NC = 5 (K = 2: a ragged last group; K = 5:
+    one group): every gradient, d_gate included, to 1e-9 of its scale."""
+    a = _f64_inputs()
+    for k in DIFF:
+        a[k].requires_grad_(True)
+    out, *ck = tk.ttt_linear_forward_plain(**a, eta_scale=scale, checkpoint_group=K)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(4), dtype=torch.float64)
+    want = torch.autograd.grad(out, [a[k] for k in DIFF], dout)
+    with torch.no_grad():
+        got = tk.ttt_linear_backward_plain(*(a[k].detach() for k in IN), *ck, dout, scale, K)
+    for g, w in zip(got, want):
+        _close_scaled(g.numpy(), w.numpy(), 1e-9)
+
+
+@pytest.mark.parametrize("scale", [3.125, 31.25])
+def test_function_gradients_match_autograd_float64_large_eta(scale):
+    """TTTLinearFunction against autograd of the plain forward, float64, at an
+    eta 100x and 1,000x the slice's relative to this shape (1 / F / CS =
+    1 / 32), NC = 5 with K = 2 (a ragged last group): the output bit-equal
+    and every gradient to 1e-9 of its scale."""
+    a = _f64_inputs(B=1)
+    for k in DIFF:
+        a[k].requires_grad_(True)
+    dout = torch.randn(1, 5, 4, 16, generator=torch.Generator().manual_seed(3), dtype=torch.float64)
+    out = tk.ttt_linear_train(*(a[k] for k in IN), a["W1"], a["b1"], scale, 2)
+    got = torch.autograd.grad(out, [a[k] for k in DIFF], dout)
+    ref = tk.ttt_linear_forward_plain(**a, eta_scale=scale)
+    want = torch.autograd.grad(ref, [a[k] for k in DIFF], dout)
+    np.testing.assert_array_equal(out.detach().numpy(), ref.detach().numpy())
+    for g, w in zip(got, want):
+        _close_scaled(g.numpy(), w.numpy(), 1e-9)
+
+
+def test_backward_trace_splits_dxk_into_its_terms(rng):
+    """K6's plain version with a ``trace``: for every mini-batch the recorded
+    operands rebuild dXK before the rope and L2-norm VJPs, -Gs bf16(dW)^T +
+    bf16(dA1)^T XQ - dtv + bf16(dZ1) W^T, and through the VJPs give the
+    returned dXK (float32, 1e-5 of its scale); the trace leaves the gradients
+    as they are. scripts/k6_tolerance_seeds.py splits elements this way."""
+    from ttt_video_dit_torch.ops import ln as t_ln
+
+    B, H, NC, CS, F, K = 1, 2, 5, 8, 16, 2
+    t = _torch(_args(rng, B, H, NC, CS, F))
+    ck = tk.ttt_linear_forward_plain(**t, eta_scale=0.01, checkpoint_group=K)[1:]
+    dout = torch.from_numpy(rng.standard_normal(t["XQ"].shape).astype(f32))
+    ins = [t[k] for k in IN]
+    trace = {}
+    got = tk.ttt_linear_backward_plain(*ins, *ck, dout, 0.01, K, trace=trace)
+    for g, w in zip(got, tk.ttt_linear_backward_plain(*ins, *ck, dout, 0.01, K)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert sorted(trace) == list(range(NC))
+    hm = lambda x: x.reshape(B, NC, CS, H, F).permute(1, 0, 3, 2, 4)  # [NC, B, H, CS, F]
+    xk, dxk = hm(t["XK"]), hm(got[1])
+    for n, tr in trace.items():
+        pre = -tr["Gs"] @ tr["dW"].transpose(-1, -2) + tr["dA1"].transpose(-1, -2) @ tr["XQ"] - tr["dtv"] \
+            + tr["dZ1"] @ tr["W"].transpose(-1, -2)
+        want = t_ln.l2norm_vjp(xk[n], t_ln.rope_vjp(pre, t["rope_cos"][n], t["rope_sin"][n]))
+        _close_scaled(dxk[n].numpy(), want.numpy(), 1e-5)
 
 
 def test_wrappers_take_plain_versions_on_cpu(rng):

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the window-attention kernels
-// (attention_forward.cu, attention_backward.cu) and the TTT-MLP scans
-// (ttt_mlp_forward.cu, ttt_mlp_train_step.cuh, ttt_mlp_backward.cu), written
+// (attention_forward.cu, attention_backward.cu) and the TTT scans
+// (ttt_mlp_forward.cu, ttt_mlp_train_step.cuh, ttt_mlp_backward.cu,
+// ttt_linear_step.cuh and the TTT-linear kernels), written
 // as raw PTX: tensor maps for the Tensor
 // Memory Accelerator (TMA), mbarriers, TMA loads, warpgroup matrix
 // multiplies (wgmma) with their shared-memory descriptors, register

@@ -8,471 +8,436 @@
 // (ttt_linear_forward.cu with K > 0) from that kernel's fp32 state
 // checkpoints: per (batch, head) it walks the checkpoint groups last to
 // first (the ragged group first); per group, pass A re-runs the forward from
-// the group's checkpoint and stashes each step's state, and pass B walks the
-// group backwards through the hand-derived step VJP (ttt_backward.py:501-584):
-// the output LN, the dual-form products, the second-order LN term, the target
-// LN, rope and L2-norm VJPs and the sigmoid gate, d_gate = de * eta * (1 - sigmoid).
+// the group's checkpoint and stashes each step's operands, and pass B walks
+// the group backwards through the hand-derived step VJP (ttt_backward.py:
+// 510-565): the output LN, the dual-form products, the second-order LN term,
+// the target LN, rope and L2-norm VJPs and the sigmoid gate, d_gate = de *
+// eta * (1 - sigmoid).
 //
 // What bounds it on the H100: as in the forward, the scan is sequential, so
 // one block owns one (batch, head) and the limit is the latency of one step
-// inside an SM (about 13 small products, ~1 MFLOP, and ten block-wide
-// barriers per step of pass B; three products and four barriers per step of
-// pass A). Device memory is not the limit.
+// inside an SM: pass A's forward step, then pass B's ten small products and
+// three row passes, each waiting on the one before. Device memory is not the
+// limit. At B = 1 the grid is 48 blocks on 132 SMs.
 //
-// Design: one block of 256 threads per (batch, head), everything of a step in
-// shared memory (77 KB, dynamic): the state W of the step (fp32, row stride
-// 65 so both W[k][c] and W[c][k] walks are free of bank conflicts), the
-// fp32 carry dW (likewise), and the [CS][F] step tiles. Only the pass-A
-// stash goes to device memory: K steps x W in bf16 (exact: pass B uses W
-// only rounded) and b in fp32, a wrapper-allocated workspace (8.25 KiB a
-// step), so any K works. No atomics: each block owns its outputs. A thread
-// owns column c of the [CS][F] tiles over four rows and of the [F][F] tiles
-// over 16 rows; the four threads of a column keep identical copies of b[c]
-// and of the bias carry db[c] in registers; row-wise phases keep each row's
-// target, LN statistics, gradient and raw inputs in registers
-// (ttt_linear_block.cuh). Operands are rounded to bf16 where the Pallas
-// kernel calls .astype(dt): XQ, XK, W, Gs, A1, dZb1, dA1, the carry dW and
-// dZ1. The LN-parameter cotangents are summed per lane over its rows and the
-// whole scan and reduced across the warps once at the end; the LN and bias
-// gradients come out compact ([F]) per (batch, head), and the wrapper sums
-// them over the batch.
-// Not yet done (later work): tensor cores, a second scan per SM.
+// Design: one block of 8 warps per (batch, head); every product runs on the
+// tensor cores (mma.sync m16n8k16, operands rounded to bf16 where the Pallas
+// kernel calls .astype(dt): XQ, XK, W, Gs, A1, dZb1, dA1, the carry dW, dZ1;
+// fp32 accumulation).
+// - Pass A is ttt_linear_step.cuh's step without the output: warps 0-3 keep
+//   the state W^T in registers, warps 4-7 prepare the next mini-batch. Each
+//   step writes what pass B needs to an L2-resident workspace (24.75 KiB a
+//   step, so any K works): bf16(W^T) and b before the step, XQ, XK, -A1 (the
+//   producer's fragments), Gs, Z1 and Z1_bar, as byte images of the tiles.
+// - Pass B thus recomputes no forward product. Its 8 warps take a step in
+//   four phases with one block barrier after each: (P0) the row pass of the
+//   preprocessing and the output LN's VJP (dZb1); (P5) the products of
+//   dZb1: warps 0-3 hold the carry dW^T in registers in the state's layout
+//   (rows c = 16 w ..) and compute dG = -A1^T dZb1c - db - XK bf16(dW) and
+//   dW^T += dZb1c^T XQ for their 16 columns, warps 4-7 compute dXQ =
+//   dZb1c W^T + dA1 XK and start dXK = -Gs bf16(dW)^T + dA1^T XQ for theirs
+//   (dA1 = bf16(-dZb1c Gs^T) recomputed as an A fragment, A1^T and dA1^T by
+//   movmatrix); (P6) the row pass of the LN-L2 VJP, the target LN's VJP,
+//   dXV and d_gate (dZ1); (P7) dW^T += dZ1c^T XK and db in warps 0-3 (which
+//   then write bf16(dW^T) for the next step's dXK), dXK += dZ1c W^T in warps
+//   4-7; then the rope and L2-norm VJPs of dXQ and dXK run as the next
+//   step's first row pass. The next step's raw rows and stash are cp.async'd
+//   into a second buffer during P5-P7.
+// - Row passes: warp w takes rows 2 w and 2 w + 1, 16 lanes a row, 4
+//   features a lane. The LN-parameter cotangents are summed per lane over its
+//   rows and the whole scan and reduced across the warps once at the end; the
+//   LN and bias gradients come out compact ([F]) per (batch, head), and the
+//   wrapper sums them over the batch.
 //
 // Layouts: as ttt_linear_forward.cu; dout/dxq/dxk/dxv [B, NC, CS, H*F] bf16;
 // dgate [B, H, NC, CS] f32; checkpoints W1 [B, H, NG, F, F], b1
 // [B, H, NG, 1, F] f32; outputs dW1 [B, H, F, F], db1 [B, H, 1, F],
-// dln_w/dln_b [B, H, F] f32.
+// dln_w/dln_b [B, H, F] f32; workspaces [B, H, K] of StashH and of StashF.
+// Every pointer 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include "ttt_linear_block.cuh"
+#include "hopper.cuh"
+#include "ttt_linear_step.cuh"
 
 namespace {
 
 using namespace tttl;
 
-constexpr int kLdW = kF + 1;  // row stride of W and dW in shared memory
-
-// Shared-memory carve-up, in floats.
-enum : int {
-  kOffW = 0,                        // [F][kLdW] W of the step (pass A: the fp32 state; pass B: the stash)
-  kOffDW = kOffW + kF * kLdW,       // [F][kLdW] the carry dW
-  kOffXQ = kOffDW + kF * kLdW,      // [CS][kLdX] bf16(XQ)
-  kOffXK = kOffXQ + kCS * kLdX,     // [CS][kLdX] bf16(XK)
-  kOffZ = kOffXK + kCS * kLdX,      // [CS][kLdX] Z1, then Zb1
-  kOffQW = kOffZ + kCS * kLdX,      // [CS][kLdX] XQ @ bf16(W)
-  kOffG = kOffQW + kCS * kLdX,      // [CS][kLdX] Gs
-  kOffDZ = kOffG + kCS * kLdX,      // [CS][kLdX] dZb1, then dZ1 (fp32)
-  kOffDZC = kOffDZ + kCS * kLdX,    // [CS][kLdX] the same, rounded to bf16
-  kOffDXQ = kOffDZC + kCS * kLdX,   // [CS][kLdX] dXQ before the rope / L2-norm VJP
-  kOffDXK = kOffDXQ + kCS * kLdX,   // [CS][kLdX] dXK before the rope / L2-norm VJP
-  kOffDG = kOffDXK + kCS * kLdX,    // [CS][kLdX] dG
-  kOffA = kOffDG + kCS * kLdX,      // [CS][CS] bf16(A1)
-  kOffDA = kOffA + kCS * kCS,       // [CS][CS] bf16(dA1)
-  kSmemFloats = kOffDA + kCS * kCS,
+struct Smem {
+  RawStage raw[2];       // pass A: the producer's ring; pass B: the step's raw rows (+ dout), double-buffered
+  PrepStage prep[2];     // pass A's prepared ring
+  StashH sh[2];          // pass B: the step's stash, double-buffered
+  StashF sf[2];
+  float z[kCS * kLdZ];   // pass A: Z1
+  bf16 gs[kCS * kLdB];   // pass A: Gs
+  float dzb[kCS * kLdZ], dz1[kCS * kLdZ], dg[kCS * kLdZ], dxq[kCS * kLdZ], dxk[kCS * kLdZ];
+  bf16 dzbc[kCS * kLdB], dz1c[kCS * kLdB];
+  bf16 dwt[kF * kLdB];   // bf16(dW^T) of the carry
+  uint64_t full[2], empty[2];
 };
-constexpr int kSmemBytes = kSmemFloats * 4;
+constexpr int kSmemBytes = sizeof(Smem);
 static_assert(kSmemBytes <= 232448, "exceeds the 227 KB shared-memory opt-in");
-static_assert(kOffXQ % 4 == 0 && kOffXK % 4 == 0 && kOffZ % 4 == 0 && kOffQW % 4 == 0 && kOffG % 4 == 0 &&
-              kOffDZ % 4 == 0 && kOffDZC % 4 == 0 && kOffDXQ % 4 == 0 && kOffDXK % 4 == 0 && kOffDG % 4 == 0,
-              "float4 alignment");
 
-__global__ void __launch_bounds__(kThreads, 1)
-ttt_linear_bwd_kernel(ScanArgs a, const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                      const float* __restrict__ w_ck, const float* __restrict__ b_ck,
-                      const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dxq,
-                      __nv_bfloat16* __restrict__ dxk, __nv_bfloat16* __restrict__ dxv, float* __restrict__ dgate,
-                      float* __restrict__ dW, float* __restrict__ db, float* __restrict__ dlnw,
-                      float* __restrict__ dlnb, __nv_bfloat16* __restrict__ stash_w, float* __restrict__ stash_b,
-                      int K) {
-  extern __shared__ __align__(16) float smem[];
-  float* sW = smem + kOffW;
-  float* sDW = smem + kOffDW;
-  float* sXQ = smem + kOffXQ;
-  float* sXK = smem + kOffXK;
-  float* sZ = smem + kOffZ;
-  float* sQW = smem + kOffQW;
-  float* sG = smem + kOffG;
-  float* sDZ = smem + kOffDZ;
-  float* sDZC = smem + kOffDZC;
-  float* sDXQ = smem + kOffDXQ;
-  float* sDXK = smem + kOffDXK;
-  float* sDG = smem + kOffDG;
-  float* sA = smem + kOffA;
-  float* sDA = smem + kOffDA;
+struct BwdArgs {
+  ScanArgs a;
+  const float *ln_w, *ln_b, *w_ck, *b_ck;
+  const bf16* dout;
+  bf16 *dxq, *dxk, *dxv;
+  float *dgate, *dW, *db, *dlnw, *dlnb;
+  StashH* sh;
+  StashF* sf;
+  int K;
+};
 
+// The step VJP's row passes: row 2 warp + lane / 16, features 4 (lane % 16) .. + 3.
+constexpr int kRowLanes = 16;
+
+__global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdArgs A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int c = tid & (kF - 1), r0 = (tid >> 6) * 4, k0 = tid >> 6;  // column c; rows r0..r0+3; W rows k0 + 4j
-  const int f0 = 2 * lane;
-  const int ar = tid >> 4, ac = tid & (kCS - 1);  // one element of a [CS][CS] tile
-  const int NG = (a.NC + K - 1) / K;
-  const size_t HF = (size_t)a.H * kF;
-  __nv_bfloat16* SW = stash_w + (size_t)bh * K * kF * kF;
-  float* SB = stash_b + (size_t)bh * K * kF;
+  const int bh = blockIdx.x, b = bh / A.a.H, h = bh % A.a.H, NC = A.a.NC, K = A.K;
+  const int NG = (NC + K - 1) / K;
+  const bool cwarp = warp < kWarps;  // warps 0-3: the state in pass A, the carry dW^T in pass B
+  const size_t HF = (size_t)A.a.H * kF;
+  StashH* SH = A.sh + (size_t)bh * K;
+  StashF* SF = A.sf + (size_t)bh * K;
 
-  const float2 lw = make_float2(ln_w[(size_t)h * kF + f0], ln_w[(size_t)h * kF + f0 + 1]);
-  const float2 lb = make_float2(ln_b[(size_t)h * kF + f0], ln_b[(size_t)h * kF + f0 + 1]);
-  for (int i = tid; i < kF * kLdW; i += kThreads) sDW[i] = 0.f;
-  float dbc = 0.f;                                   // the bias carry db[c]
-  float2 acc_w = make_float2(0.f, 0.f), acc_b = acc_w;  // dln_w / dln_b over this lane's rows
-  __syncthreads();
-
-  for (int g = NG - 1; g >= 0; --g) {
-    const int n0 = g * K, valid = min(K, a.NC - n0);
-
-    // ---------------- Pass A: the forward from checkpoint g, stashing each step's state.
-    const size_t ck = (size_t)bh * NG + g;
-    for (int i = tid; i < kF * kF; i += kThreads) sW[(i / kF) * kLdW + i % kF] = w_ck[ck * kF * kF + i];
-    float bc = b_ck[ck * kF + c];
-    __syncthreads();
-    for (int i = 0; i < valid; ++i) {
-      for (int e = tid; e < kF * kF; e += kThreads) SW[(size_t)i * kF * kF + e] = __float2bfloat16(sW[(e / kF) * kLdW + e % kF]);
-      if (r0 == 0) SB[(size_t)i * kF + c] = bc;
-      float2 tgt[2];
-      float eta[2];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = warp * 2 + rr;
-        const Row p = preproc(a, b, h, n0 + i, r, f0, lw, lb);
-        tgt[rr] = p.tgt;
-        eta[rr] = p.eta;
-        sXK[r * kLdX + f0] = bf16r(p.XK.x);
-        sXK[r * kLdX + f0 + 1] = bf16r(p.XK.y);
-      }
-      __syncthreads();
-      {  // Z1 = XK @ bf16(W) + b
-        float z[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < kF; ++k) {
-          const float w = bf16r(sW[k * kLdW + c]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) z[j] += sXK[(r0 + j) * kLdX + k] * w;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sZ[(r0 + j) * kLdX + c] = z[j] + bc;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {  // Gs = bf16(eta * ln_fused_l2_bwd(Z1, target))
-        const int r = warp * 2 + rr;
-        const float2 gr = fused_l2_grad(make_float2(sZ[r * kLdX + f0], sZ[r * kLdX + f0 + 1]), tgt[rr], lw, lb);
-        sG[r * kLdX + f0] = bf16r(eta[rr] * gr.x);
-        sG[r * kLdX + f0 + 1] = bf16r(eta[rr] * gr.y);
-      }
-      __syncthreads();
-      {  // b -= colsum(Gs); W -= XK^T @ Gs
-        float gc[kCS];
-        float cs = 0.f;
-#pragma unroll
-        for (int r = 0; r < kCS; ++r) {
-          gc[r] = sG[r * kLdX + c];
-          cs += gc[r];
-        }
-        bc -= cs;
-        for (int k = k0; k < kF; k += 4) {
-          float d = 0.f;
-#pragma unroll
-          for (int r = 0; r < kCS; ++r) d += sXK[r * kLdX + k] * gc[r];
-          sW[k * kLdW + c] -= d;
-        }
-      }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&S.full[s], 128);
+      hopper::mbar_init(&S.empty[s], kConsumers);
     }
+    hopper::fence_barrier_init();
+  }
+  for (int i = tid; i < kF * kLdB / 2; i += kThreads) reinterpret_cast<uint32_t*>(S.dwt)[i] = 0u;
+
+  const int r = 2 * warp + (lane >> 4), f = 4 * (lane & 15);  // pass B's rows
+  const int f8 = 8 * (lane & 7);                               // pass A's row features
+  float lw[4], lb[4], lw8[8], lb8[8];
+  ld_f32(lw, A.ln_w + (size_t)h * kF + f);
+  ld_f32(lb, A.ln_b + (size_t)h * kF + f);
+  ld_f32(lw8, A.ln_w + (size_t)h * kF + f8);
+  ld_f32(lb8, A.ln_b + (size_t)h * kF + f8);
+  float dw[8][4] = {};                      // warps 0-3: the carry dW^T (LinState's layout)
+  float2 db[2] = {}, dbt[2] = {};           // ... and db, db_tot of the warp's columns
+  float accw[4] = {}, accb[4] = {};         // dln_w / dln_b over this lane's rows
+  const StepTiles TA{S.z, S.gs, nullptr};
+
+  // cp.async step j's raw rows (with dout) and stash into buffer j % 2.
+  auto fetch = [&](int n0, int j) {
+    load_rows(S.raw[j & 1], A.a, A.dout, b, h, n0 + j, 0, kCS, tid, kThreads);
+    const uint4* srch = reinterpret_cast<const uint4*>(SH + j);
+    uint4* dsth = reinterpret_cast<uint4*>(&S.sh[j & 1]);
+    for (int i = tid; i < (int)(sizeof(StashH) / 16); i += kThreads) hopper::cp_async16(dsth + i, srch + i);
+    const uint4* srcf = reinterpret_cast<const uint4*>(SF + j);
+    uint4* dstf = reinterpret_cast<uint4*>(&S.sf[j & 1]);
+    for (int i = tid; i < (int)(sizeof(StashF) / 16); i += kThreads) hopper::cp_async16(dstf + i, srcf + i);
+    hopper::cp_async_commit();
+  };
+
+  int it = 0;  // mini-batches the pass-A ring has carried
+  for (int gi = NG - 1; gi >= 0; --gi) {
+    const int n0 = gi * K, valid = min(K, NC - n0);
+    __syncthreads();  // the previous pass B is done with the ring and the tiles
+
+    // ---------------- Pass A: the forward from checkpoint gi, stashing each step.
+    if (!cwarp) {
+      producer(S.raw, S.prep, S.full, S.empty, A.a, A.ln_w, A.ln_b, b, h, n0, valid, it, warp - kWarps, lane, SH);
+    } else {
+      LinState st;
+      const size_t ck = (size_t)bh * NG + gi;
+      load_state(st, A.w_ck + ck * kF * kF, A.b_ck + ck * kF, warp, lane);
+      for (int i = 0; i < valid; ++i) {
+        const int s = (it + i) & 1;
+        hopper::mbar_wait(&S.full[s], ((it + i) >> 1) & 1);
+        step<false, true>(st, S.prep[s], TA, lw8, lb8, nullptr, 0, SH + i, SF + i, warp, lane);
+        hopper::mbar_arrive(&S.empty[s]);
+      }
+    }
+    it += valid;
+    __threadfence_block();
+    __syncthreads();  // the stash is written
+    fetch(n0, valid - 1);
+    hopper::cp_async_wait<0>();
+    __syncthreads();
 
     // ---------------- Pass B: the step VJP, last step first.
     for (int j = valid - 1; j >= 0; --j) {
       const int n = n0 + j;
-      // P0: the stashed state; preprocessing, kept per lane.
-      for (int e = tid; e < kF * kF; e += kThreads)
-        sW[(e / kF) * kLdW + e % kF] = __bfloat162float(SW[(size_t)j * kF * kF + e]);
-      const float bc = SB[(size_t)j * kF + c];
-      Row p[2];
-      float2 dO[2];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = warp * 2 + rr;
-        p[rr] = preproc(a, b, h, n, r, f0, lw, lb);
-        sXQ[r * kLdX + f0] = bf16r(p[rr].XQ.x);
-        sXQ[r * kLdX + f0 + 1] = bf16r(p[rr].XQ.y);
-        sXK[r * kLdX + f0] = bf16r(p[rr].XK.x);
-        sXK[r * kLdX + f0 + 1] = bf16r(p[rr].XK.y);
-        const size_t xo = (((size_t)b * a.NC + n) * kCS + r) * HF + (size_t)h * kF + f0;
-        dO[rr] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + xo));
-      }
-      __syncthreads();
+      const RawStage& R = S.raw[j & 1];
+      const StashH& SHj = S.sh[j & 1];
+      const StashF& SFj = S.sf[j & 1];
+      const size_t xo = ((size_t)b * NC + n) * kCS * HF + (size_t)h * kF + r * HF + f;
 
-      // P1: Z1 = XK @ W + b, XQ @ W (W is bf16-valued); A1 = bf16(XQ @ XK^T).
+      // P0: preprocessing of row r, kept for the VJPs (target, t_hat, its std, eta); out = XQ + LN(Zb1):
+      // dZb1 and the LN-affine cotangents.
+      float tgt[4], that[4];
+      float sdt, eta, sig;
       {
-        float z[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < kF; ++k) {
-          const float w = sW[k * kLdW + c];
+        float k[4], v[4], c[4], sn[4], xk[4], tt[4];
+        ld_bf16(k, R.k + r * kF + f);
+        ld_bf16(v, R.v + r * kF + f);
+        ld_f32(c, R.cos + r * kF + f);
+        ld_f32(sn, R.sin + r * kF + f);
+        l2norm_rope<kRowLanes>(xk, k, c, sn);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            z[i] += sXK[(r0 + i) * kLdX + k] * w;
-            q[i] += sXQ[(r0 + i) * kLdX + k] * w;
-          }
-        }
+        for (int i = 0; i < 4; ++i) tt[i] = v[i] - xk[i];
+        sdt = target_ln<kRowLanes>(that, tt);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tgt[i] = lw[i] * that[i] + lb[i];
+        sig = 1.f / (1.f + expf(-R.gate[r]));
+        eta = sig * A.a.eta_scale;
+
+        float zb[4], xh[4], dO[4], wv[4], dz[4];
+        ld_f32(zb, SFj.zb1 + r * kLdZ + f);
+        ld_bf16(dO, R.dout + r * kF + f);
+        const float sd = ln_stats<kRowLanes>(xh, zb);
+        float mw = 0.f, mwx = 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          sZ[(r0 + i) * kLdX + c] = z[i] + bc;
-          sQW[(r0 + i) * kLdX + c] = q[i];
+          wv[i] = lw[i] * dO[i];
+          mw += wv[i];
+          mwx += wv[i] * xh[i];
         }
-        float s = 0.f;
-        for (int k = 0; k < kF; k += 4) {
-          const float4 x = ld4(sXQ + ar * kLdX + k), y = ld4(sXK + ac * kLdX + k);
-          s += x.x * y.x;
-          s += x.y * y.y;
-          s += x.z * y.z;
-          s += x.w * y.w;
-        }
-        sA[ar * kCS + ac] = bf16r(s);
-      }
-      __syncthreads();
-
-      // P2: z1_hat, std1 = ln_stats(Z1); g1 = ln_fused_l2(z1_hat, std1, target); Gs = bf16(eta * g1).
-      float2 zh[2], g1[2];
-      float sd1[2];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = warp * 2 + rr;
-        zh[rr] = ln_stats(make_float2(sZ[r * kLdX + f0], sZ[r * kLdX + f0 + 1]), sd1[rr]);
-        const float gx0 = lw.x * ((lw.x * zh[rr].x + lb.x) - p[rr].tgt.x);
-        const float gx1 = lw.y * ((lw.y * zh[rr].y + lb.y) - p[rr].tgt.y);
-        const float m2 = warp_sum(gx0 * zh[rr].x + gx1 * zh[rr].y) * (1.f / kF);
-        const float m1 = warp_sum(gx0 + gx1) * (1.f / kF);
-        g1[rr] = make_float2((gx0 - m1 - zh[rr].x * m2) / sd1[rr], (gx1 - m1 - zh[rr].y * m2) / sd1[rr]);
-        sG[r * kLdX + f0] = bf16r(p[rr].eta * g1[rr].x);
-        sG[r * kLdX + f0 + 1] = bf16r(p[rr].eta * g1[rr].y);
-      }
-      __syncthreads();
-
-      // P3: Zb1 = XQ @ W - A1 @ Gs + b - colsum(Gs).
-      {
-        float gc[kCS];
-        float cs = 0.f;
-#pragma unroll
-        for (int r = 0; r < kCS; ++r) {
-          gc[r] = sG[r * kLdX + c];
-          cs += gc[r];
-        }
+        mw = group_sum<kRowLanes>(mw) * (1.f / kF);
+        mwx = group_sum<kRowLanes>(mwx) * (1.f / kF);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          float ag = 0.f;
-#pragma unroll
-          for (int s = 0; s < kCS; ++s) ag += sA[(r0 + i) * kCS + s] * gc[s];
-          sZ[(r0 + i) * kLdX + c] = ((sQW[(r0 + i) * kLdX + c] - ag) + bc) - cs;
+          dz[i] = (wv[i] - mw - xh[i] * mwx) / sd;
+          accw[i] += dO[i] * xh[i];
+          accb[i] += dO[i];
         }
+        st_f32(S.dzb + r * kLdZ + f, dz);
+        st_bf16(S.dzbc + r * kLdB + f, dz);
       }
-      __syncthreads();
+      __syncthreads();  // (A) dZb1
+      if (j > 0) fetch(n0, j - 1);
 
-      // P4: out = XQ + LN(Zb1): dZb1 and the LN-affine cotangents; dXQ starts at dout.
+      // P5: the products of dZb1c.
+      float xk[2][4] = {};  // warps 4-7: dXK of their 16 columns, until P7
+      if (cwarp) {
+        const int c0 = 16 * warp;
+        uint32_t at[4], bz[4];
+        {
+          const uint4 nv = *reinterpret_cast<const uint4*>(SHj.neg_attn + lane * 4);
+          const uint32_t na[4] = {nv.x, nv.y, nv.z, nv.w};
+          transpose_a(at, na);  // -A1^T
+        }
+        ldb_kn(bz, S.dzbc, 0, c0, lane);
+        // dG = -A1^T dZb1c - XK bf16(dW) - db_tot
+        float dg[2][4] = {};
+        mma_bf16_16816(dg[0], at, bz[0], bz[1]);
+        mma_bf16_16816(dg[1], at, bz[2], bz[3]);
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = warp * 2 + rr;
-        float sd;
-        const float2 xh = ln_stats(make_float2(sZ[r * kLdX + f0], sZ[r * kLdX + f0 + 1]), sd);
-        const float w0 = lw.x * dO[rr].x, w1 = lw.y * dO[rr].y;
-        const float mw = warp_sum(w0 + w1) * (1.f / kF);
-        const float mwx = warp_sum(w0 * xh.x + w1 * xh.y) * (1.f / kF);
-        const float d0 = (w0 - mw - xh.x * mwx) / sd, d1 = (w1 - mw - xh.y * mwx) / sd;
-        acc_w.x += dO[rr].x * xh.x;
-        acc_w.y += dO[rr].y * xh.y;
-        acc_b.x += dO[rr].x;
-        acc_b.y += dO[rr].y;
-        sDZ[r * kLdX + f0] = d0;
-        sDZ[r * kLdX + f0 + 1] = d1;
-        sDZC[r * kLdX + f0] = bf16r(d0);
-        sDZC[r * kLdX + f0 + 1] = bf16r(d1);
-        sDXQ[r * kLdX + f0] = dO[rr].x;
-        sDXQ[r * kLdX + f0 + 1] = dO[rr].y;
+        for (int kk = 0; kk < kF / 16; ++kk) {
+          uint32_t ak[4];
+          lda(ak, SHj.xk, 0, 16 * kk, lane);
+          negate(ak);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) mma_bf16_16816(dg[u], ak, state_b(dw, u, 2 * kk), state_b(dw, u, 2 * kk + 1));
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float2 cs = column_sum(S.dzb, c0, u, lane);
+          dbt[u] = make_float2(db[u].x + cs.x, db[u].y + cs.y);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dg[u][e] -= (e & 1) ? dbt[u].y : dbt[u].x;
+        }
+        store_block(S.dg, dg, c0, lane);
+        // dW^T += dZb1c^T XQ (after dG read the carry)
+        const uint32_t a[4] = {bz[0], bz[2], bz[1], bz[3]};
+        update_rows(dw, a, SHj.xq, lane);
+      } else {
+        const int k0 = 16 * (warp - kWarps);
+        float da[2][4] = {}, xq[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kF / 16; ++kk) {
+          uint32_t az[4], gb[4], wb[4], ag[4], dwb[4];
+          lda(az, S.dzbc, 0, 16 * kk, lane);
+          ldb_nk(gb, SHj.gs, 0, 16 * kk, lane);
+          mma_bf16_16816(da[0], az, gb[0], gb[1]);  // dZb1c Gs^T
+          mma_bf16_16816(da[1], az, gb[2], gb[3]);
+          ldb_kn(wb, SHj.wt, 16 * kk, k0, lane);
+          mma_bf16_16816(xq[0], az, wb[0], wb[1]);  // dZb1c W^T
+          mma_bf16_16816(xq[1], az, wb[2], wb[3]);
+          lda(ag, SHj.gs, 0, 16 * kk, lane);
+          negate(ag);
+          ldb_kn(dwb, S.dwt, 16 * kk, k0, lane);
+          mma_bf16_16816(xk[0], ag, dwb[0], dwb[1]);  // -Gs bf16(dW)^T
+          mma_bf16_16816(xk[1], ag, dwb[2], dwb[3]);
+        }
+        // dA1 = bf16(-dZb1c Gs^T) as an A fragment; dXQ += dA1 XK; dXK += dA1^T XQ.
+        const uint32_t dA[4] = {pack_bf16(-da[0][0], -da[0][1]), pack_bf16(-da[0][2], -da[0][3]),
+                                pack_bf16(-da[1][0], -da[1][1]), pack_bf16(-da[1][2], -da[1][3])};
+        uint32_t dAt[4], xb[4];
+        ldb_kn(xb, SHj.xk, 0, k0, lane);
+        mma_bf16_16816(xq[0], dA, xb[0], xb[1]);
+        mma_bf16_16816(xq[1], dA, xb[2], xb[3]);
+        transpose_a(dAt, dA);
+        ldb_kn(xb, SHj.xq, 0, k0, lane);
+        mma_bf16_16816(xk[0], dAt, xb[0], xb[1]);
+        mma_bf16_16816(xk[1], dAt, xb[2], xb[3]);
+        store_block(S.dxq, xq, k0, lane);
       }
-      __syncthreads();
+      __syncthreads();  // (B) dG, dXQ
 
-      // P5: dXQ += dZb1c @ W^T; dG = -A1^T @ dZb1c - db_tot - XK @ bf16(dW); dXK = -Gs @ bf16(dW)^T;
-      //     this step's dW starts at XQ^T @ dZb1c; dA1 = bf16(-dZb1c @ Gs^T).
-      float dws[kF / 4];
-      float dbt;
-      {
-        float cs = 0.f;
-#pragma unroll
-        for (int r = 0; r < kCS; ++r) cs += sDZ[r * kLdX + c];
-        dbt = dbc + cs;
-        float xq[4] = {0.f, 0.f, 0.f, 0.f}, xk[4] = {0.f, 0.f, 0.f, 0.f}, dg[4] = {0.f, 0.f, 0.f, 0.f};
-        float dgw[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < kF; ++k) {
-          const float wck = sW[c * kLdW + k];               // W[c][k]
-          const float dwck = bf16r(sDW[c * kLdW + k]);      // bf16(dW)[c][k]
-          const float dwkc = bf16r(sDW[k * kLdW + c]);      // bf16(dW)[k][c]
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            xq[i] += sDZC[(r0 + i) * kLdX + k] * wck;
-            xk[i] += sG[(r0 + i) * kLdX + k] * dwck;
-            dgw[i] += sXK[(r0 + i) * kLdX + k] * dwkc;
-          }
-        }
-        for (int s = 0; s < kCS; ++s) {
-          const float dz = sDZC[s * kLdX + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dg[i] += sA[s * kCS + r0 + i] * dz;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sDXQ[(r0 + i) * kLdX + c] += xq[i];
-          sDG[(r0 + i) * kLdX + c] = (-dg[i] - dbt) - dgw[i];
-          sDXK[(r0 + i) * kLdX + c] = -xk[i];
-        }
-#pragma unroll
-        for (int jj = 0; jj < kF / 4; ++jj) {
-          const int k = k0 + 4 * jj;
-          float d = 0.f;
-#pragma unroll
-          for (int r = 0; r < kCS; ++r) d += sXQ[r * kLdX + k] * sDZC[r * kLdX + c];
-          dws[jj] = d;
-        }
-        float s = 0.f;
-        for (int k = 0; k < kF; k += 4) {
-          const float4 x = ld4(sDZC + ar * kLdX + k), y = ld4(sG + ac * kLdX + k);
-          s += x.x * y.x;
-          s += x.y * y.y;
-          s += x.z * y.z;
-          s += x.w * y.w;
-        }
-        sDA[ar * kCS + ac] = bf16r(-s);
-      }
-      __syncthreads();
-
-      // P6: dXQ += dA1c @ XK; dXK += dA1c^T @ XQ.
-      {
-        float xq[4] = {0.f, 0.f, 0.f, 0.f}, xk[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int s = 0; s < kCS; ++s) {
-          const float vk = sXK[s * kLdX + c], vq = sXQ[s * kLdX + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            xq[i] += sDA[(r0 + i) * kCS + s] * vk;
-            xk[i] += sDA[s * kCS + r0 + i] * vq;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sDXQ[(r0 + i) * kLdX + c] += xq[i];
-          sDXK[(r0 + i) * kLdX + c] += xk[i];
-        }
-      }
-      __syncthreads();
-
-      // P7: Gs = eta * g1: de, dg1; g1 = ln_fused_l2(Z1, target): dZ1, dtarget; target = LN(XV - XK): dXV;
+      // P6: Gs = eta g1: de, dg1; g1 = ln_fused_l2(Z1, target): dZ1, dtarget; target = LN(XV - XK): dXV;
       //     d_gate = de * eta * (1 - sigmoid).
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = warp * 2 + rr;
-        const float2 dG = make_float2(sDG[r * kLdX + f0], sDG[r * kLdX + f0 + 1]);
-        const float de = warp_sum(dG.x * g1[rr].x + dG.y * g1[rr].y);
-        const float u0 = p[rr].eta * dG.x, u1 = p[rr].eta * dG.y;
-        const float2 xh = zh[rr], t = p[rr].tgt;
-        const float sd = sd1[rr];
-        const float y0 = lw.x * xh.x + lb.x, y1 = lw.y * xh.y + lb.y;
-        const float gx0 = lw.x * (y0 - t.x), gx1 = lw.y * (y1 - t.y);
-        const float m2 = warp_sum(gx0 * xh.x + gx1 * xh.y) * (1.f / kF);
-        const float mu_ = warp_sum(u0 + u1) * (1.f / kF);
-        const float mux = warp_sum(u0 * xh.x + u1 * xh.y) * (1.f / kF);
-        const float dgx0 = (u0 - mu_ - xh.x * mux) / sd, dgx1 = (u1 - mu_ - xh.y * mux) / sd;
-        const float dxh0 = -(m2 * u0 + gx0 * mux) / sd + lw.x * lw.x * dgx0;
-        const float dxh1 = -(m2 * u1 + gx1 * mux) / sd + lw.y * lw.y * dgx1;
-        const float dstd = -warp_sum(u0 * g1[rr].x + u1 * g1[rr].y) / sd;
-        const float mdx = warp_sum(dxh0 + dxh1) * (1.f / kF);
-        const float mdxx = warp_sum(dxh0 * xh.x + dxh1 * xh.y) * (1.f / kF);
-        const float dz0 = (dxh0 - mdx - xh.x * mdxx) / sd + dstd * xh.x / kF;
-        const float dz1 = (dxh1 - mdx - xh.y * mdxx) / sd + dstd * xh.y / kF;
-        const float dt0 = -lw.x * dgx0, dt1 = -lw.y * dgx1;
-        acc_w.x += dgx0 * (y0 - t.x) + dgx0 * lw.x * xh.x;
-        acc_w.y += dgx1 * (y1 - t.y) + dgx1 * lw.y * xh.y;
-        acc_b.x += dgx0 * lw.x;
-        acc_b.y += dgx1 * lw.y;
-        // target = lnw * t_hat + lnb, t_hat = (t - mu) / s, s = sqrt(unbiased var) + eps.
-        const float gg0 = lw.x * dt0, gg1 = lw.y * dt1;
-        const float mg = warp_sum(gg0 + gg1) * (1.f / kF);
-        const float sgt = warp_sum(gg0 * p[rr].that.x + gg1 * p[rr].that.y);
-        const float sqrtv = fmaxf(p[rr].sd - 1e-8f, 1e-20f);
-        const float dv0 = (gg0 - mg) / p[rr].sd - p[rr].that.x * (sgt / ((kF - 1) * sqrtv));
-        const float dv1 = (gg1 - mg) / p[rr].sd - p[rr].that.y * (sgt / ((kF - 1) * sqrtv));
-        acc_w.x += dt0 * p[rr].that.x;
-        acc_w.y += dt1 * p[rr].that.y;
-        acc_b.x += dt0;
-        acc_b.y += dt1;
-        sDXK[r * kLdX + f0] -= dv0;
-        sDXK[r * kLdX + f0 + 1] -= dv1;
-        sDZ[r * kLdX + f0] = dz0;
-        sDZ[r * kLdX + f0 + 1] = dz1;
-        sDZC[r * kLdX + f0] = bf16r(dz0);
-        sDZC[r * kLdX + f0 + 1] = bf16r(dz1);
-        const size_t xo = (((size_t)b * a.NC + n) * kCS + r) * HF + (size_t)h * kF + f0;
-        *reinterpret_cast<__nv_bfloat162*>(dxv + xo) = __floats2bfloat162_rn(dv0, dv1);
-        if (lane == 0)
-          dgate[(((size_t)b * a.H + h) * a.NC + n) * kCS + r] = de * p[rr].eta * (1.f - p[rr].sig);
-      }
-      __syncthreads();
-
-      // P8: dXK += dZ1c @ W^T; db = db_tot + colsum(dZ1); dW = (XQ^T @ dZb1c + dW) + XK^T @ dZ1c.
+      float dv[4];
       {
-        float xk[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < kF; ++k) {
-          const float wck = sW[c * kLdW + k];
+        float z1[4], zh[4], gx[4], g1[4], dG[4], u[4], dgx[4], dxh[4], dz[4];
+        ld_f32(z1, SFj.z1 + r * kLdZ + f);
+        ld_f32(dG, S.dg + r * kLdZ + f);
+        const float sd = ln_stats<kRowLanes>(zh, z1);
+        float m1 = 0.f, m2 = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) xk[i] += sDZC[(r0 + i) * kLdX + k] * wck;
+        for (int i = 0; i < 4; ++i) {
+          gx[i] = lw[i] * ((lw[i] * zh[i] + lb[i]) - tgt[i]);
+          m1 += gx[i];
+          m2 += gx[i] * zh[i];
         }
+        m1 = group_sum<kRowLanes>(m1) * (1.f / kF);
+        m2 = group_sum<kRowLanes>(m2) * (1.f / kF);
+        float de = 0.f, mu = 0.f, mux = 0.f, sug = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sDXK[(r0 + i) * kLdX + c] += xk[i];
-        float cs = 0.f;
-#pragma unroll
-        for (int r = 0; r < kCS; ++r) cs += sDZ[r * kLdX + c];
-        dbc = dbt + cs;
-#pragma unroll
-        for (int jj = 0; jj < kF / 4; ++jj) {
-          const int k = k0 + 4 * jj;
-          float d = 0.f;
-#pragma unroll
-          for (int r = 0; r < kCS; ++r) d += sXK[r * kLdX + k] * sDZC[r * kLdX + c];
-          sDW[k * kLdW + c] = (dws[jj] + sDW[k * kLdW + c]) + d;
+        for (int i = 0; i < 4; ++i) {
+          g1[i] = (gx[i] - m1 - zh[i] * m2) / sd;
+          de += dG[i] * g1[i];
+          u[i] = eta * dG[i];
+          mu += u[i];
+          mux += u[i] * zh[i];
+          sug += u[i] * g1[i];
         }
+        de = group_sum<kRowLanes>(de);
+        mu = group_sum<kRowLanes>(mu) * (1.f / kF);
+        mux = group_sum<kRowLanes>(mux) * (1.f / kF);
+        const float dstd = -group_sum<kRowLanes>(sug) / sd;
+        float mdx = 0.f, mdxx = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dgx[i] = (u[i] - mu - zh[i] * mux) / sd;
+          dxh[i] = -(m2 * u[i] + gx[i] * mux) / sd + lw[i] * lw[i] * dgx[i];
+          mdx += dxh[i];
+          mdxx += dxh[i] * zh[i];
+        }
+        mdx = group_sum<kRowLanes>(mdx) * (1.f / kF);
+        mdxx = group_sum<kRowLanes>(mdxx) * (1.f / kF);
+        float gg[4], mg = 0.f, sgt = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dz[i] = (dxh[i] - mdx - zh[i] * mdxx) / sd + dstd * zh[i] / kF;
+          const float dt = -lw[i] * dgx[i];
+          const float y = lw[i] * zh[i] + lb[i];
+          accw[i] += dgx[i] * (y - tgt[i]) + dgx[i] * lw[i] * zh[i];
+          accb[i] += dgx[i] * lw[i];
+          // target = lnw * t_hat + lnb, t_hat = (t - mu) / s, s = sqrt(unbiased var) + eps.
+          gg[i] = lw[i] * dt;
+          mg += gg[i];
+          sgt += gg[i] * that[i];
+          accw[i] += dt * that[i];
+          accb[i] += dt;
+        }
+        mg = group_sum<kRowLanes>(mg) * (1.f / kF);
+        sgt = group_sum<kRowLanes>(sgt);
+        const float sqrtv = fmaxf(sdt - 1e-8f, 1e-20f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[i] = (gg[i] - mg) / sdt - that[i] * (sgt / ((kF - 1) * sqrtv));
+        st_f32(S.dz1 + r * kLdZ + f, dz);
+        st_bf16(S.dz1c + r * kLdB + f, dz);
+        st_bf16(A.dxv + xo, dv);
+        if ((lane & 15) == 0) A.dgate[(((size_t)b * A.a.H + h) * NC + n) * kCS + r] = de * eta * (1.f - sig);
       }
-      __syncthreads();
+      __syncthreads();  // (C) dZ1
 
-      // P9: rope and L2-norm VJPs back to the raw projections.
+      // P7: dW^T += dZ1c^T XK; db = db_tot + colsum(dZ1); dXK += dZ1c W^T.
+      if (cwarp) {
+        const int c0 = 16 * warp;
+        uint32_t bz[4];
+        ldb_kn(bz, S.dz1c, 0, c0, lane);
+        const uint32_t a[4] = {bz[0], bz[2], bz[1], bz[3]};
+        update_rows(dw, a, SHj.xk, lane);
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = warp * 2 + rr;
-        const Row& q = p[rr];
-        const size_t xo = (((size_t)b * a.NC + n) * kCS + r) * HF + (size_t)h * kF + f0;
-        const float2 us[2] = {make_float2(sDXQ[r * kLdX + f0], sDXQ[r * kLdX + f0 + 1]),
-                              make_float2(sDXK[r * kLdX + f0], sDXK[r * kLdX + f0 + 1])};
-        const float2 xs[2] = {q.q, q.k};
-        __nv_bfloat16* outs[2] = {dxq, dxk};
+        for (int u = 0; u < 2; ++u) {
+          const float2 cs = column_sum(S.dz1, c0, u, lane);
+          db[u] = make_float2(dbt[u].x + cs.x, dbt[u].y + cs.y);
+        }
+        store_wt(S.dwt, dw, warp, lane);
+      } else {
+        const int k0 = 16 * (warp - kWarps);
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
+        for (int kk = 0; kk < kF / 16; ++kk) {
+          uint32_t az[4], wb[4];
+          lda(az, S.dz1c, 0, 16 * kk, lane);
+          ldb_kn(wb, SHj.wt, 16 * kk, k0, lane);
+          mma_bf16_16816(xk[0], az, wb[0], wb[1]);
+          mma_bf16_16816(xk[1], az, wb[2], wb[3]);
+        }
+        store_block(S.dxk, xk, k0, lane);
+      }
+      hopper::cp_async_wait<0>();  // step j - 1's rows and stash
+      __syncthreads();  // (D) dXK, bf16(dW^T)
+
+      // P8: rope and L2-norm VJPs back to the raw projections.
+      {
+        float dO[4], us[2][4], xs[2][4], c[4], sn[4];
+        ld_f32(us[0], S.dxq + r * kLdZ + f);
+        ld_f32(us[1], S.dxk + r * kLdZ + f);
+        ld_bf16(dO, R.dout + r * kF + f);
+        ld_bf16(xs[0], R.q + r * kF + f);
+        ld_bf16(xs[1], R.k + r * kF + f);
+        ld_f32(c, R.cos + r * kF + f);
+        ld_f32(sn, R.sin + r * kF + f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          us[0][i] += dO[i];
+          us[1][i] -= dv[i];
+        }
+        bf16* outs[2] = {A.dxq, A.dxk};
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
           // rope VJP: u*cos - pair_swap(u)*sin, pair_swap(u) = (-u1, u0).
-          const float v0 = us[t].x * q.c.x + us[t].y * q.s.x, v1 = us[t].y * q.c.y - us[t].x * q.s.y;
-          const float2 x = xs[t];
-          const float nrm = sqrtf(warp_sum(x.x * x.x + x.y * x.y));
+          float vv[4], ss = 0.f, proj = 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; i += 2) {
+            vv[i] = us[q][i] * c[i] + us[q][i + 1] * sn[i];
+            vv[i + 1] = us[q][i + 1] * c[i + 1] - us[q][i] * sn[i + 1];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ss += xs[q][i] * xs[q][i];
+            proj += vv[i] * xs[q][i];
+          }
+          const float nrm = sqrtf(group_sum<kRowLanes>(ss));
+          proj = group_sum<kRowLanes>(proj);
           const float m = fmaxf(nrm, 1e-12f);
-          const float proj = warp_sum(v0 * x.x + v1 * x.y);
           const float corr = nrm > 1e-12f ? proj / (m * m * fmaxf(nrm, 1e-20f)) : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(outs[t] + xo) = __floats2bfloat162_rn(v0 / m - x.x * corr, v1 / m - x.y * corr);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) vv[i] = vv[i] / m - xs[q][i] * corr;
+          st_bf16(outs[q] + xo, vv);
         }
       }
-      __syncthreads();
     }
   }
 
-  // Outputs: dW, db, and dln_w / dln_b reduced over the warps.
-  for (int i = tid; i < kF * kF; i += kThreads) dW[(size_t)bh * kF * kF + i] = sDW[(i / kF) * kLdW + i % kF];
-  if (r0 == 0) db[(size_t)bh * kF + c] = dbc;
-  float* red = sZ;  // [2][8][F]
-  red[warp * kF + f0] = acc_w.x;
-  red[warp * kF + f0 + 1] = acc_w.y;
-  red[8 * kF + warp * kF + f0] = acc_b.x;
-  red[8 * kF + warp * kF + f0 + 1] = acc_b.y;
+  // Outputs: dW, db, and dln_w / dln_b reduced over the rows and warps.
+  __syncthreads();
+  if (cwarp) save_state(dw, db, A.dW + (size_t)bh * kF * kF, A.db + (size_t)bh * kF, warp, lane);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    accw[i] += __shfl_xor_sync(0xffffffffu, accw[i], 16);
+    accb[i] += __shfl_xor_sync(0xffffffffu, accb[i], 16);
+  }
+  float* red = S.dzb;  // [2][8 warps][F]
+  static_assert(2 * 8 * kF <= kCS * kLdZ, "the reduction fits the dzb tile");
+  if (lane < 16) {
+    st_f32(red + warp * kF + f, accw);
+    st_f32(red + 8 * kF + warp * kF + f, accb);
+  }
   __syncthreads();
   if (tid < kF) {
     float sw = 0.f, sb = 0.f;
@@ -480,14 +445,19 @@ ttt_linear_bwd_kernel(ScanArgs a, const float* __restrict__ ln_w, const float* _
       sw += red[w * kF + tid];
       sb += red[8 * kF + w * kF + tid];
     }
-    dlnw[(size_t)bh * kF + tid] = sw;
-    dlnb[(size_t)bh * kF + tid] = sb;
+    A.dlnw[(size_t)bh * kF + tid] = sw;
+    A.dlnb[(size_t)bh * kF + tid] = sb;
   }
 }
 
 }  // namespace
 
 extern "C" int ttt_linear_backward_smem_bytes() { return kSmemBytes; }
+
+// Bytes a step of the pass-A stash takes in the bf16 workspace (part 0) and the float32 one (part 1).
+extern "C" int ttt_linear_backward_stash_bytes(int part) {
+  return part == 0 ? (int)sizeof(StashH) : (int)sizeof(StashF);
+}
 
 extern "C" int ttt_linear_backward(const void* xq, const void* xk, const void* xv, const void* gate,
                                    const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
@@ -496,15 +466,15 @@ extern "C" int ttt_linear_backward(const void* xq, const void* xk, const void* x
                                    void* stash_b, int B, int NC, int H, int K, float eta_scale, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(ttt_linear_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const ScanArgs a{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
-                   static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
-                   static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin), NC, H, eta_scale};
-  ttt_linear_bwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(w_ck),
-      static_cast<const float*>(b_ck), static_cast<const __nv_bfloat16*>(dout), static_cast<__nv_bfloat16*>(dxq),
-      static_cast<__nv_bfloat16*>(dxk), static_cast<__nv_bfloat16*>(dxv), static_cast<float*>(dgate),
-      static_cast<float*>(dW), static_cast<float*>(db), static_cast<float*>(dlnw), static_cast<float*>(dlnb),
-      static_cast<__nv_bfloat16*>(stash_w), static_cast<float*>(stash_b), K);
+  const BwdArgs A{{static_cast<const bf16*>(xq), static_cast<const bf16*>(xk), static_cast<const bf16*>(xv),
+                   static_cast<const float*>(gate), static_cast<const float*>(rope_cos),
+                   static_cast<const float*>(rope_sin), NC, H, eta_scale},
+                  static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(w_ck),
+                  static_cast<const float*>(b_ck), static_cast<const bf16*>(dout), static_cast<bf16*>(dxq),
+                  static_cast<bf16*>(dxk), static_cast<bf16*>(dxv), static_cast<float*>(dgate),
+                  static_cast<float*>(dW), static_cast<float*>(db), static_cast<float*>(dlnw),
+                  static_cast<float*>(dlnb), static_cast<StashH*>(stash_w), static_cast<StashF*>(stash_b), K};
+  ttt_linear_bwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 

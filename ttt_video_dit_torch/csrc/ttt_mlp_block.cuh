@@ -1,7 +1,7 @@
 // Scalar helpers shared by the TTT kernels (ttt_mlp_forward.cu,
-// ttt_mlp_backward.cu, the TTT-linear kernels through ttt_linear_block.cuh):
-// bf16 rounding, warp sums, the tanh GELU and its first two derivatives, and
-// the per-step inputs of one scan. The TTT-MLP training step itself (CS = 64,
+// ttt_mlp_backward.cu; the TTT-linear kernels, through ttt_linear_step.cuh,
+// take only ScanArgs): bf16 rounding, warp sums, the tanh GELU and its first
+// two derivatives, and the per-step inputs of one scan. The TTT-MLP training step itself (CS = 64,
 // on the tensor cores) is in ttt_mlp_train_step.cuh.
 
 #pragma once

@@ -69,7 +69,7 @@ def ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W
 
 
 def ttt_linear_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout,
-                              eta_scale: float, checkpoint_group: int):
+                              eta_scale: float, checkpoint_group: int, trace: dict | None = None):
     """K6's algorithm in PyTorch, rounding to XQ's dtype where
     _linear_bwd_kernel does. Per checkpoint group, last first: pass A re-runs
     the forward from the group's checkpoint and stashes each step's state;
@@ -79,7 +79,12 @@ def ttt_linear_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, 
     Returns (dXQ, dXK, dXV [B, NC, CS, H*F] in XQ's dtype, d_gate
     [B, H, NC, CS] in float32 (float64 for float64 inputs), dW1 [H, F, F],
     db1 [H, 1, F], dln_w [H, F], dln_b [H, F]): the initial-state and LN
-    cotangents summed over the batch, as the shared parameters need them."""
+    cotangents summed over the batch, as the shared parameters need them.
+
+    With ``trace`` (a dict), ``trace[n]`` gets mini-batch n's rounded
+    operands of dXK's products, dXK's LN-target term, Z1 and the fp32
+    carry dW, head-major [B, H, ., .] (scripts/k6_tolerance_seeds.py reads
+    them)."""
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
     K = checkpoint_group
@@ -168,6 +173,8 @@ def ttt_linear_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, 
             dxk[n] = ln_ops.l2norm_vjp(xk[n], ln_ops.rope_vjp(dXK, cos[n], sin[n])).to(dt)
             dxv[n] = dtv.to(dt)
             dgate[n] = (de * e * (1.0 - sig[n]))[..., 0]
+            if trace is not None:
+                trace[n] = dict(XQ=XQ_, W=W1, Z1=Z1, Gs=Gs, dW=rnd(dW1), dW32=dW1, dA1=rnd(dA1), dZ1=dZ1c, dtv=dtv)
             dW1, db1 = dW1_step, db1_new
 
     sum_b = lambda x: x.sum(dim=0)
@@ -189,6 +196,8 @@ def _lib(name: str = "ttt_linear_forward"):
                                             + [ctypes.c_float, ctypes.c_void_p])
         lib.ttt_linear_backward.restype = ctypes.c_int
         lib.ttt_linear_backward_smem_bytes.restype = ctypes.c_int
+        lib.ttt_linear_backward_stash_bytes.argtypes = [ctypes.c_int]
+        lib.ttt_linear_backward_stash_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -280,8 +289,11 @@ def ttt_linear_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck,
     dx = [torch.empty_like(XQ) for _ in range(3)]
     dgate = new(B, H, NC, CS)
     grads = (new(B, H, F, F), new(B, H, 1, F), new(B, H, F), new(B, H, F))
-    stash = (new(B * H * K * F * F, dtype=torch.bfloat16), new(B * H * K * F))
-    _launch(_lib("ttt_linear_backward"), "ttt_linear_backward",
+    # K6's pass A writes each step's operands for pass B: a bf16 and a float32 workspace of K steps a scan.
+    lib = _lib("ttt_linear_backward")
+    step_bytes = [lib.ttt_linear_backward_stash_bytes(part) for part in (0, 1)]
+    stash = (new(B * H * K * step_bytes[0] // 2, dtype=torch.bfloat16), new(B * H * K * step_bytes[1] // 4))
+    _launch(lib, "ttt_linear_backward",
             (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout, *dx, dgate, *grads, *stash),
             (B, NC, H, K), eta_scale, XQ.device)
     bwd_launches += 1
