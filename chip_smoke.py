@@ -37,17 +37,46 @@ its own 3 s TOMLs:
    last gradient, named, none of them the TTT state K2/K6 train), and the
    launch counts of the training kernels (K7 included: the TOMLs set
    scan_layers) from exactly that run; seconds per step, peak memory, MFU.
+Then the serving path (ttt_mlp, its 3 s eval TOML, full width; every
+weight file fabricated from a seed under output/chip_smoke_serve/, removed
+at the end):
+7. T5: the encoder at T5-v1.1-XXL's published widths (d_model 4096, 64
+   heads x d_kv 64, d_ff 10240, gated-GELU, 32 buckets / max distance 128,
+   24 layers, 32,128 + 2 vocab), seeded bf16 weights, encodes seeded ids
+   [2 scenes, 498] twice (positive and negative): ms per encode, peak
+   memory, finite output. Then the loader end to end at 2 layers: a
+   fabricated directory (config.json + model.safetensors from the port's
+   writer) loaded in bf16 on the card and in float32 on the CPU, the same
+   ids, within T5_REL_L2_TOL.
+8. weights, sampling and VAE: HF-named CogVideoX-5B transformer shards
+   (bf16, 2 layers, two shards and an index) converted by the from_hf CLI
+   into an init_state_dir; the sampling entry on it for 2 denoise steps,
+   decoding with a fabricated full-width VAE 1.0 decoder checkpoint
+   (torch.save, decoder.* keys) into [49, 480, 720, 3] uint8 frames (VAE
+   seconds and each stage's peak memory; the entry raises on non-finite
+   float frames, and the uint8 frames must not be constant); kernel launch
+   counts from exactly that run; its latents equal bit for bit to those of
+   the same converted state dict built in memory (the entry's build_model
+   replaced for that run); decoded on the card and on the CPU with the same
+   weights, within VAE_REL_L2_TOL: a 3 x 8 x 8 latent crop (three windows,
+   the caches threaded) and the run's first latent frame at full
+   resolution (one 480 x 720 frame, the 128-channel level-0 maps).
+The entry runs without --eval.t5_model_dir here: its tokenizer needs
+`transformers`, which the card's machine lacks; T5 runs through encode_ids.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4 and 6); the last line is
+the main-path runs of phases 4, 6 and 8); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
-plain versions are exact float32 references.
+plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
+itself).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -118,6 +147,23 @@ GRAD_REL_L2_TOL = {"loss": 1e-2, "grad": 5e-2}
 # H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s and dense bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# T5-v1.1-XXL's published widths (its config.json), and the 2 scene tokens' rows.
+T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64,
+              relative_attention_num_buckets=32, relative_attention_max_distance=128, feed_forward_proj="gated-gelu")
+T5_SCENE_VOCAB = 32128 + 2
+# Relative L2 error of the 2-layer T5 in bf16 on the card against float32 on
+# the CPU, same (bf16-exact) weights and ids: the bf16 activations' rounding,
+# ~6e-3 at 2 layers at T5's own initialisation (measured on the CPU at d_model
+# 512 and 1024).
+T5_REL_L2_TOL = 2e-2
+# The VAE decodes in float32 with cuDNN's TF32 off, so the card differs from
+# the CPU by summation order and by the algorithms cuDNN picks (Winograd or FFT
+# round float32 differently from direct sums): relative L2 <= VAE_REL_L2_TOL
+# and max|card - cpu| <= VAE_MAX_TOL * max|cpu|.
+VAE_REL_L2_TOL = 1e-4
+VAE_MAX_TOL = 1e-3
+SERVE_DIR = "output/chip_smoke_serve"
+CARD = ""  # the card's name and power limit, as nvidia-smi prints them; set by main()
 
 
 def log(msg: str) -> None:
@@ -583,7 +629,7 @@ def phase_sample(device, variant) -> dict[str, int]:
     steady = summary["eval_seconds"][1:] or summary["eval_seconds"]
     log(f"phase 4 {variant} sample d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, {evals} evals: "
         f"{sum(steady) / len(steady):.3f} s/eval after the first ({summary['eval_seconds'][0]:.3f} s first), "
-        f"peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB, launches "
+        f"peak {summary['peak_memory_bytes']['dit'] / 2**30:.2f} GiB, launches "
         f"{ {k: v for k, v in counts.items() if v} }, latents finite, std {float(latents.std()):.4f}: "
         f"{time.perf_counter() - t0:.1f} s")
     return counts
@@ -708,6 +754,207 @@ def phase_train(device, variant) -> dict[str, int]:
     return counts
 
 
+def _fabricated_t5_dir(path: str, layers: int, seed: int):
+    """A T5 model directory at T5_XXL's widths cut to ``layers``: config.json
+    and model.safetensors (the port's writer), seeded bf16 weights."""
+    from dataclasses import asdict
+
+    from ttt_video_dit_torch.models.t5 import T5Config, T5Encoder
+    from ttt_video_dit_torch.utils import safetensors
+
+    cfg = T5Config(**{**T5_XXL, "num_layers": layers})
+    with torch.device("meta"):
+        enc = T5Encoder(cfg)
+    enc.to(torch.bfloat16).to_empty(device="cpu").init_weights_(torch.Generator().manual_seed(seed))
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(asdict(cfg), f)
+    safetensors.save_file(enc.state_dict(), os.path.join(path, "model.safetensors"))
+
+
+def phase_t5(device) -> None:
+    """The T5-XXL encoder at full depth on the card (seeded bf16 weights), then
+    the loader end to end at 2 layers, card bf16 against CPU float32."""
+    from ttt_video_dit_torch.models.t5 import T5Config, T5Encoder, load_text_encoder
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.device("meta"):
+        enc = T5Encoder(T5Config(**T5_XXL))
+    enc.to(torch.bfloat16).to_empty(device=device).init_weights_(torch.Generator(device).manual_seed(7))
+    enc.resize_token_embeddings(T5_SCENE_VOCAB, torch.Generator(device).manual_seed(8))
+    enc.eval()
+    params = sum(p.numel() for p in enc.parameters())
+    ids = torch.randint(0, T5_SCENE_VOCAB, (3, 2, 498), generator=torch.Generator(device).manual_seed(9), device=device)
+    with torch.inference_mode():
+        enc(ids[0])  # warm-up
+        outs, ms = [], []
+        for i in (1, 2):  # positive, then negative prompts
+            out, t = timed(lambda: enc(ids[i]))
+            outs.append(out)
+            ms.append(t)
+    want = (2, 498, T5_XXL["d_model"])
+    for out in outs:
+        if out.shape != want or out.dtype != torch.float32 or not torch.isfinite(out).all():
+            raise AssertionError(f"T5-XXL output {tuple(out.shape)} {out.dtype} not finite float32 {want}")
+    peak = torch.cuda.max_memory_allocated(device)
+    del enc, outs
+    torch.cuda.empty_cache()
+    c = T5_XXL
+    log(f"phase 7 T5-XXL d{c['d_model']} x {c['num_heads']} heads x {c['num_layers']} layers, d_ff {c['d_ff']} "
+        f"({params / 1e9:.3f} B parameters, bf16, vocab "
+        f"{T5_SCENE_VOCAB}) on [2, 498] ids: {ms[0]:.2f} / {ms[1]:.2f} ms per encode (positive / negative, after a "
+        f"warm-up), peak {peak / 2**30:.2f} GiB, outputs finite ({CARD})")
+
+    path = os.path.join(SERVE_DIR, "t5")
+    _fabricated_t5_dir(path, layers=2, seed=10)
+    ids = torch.randint(0, T5_XXL["vocab_size"], (2, 498), generator=torch.Generator().manual_seed(11))
+    got = load_text_encoder(path, "bfloat16", device).encode_ids(ids).cpu()
+    want = load_text_encoder(path, "float32", "cpu").encode_ids(ids)
+    rel = float((got - want).norm() / want.norm())
+    if not torch.isfinite(got).all() or not rel <= T5_REL_L2_TOL:
+        raise AssertionError(f"T5 loader, 2 layers: card bf16 vs CPU float32 relative L2 {rel:.4g} > {T5_REL_L2_TOL}")
+    log(f"  T5 loader end to end (config.json + model.safetensors, 2 layers): card bf16 vs CPU float32 relative L2 "
+        f"{rel:.4g} (tol {T5_REL_L2_TOL}), max_abs_err {float((got - want).abs().max()):.4g}: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _fabricated_hf_shards(path: str, cfg, seed: int) -> int:
+    """HF-named CogVideoX transformer tensors for ``cfg`` (bf16, seeded:
+    weights N(0, 1/fan_in), biases N(0, 0.01^2), LayerNorm scales 1 + N(0,
+    0.05^2)) in two shards and an index. Returns the tensor count."""
+    from ttt_video_dit_torch.models.dit import from_hf
+    from ttt_video_dit_torch.models.dit.diffusion import CogVideoX
+    from ttt_video_dit_torch.utils import safetensors
+
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in CogVideoX(cfg).state_dict().items()}
+    names = list(from_hf._TOP) + [f"transformer_blocks.{i}.{n}.{leaf}" for i in range(cfg.num_layers)
+                                  for n in from_hf._BLOCK for leaf in ("weight", "bias")]
+    g = torch.Generator().manual_seed(seed)
+    tensors = {}
+    for name in names:
+        shape = shapes[from_hf.hf_key(name)]
+        x = torch.randn(shape, generator=g)
+        if name.endswith(("norm.weight", "norm_final.weight", "norm_q.weight", "norm_k.weight")):
+            x = 1 + 0.05 * x
+        elif name.endswith("weight"):
+            x = x / math.sqrt(math.prod(shape[1:]))
+        else:
+            x = 0.01 * x
+        tensors[name] = x.bfloat16()
+    os.makedirs(path, exist_ok=True)
+    half = len(names) // 2
+    shards = {"diffusion_pytorch_model-00001-of-00002.safetensors": names[:half],
+              "diffusion_pytorch_model-00002-of-00002.safetensors": names[half:]}
+    for fn, keys in shards.items():
+        safetensors.save_file({k: tensors[k] for k in keys}, os.path.join(path, fn))
+    with open(os.path.join(path, "diffusion_pytorch_model.safetensors.index.json"), "w", encoding="utf-8") as f:
+        json.dump({"weight_map": {k: fn for fn, keys in shards.items() for k in keys}}, f)
+    return len(tensors)
+
+
+def phase_serve(device) -> dict[str, int]:
+    """Weights, sampling and VAE decode through the sampling entry (ttt_mlp, full width, 2 layers, 2 steps)."""
+    import numpy as np
+
+    from ttt_video_dit_torch import sample
+    from ttt_video_dit_torch.config.model_config import VaeModelConfig
+    from ttt_video_dit_torch.models.dit import from_hf
+    from ttt_video_dit_torch.models.dit.dit import cast_matmul_weights_, compute_dtype
+    from ttt_video_dit_torch.models.vae.autoencoder import VideoAutoencoder
+    from ttt_video_dit_torch.models.vae.enc_dec import Decoder3D
+
+    t0 = time.perf_counter()
+    flags = sample_args("ttt_mlp") + ["--model.num_layers", "2", "--eval.num_denoising_steps", "2",
+                                      "--guider.num_steps", "2"]
+    cfg = sample.model_config(sample.parse_args(flags))
+    hf_dir, init_dir = os.path.join(SERVE_DIR, "hf"), os.path.join(SERVE_DIR, "init")
+    n_hf = _fabricated_hf_shards(hf_dir, cfg, seed=12)
+    conv = subprocess.run([sys.executable, "-m", "ttt_video_dit_torch.models.dit.from_hf", "--hf-dir", hf_dir,
+                           "--output", init_dir, *flags], capture_output=True, text=True)
+    if conv.returncode != 0:
+        raise RuntimeError(f"from_hf CLI failed ({conv.returncode}): {conv.stderr[-2000:]}")
+    mapped = [ln for ln in conv.stdout.splitlines() if ln.startswith("mapped ")]
+    if mapped != [f"mapped {n_hf} HF tensors"]:
+        raise AssertionError(f"from_hf CLI mapped {mapped}, {n_hf} HF tensors written")
+
+    torch.manual_seed(13)  # the decoder's default initialisation, on the card
+    with torch.device(device):
+        dec = Decoder3D(VaeModelConfig.get_decoder_config())
+    vae_path = os.path.join(SERVE_DIR, "vae.pt")
+    torch.save({"state_dict": {f"decoder.{k}": v.cpu() for k, v in dec.state_dict().items()}}, vae_path)
+    del dec
+    torch.cuda.empty_cache()
+    log(f"  serving files: {n_hf} HF tensors in 2 shards converted by the from_hf CLI, VAE 1.0 decoder checkpoint: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    job = sample.parse_args(flags + ["--checkpoint.init_state_dir", init_dir, "--eval.vae_checkpoint_path", vae_path,
+                                     "--eval.output_dir", os.path.join(SERVE_DIR, "out")])
+    reset_counts()
+    summary = sample.main(job)
+    counts = read_counts()
+    evals = len(summary["eval_seconds"])
+    expect = {"ttt_mlp_forward": 2 * cfg.num_layers * evals, "attention_forward": cfg.num_layers * evals}
+    if counts != {**dict.fromkeys(counts, 0), **expect}:
+        raise AssertionError(f"serving run: kernel launches {counts}, expected {expect}")
+    ev = job.eval
+    T, H, W = ev.sampling_num_frames, ev.image_height, ev.image_width
+    latents = np.load(summary["latents"][0])
+    frames_path = summary["frames"][0]
+    if frames_path.endswith(".npz"):
+        frames = np.load(frames_path)["frames"]
+        if frames.shape != (4 * T - 3, H, W, 3) or frames.dtype != np.uint8:
+            raise AssertionError(f"frames {frames.shape} {frames.dtype}, expected {(4 * T - 3, H, W, 3)} uint8")
+        if frames.min() == frames.max():
+            raise AssertionError(f"the {list(frames.shape)} frames are constant ({frames.min()})")
+    elif not os.path.getsize(frames_path):
+        raise AssertionError(f"{frames_path} is empty")
+
+    def build_in_memory(config, device, seed=0, init_state_dir=None):
+        """The same HF tensors converted in this process: the entry frees it before its VAE stage."""
+        model, _ = from_hf.converted_model(hf_dir, config, seed=job.job.seed)
+        return cast_matmul_weights_(model.to(device), compute_dtype(config)).eval()
+
+    in_memory_job = sample.parse_args(flags + ["--eval.output_dir", os.path.join(SERVE_DIR, "in_memory")])
+    build = sample.build_model
+    sample.build_model = build_in_memory
+    try:
+        in_memory = np.load(sample.main(in_memory_job)["latents"][0])
+    finally:
+        sample.build_model = build
+    torch.cuda.empty_cache()
+    if latents.shape != (T, 16, H // 8, W // 8) or not np.isfinite(latents).all() or not np.array_equal(latents, in_memory):
+        raise AssertionError(f"latents {latents.shape} from the converted directory differ from the in-memory "
+                             f"state dict's: max |diff| {float(np.abs(latents - in_memory).max()):.4g}")
+    peaks = summary["peak_memory_bytes"]
+    log(f"phase 8 serving ttt_mlp d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, {evals} evals: "
+        f"init_state_dir latents == in-memory latents, set-up {summary['setup_seconds']:.2f} s, "
+        f"{sum(summary['eval_seconds'][1:]) / max(evals - 1, 1):.3f} s/eval after the first, VAE decode of "
+        f"{list(latents.shape)} latents to {os.path.basename(frames_path)} {[4 * T - 3, H, W, 3]} uint8 "
+        f"{summary['vae_seconds'][0]:.2f} s, peak "
+        f"GiB by stage {{{', '.join(f'{k}: {v / 2**30:.2f}' for k, v in peaks.items())}}}, launches "
+        f"{ {k: v for k, v in counts.items() if v} } ({CARD}): {time.perf_counter() - t0:.1f} s")
+
+    for what, z in (("crop [1, 16, 3, 8, 8]", torch.randn(1, 16, 3, 8, 8, generator=torch.Generator().manual_seed(14))),
+                    (f"the run's first latent frame [1, 16, 1, {H // 8}, {W // 8}]",
+                     torch.from_numpy(latents[None, :1]).transpose(1, 2))):
+        t = time.perf_counter()
+        got = VideoAutoencoder.load_decoder(vae_path, device=device).decode_first_stage(z).cpu()
+        want = VideoAutoencoder.load_decoder(vae_path, device="cpu").decode_first_stage(z)
+        rel, err, scale = float((got - want).norm() / want.norm()), float((got - want).abs().max()), float(want.abs().max())
+        shape = (1, 3, 4 * z.shape[2] - 3, 8 * z.shape[3], 8 * z.shape[4])
+        if got.shape != shape or not torch.isfinite(got).all() or not rel <= VAE_REL_L2_TOL \
+                or err > VAE_MAX_TOL * scale:
+            raise AssertionError(f"VAE {what} -> {tuple(got.shape)} (expected {shape}), card vs CPU: relative L2 "
+                                 f"{rel:.4g} (tol {VAE_REL_L2_TOL}), max_abs_err {err:.4g} (tol {VAE_MAX_TOL} x {scale:.4g})")
+        log(f"  VAE {what} -> {list(got.shape)}, card vs CPU float32: relative L2 {rel:.4g} "
+            f"(tol {VAE_REL_L2_TOL}), max_abs_err {err:.4g} (tol {VAE_MAX_TOL} x max {scale:.4g}): "
+            f"{time.perf_counter() - t:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -715,8 +962,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    global CARD
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    CARD = smi
     log(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x {torch.cuda.device_count()}; tf32 off")
     phase_build()
@@ -731,6 +980,12 @@ def main() -> int:
         phase_grad(device, variant)
         counts.update(phase_train(device, variant))
         log_clocks(f"after {variant} training")
+    try:
+        phase_t5(device)
+        counts.update(phase_serve(device))
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    log_clocks("after serving")
     for r in records:
         r["launches"] = counts[r["name"]]
         if not r["launches"]:

@@ -12,6 +12,8 @@ bf16 as operands). The training kernels' float32 outputs (state
 checkpoints, gradients) are held by their relative L2 error and by their
 largest error against a share of their scale, stated per test. The
 weight conversion (K7) must be bit-identical to ``.to(torch.bfloat16)``.
+The serving path's T5 encoder and VAE decoder (PyTorch ops) are held to
+their CPU outputs with the same weights, at the tolerances stated below.
 """
 
 import pytest
@@ -328,3 +330,53 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
         convert.convert_f32_bf16(w.t())  # not contiguous
     with pytest.raises(ValueError):
         convert.convert_f32_bf16(w.double())
+
+
+# The serving path's PyTorch modules on the card (no kernel of this
+# repository: cuBLAS and cuDNN), held to the CPU with the same weights.
+# T5 in bf16 on the card against float32 on the CPU, at T5's own
+# initialisation: the bf16 activations' rounding, ~6e-3 relative L2 at 2
+# layers on the CPU. The VAE in float32 on both, cuDNN's TF32 turned off by
+# the VAE itself (this test leaves the global flag at its default): summation
+# order and cuDNN's algorithm choice only.
+T5_REL_L2 = 2e-2
+VAE_REL_L2, VAE_MAX = 1e-4, 1e-3
+
+
+def test_t5_bf16_on_the_card_matches_float32_on_the_cpu(cuda, tmp_path):
+    import json
+    from dataclasses import asdict
+
+    from ttt_video_dit_torch.models.t5 import T5Config, T5Encoder, load_text_encoder
+    from ttt_video_dit_torch.utils import safetensors
+
+    cfg = T5Config(vocab_size=512, d_model=256, d_kv=64, d_ff=640, num_layers=2, num_heads=4,
+                   feed_forward_proj="gated-gelu")
+    enc = T5Encoder(cfg).to(torch.bfloat16).init_weights_(torch.Generator().manual_seed(0))
+    (tmp_path / "config.json").write_text(json.dumps(asdict(cfg)))
+    safetensors.save_file(enc.state_dict(), str(tmp_path / "model.safetensors"))
+    ids = torch.randint(0, 512, (2, 200), generator=torch.Generator().manual_seed(1))
+    got = load_text_encoder(str(tmp_path), "bfloat16", cuda).encode_ids(ids)
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = load_text_encoder(str(tmp_path), "float32", "cpu").encode_ids(ids)
+    rel = float((got.cpu() - want).norm() / want.norm())
+    assert rel <= T5_REL_L2, rel
+
+
+def test_vae_decode_on_the_card_matches_the_cpu(cuda, tmp_path):
+    from ttt_video_dit_torch.config.model_config import VaeModelConfig
+    from ttt_video_dit_torch.models.vae.autoencoder import VideoAutoencoder
+    from ttt_video_dit_torch.models.vae.enc_dec import Decoder3D
+
+    torch.manual_seed(0)
+    dec = Decoder3D(VaeModelConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1, z_channels=16))
+    torch.save({"state_dict": {f"decoder.{k}": v for k, v in dec.state_dict().items()}}, tmp_path / "vae.pt")
+    z = torch.randn(1, 16, 5, 8, 8, generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cudnn.allow_tf32
+    got = VideoAutoencoder.load_decoder(str(tmp_path / "vae.pt"), device=cuda).decode_first_stage(z)
+    assert torch.backends.cudnn.allow_tf32 == tf32  # restored after the decode
+    want = VideoAutoencoder.load_decoder(str(tmp_path / "vae.pt")).decode_first_stage(z)
+    assert got.shape == want.shape == (1, 3, 17, 64, 64) and torch.isfinite(got).all()
+    got = got.cpu()
+    assert float((got - want).norm() / want.norm()) <= VAE_REL_L2
+    assert float((got - want).abs().max()) <= VAE_MAX * float(want.abs().max())

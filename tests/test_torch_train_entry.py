@@ -1,7 +1,9 @@
 """The PyTorch port's training entry (python -m ttt_video_dit_torch.train) on a
 CPU-only host, and the pieces around the train step that need no JAX draws:
 the entry runs at a tiny size when the CPU is asked for, raises without a
-card otherwise, and refuses each flag whose feature is not ported; text
+card otherwise, refuses each flag whose feature is not ported, and starts
+from weights loaded with --checkpoint.init_state_dir as from the same
+weights in memory; text
 dropout zeroes whole samples; a model trains after sampling in one process;
 convert.py carries a training-config flax tree (the TOMLs' scan_layers =
 true: layers stacked, unstacked by the converter) onto the port's unrolled
@@ -71,9 +73,38 @@ def test_train_entry_needs_gpu_unless_cpu_is_asked_for(monkeypatch):
                                   ["--checkpoint.init_state_dir", "weights/"], ["--parallelism.dp_sharding", "2"],
                                   ["--parallelism.dp_replicate", "2"], ["--parallelism.tp_sharding", "2"]])
 def test_train_entry_refuses_unported_flags(monkeypatch, flag):
+    """Each flag of a feature not ported raises, naming the flag. Loading
+    weights (``--checkpoint.init_state_dir``) is ported: a directory that
+    holds none raises, naming it."""
     monkeypatch.chdir(REPO)
-    with pytest.raises(NotImplementedError, match=flag[0].replace(".", r"\.")):
+    error, match = NotImplementedError, flag[0].replace(".", r"\.")
+    if flag[0] == "--checkpoint.init_state_dir":
+        error, match = FileNotFoundError, "weights/"
+    with pytest.raises(error, match=match):
         train.main(train.parse_args(TINY_TRAIN + flag + ["--job.platform", "cpu"]))
+
+
+def test_train_entry_starts_from_loaded_weights(tmp_path, monkeypatch):
+    """--checkpoint.init_state_dir: two steps from weights loaded from a
+    save_pretrained directory equal two steps from the same weights built in
+    memory (same losses, grad norms and trained parameters, bit for bit), and
+    differ from the steps from the seed's own random weights."""
+    from ttt_video_dit_torch.training.checkpoint import save_pretrained
+
+    monkeypatch.chdir(REPO)
+    args = TINY_TRAIN + ["--job.platform", "cpu"]
+    cfg = train.model_config(train.parse_args(args))
+    save_pretrained(str(tmp_path / "w"), train.build_model(cfg, torch.device("cpu"), seed=7))
+    loaded = train.main(train.parse_args(args + ["--checkpoint.init_state_dir", str(tmp_path / "w")]))
+    build = train.build_model
+    monkeypatch.setattr(train, "build_model", lambda cfg, device, seed, init_state_dir=None: build(cfg, device, 7))
+    in_memory = train.main(train.parse_args(args))
+    monkeypatch.setattr(train, "build_model", build)
+    fresh = train.main(train.parse_args(args))
+    assert loaded["losses"] == in_memory["losses"] and loaded["grad_norms"] == in_memory["grad_norms"]
+    assert loaded["losses"][0] != fresh["losses"][0]
+    got, want = dict(loaded["model"].named_parameters()), dict(in_memory["model"].named_parameters())
+    assert got.keys() == want.keys() and all(torch.equal(got[n], want[n]) for n in got)
 
 
 

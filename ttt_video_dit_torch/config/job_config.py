@@ -162,7 +162,8 @@ class EvalSection:
     t5_backend: str = field(
         default="auto",
         metadata={
-            "help": "Text-encoder backend: flax runs on-device (TPU), torch on host CPU",
+            "help": "Text-encoder backend of the JAX package (flax on-device, torch on the host); the PyTorch "
+            "port has one backend, its own T5 encoder on the entry's device, and ignores this",
             "choices": ["auto", "flax", "torch"],
         },
     )

@@ -1,19 +1,30 @@
-"""Sampling entry point: storyboard JSON -> video latents (port of sample.py,
-smoke mode).
+"""Sampling entry point: storyboard JSON -> video frames (port of sample.py).
 
-Parses the same flags and TOML files as the JAX entry (``JobConfig(eval_mode=True)``),
-runs the DPM++(2M) sampler with dynamic CFG through ``CogVideoX.denoise`` and
-the DiT, and saves each video's latents as ``<output_dir>/video_0_<i>_latents.npy``.
-Smoke mode only: random text embeddings stand in for T5, the DiT weights are
-random (from a seed), and there is no VAE decode. Loading T5, VAE or DiT
-weights is not ported yet and is refused.
+Parses the same flags and TOML files as the JAX entry (``JobConfig(eval_mode=True)``)
+and runs its stages, one after the other, each freeing its model before the
+next one loads (so the peak is the largest stage's, not their sum):
+
+1. T5-encode every storyboard's positive and negative prompts
+   (``--eval.t5_model_dir``; ``models/t5.py``, in ``--eval.dtype``);
+2. load the DiT (``--checkpoint.init_state_dir``: a ``save_pretrained``
+   directory, e.g. from ``models/dit/from_hf.py``), cast its matmul weights
+   once, and run the DPM++(2M) sampler with dynamic CFG through
+   ``CogVideoX.denoise``; each video's latents are saved as
+   ``<output_dir>/video_0_<i>_latents.npy``;
+3. VAE-decode the latents (``--eval.vae_checkpoint_path``; the reference's
+   torch checkpoint, ``models/vae``), clip to [-1, 1], map to uint8 and write
+   ``video_0_<i>.mp4`` where ``imageio`` can, else ``video_0_<i>.npz``.
+
+Without a flag, its stage runs in smoke mode with the JAX entry's warning:
+random text embeddings for T5, random DiT weights from a seed, no decode.
 
 The device is CUDA. Without a GPU the entry raises, unless ``--job.platform cpu``
 asks for the CPU explicitly.
 
 Usage (configs/eval/ttt-linear/3s.toml for the TTT-linear variant):
     python -m ttt_video_dit_torch.sample --job.config_file configs/eval/ttt-mlp/3s.toml \\
-        --eval.input_file inputs/example.json --eval.num_denoising_steps 3 --guider.num_steps 3
+        --eval.input_file inputs/example.json --eval.t5_model_dir T5_DIR \\
+        --checkpoint.init_state_dir DIT_DIR --eval.vae_checkpoint_path VAE.pt
 """
 
 from __future__ import annotations
@@ -45,46 +56,124 @@ def model_config(job_config: JobConfig) -> ModelConfig:
     return ModelConfig.get_preset(job_config.model.size, job_config.model.video_length, job_config)
 
 
-def build_model(config: ModelConfig, device: torch.device, seed: int = 0):
-    """CogVideoX with random weights from ``seed``, matmul weights cast once
-    to the compute dtype."""
+def build_model(config: ModelConfig, device: torch.device, seed: int = 0, init_state_dir: str | None = None):
+    """CogVideoX with the weights of ``init_state_dir`` (a ``save_pretrained``
+    directory), else random weights from ``seed``; the float32 masters are
+    loaded first, then the matmul weights are cast once to the compute dtype."""
     from ttt_video_dit_torch.models.dit.diffusion import CogVideoX
     from ttt_video_dit_torch.models.dit.dit import cast_matmul_weights_, compute_dtype, init_params_
+    from ttt_video_dit_torch.training.checkpoint import load_pretrained
 
-    with torch.device(device):
-        model = CogVideoX(config)
-    init_params_(model, torch.Generator(device).manual_seed(seed))
+    if init_state_dir:
+        with torch.device("meta"):  # every parameter is loaded
+            model = CogVideoX(config)
+        load_pretrained(init_state_dir, model.to_empty(device=device))
+    else:
+        with torch.device(device):
+            model = CogVideoX(config)
+        init_params_(model, torch.Generator(device).manual_seed(seed))
     cast_matmul_weights_(model, compute_dtype(config))
     return model.eval()
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _end_stage(device: torch.device, peaks: dict, stage: str) -> None:
+    """Free the cached blocks of the stage just run, record its peak allocation
+    on the card, and restart the peak count for the next stage."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        peaks[stage] = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def save_video(frames: np.ndarray, path: str, fps: int = 16) -> str:
+    """Write [T, H, W, 3] uint8 frames to ``path`` (.mp4) through ``imageio``,
+    or to the same name with .npz (key ``frames``) where ``imageio`` or its
+    ffmpeg backend is missing. Returns the path written."""
+    try:
+        import imageio.v2 as imageio
+
+        writer = imageio.get_writer(path, fps=fps, codec="libx264")
+    except (ImportError, ValueError, RuntimeError, OSError):
+        path = os.path.splitext(path)[0] + ".npz"
+        np.savez_compressed(path, frames=frames)
+        return path
+    with writer:
+        for frame in frames:
+            writer.append_data(frame)
+    return path
+
+
+def frames_to_uint8(frames: torch.Tensor) -> np.ndarray:
+    """Float frames -> uint8: clip to [-1, 1], then (x + 1) * 127.5 truncated, as the JAX entry maps them.
+    Raises on NaN or inf, which the clip and the cast would turn into arbitrary bytes."""
+    if not torch.isfinite(frames).all():
+        raise ValueError(f"decoded frames {list(frames.shape)} hold NaN or inf")
+    return ((frames.clamp(-1, 1) + 1) * 127.5).to(torch.uint8).cpu().numpy()
+
+
+def encode_prompts(job_config: JobConfig, storyboards, device: torch.device, text_dim: int, peaks: dict):
+    """[(pos, neg)] text embeddings [1, scenes, txt_maxlen, text_dim] per
+    storyboard, and the seconds T5 took (None in smoke mode)."""
+    eval_cfg = job_config.eval
+    if not eval_cfg.t5_model_dir:
+        print("WARNING: no --eval.t5_model_dir; using random text embeddings (smoke mode)", flush=True)
+        out = []
+        for vi, (texts, _neg_texts) in enumerate(storyboards):
+            pos = np.random.default_rng(vi).standard_normal((1, len(texts), eval_cfg.txt_maxlen, text_dim))
+            pos = torch.from_numpy(pos.astype(np.float32)).to(device)
+            out.append((pos, torch.zeros_like(pos)))
+        return out, None
+    from ttt_video_dit_torch.models.t5 import load_text_encoder
+
+    t0 = time.perf_counter()
+    encoder = load_text_encoder(eval_cfg.t5_model_dir, dtype=eval_cfg.dtype, device=device)
+    out = [(encoder.encode(texts, eval_cfg.txt_maxlen)[None], encoder.encode(neg_texts, eval_cfg.txt_maxlen)[None])
+           for texts, neg_texts in storyboards]
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    del encoder
+    _end_stage(device, peaks, "t5")
+    print(f"T5 ({eval_cfg.dtype}) encoded {len(storyboards)} storyboards in {seconds:.1f} s, load included", flush=True)
+    return out, seconds
+
+
 def main(job_config: JobConfig) -> dict:
-    """Sample every storyboard of ``--eval.input_file``. Returns a summary:
-    the device, per-eval seconds, and the saved latent paths."""
+    """Sample every storyboard of ``--eval.input_file``. Returns a summary: the
+    device, T5 seconds, DiT set-up seconds, per-eval seconds, per-video VAE
+    seconds, the paths of the saved latents and frames, and on the card the
+    peak allocation of each stage ("t5", "dit", "vae"; the entry resets the
+    peak count at each stage's start)."""
     from ttt_video_dit_torch.models.dit import sampler as S
 
     eval_cfg = job_config.eval
-    for flag, value in (("--eval.t5_model_dir", eval_cfg.t5_model_dir),
-                        ("--eval.vae_checkpoint_path", eval_cfg.vae_checkpoint_path),
-                        ("--checkpoint.init_state_dir", job_config.checkpoint.init_state_dir)):
-        if value:
-            raise NotImplementedError(f"{flag} is not ported yet: the PyTorch entry samples in smoke mode only")
     if not eval_cfg.input_file:
         raise ValueError("--eval.input_file (storyboard json/jsonl) required")
+    init_state_dir = job_config.checkpoint.init_state_dir
 
     device = resolve_device(job_config.job.platform)
     cfg = model_config(job_config)
     print(f"device {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
           f"model d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, "
           f"dtype {cfg.dtype}, TTT mini-batch {cfg.mini_batch_size}", flush=True)
-    print("WARNING: no T5 encoder, random text embeddings; random DiT weights; no VAE (smoke mode)", flush=True)
+    storyboards = S.load_storyboards(eval_cfg.input_file)
+    peaks = {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    texts, t5_seconds = encode_prompts(job_config, storyboards, device, cfg.text_dim, peaks)
 
     t0 = time.perf_counter()
-    model = build_model(cfg, device)
+    if not init_state_dir:
+        print("WARNING: no --checkpoint.init_state_dir; sampling from random weights (smoke mode)", flush=True)
+    model = build_model(cfg, device, init_state_dir=init_state_dir)
     setup_seconds = time.perf_counter() - t0
-    print(f"model set-up {setup_seconds:.1f} s", flush=True)
+    print(f"model set-up {setup_seconds:.1f} s" + (f" (weights from {init_state_dir})" if init_state_dir else ""),
+          flush=True)
 
-    storyboards = S.load_storyboards(eval_cfg.input_file)
     T = eval_cfg.sampling_num_frames
     shape = (1, T, eval_cfg.latent_channels, eval_cfg.image_height // 8, eval_cfg.image_width // 8)
     sampler = S.DPMPP2MSampler(
@@ -95,19 +184,15 @@ def main(job_config: JobConfig) -> dict:
     )
     os.makedirs(eval_cfg.output_dir, exist_ok=True)
 
-    eval_seconds, paths = [], []
-    for vi, (texts, _neg_texts) in enumerate(storyboards):
-        rng_np = np.random.default_rng(vi)
-        pos = rng_np.standard_normal((1, len(texts), eval_cfg.txt_maxlen, cfg.text_dim)).astype(np.float32)
-        pos = torch.from_numpy(pos).to(device)
-        denoise = S.make_cfg_denoise_fn(model, pos, torch.zeros_like(pos), sigma_interval=job_config.denoiser.num_idx,
+    eval_seconds, latents_paths = [], []
+    for vi, (pos, neg) in enumerate(texts):
+        denoise = S.make_cfg_denoise_fn(model, pos, neg, sigma_interval=job_config.denoiser.num_idx,
                                         quantize_c_noise=job_config.denoiser.quantize_c_noise)
 
         def timed_denoise(x, a_sqrt, timestep):
             t = time.perf_counter()
             out = denoise(x, a_sqrt, timestep)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            _sync(device)
             eval_seconds.append(time.perf_counter() - t)
             print(f"[{vi}] denoise eval {len(eval_seconds)}: {eval_seconds[-1]:.3f} s", flush=True)
             return out
@@ -116,13 +201,34 @@ def main(job_config: JobConfig) -> dict:
         generator = torch.Generator(device).manual_seed(job_config.job.seed + vi)
         with torch.inference_mode():
             latents = sampler(timed_denoise, shape, generator=generator, device=device)
-        latents = latents[0].cpu().numpy() / cfg.scale_factor  # [T, C, H, W]
         path = os.path.join(eval_cfg.output_dir, f"video_0_{vi}_latents.npy")
-        np.save(path, latents)
-        paths.append(path)
-        print(f"[{vi}] saved latents to {path} (no VAE)", flush=True)
-    return {"device": str(device), "setup_seconds": setup_seconds, "eval_seconds": eval_seconds,
-            "latents": paths, "model_config": cfg}
+        np.save(path, latents[0].cpu().numpy() / cfg.scale_factor)  # [T, C, H, W]
+        latents_paths.append(path)
+        print(f"[{vi}] saved latents to {path}", flush=True)
+    del model, texts
+    _end_stage(device, peaks, "dit")
+
+    vae_seconds, frame_paths = [], []
+    if not eval_cfg.vae_checkpoint_path:
+        print("no --eval.vae_checkpoint_path: latents only (no VAE decode)", flush=True)
+    else:
+        from ttt_video_dit_torch.models.vae.autoencoder import VideoAutoencoder
+
+        vae = VideoAutoencoder.load_decoder(eval_cfg.vae_checkpoint_path, scale_factor=eval_cfg.vae_scale_factor,
+                                            device=device)
+        for vi, path in enumerate(latents_paths):
+            t = time.perf_counter()
+            frames = frames_to_uint8(vae.decode(torch.from_numpy(np.load(path))))  # [T*4-3, H*8, W*8, 3]
+            vae_seconds.append(time.perf_counter() - t)
+            frame_paths.append(save_video(frames, os.path.join(eval_cfg.output_dir, f"video_0_{vi}.mp4"),
+                                          fps=eval_cfg.sampling_fps))
+            print(f"[{vi}] VAE decode {vae_seconds[-1]:.2f} s; wrote {frame_paths[-1]} {list(frames.shape)}",
+                  flush=True)
+        del vae
+        _end_stage(device, peaks, "vae")
+    return {"device": str(device), "t5_seconds": t5_seconds, "setup_seconds": setup_seconds,
+            "eval_seconds": eval_seconds, "vae_seconds": vae_seconds, "latents": latents_paths,
+            "frames": frame_paths, "peak_memory_bytes": peaks, "model_config": cfg}
 
 
 def parse_args(argv=None) -> JobConfig:

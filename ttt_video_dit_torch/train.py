@@ -16,11 +16,14 @@ kernels). On the card the TTT scans run K5 (training) and K6 for
 layer stack's 2-D weights are cast to bf16 through K7 at each forward, as
 the JAX package's scanned stack casts them.
 
+``--checkpoint.init_state_dir`` starts from the weights of a
+``save_pretrained`` directory (the stage-to-stage handoff of the curriculum,
+or converted pretrained weights) in place of the random ones.
+
 The device is CUDA. Without a GPU the entry raises, unless ``--job.platform cpu``
 asks for the CPU explicitly. Not ported yet, and refused with
 NotImplementedError: real data (``--training.jsonl_paths``), checkpoint
-resume and pretrained weights (``--checkpoint.resume``,
-``--checkpoint.init_state_dir``), and more than one device
+resume (``--checkpoint.resume``), and more than one device
 (``--parallelism.*`` sizes other than 1).
 
 Usage (one H100, the 3 s stage cut to 4 layers; configs/train/ttt-linear/3s.toml
@@ -53,7 +56,6 @@ def refuse_unported(job_config: JobConfig) -> None:
     refused = [
         ("--training.jsonl_paths", job_config.training.jsonl_paths, "the real-data loader"),
         ("--checkpoint.resume", job_config.checkpoint.resume, "checkpoint resume"),
-        ("--checkpoint.init_state_dir", job_config.checkpoint.init_state_dir, "loading pretrained weights"),
     ]
     for flag, value, what in refused:
         if value:
@@ -75,15 +77,21 @@ def synthetic_text_length(cfg: ModelConfig) -> int:
     return tl
 
 
-def build_model(cfg: ModelConfig, device: torch.device, seed: int):
-    """CogVideoX with random float32 weights from ``seed`` (the masters; the
-    matmuls cast them to the compute dtype at each call), in training mode."""
+def build_model(cfg: ModelConfig, device: torch.device, seed: int, init_state_dir: str | None = None):
+    """CogVideoX with the float32 weights of ``init_state_dir`` (a
+    ``save_pretrained`` directory), else random ones from ``seed`` (the
+    masters; the matmuls cast them to the compute dtype at each call), in
+    training mode."""
     from ttt_video_dit_torch.models.dit.diffusion import CogVideoX
     from ttt_video_dit_torch.models.dit.dit import init_params_
+    from ttt_video_dit_torch.training.checkpoint import load_pretrained
 
     with torch.device(device):
         model = CogVideoX(cfg)
-    init_params_(model, torch.Generator(device).manual_seed(seed))
+    if init_state_dir:
+        load_pretrained(init_state_dir, model)
+    else:
+        init_params_(model, torch.Generator(device).manual_seed(seed))
     return model.train()
 
 
@@ -114,7 +122,7 @@ def main(job_config: JobConfig) -> dict:
     t0 = time.perf_counter()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    model = build_model(cfg, device, job_config.job.seed)
+    model = build_model(cfg, device, job_config.job.seed, job_config.checkpoint.init_state_dir)
     optimizer = build_optimizer_from_config(model, job_config, adapter)
     num_params = sum(p.numel() for p in model.parameters())
     setup_seconds = time.perf_counter() - t0
