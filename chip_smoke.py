@@ -27,16 +27,19 @@ its own 3 s TOMLs:
    denoise steps; kernel launch counts from exactly that run; finite latents
    of the expected shape.
 5. one training loss + backward of a full-width 2-layer DiT (the 3 s train
-   config), kernel path against the plain path (the same autograd Functions
-   over the plain versions), same weights and draws: relative L2 of the loss
-   and of every parameter's gradient.
+   config, its remat policy save_seq), kernel path against the plain path
+   (the same autograd Functions over the plain versions), same weights and
+   draws: relative L2 of the loss and of every parameter's gradient; and the
+   kernel path under save_seq against the kernel path under "none".
 6. the training entry (ttt_video_dit_torch.train.main) at full width, 4
-   layers, 3 steps (ttt_mlp: adapter sft; ttt_linear: qkvo): on the card,
+   layers, 3 steps (ttt_mlp: adapter sft; ttt_linear: qkvo), under the
+   TOML's save_seq and again under "none": on the card,
    finite loss and grad norm at every step, every trainable tensor moved
    further than weight decay alone would move it (bar those with an all-zero
    last gradient, named, none of them the TTT state K2/K6 train), and the
-   launch counts of the training kernels (K7 included: the TOMLs set
-   scan_layers) from exactly that run; seconds per step, peak memory, MFU.
+   launch counts of the training kernels for the run's policy (K7 included:
+   the TOMLs set scan_layers) from exactly that run; seconds per step, peak
+   memory, MFU.
 Then the serving path (ttt_mlp, its 3 s eval TOML, full width; every
 weight file fabricated from a seed under output/chip_smoke_serve/, removed
 at the end):
@@ -63,9 +66,19 @@ at the end):
    resolution (one 480 x 720 frame, the 128-channel level-0 maps).
 The entry runs without --eval.t5_model_dir here: its tokenizer needs
 `transformers`, which the card's machine lacks; T5 runs through encode_ids.
+Then the real training path (phase_resume; the files under
+output/chip_smoke_data/, removed at the end):
+9. the training entry on 4 fabricated precomputed samples (posteriors
+   [13, 32, 60, 90], text [498, 4096], .npy and torch.save'd .pt files,
+   seeded), ttt_mlp 3 s TOML at full width cut to 2 layers: run A takes 3
+   steps saving at steps 2 and 3, run B resumes from step 2 and takes step
+   3. B's step-3 batch and loss equal A's bit for bit, the sampler states
+   are equal, the grad norms and parameters agree within the stated
+   tolerances; the loader's seconds a batch against the wait for it, and
+   the save and restore seconds and bytes.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 and 8); the last line is
+the main-path runs of phases 4, 6 (both policies), 8 and 9); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -144,6 +157,8 @@ DIT_REL_L2_TOL = 2e-2
 # gradient, kernel path vs plain path: the forward's 3e-3 (phase 3) carried
 # back through two layers of bf16 backward.
 GRAD_REL_L2_TOL = {"loss": 1e-2, "grad": 5e-2}
+# Phase 9: the step-3 grad norm after a resume against the uninterrupted run's (K4's dq order only).
+RESUME_GRAD_NORM_RTOL = 1e-3
 # H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s and dense bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -163,6 +178,8 @@ T5_REL_L2_TOL = 2e-2
 VAE_REL_L2_TOL = 1e-4
 VAE_MAX_TOL = 1e-3
 SERVE_DIR = "output/chip_smoke_serve"
+TRAIN_DIR = "output/chip_smoke_train"  # phase 6's logs
+DATA_DIR = "output/chip_smoke_data"  # phase 9's fabricated dataset, logs and checkpoints
 CARD = ""  # the card's name and power limit, as nvidia-smi prints them; set by main()
 
 
@@ -650,31 +667,39 @@ def phase_grad(device, variant) -> None:
     text = torch.randn(1, 1, train.synthetic_text_length(cfg), cfg.text_dim, generator=gen, device=device)
     bounds = (torch.tensor([0], device=device), torch.tensor([1000], device=device))
     idx, noise = torch.tensor([600], device=device), torch.randn(vid.shape, generator=gen, device=device)
+    policy = cfg.remat_policy  # the TOML's: save_seq
     results = {}
-    for use_kernel in (True, False):
-        cfg.use_kernel = use_kernel
+    for use_kernel, remat_policy in ((True, policy), (False, policy), (True, "none")):
+        cfg.use_kernel, cfg.remat_policy = use_kernel, remat_policy
         model.zero_grad(set_to_none=True)
         loss = model(vid, text, bounds, idx=idx, noise=noise).mean()
         loss.backward()
-        results[use_kernel] = (loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()})
+        grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+        results[use_kernel, remat_policy] = (loss.item(), grads)
         torch.cuda.synchronize()
-    (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    rels = {}
-    for n, gp in grads_p.items():
-        gk = grads_k[n]
-        if not torch.isfinite(gk).all():
-            raise AssertionError(f"gradient of {n} has non-finite values on the kernel path")
-        rels[n] = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
-    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
-    log(f"phase 5 {variant} training gradients d{cfg.model_dim} x {cfg.num_heads} heads x 2 layers, kernel vs plain: "
-        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3g}, tol {GRAD_REL_L2_TOL['loss']}); gradient rel L2 over "
-        f"{len(rels)} parameters: median {sorted(rels.values())[len(rels) // 2]:.3g}, worst "
-        + ", ".join(f"{n} {r:.3g}" for n, r in worst) + f" (tol {GRAD_REL_L2_TOL['grad']}): "
+    cfg.remat_policy = policy
+
+    def held(what, got, want):
+        (loss_k, grads_k), (loss_p, grads_p) = got, want
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        rels = {}
+        for n, gp in grads_p.items():
+            gk = grads_k[n]
+            if not torch.isfinite(gk).all():
+                raise AssertionError(f"gradient of {n} has non-finite values ({what})")
+            rels[n] = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
+        worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
+        log(f"  {what}: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3g}, tol {GRAD_REL_L2_TOL['loss']}); "
+            f"gradient rel L2 over {len(rels)} parameters: median {sorted(rels.values())[len(rels) // 2]:.3g}, worst "
+            + ", ".join(f"{n} {r:.3g}" for n, r in worst) + f" (tol {GRAD_REL_L2_TOL['grad']})")
+        if loss_rel > GRAD_REL_L2_TOL["loss"] or worst[0][1] > GRAD_REL_L2_TOL["grad"]:
+            raise AssertionError(f"training gradients, {what}: loss rel {loss_rel:.4g}, worst {worst[0]}")
+
+    held(f"kernel vs plain path under {policy}", results[True, policy], results[False, policy])
+    held(f"kernel path, {policy} vs none", results[True, policy], results[True, "none"])
+    log(f"phase 5 {variant} training gradients d{cfg.model_dim} x {cfg.num_heads} heads x 2 layers: "
         f"{time.perf_counter() - t0:.1f} s")
-    if loss_rel > GRAD_REL_L2_TOL["loss"] or worst[0][1] > GRAD_REL_L2_TOL["grad"]:
-        raise AssertionError(f"training gradients, kernel vs plain path: loss rel {loss_rel:.4g}, worst {worst[0]}")
-    del model, results, grads_k, grads_p
+    del model, results
     torch.cuda.empty_cache()
 
 
@@ -711,13 +736,15 @@ def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
     return trained, idle
 
 
-def phase_train(device, variant) -> dict[str, int]:
-    """The training entry, 4 layers x 3 steps at full width, on the card."""
+def phase_train(device, variant, remat_policy=None) -> dict[str, int]:
+    """The training entry, 4 layers x 3 steps at full width, on the card,
+    under the TOML's remat policy or ``remat_policy``."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    job = train.parse_args(train_args(variant))
+    flags = ["--checkpoint.interval", "0", "--job.dump_folder", TRAIN_DIR]  # phase 9 covers saving
+    job = train.parse_args(train_args(variant) + flags + (["--remat.policy", remat_policy] if remat_policy else []))
     reset_counts()
     summary = train.main(job)
     counts = read_counts()
@@ -726,15 +753,17 @@ def phase_train(device, variant) -> dict[str, int]:
         raise AssertionError(f"training ran on {summary['device']}, not the card")
     if steps != 3 or not all(map(math.isfinite, summary["losses"] + summary["grad_norms"])):
         raise AssertionError(f"losses {summary['losses']} / grad norms {summary['grad_norms']} not 3 finite steps")
-    # Per step and layer: the training TTT forward twice per direction (the forward, and its re-run
-    # under the per-layer recompute), its backward once per direction; K3 with the log-sum-exp twice,
-    # K4 once; with scan_layers, K7 once per 2-D layer weight and forward, twice over (recompute):
-    # adaLN x 2, attention q/k/v/o, MLP x 2, and the TTT wq/wk/wv/wo once per direction = 16.
+    # Per step and layer: the training TTT forward once per direction, and under remat policy "none" once
+    # more in the per-layer recompute (save_seq keeps its outputs); its backward once per direction; K3
+    # with the log-sum-exp once (twice under "none"), K4 once; with scan_layers, K7 once per 2-D layer
+    # weight and forward, twice over (the recompute casts again): adaLN x 2, attention q/k/v/o, MLP x 2
+    # and the TTT wq/wk/wv/wo, shared by both directions = 12.
     L = cfg.num_layers
-    expect = {f"{variant}_forward_train": 4 * L * steps, f"{variant}_backward": 2 * L * steps,
-              "attention_forward_lse": 2 * L * steps, "attention_backward": L * steps}
+    runs = 1 if cfg.remat_policy == "save_seq" else 2
+    expect = {f"{variant}_forward_train": 2 * runs * L * steps, f"{variant}_backward": 2 * L * steps,
+              "attention_forward_lse": runs * L * steps, "attention_backward": L * steps}
     if cfg.scan_layers:
-        expect["convert_f32_bf16"] = 2 * 16 * L * steps
+        expect["convert_f32_bf16"] = 2 * 12 * L * steps
     if counts != {**dict.fromkeys(counts, 0), **expect}:
         raise AssertionError(f"kernel launches {counts} do not match {L} layers x {steps} steps: {expect}")
     fresh = train.build_model(cfg, torch.device(device), job.job.seed)
@@ -743,14 +772,16 @@ def phase_train(device, variant) -> dict[str, int]:
     steady = summary["step_seconds"][1:]
     mfu = [m for m in summary["mfu"][1:]]
     log(f"phase 6 {variant} train d{cfg.model_dim} x {cfg.num_heads} heads x {L} layers, CS {cfg.mini_batch_size}, "
-        f"K {cfg.scan_checkpoint_group_size}, adapter {cfg.adapter_method}, {steps} steps: "
+        f"K {cfg.scan_checkpoint_group_size}, adapter {cfg.adapter_method}, remat policy {cfg.remat_policy}, "
+        f"{steps} steps: "
         f"{sum(steady) / len(steady):.3f} s/step after the first ({summary['step_seconds'][0]:.3f} s first), MFU "
         f"{100 * sum(mfu) / len(mfu):.2f} % after the first, peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB, "
         f"losses {[round(x, 5) for x in summary['losses']]}, grad norms {[round(x, 5) for x in summary['grad_norms']]}, "
         f"{trained} trainable parameter tensors moved more than {DECAY_MARGIN:g}x weight decay alone ({frozen} "
         f"frozen), zero last gradient (not required to move): {idle or 'none'}, launches "
-        f"{ {k: v for k, v in counts.items() if v} }: {time.perf_counter() - t0:.1f} s")
+        f"{ {k: v for k, v in counts.items() if v} } ({CARD}): {time.perf_counter() - t0:.1f} s")
     del summary, fresh
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return counts
 
 
@@ -955,6 +986,130 @@ def phase_serve(device) -> dict[str, int]:
     return counts
 
 
+def _fabricated_dataset(path: str, samples: int, seed: int) -> str:
+    """``samples`` precomputed 3 s samples from a seed: a latent posterior
+    (mean and logvar) [13, 32, 60, 90] and one scene's text embedding
+    [498, 4096], float32, alternately ``.npy`` and ``torch.save``d ``.pt``
+    (a sample's two files in different formats), and ``meta.jsonl`` naming
+    them relative to ``path``. Returns the JSONL file."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(path, exist_ok=True)
+    lines = []
+    for i in range(samples):
+        mean = rng.standard_normal((13, 16, 60, 90), dtype=np.float32)
+        logvar = (rng.standard_normal((13, 16, 60, 90), dtype=np.float32) * 0.5 - 4.0).astype(np.float32)
+        text = rng.standard_normal((498, 4096), dtype=np.float32)
+        vid_name, text_name = (f"vid_{i}.npy", f"text_{i}.pt") if i % 2 == 0 else (f"vid_{i}.pt", f"text_{i}.npy")
+        for name, arr in ((vid_name, np.concatenate([mean, logvar], axis=1)), (text_name, text)):
+            if name.endswith(".npy"):
+                np.save(os.path.join(path, name), arr)
+            else:
+                torch.save(torch.from_numpy(arr), os.path.join(path, name))
+        lines.append(json.dumps({"vid_emb": vid_name, "text_chunk_emb": [text_name]}))
+    meta = os.path.join(path, "meta.jsonl")
+    with open(meta, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return meta
+
+
+def phase_resume(device) -> dict[str, int]:
+    """The training entry on fabricated precomputed latents (ttt_mlp 3 s TOML,
+    full width, 2 layers), saving and resuming: run A takes 3 steps with
+    --checkpoint.interval 2 (saves at steps 2 and 3); run B resumes from step
+    2 and takes step 3. B's step-3 batch and loss equal A's bit for bit (the
+    restore is exact and the forward deterministic), the sampler states after
+    step 3 are equal, the grad norms within RESUME_GRAD_NORM_RTOL and every
+    parameter within 2 x its group's learning rate (K4 adds dq in an order
+    that varies between runs, so step 3's gradients and update may differ in
+    their last bits)."""
+    import numpy as np
+
+    from ttt_video_dit_torch import train
+    from ttt_video_dit_torch.data import dataset
+    from ttt_video_dit_torch.training.optimizer import flax_path
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    meta = _fabricated_dataset(os.path.join(DATA_DIR, "data"), samples=4, seed=15)
+    log(f"  dataset: 4 samples (posteriors [13, 32, 60, 90], text [498, 4096], .npy and .pt): "
+        f"{time.perf_counter() - t0:.1f} s")
+    flags = ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "2", "--training.steps", "3",
+             "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
+             "--training.dataset_path", os.path.join(DATA_DIR, "data"), "--training.jsonl_paths", meta,
+             "--checkpoint.interval", "2", "--job.dump_folder", os.path.join(DATA_DIR, "run")]
+    seen = []
+    batches = dataset.DataModule.batches
+
+    def recording(self, *args, **kwargs):
+        for b in batches(self, *args, **kwargs):
+            seen.append({k: v.copy() for k, v in b.items()})
+            yield b
+
+    dataset.DataModule.batches = recording
+    try:
+        reset_counts()
+        a = train.main(train.parse_args(flags))
+        counts = read_counts()
+        batches_a, seen[:] = list(seen), []
+        shutil.rmtree(os.path.join(DATA_DIR, "run", "checkpoint", "3"))  # B resumes from step 2 and saves step 3
+        b = train.main(train.parse_args(flags + ["--checkpoint.resume", "--checkpoint.resume_step", "2"]))
+        batches_b = list(seen)
+    finally:
+        dataset.DataModule.batches = batches
+    L = a["model_config"].num_layers
+    expect = {"ttt_mlp_forward_train": 2 * L * 3, "ttt_mlp_backward": 2 * L * 3, "attention_forward_lse": L * 3,
+              "attention_backward": L * 3, "convert_f32_bf16": 2 * 12 * L * 3}
+    if counts != {**dict.fromkeys(counts, 0), **expect}:
+        raise AssertionError(f"run A: kernel launches {counts}, expected {expect}")
+    if [c["step"] for c in a["checkpoints"]] != [2, 3] or b["start_step"] != 2 or len(b["losses"]) != 1:
+        raise AssertionError(f"run A saved {[c['step'] for c in a['checkpoints']]} (expected [2, 3]); run B started at "
+                             f"{b['start_step']} and took {len(b['losses'])} steps (expected 2 and 1)")
+    if a["text_length"] != 498 or len(batches_a) != 3 or len(batches_b) != 1:
+        raise AssertionError(f"text length {a['text_length']}, batches {len(batches_a)} / {len(batches_b)}")
+    same_batch = all(np.array_equal(batches_a[2][k], batches_b[0][k]) for k in ("vid", "text"))
+    if not same_batch or a["losses"][2] != b["losses"][0] or a["sampler_state"] != b["sampler_state"]:
+        raise AssertionError(f"resume: step-3 batch equal {same_batch}, loss {a['losses'][2]!r} vs {b['losses'][0]!r}, "
+                             f"sampler {a['sampler_state']} vs {b['sampler_state']}")
+    norm_rel = abs(a["grad_norms"][2] - b["grad_norms"][0]) / a["grad_norms"][2]
+    if not norm_rel <= RESUME_GRAD_NORM_RTOL:
+        raise AssertionError(f"resume: step-3 grad norm {a['grad_norms'][2]} vs {b['grad_norms'][0]}")
+    opt = a["optimizer"]
+    lrs = opt.learning_rates(2)
+    got = dict(b["model"].named_parameters())
+    worst, n_equal = (0.0, ""), 0
+    for name, p in a["model"].named_parameters():
+        diff = float((p.detach() - got[name].detach()).abs().max())
+        n_equal += diff == 0.0
+        lr = lrs[opt.labels[flax_path(name)]]
+        if diff > 2 * lr:
+            raise AssertionError(f"resume: {name} differs by {diff:.4g} > 2 x lr {lr:.3g}")
+        worst = max(worst, (diff / lr, name))
+    n_params = len(got)
+    data_wait = a["data_seconds"][1:]
+    loads = a["load_seconds"]
+    saves = a["checkpoints"]
+    log(f"phase 9 data, save, resume: ttt_mlp d{a['model_config'].model_dim} x {L} layers on 4 fabricated samples "
+        f"(text length {a['text_length']} from the files): run A losses {a['losses']}, run B (from step 2) "
+        f"{b['losses']}; step-3 batch and loss bit-equal, sampler "
+        f"{ {k: v for k, v in b['sampler_state'].items() if k != 'rng'} } (and its generator) equal, grad norm "
+        f"rel diff "
+        f"{norm_rel:.3g} (tol {RESUME_GRAD_NORM_RTOL}), parameters: {n_equal} of {n_params} bit-equal, worst "
+        f"{worst[1]} {worst[0]:.3g} x lr (tol 2); loader {sum(loads) / len(loads):.3f} s a batch (worker), wait for "
+        f"the next batch {sum(data_wait) / len(data_wait):.4f} s after the first ({a['data_seconds'][0]:.3f} s first) "
+        f"against {sum(a['step_seconds'][1:]) / 2:.3f} s/step: "
+        f"{'hidden under the step' if max(data_wait) < 0.1 * min(a['step_seconds'][1:]) else 'NOT hidden'}; saves "
+        + ", ".join(f"step {c['step']} {c['bytes'] / 2**30:.3f} GiB in {c['seconds']:.2f} s "
+                    f"({c['bytes'] / c['seconds'] / 2**30:.2f} GiB/s)" for c in saves)
+        + f"; restore {b['restore']['bytes'] / 2**30:.3f} GiB in {b['restore']['seconds']:.2f} s "
+        f"({b['restore']['bytes'] / b['restore']['seconds'] / 2**30:.2f} GiB/s); peak A "
+        f"{a['peak_memory_bytes'] / 2**30:.2f} GiB ({CARD}): {time.perf_counter() - t0:.1f} s")
+    del a, b, got, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -979,6 +1134,7 @@ def main() -> int:
         log_clocks(f"after {variant} sampling")
         phase_grad(device, variant)
         counts.update(phase_train(device, variant))
+        counts.update(phase_train(device, variant, remat_policy="none"))
         log_clocks(f"after {variant} training")
     try:
         phase_t5(device)
@@ -986,6 +1142,10 @@ def main() -> int:
     finally:
         shutil.rmtree(SERVE_DIR, ignore_errors=True)
     log_clocks("after serving")
+    try:
+        counts.update(phase_resume(device))
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
         r["launches"] = counts[r["name"]]
         if not r["launches"]:

@@ -27,14 +27,14 @@ TINY_LINEAR_TRAIN = [
 ]
 
 
-def test_train_entry_runs_ttt_linear_on_cpu(monkeypatch):
+def test_train_entry_runs_ttt_linear_on_cpu(tmp_path, monkeypatch):
     """train.main on configs/train/ttt-linear/3s.toml at a tiny size on the CPU:
     two finite steps, the qkvo adapter freezing the MLP, adaLN and embedding
     weights while the TTT state trains, the layer stack pinned (scan_layers),
     and the MFU numerator is utils/metrics.py's ttt_linear count, the JAX
     package's."""
     monkeypatch.chdir(REPO)
-    summary = train.main(train.parse_args(TINY_LINEAR_TRAIN))
+    summary = train.main(train.parse_args(TINY_LINEAR_TRAIN + ["--job.dump_folder", str(tmp_path)]))
     cfg, model = summary["model_config"], summary["model"]
     assert cfg.ssm_layer == "ttt_linear" and cfg.adapter_method == "qkvo" and cfg.scan_layers
     assert len(summary["losses"]) == 2 and np.isfinite(summary["losses"] + summary["grad_norms"]).all()

@@ -1,9 +1,11 @@
 """The PyTorch port's training entry (python -m ttt_video_dit_torch.train) on a
 CPU-only host, and the pieces around the train step that need no JAX draws:
 the entry runs at a tiny size when the CPU is asked for, raises without a
-card otherwise, refuses each flag whose feature is not ported, and starts
+card otherwise, refuses more than one device and names what a data,
+resume or weights flag points at when it is missing, and starts
 from weights loaded with --checkpoint.init_state_dir as from the same
-weights in memory; text
+weights in memory (its logs and checkpoints go to a temporary
+--job.dump_folder); text
 dropout zeroes whole samples; a model trains after sampling in one process;
 convert.py carries a training-config flax tree (the TOMLs' scan_layers =
 true: layers stacked, unstacked by the converter) onto the port's unrolled
@@ -12,6 +14,7 @@ model, so the JAX and port train steps can start from the same weights.
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -48,11 +51,12 @@ TINY_TRAIN = [
 ]
 
 
-def test_train_entry_runs_two_steps_on_cpu_when_asked():
+def test_train_entry_runs_two_steps_on_cpu_when_asked(tmp_path):
     """python -m ttt_video_dit_torch.train at the tiny size on the CPU: two
     steps with finite loss and grad norm, no MFU (no device metric on a CPU)."""
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}  # one torch thread, as in-process
-    proc = subprocess.run([sys.executable, "-m", "ttt_video_dit_torch.train", *TINY_TRAIN, "--job.platform", "cpu"],
+    proc = subprocess.run([sys.executable, "-m", "ttt_video_dit_torch.train", *TINY_TRAIN, "--job.platform", "cpu",
+                           "--job.dump_folder", str(tmp_path)],
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     steps = [ln for ln in proc.stdout.splitlines() if ln.startswith("step ")]
@@ -72,16 +76,23 @@ def test_train_entry_needs_gpu_unless_cpu_is_asked_for(monkeypatch):
 @pytest.mark.parametrize("flag", [["--training.jsonl_paths", "meta.jsonl"], ["--checkpoint.resume"],
                                   ["--checkpoint.init_state_dir", "weights/"], ["--parallelism.dp_sharding", "2"],
                                   ["--parallelism.dp_replicate", "2"], ["--parallelism.tp_sharding", "2"]])
-def test_train_entry_refuses_unported_flags(monkeypatch, flag):
-    """Each flag of a feature not ported raises, naming the flag. Loading
-    weights (``--checkpoint.init_state_dir``) is ported: a directory that
-    holds none raises, naming it."""
+def test_train_entry_refuses_unported_flags(tmp_path, monkeypatch, flag):
+    """Each flag of a feature not ported (more than one device) raises,
+    naming the flag. Real data (``--training.jsonl_paths``), resume
+    (``--checkpoint.resume``) and loading weights
+    (``--checkpoint.init_state_dir``) are ported: a JSONL file that does not
+    exist, a checkpoint directory that holds no checkpoint and a weights
+    directory that holds none each raise, naming it."""
     monkeypatch.chdir(REPO)
     error, match = NotImplementedError, flag[0].replace(".", r"\.")
     if flag[0] == "--checkpoint.init_state_dir":
         error, match = FileNotFoundError, "weights/"
+    elif flag[0] == "--training.jsonl_paths":
+        error, match = FileNotFoundError, "meta.jsonl"
+    elif flag[0] == "--checkpoint.resume":
+        error, match = FileNotFoundError, re.escape(f"no checkpoint found under {tmp_path / 'checkpoint'}")
     with pytest.raises(error, match=match):
-        train.main(train.parse_args(TINY_TRAIN + flag + ["--job.platform", "cpu"]))
+        train.main(train.parse_args(TINY_TRAIN + flag + ["--job.platform", "cpu", "--job.dump_folder", str(tmp_path)]))
 
 
 def test_train_entry_starts_from_loaded_weights(tmp_path, monkeypatch):
@@ -92,7 +103,7 @@ def test_train_entry_starts_from_loaded_weights(tmp_path, monkeypatch):
     from ttt_video_dit_torch.training.checkpoint import save_pretrained
 
     monkeypatch.chdir(REPO)
-    args = TINY_TRAIN + ["--job.platform", "cpu"]
+    args = TINY_TRAIN + ["--job.platform", "cpu", "--job.dump_folder", str(tmp_path / "run")]
     cfg = train.model_config(train.parse_args(args))
     save_pretrained(str(tmp_path / "w"), train.build_model(cfg, torch.device("cpu"), seed=7))
     loaded = train.main(train.parse_args(args + ["--checkpoint.init_state_dir", str(tmp_path / "w")]))

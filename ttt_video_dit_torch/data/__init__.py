@@ -1,1 +1,1 @@
-"""Data: the synthetic data module (the real-data loader is not ported yet)."""
+"""Data: the precomputed-latent loader and the synthetic data module."""

@@ -13,8 +13,10 @@ their 2-D Dense kernels through a Pallas kernel (K7), and the port casts
 the layer stack's ``Linear`` weights through its CUDA counterpart
 (``Linear.pin``, ops/convert.py). With autograd on, each group of
 ``remat_transformer_layer_group_size`` layers runs under
-``torch.utils.checkpoint`` (the JAX remat policy "none": the backward
-re-runs the group's forward, kernels included).
+``torch.utils.checkpoint`` with the JAX remat policy (:func:`_ckpt_policy`):
+"none" re-runs the group's forward in the backward, kernels included;
+"save_seq" keeps the TTT scans' and attention's kernel outputs, so the
+re-run is dense and elementwise work only.
 
 Layouts: video latents [B, T, C, H, W]; text [B, scenes, S, text_dim];
 token streams [B, L, D] with text first.
@@ -22,17 +24,21 @@ token streams [B, L, D] with text first.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from ttt_video_dit_torch.config.model_config import ModelConfig
 from ttt_video_dit_torch.models.dit.schedule import timestep_embedding
 from ttt_video_dit_torch.models.sequence import SequenceMetadata
 from ttt_video_dit_torch.models.ttt.layer import Linear, TTTLayer, layer_norm
 from ttt_video_dit_torch.ops import attention as attention_ops
+from ttt_video_dit_torch.ops import ttt_linear_kernel, ttt_mlp_kernel  # noqa: F401  (registers their custom ops)
 from ttt_video_dit_torch.ops.ln import gelu_tanh
 from ttt_video_dit_torch.ops.rope import apply_rope_prefixed, precompute_rope_3d
 
@@ -41,6 +47,36 @@ def compute_dtype(config: ModelConfig) -> torch.dtype:
     """The activation dtype ("bfloat16" | "float32"); parameters are float32
     until :func:`cast_matmul_weights_` rounds the matmul weights to it."""
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[config.dtype]
+
+
+# What "save_seq" keeps (the JAX names in dit.py:_ckpt_policy): the outputs of
+# the K1-train / K5-train custom ops, the TTT scans' output ("ttt_out") and
+# fp32 state checkpoints ("ttt_residuals"), and of the K3-lse custom op,
+# attention's output and log-sum-exp ("splash_residuals").
+_OPS = torch.ops.ttt_video_dit_torch  # registered by ops/ttt_mlp_kernel.py, ttt_linear_kernel.py and attention.py
+SAVE_SEQ_OPS = (_OPS.ttt_mlp_forward_train.default, _OPS.ttt_linear_forward_train.default,
+                _OPS.attention_with_lse.default)
+
+
+def _save_seq_policy(ctx, op, *args, **kwargs):
+    if op in SAVE_SEQ_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _ckpt_policy(cfg: ModelConfig):
+    """The ``context_fn`` of every per-layer ``torch.utils.checkpoint``
+    (config: remat.policy), None for "none" / "". "save_seq" keeps
+    SAVE_SEQ_OPS' outputs across the checkpoint, so a layer's backward re-runs
+    only dense matmuls and elementwise ops: the scans' and attention's
+    forward kernels run once a step (K7's casts are re-run). The cost is the
+    kept outputs' memory, about 0.5 GB a layer at the 3 s shape. Any other
+    value raises ValueError, as in the JAX package."""
+    if cfg.remat_policy == "save_seq":
+        return functools.partial(create_selective_checkpoint_contexts, _save_seq_policy)
+    if cfg.remat_policy not in ("none", ""):
+        raise ValueError(f"Unknown remat policy: {cfg.remat_policy!r}")
+    return None
 
 
 def modulate(x, shift, scale):
@@ -197,9 +233,11 @@ class SeqModelingBlock(nn.Module):
     def forward(self, vid_emb, text_emb, meta: SequenceMetadata):
         stl = meta.seq_text_length
         emb = self.attention(vid_emb, text_emb, meta)
-        emb = self._gate(self.forward_ssm_gating_text, self.forward_ssm_gating_video, emb, self.ssm(emb, meta), stl)
+        w = self.ssm.pinned_weights(emb.dtype)
+        emb = self._gate(self.forward_ssm_gating_text, self.forward_ssm_gating_video, emb,
+                         self.ssm(emb, meta, weights=w), stl)
         emb = self._gate(self.backward_ssm_gating_text, self.backward_ssm_gating_video, emb,
-                         self.ssm(emb, meta, reverse=True), stl)
+                         self.ssm(emb, meta, reverse=True, weights=w), stl)
         return emb[:, stl:], emb[:, :stl]  # (video, text)
 
 
@@ -303,6 +341,8 @@ class DiffusionTransformer(nn.Module):
         meta = sequence_metadata(cfg, T, H_lat, W_lat, num_scenes, text_length)
         text_emb = text_emb.reshape(B, num_scenes * text_length, cfg.model_dim)
         remat = cfg.remat_transformer_layers and torch.is_grad_enabled()
+        context_fn = _ckpt_policy(cfg) if remat else None
+        kw = {} if context_fn is None else {"context_fn": context_fn}
         group = max(cfg.remat_transformer_layer_group_size, 1)
         for i in range(0, cfg.num_layers, group):
             def run(v, t, _layers=self.layers[i : i + group]):
@@ -311,7 +351,8 @@ class DiffusionTransformer(nn.Module):
                 return v, t
 
             if remat:
-                vid_emb, text_emb = torch.utils.checkpoint.checkpoint(run, vid_emb, text_emb, use_reentrant=False)
+                vid_emb, text_emb = torch.utils.checkpoint.checkpoint(run, vid_emb, text_emb, use_reentrant=False,
+                                                                      **kw)
             else:
                 vid_emb, text_emb = run(vid_emb, text_emb)
         vid_emb = layer_norm(vid_emb, self.transformer_norm, dtype)

@@ -57,11 +57,16 @@ class Linear(nn.Linear):
 
     pin = None
 
-    def forward(self, x):
+    def pinned_weight(self, dtype):
+        """The weight in ``dtype`` through K7 when pinned, else None (each call casts it)."""
         if self.pin is None:
-            weight = self.weight.to(x.dtype)
-        else:
-            weight = convert.opaque_convert(self.weight, x.dtype, plain=not self.pin.use_kernel)
+            return None
+        return convert.opaque_convert(self.weight, dtype, plain=not self.pin.use_kernel)
+
+    def forward(self, x, weight=None):
+        """``weight``: this layer's weight already cast (by :meth:`pinned_weight`), shared by several calls."""
+        if weight is None:
+            weight = self.weight.to(x.dtype) if self.pin is None else self.pinned_weight(x.dtype)
         return Fn.linear(x, weight, self.bias.to(x.dtype))
 
 
@@ -113,8 +118,16 @@ class TTTLayer(nn.Module):
         lr = hidden_states.float() @ w.t() + self.learnable_ttt_lr_bias.reshape(1, 1, -1)  # [B, L, H]
         return lr.permute(0, 2, 1).reshape(B, cfg.num_heads, L // cfg.mini_batch_size, cfg.mini_batch_size).contiguous()
 
-    def forward(self, hidden_states, meta: SequenceMetadata, reverse: bool = False):
+    def pinned_weights(self, dtype):
+        """wq/wk/wv/wo's weights cast through K7 once, for both directions
+        (the JAX pin casts each stacked kernel once per layer body), or Nones
+        when not pinned (flax's promote_dtype casts at each call)."""
+        return tuple(lin.pinned_weight(dtype) for lin in (self.wq, self.wk, self.wv, self.wo))
+
+    def forward(self, hidden_states, meta: SequenceMetadata, reverse: bool = False, weights=None):
+        """One direction; ``weights`` from :meth:`pinned_weights`, shared with the other direction."""
         cfg = self.config
+        wq, wk, wv, wo = weights or (None,) * 4
         B, L, D = hidden_states.shape
         H, F, CS = cfg.num_heads, cfg.head_dim, cfg.mini_batch_size
         if L % CS:
@@ -123,7 +136,7 @@ class TTTLayer(nn.Module):
 
         x = interleave(hidden_states, meta, reverse)
         to_tm = lambda t: t.reshape(B, NC, CS, H * F)  # token-major: a pure reshape
-        XQ, XK, XV = to_tm(self.wq(x)), to_tm(self.wk(x)), to_tm(self.wv(x))
+        XQ, XK, XV = to_tm(self.wq(x, wq)), to_tm(self.wk(x, wk)), to_tm(self.wv(x, wv))
         gate = self.token_gate(x)
         rope_cos, rope_sin = scan_rope_tables(meta, F, cfg.rope_theta, CS, x.device)
 
@@ -137,11 +150,14 @@ class TTTLayer(nn.Module):
             state = (self.W1, self.b1, self.W2, self.b2)
         args = (XQ, XK, XV, gate, rope_cos, rope_sin, self.ttt_norm_weight, self.ttt_norm_bias, *state, self.eta_scale)
         if torch.is_grad_enabled():  # the training kernels, or with use_kernel=False their plain versions
+            # The scan's output and state checkpoints are the outputs of one custom op (K1-train / K5-train),
+            # which the save_seq policy keeps across the layer's recompute (models/dit/dit.py:_ckpt_policy),
+            # as JAX names them "ttt_out" and "ttt_residuals".
             XQW = train(*args, cfg.scan_checkpoint_group_size, plain=not cfg.use_kernel)
         elif cfg.use_kernel:
             XQW = forward(*args)
         else:
             XQW = plain(*args)
         out = XQW.reshape(B, L, D)
-        out = self.wo(layer_norm(out, self.post_norm, out.dtype))
+        out = self.wo(layer_norm(out, self.post_norm, out.dtype), wo)
         return undo_interleave(out, meta, reverse)

@@ -135,14 +135,29 @@ def attention(q, k, v):
     return out
 
 
+@torch.library.custom_op("ttt_video_dit_torch::attention_with_lse", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v) -> (Tensor, Tensor)")
 def attention_with_lse(q, k, v):
-    """K3 that also returns the log-sum-exp [BC, H, S] float32 for the backward."""
+    """K3 that also returns the log-sum-exp [BC, H, S] float32 for the
+    backward. A custom op (so a selective-checkpoint policy can name it,
+    models/dit/dit.py): on CUDA tensors it launches the kernel or raises; on
+    CPU tensors it runs the plain version."""
     global lse_launches
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, return_lse=True)
     out, lse = _forward(q, k, v, with_lse=True)
     lse_launches += 1
     return out, lse
+
+
+@attention_with_lse.register_fake
+def _(q, k, v):
+    """Tensors with no data (meta) cannot launch the kernel: refuse them, as the argument checks do."""
+    raise ValueError(f"attention_with_lse takes CUDA tensors (the kernel) or CPU tensors (the plain version), "
+                     f"got {q.device}")
+
+
+@attention_with_lse.register_kernel("cpu")
+def _(q, k, v):
+    return attention_plain(q, k, v, return_lse=True)
 
 
 def attention_backward(q, k, v, out, lse, dout):

@@ -250,20 +250,34 @@ def ttt_linear_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1,
     return out
 
 
-def ttt_linear_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale: float,
-                             checkpoint_group: int):
+@torch.library.custom_op(
+    "ttt_video_dit_torch::ttt_linear_forward_train", mutates_args=(),
+    schema="(Tensor XQ, Tensor XK, Tensor XV, Tensor gate, Tensor rope_cos, Tensor rope_sin, Tensor ln_w, "
+           "Tensor ln_b, Tensor W1, Tensor b1, float eta_scale, int checkpoint_group) -> (Tensor, Tensor, Tensor)")
+def ttt_linear_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, checkpoint_group):
     """Fused TTT-linear forward for training: (out, W1_ck, b1_ck), the fp32
     state at the start of every group of ``checkpoint_group`` mini-batches.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    A custom op (so a selective-checkpoint policy can name it,
+    models/dit/dit.py): on CUDA tensors it launches the kernel or raises; on
+    CPU tensors it runs the plain version."""
     global train_launches
-    if XQ.device.type == "cpu":
-        return ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
-                                        checkpoint_group=checkpoint_group)
     result = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
                       _group(checkpoint_group, XQ.shape[1]))
     train_launches += 1
     return result
+
+
+@ttt_linear_forward_train.register_fake
+def _(XQ, *args):
+    """Tensors with no data (meta) cannot launch the kernel: refuse them, as the argument checks do."""
+    raise ValueError(f"ttt_linear_forward_train takes CUDA tensors (the kernel) or CPU tensors (the plain version), "
+                     f"got {XQ.device}")
+
+
+@ttt_linear_forward_train.register_kernel("cpu")
+def _(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, checkpoint_group):
+    return ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
+                                    checkpoint_group=checkpoint_group)
 
 
 def ttt_linear_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout, eta_scale: float,
@@ -311,7 +325,7 @@ class TTTLinearFunction(torch.autograd.Function):
     def forward(ctx, XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, checkpoint_group, plain):
         K = _group(checkpoint_group, XQ.shape[1])
         fwd = ttt_linear_forward_plain if plain else ttt_linear_forward_train
-        out, *ckpts = fwd(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, checkpoint_group=K)
+        out, *ckpts = fwd(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, K)
         ctx.save_for_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, *ckpts)
         ctx.eta_scale, ctx.K, ctx.plain = eta_scale, K, plain
         return out

@@ -382,16 +382,19 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
     return out
 
 
-def ttt_mlp_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float,
-                          checkpoint_group: int):
+@torch.library.custom_op(
+    "ttt_video_dit_torch::ttt_mlp_forward_train", mutates_args=(),
+    schema="(Tensor XQ, Tensor XK, Tensor XV, Tensor gate, Tensor rope_cos, Tensor rope_sin, Tensor ln_w, "
+           "Tensor ln_b, Tensor W1, Tensor b1, Tensor W2, Tensor b2, float eta_scale, int checkpoint_group) "
+           "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def ttt_mlp_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale,
+                          checkpoint_group):
     """Fused TTT-MLP forward for training: (out, W1_ck, b1_ck, W2_ck, b2_ck),
     the fp32 state at the start of every group of ``checkpoint_group``
-    mini-batches. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (CS = 64) or raise."""
+    mini-batches. A custom op (so a selective-checkpoint policy can name it,
+    models/dit/dit.py): on CUDA tensors it launches the kernel (CS = 64) or
+    raises; on CPU tensors it runs the plain version."""
     global train_launches
-    if XQ.device.type == "cpu":
-        return ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale,
-                                     checkpoint_group=checkpoint_group)
     check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, KERNEL_TRAIN_MINI_BATCH)
     B, NC, _, _ = XQ.shape
     H, F = ln_w.shape
@@ -407,6 +410,19 @@ def ttt_mlp_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, 
             (B, NC, H, K), eta_scale, XQ.device)
     train_launches += 1
     return (out, *ckpts)
+
+
+@ttt_mlp_forward_train.register_fake
+def _(XQ, *args):
+    """Tensors with no data (meta) cannot launch the kernel: refuse them, as the argument checks do."""
+    raise ValueError(f"ttt_mlp_forward_train takes CUDA tensors (the kernel) or CPU tensors (the plain version), "
+                     f"got {XQ.device}")
+
+
+@ttt_mlp_forward_train.register_kernel("cpu")
+def _(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale, checkpoint_group):
+    return ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale,
+                                 checkpoint_group=checkpoint_group)
 
 
 def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout,
@@ -462,7 +478,7 @@ class TTTMLPFunction(torch.autograd.Function):
                 plain):
         K = _group(checkpoint_group, XQ.shape[1])
         fwd = ttt_mlp_forward_plain if plain else ttt_mlp_forward_train
-        out, *ckpts = fwd(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale, checkpoint_group=K)
+        out, *ckpts = fwd(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale, K)
         ctx.save_for_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, *ckpts)
         ctx.eta_scale, ctx.K, ctx.plain = eta_scale, K, plain
         return out

@@ -1,40 +1,58 @@
-"""Training entry point (port of train.py, synthetic data on one card).
+"""Training entry point (port of train.py, one card).
 
-Parses the same flags and TOML files as the JAX entry (``JobConfig``),
-builds CogVideoX on the device with random float32 weights from
-``--job.seed``, and takes ``--training.steps`` steps on synthetic latents and
-text embeddings (as the JAX entry does without ``--training.jsonl_paths``):
+Parses the same flags and TOML files as the JAX entry (``JobConfig``) and
+follows its order: the logger (a text log and the stats history under
+``<dump_folder>/logs``), CogVideoX on the device with random float32
+weights from ``--job.seed`` (or those of ``--checkpoint.init_state_dir``, a
+``save_pretrained`` directory: the curriculum's stage-to-stage handoff),
+the grouped AdamW, the data, a resume, then ``--training.steps`` steps:
 stratified sigma bounds, text dropout, the v-prediction loss, gradient
-accumulation, global-norm clipping and the grouped AdamW. It logs loss, grad
-norm, seconds per step and MFU (against the H100's dense bf16 peak).
+accumulation, global-norm clipping. Each step's random draws come from a
+generator seeded by (seed, step). It logs loss, grad norm, data seconds,
+seconds per step and MFU (against the H100's dense bf16 peak).
 
-The layers are unrolled and each runs under ``torch.utils.checkpoint``
-(remat policy "none": the backward re-runs the layer's forward and
-kernels). On the card the TTT scans run K5 (training) and K6 for
-``ttt_linear``, K1 (training) and K2 for ``ttt_mlp``; attention runs K3
-(with the log-sum-exp) and K4; under the TOMLs' ``scan_layers = true`` the
-layer stack's 2-D weights are cast to bf16 through K7 at each forward, as
-the JAX package's scanned stack casts them.
+Data: with ``--training.jsonl_paths`` (and ``--training.dataset_path``, the
+root of relative paths) the precomputed-latent loader
+(``data/dataset.py:DataModule``: posteriors sampled at load, a prefetch
+thread, an exact-resume sampler), the text length from the files; otherwise
+synthetic latents and text embeddings.
 
-``--checkpoint.init_state_dir`` starts from the weights of a
-``save_pretrained`` directory (the stage-to-stage handoff of the curriculum,
-or converted pretrained weights) in place of the random ones.
+Checkpoints (``training/checkpoint.py:Checkpointer``) go to
+``<dump_folder>/checkpoint/<step>/``: every ``--checkpoint.interval`` steps,
+once before ``--checkpoint.timeout_minutes`` runs out, and at the end when
+the interval does not divide the last step. ``--checkpoint.resume``
+restores model, optimizer, data sampler and stats from
+``--checkpoint.resume_step`` (-1: the latest) and carries on at the next
+step, drawing what an uninterrupted run draws. ``--job.profile_dir``
+writes a ``torch.profiler`` trace of steps 10-12.
+
+The layers are unrolled and each runs under ``torch.utils.checkpoint`` with
+the TOML's remat policy (``save_seq`` in the 3 s TOMLs: the TTT scans' and
+attention's kernel outputs are kept, so the recompute is dense work only;
+``none`` in the longer stages). On the card the TTT scans run K5 (training)
+and K6 for ``ttt_linear``, K1 (training) and K2 for ``ttt_mlp``; attention
+runs K3 (with the log-sum-exp) and K4; under the TOMLs'
+``scan_layers = true`` the layer stack's 2-D weights are cast to bf16
+through K7 once a layer forward, as the JAX package's scanned stack casts
+them.
 
 The device is CUDA. Without a GPU the entry raises, unless ``--job.platform cpu``
-asks for the CPU explicitly. Not ported yet, and refused with
-NotImplementedError: real data (``--training.jsonl_paths``), checkpoint
-resume (``--checkpoint.resume``), and more than one device
-(``--parallelism.*`` sizes other than 1).
+asks for the CPU explicitly. More than one device (``--parallelism.*`` sizes
+other than 1) is not ported yet and raises NotImplementedError.
 
 Usage (one H100, the 3 s stage cut to 4 layers; configs/train/ttt-linear/3s.toml
 for the TTT-linear variant):
     python -m ttt_video_dit_torch.train --job.config_file configs/train/ttt-mlp/3s.toml \\
         --model.num_layers 4 --training.steps 3 --training.global_batch_size 1 \\
-        --parallelism.dp_replicate 1 --parallelism.dp_sharding 1
+        --parallelism.dp_replicate 1 --parallelism.dp_sharding 1 \\
+        [--training.dataset_path DATA --training.jsonl_paths DATA/meta.jsonl] \\
+        [--checkpoint.interval 500] [--checkpoint.resume]
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -52,14 +70,7 @@ def model_config(job_config: JobConfig) -> ModelConfig:
 
 
 def refuse_unported(job_config: JobConfig) -> None:
-    """Raise NotImplementedError, naming the flag, for what is not ported yet."""
-    refused = [
-        ("--training.jsonl_paths", job_config.training.jsonl_paths, "the real-data loader"),
-        ("--checkpoint.resume", job_config.checkpoint.resume, "checkpoint resume"),
-    ]
-    for flag, value, what in refused:
-        if value:
-            raise NotImplementedError(f"{flag}: {what} is not ported yet (the PyTorch trainer runs on synthetic data)")
+    """Raise NotImplementedError, naming the flag, for more than one device."""
     par = job_config.parallelism
     for flag, size in (("--parallelism.dp_replicate", par.dp_replicate), ("--parallelism.dp_sharding", par.dp_sharding),
                        ("--parallelism.tp_sharding", par.tp_sharding)):
@@ -95,78 +106,160 @@ def build_model(cfg: ModelConfig, device: torch.device, seed: int, init_state_di
     return model.train()
 
 
-def main(job_config: JobConfig) -> dict:
-    """Train for ``--training.steps`` steps. Returns a summary: the device,
-    per-step loss, grad norm and seconds, MFU (on the card), peak memory, and
-    the trained model (its last step's gradients kept) and optimizer."""
-    from ttt_video_dit_torch.data.dataset import SyntheticDataModule
-    from ttt_video_dit_torch.models.dit.schedule import StratifiedSigmaBuckets
-    from ttt_video_dit_torch.training.optimizer import build_optimizer_from_config
-    from ttt_video_dit_torch.training.train_step import train_step
-    from ttt_video_dit_torch.utils.metrics import device_peak_flops, train_step_flops
+def build_data(job_config: JobConfig, cfg: ModelConfig):
+    """(data module, text length or None when the files set it): the
+    precomputed-latent loader with ``--training.jsonl_paths``, else synthetic
+    data with :func:`synthetic_text_length`."""
+    from ttt_video_dit_torch.data.dataset import DataModule, SyntheticDataModule
 
-    refuse_unported(job_config)
-    device = resolve_device(job_config.job.platform)
-    cfg = model_config(job_config)
     tr = job_config.training
-    adapter = cfg.adapter_method
-    print(f"device {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
-          f"model d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, dtype {cfg.dtype}, "
-          f"TTT mini-batch {cfg.mini_batch_size}, checkpoint group {cfg.scan_checkpoint_group_size}, "
-          f"adapter {adapter}; layers unrolled, per-layer recompute"
-          f"{', layer weights cast through K7' if cfg.scan_layers else ''}", flush=True)
-    if job_config.checkpoint.interval:
-        print(f"WARNING: --checkpoint.interval {job_config.checkpoint.interval}: checkpoint saving is not ported; "
-              "no checkpoint is written", flush=True)
-
-    t0 = time.perf_counter()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    model = build_model(cfg, device, job_config.job.seed, job_config.checkpoint.init_state_dir)
-    optimizer = build_optimizer_from_config(model, job_config, adapter)
-    num_params = sum(p.numel() for p in model.parameters())
-    setup_seconds = time.perf_counter() - t0
-    print(f"model set-up {setup_seconds:.1f} s, {num_params / 1e6:.1f} M parameters "
-          f"({sum(p.numel() for _, p in optimizer.params) / 1e6:.1f} M trainable)", flush=True)
-
+    if tr.jsonl_paths:
+        return DataModule(tr.dataset_path, cfg.scale_factor, tr.jsonl_paths, seed=job_config.job.seed), None
     tl = synthetic_text_length(cfg)
     T, p = cfg.compressed_num_frames, cfg.patch_size
     data = SyntheticDataModule(vid_shape=(T, cfg.in_channels, cfg.latent_height * p, cfg.latent_width * p),
                                text_shape=(cfg.num_chunks, tl, cfg.text_dim), seed=job_config.job.seed)
-    print(f"synthetic data: text_length={tl}, seq={cfg.num_chunks * tl + T * cfg.tokens_per_frame}", flush=True)
+    return data, tl
+
+
+def main(job_config: JobConfig) -> dict:
+    """Train to ``--training.steps``. Returns a summary: the device, the first
+    step, per-step loss, grad norm, seconds, data seconds (the wait for the
+    next batch) and MFU (on the card), the loader's seconds per batch (the
+    real-data loader), each checkpoint's step, seconds and bytes, the
+    restore's, peak memory, the data sampler's final state, and the trained
+    model (its last step's gradients kept) and optimizer."""
+    from ttt_video_dit_torch.models.dit.schedule import StratifiedSigmaBuckets
+    from ttt_video_dit_torch.training.checkpoint import Checkpointer, dir_bytes
+    from ttt_video_dit_torch.training.iterator import TrainingIterator
+    from ttt_video_dit_torch.training.optimizer import build_optimizer_from_config
+    from ttt_video_dit_torch.training.train_step import step_generator, train_step
+    from ttt_video_dit_torch.utils.logging import MultiLogger
+    from ttt_video_dit_torch.utils.metrics import device_peak_flops, train_step_flops
+    from ttt_video_dit_torch.utils.misc import (GarbageCollection, TimedContext, get_num_params, set_random_seed,
+                                                 torch_profiler)
+
+    refuse_unported(job_config)
+    device = resolve_device(job_config.job.platform)
+    job, tr, ck = job_config.job, job_config.training, job_config.checkpoint
+    logger = MultiLogger(os.path.join(job.dump_folder, "logs"), exp_name=job.exp_name,
+                         enable_wandb=not job_config.wandb.disable, wandb_project=job_config.wandb.project,
+                         wandb_entity=job_config.wandb.entity)
+    cfg = model_config(job_config)
+    adapter = cfg.adapter_method
+    print(f"device {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
+          f"model d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, dtype {cfg.dtype}, "
+          f"TTT mini-batch {cfg.mini_batch_size}, checkpoint group {cfg.scan_checkpoint_group_size}, "
+          f"adapter {adapter}; layers unrolled, per-layer recompute, remat policy {cfg.remat_policy!r}"
+          f"{', layer weights cast through K7' if cfg.scan_layers else ''}", flush=True)
     global_bs = tr.global_batch_size
     sigma_lo, sigma_hi = StratifiedSigmaBuckets.create(cfg.sigma_interval, 1).sample_bounds(global_bs, 1)
-    generator = torch.Generator(device).manual_seed(job_config.job.seed + 1)
-    flops = train_step_flops(cfg, global_bs, tl)
+    data, tl = build_data(job_config, cfg)
+    if tl is None:
+        logger.write(f"data: {len(data.dataset)} samples from {tr.jsonl_paths}")
+    else:
+        logger.write(f"synthetic data: text_length={tl}, "
+                     f"seq={cfg.num_chunks * tl + cfg.compressed_num_frames * cfg.tokens_per_frame}")
 
-    losses, grad_norms, step_seconds, mfus = [], [], [], []
-    batches = data.batches(global_bs)
-    for step in range(1, tr.steps + 1):
-        host = next(batches)
-        batch = {"vid": torch.from_numpy(host["vid"]).to(device), "text": torch.from_numpy(host["text"]).to(device),
-                 "sigma_lo": torch.from_numpy(sigma_lo).to(device), "sigma_hi": torch.from_numpy(sigma_hi).to(device)}
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    model = build_model(cfg, device, job.seed, None if ck.resume else ck.init_state_dir)
+    optimizer = build_optimizer_from_config(model, job_config, adapter)
+    num_params = get_num_params(model)
+    setup_seconds = time.perf_counter() - t0
+    print(f"model set-up {setup_seconds:.1f} s, {num_params / 1e6:.1f} M parameters "
+          f"({sum(p.numel() for _, p in optimizer.params) / 1e6:.1f} M trainable)", flush=True)
+
+    checkpointer = Checkpointer(os.path.join(job.dump_folder, "checkpoint"))
+    start_step, restored = 0, None
+    if ck.resume:
         t = time.perf_counter()
-        metrics = train_step(model, optimizer, batch, grad_accum_steps=tr.grad_accum_steps,
-                             text_dropout_prob=tr.text_dropout_prob, generator=generator)
-        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])  # host reads fence the step
+        start_step, sampler_state, metadata = checkpointer.restore(ck.resume_step, model, optimizer)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        step_seconds.append(time.perf_counter() - t)
-        losses.append(loss)
-        grad_norms.append(grad_norm)
-        mfu = flops / (step_seconds[-1] * device_peak_flops()) if device.type == "cuda" else None
-        mfus.append(mfu)
-        lrs = optimizer.learning_rates(optimizer.count - 1)
-        print(f"step {step}/{tr.steps} loss {loss:.4f} grad_norm {grad_norm:.4f} s/it {step_seconds[-1]:.3f} "
-              f"mfu {'n/a (cpu)' if mfu is None else f'{mfu * 100:.2f}%'} lr {lrs['other_wd']:.3g}/{lrs['ttt_wd']:.3g}",
-              flush=True)
+        path = checkpointer.step_dir(start_step)
+        restored = {"step": start_step, "seconds": time.perf_counter() - t, "bytes": dir_bytes(path)}
+        data.sampler.load_state_dict(sampler_state)
+        logger.wandb_run_id = metadata.get("wandb_id")
+        logger.load_stats(path)
+        logger.write(f"resumed from step {start_step} ({restored['bytes'] / 2**30:.2f} GiB in "
+                     f"{restored['seconds']:.2f} s)")
+    elif ck.init_state_dir:
+        logger.write(f"loaded pretrained weights from {ck.init_state_dir}")
+    logger.init_log(job_config, cfg, num_params, device)
+
+    saved = []
+
+    def on_checkpoint(step: int, timeout: bool) -> None:
+        info = checkpointer.save(step, model, optimizer, data.sampler.state_dict(), {"wandb_id": logger.wandb_run_id},
+                                 extra=logger.snapshot_stats)
+        saved.append({"step": step, "timeout": timeout, **info})
+        logger.write(f"checkpoint saved at step {step}{' (timeout-aware)' if timeout else ''}: "
+                     f"{info['bytes'] / 2**30:.2f} GiB in {info['seconds']:.2f} s")
+
+    train_iter = TrainingIterator(start_step, tr.steps, checkpoint_interval=ck.interval,
+                                  timeout_minutes=ck.timeout_minutes, on_checkpoint=on_checkpoint)
+    set_random_seed(job.seed)
+    gc_handler = GarbageCollection(gc_freq=tr.gc_freq)
+    profile = contextlib.ExitStack()
+    batches = data.batches(global_bs)
+    flops = None if tl is None else train_step_flops(cfg, global_bs, tl)
+    losses, grad_norms, step_seconds, data_seconds, mfus = [], [], [], [], []
+    try:
+        for step in train_iter:
+            gc_handler.run(step)
+            if job.profile_dir and step == 10:
+                profile.enter_context(torch_profiler(job.profile_dir))
+            elif job.profile_dir and step == 13:
+                profile.close()
+                logger.write(f"profiler trace written to {job.profile_dir}")
+            with TimedContext() as data_timer:
+                host = next(batches)
+                batch = {"vid": torch.from_numpy(host["vid"]).to(device),
+                         "text": torch.from_numpy(host["text"]).to(device),
+                         "sigma_lo": torch.from_numpy(sigma_lo).to(device),
+                         "sigma_hi": torch.from_numpy(sigma_hi).to(device)}
+            data_seconds.append(data_timer.duration)
+            if flops is None:
+                tl = host["text"].shape[2]
+                flops = train_step_flops(cfg, global_bs, tl)
+            t = time.perf_counter()
+            count = optimizer.count
+            metrics = train_step(model, optimizer, batch, grad_accum_steps=tr.grad_accum_steps,
+                                 text_dropout_prob=tr.text_dropout_prob,
+                                 generator=step_generator(job.seed, count, device))
+            loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])  # host reads fence the step
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            step_seconds.append(time.perf_counter() - t)
+            losses.append(loss)
+            grad_norms.append(grad_norm)
+            mfu = flops / (step_seconds[-1] * device_peak_flops()) if device.type == "cuda" else None
+            mfus.append(mfu)
+            lrs = optimizer.learning_rates(count)
+            logger.log_stats(step, {"train/loss": loss, "gradient_norm": grad_norm, "dataloader_time": data_seconds[-1],
+                                    "step_time_ema_s": train_iter.ema_step_seconds or 0.0, "mfu": mfu,
+                                    **{f"learning_rate/{k}": v for k, v in lrs.items()}})
+            print(f"step {step}/{tr.steps} loss {loss:.4f} grad_norm {grad_norm:.4f} s/it {step_seconds[-1]:.3f} "
+                  f"data {data_seconds[-1]:.3f} s mfu {'n/a (cpu)' if mfu is None else f'{mfu * 100:.2f}%'} "
+                  f"lr {lrs['other_wd']:.3g}/{lrs['ttt_wd']:.3g}", flush=True)
+    finally:
+        profile.close()
+        batches.close()
+        gc_handler.close()
+    checkpointer.wait()
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     if not all(np.isfinite(losses)) or not all(np.isfinite(grad_norms)):
         raise FloatingPointError(f"non-finite loss or grad norm: losses {losses}, grad norms {grad_norms}")
-    print("training complete", flush=True)
-    return {"device": str(device), "setup_seconds": setup_seconds, "losses": losses, "grad_norms": grad_norms,
-            "step_seconds": step_seconds, "mfu": mfus, "peak_memory_bytes": peak, "step_flops": flops,
-            "num_params": num_params, "text_length": tl, "model_config": cfg, "model": model, "optimizer": optimizer}
+    logger.alert("Training complete", f"{job.exp_name} finished {tr.steps} steps")
+    logger.write("training complete")
+    logger.close()
+    return {"device": str(device), "setup_seconds": setup_seconds, "start_step": start_step, "losses": losses,
+            "grad_norms": grad_norms, "step_seconds": step_seconds, "data_seconds": data_seconds,
+            "load_seconds": list(getattr(data, "load_seconds", [])), "checkpoints": saved, "restore": restored,
+            "mfu": mfus, "peak_memory_bytes": peak, "step_flops": flops, "num_params": num_params, "text_length": tl,
+            "sampler_state": data.sampler.state_dict(), "model_config": cfg, "model": model, "optimizer": optimizer}
 
 
 def parse_args(argv=None) -> JobConfig:

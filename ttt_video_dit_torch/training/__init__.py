@@ -1,1 +1,1 @@
-"""Training: the optimizer, the train step and the set-up helpers."""
+"""Training: the optimizer, the train step, checkpoints, the step iterator and the set-up helpers."""

@@ -1,25 +1,118 @@
-"""Params-only checkpoints: the stage-to-stage curriculum handoff and
-converted pretrained weights (port of the params-only part of
-ttt_video_dit_tpu/training/checkpoint.py: ``save_pretrained`` /
-``load_pretrained``).
+"""Checkpoints (port of ttt_video_dit_tpu/training/checkpoint.py), in the
+port's own format, since the JAX package's Orbax directories cannot be read
+without JAX.
 
-The port's own format, since the JAX package's Orbax directory cannot be
-read without JAX: one directory holding ``model.safetensors``, the module's
-state dict (float32 masters) in the safetensors layout
-(``utils/safetensors.py``). A JAX run's params carry across through
-``convert.flax_to_state_dict`` (a ``scan_layers`` tree is unstacked there),
-then ``save_pretrained``.
+- :class:`Checkpointer`: training checkpoints, one directory a step under
+  ``<dump_folder>/checkpoint/``: ``model.safetensors`` (the module's state
+  dict, float32 masters), ``optimizer.safetensors`` (the grouped AdamW's
+  moments as ``mu/<flax path>`` and ``nu/<flax path>``), ``sampler.json``
+  (the data sampler's state), ``metadata.json`` (step, optimizer count, the
+  wandb run id), and whatever the caller adds (the stats history). A step is
+  written into a temporary directory and renamed into place, so a directory
+  named by a step is always complete; ``latest_step`` skips anything else.
+  Tensors are written and read one at a time, each copied straight into its
+  parameter or moment on the device.
+- ``save_pretrained`` / ``load_pretrained``: params only, one directory
+  holding ``model.safetensors`` (the stage-to-stage curriculum handoff and
+  converted pretrained weights). A JAX run's params carry across through
+  ``convert.flax_to_state_dict`` (a ``scan_layers`` tree is unstacked there),
+  then ``save_pretrained``.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
+import time
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ttt_video_dit_torch.utils import safetensors
 
 WEIGHTS_NAME = "model.safetensors"
+OPTIMIZER_NAME = "optimizer.safetensors"
+SAMPLER_NAME = "sampler.json"
+METADATA_NAME = "metadata.json"  # written last
+
+
+def dir_bytes(path: str) -> int:
+    """The bytes of the files in ``path``."""
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+class Checkpointer:
+    """Save and restore model, optimizer, data sampler and run metadata."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+
+    def step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def save(self, step: int, model: torch.nn.Module, optimizer, sampler_state: Dict[str, Any],
+             metadata: Dict[str, Any], extra: Optional[Callable[[str], None]] = None) -> dict:
+        """Write step ``step``; ``extra(path)`` may add files before the
+        directory is published. A directory of the same step is replaced.
+        Returns {"seconds", "bytes"}."""
+        t0 = time.perf_counter()
+        os.makedirs(self.directory, exist_ok=True)
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        safetensors.save_file(model.state_dict(), os.path.join(tmp, WEIGHTS_NAME))
+        opt = optimizer.state_dict()
+        safetensors.save_file({f"{k}/{path}": t for k in ("mu", "nu") for path, t in opt[k].items()},
+                              os.path.join(tmp, OPTIMIZER_NAME))
+        with open(os.path.join(tmp, SAMPLER_NAME), "w", encoding="utf-8") as f:
+            json.dump(sampler_state, f)
+        if extra is not None:
+            extra(tmp)
+        with open(os.path.join(tmp, METADATA_NAME), "w", encoding="utf-8") as f:
+            json.dump({"step": step, "optimizer_count": opt["count"], **metadata}, f)
+        nbytes = dir_bytes(tmp)
+        final = self.step_dir(step)
+        old = None
+        if os.path.exists(final):
+            old = os.path.join(self.directory, f".old-{step}-{os.getpid()}")
+            os.replace(final, old)
+        os.replace(tmp, final)
+        if old is not None:
+            shutil.rmtree(old)
+        return {"seconds": time.perf_counter() - t0, "bytes": nbytes}
+
+    def wait(self) -> None:
+        """Saves are synchronous; kept for the JAX Checkpointer's API."""
+
+    def latest_step(self) -> Optional[int]:
+        """The highest step with a complete directory, or None."""
+        if not os.path.isdir(self.directory):
+            return None
+        steps = [int(name) for name in os.listdir(self.directory)
+                 if name.isdigit() and os.path.exists(os.path.join(self.directory, name, METADATA_NAME))]
+        return max(steps, default=None)
+
+    @torch.no_grad()
+    def restore(self, step: int, model: torch.nn.Module, optimizer) -> tuple[int, Dict[str, Any], Dict[str, Any]]:
+        """Load step ``step`` (-1: the latest) into ``model`` and ``optimizer``
+        in place. Returns (step, sampler state, metadata)."""
+        if step == -1:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint found under {self.directory}")
+        path = self.step_dir(step)
+        if not os.path.exists(os.path.join(path, METADATA_NAME)):
+            raise FileNotFoundError(f"no complete checkpoint of step {step} under {self.directory}")
+        safetensors.load_into(model, os.path.join(path, WEIGHTS_NAME))
+        with open(os.path.join(path, SAMPLER_NAME), encoding="utf-8") as f:
+            sampler_state = json.load(f)
+        with open(os.path.join(path, METADATA_NAME), encoding="utf-8") as f:
+            metadata = json.load(f)
+        moments = os.path.join(path, OPTIMIZER_NAME)
+        optimizer.load_state_dict({"count": metadata["optimizer_count"], "mu": safetensors.LazyFile(moments, "mu/"),
+                                   "nu": safetensors.LazyFile(moments, "nu/")})
+        return step, sampler_state, metadata
 
 
 def save_pretrained(path: str, model: torch.nn.Module) -> str:

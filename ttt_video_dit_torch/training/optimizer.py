@@ -143,6 +143,31 @@ class GroupedAdamW:
         self.count = t
         return g_norm
 
+    def state_dict(self) -> dict:
+        """{"count": int, "mu": {flax path: tensor}, "nu": {flax path: tensor}} (the live tensors)."""
+        paths = [path for path, _ in self.params]
+        return {"count": self.count, "mu": dict(zip(paths, self.mu)), "nu": dict(zip(paths, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` in place, strictly: the same paths, each
+        at its shape; values are cast to the moments' dtypes and devices one
+        tensor at a time (``state``'s moments may be any name -> tensor maps,
+        e.g. ``safetensors.LazyFile``s)."""
+        paths = [path for path, _ in self.params]
+        for key, live in (("mu", self.mu), ("nu", self.nu)):
+            src = state[key]
+            if set(src) != set(paths):
+                missing, extra = sorted(set(paths) - set(src)), sorted(set(src) - set(paths))
+                raise KeyError(f"optimizer state {key}: missing {missing[:4]}, unexpected {extra[:4]}")
+            for path, t in zip(paths, live):
+                value = src[path]
+                if tuple(value.shape) != tuple(t.shape):
+                    raise ValueError(f"optimizer state {key}/{path}: shape {tuple(value.shape)}, "
+                                     f"expected {tuple(t.shape)}")
+                t.copy_(value)
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         for _, p in self.params:
             p.grad = None

@@ -8,7 +8,17 @@ optimizer's moments are updated in place.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of optimizer step ``step`` (0-based: the optimizer's
+    count before the step), seeded from (seed, step) alone, as the JAX step
+    folds ``state.step`` into its key: a resumed run draws what an
+    uninterrupted run draws."""
+    state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    return torch.Generator(device).manual_seed((int(state[0]) << 31) | (int(state[1]) >> 1))
 
 
 def apply_text_dropout(text, prob: float, generator: torch.Generator | None = None, keep=None):

@@ -11,7 +11,7 @@ directory of shards, listed by a ``*.safetensors.index.json`` (its
 :func:`iter_tensors` yields one tensor at a time, read straight from its
 bytes, so converting a checkpoint never holds the whole source in memory.
 :func:`load_into` copies such a stream into a module's state dict, strictly
-checked; every loader of the port (its own checkpoints, HF's DiT shards,
+checked, and :class:`LazyFile` looks tensors up by name one at a time; every loader of the port (its own checkpoints, HF's DiT shards,
 T5) is built on it. :func:`save_file` writes the same layout, one tensor at
 a time.
 """
@@ -22,6 +22,7 @@ import glob
 import json
 import os
 import struct
+from collections.abc import Mapping
 from typing import Callable, Iterable, Iterator, Optional
 
 import torch
@@ -94,6 +95,28 @@ def iter_tensors(path: str) -> Iterator[tuple[str, torch.Tensor]]:
         with open(fn, "rb") as f:
             for name in sorted(header, key=lambda k: header[k]["data_offsets"][0]):
                 yield name, _read_tensor(f, name, header[name], data_start, fn)
+
+
+class LazyFile(Mapping):
+    """The tensors of one file whose names start with ``prefix``, by the name
+    after it, each read from disk when it is looked up (so a consumer that
+    copies them one at a time never holds the file in memory)."""
+
+    def __init__(self, path: str, prefix: str = ""):
+        self.path = path
+        header, self._data_start = read_header(path)
+        self._entries = {k[len(prefix):]: (k, v) for k, v in header.items() if k.startswith(prefix)}
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        key, entry = self._entries[name]
+        with open(self.path, "rb") as f:
+            return _read_tensor(f, key, entry, self._data_start, self.path)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
 
 
 def load_file(path: str) -> dict[str, torch.Tensor]:
