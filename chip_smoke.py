@@ -47,10 +47,14 @@ at the end):
    heads x d_kv 64, d_ff 10240, gated-GELU, 32 buckets / max distance 128,
    24 layers, 32,128 + 2 vocab), seeded bf16 weights, encodes seeded ids
    [2 scenes, 498] twice (positive and negative): ms per encode, peak
-   memory, finite output. Then the loader end to end at 2 layers: a
+   memory, finite output. Then text: a 32,000-piece spiece.model written in
+   protobuf's wire format by fabricated_spiece (the card's machine has no
+   transformers or protobuf) and a seeded 21-scene storyboard, tokenised by
+   the port's tokenizer (ms, no unknown pieces) and encoded by the XXL
+   encoder ([21, 458], ms). Then the loader end to end at 2 layers: a
    fabricated directory (config.json + model.safetensors from the port's
-   writer) loaded in bf16 on the card and in float32 on the CPU, the same
-   ids, within T5_REL_L2_TOL.
+   writer + the spiece.model) loaded in bf16 on the card and in float32 on
+   the CPU, T5TextEncoder.encode on two scenes' text, within T5_REL_L2_TOL.
 8. weights, sampling and VAE: HF-named CogVideoX-5B transformer shards
    (bf16, 2 layers, two shards and an index) converted by the from_hf CLI
    into an init_state_dir; the sampling entry on it for 2 denoise steps,
@@ -64,8 +68,8 @@ at the end):
    weights, within VAE_REL_L2_TOL: a 3 x 8 x 8 latent crop (three windows,
    the caches threaded) and the run's first latent frame at full
    resolution (one 480 x 720 frame, the 128-channel level-0 maps).
-The entry runs without --eval.t5_model_dir here: its tokenizer needs
-`transformers`, which the card's machine lacks; T5 runs through encode_ids.
+The entry runs with --eval.t5_model_dir: phase 7's 2-layer T5 and its
+tokenizer turn the storyboard's text into embeddings.
 Then the real training path (phase_resume; the files under
 output/chip_smoke_data/, removed at the end):
 9. the training entry on 4 fabricated precomputed samples (posteriors
@@ -76,9 +80,34 @@ output/chip_smoke_data/, removed at the end):
    are equal, the grad norms and parameters agree within the stated
    tolerances; the loader's seconds a batch against the wait for it, and
    the save and restore seconds and bytes.
+Then the long-context shapes (9 s and 63 s):
+10. K1 and K5 on the full 63 s q/k/v [2, 351,168, 48 x 64] (more than 2^31
+    elements; the gate holds eta at 0 but on the last 256 mini-batches, so
+    the rows whose offsets pass 2^31 are held to the plain scan of their
+    heads' tail), K3 at [42, 18,008, 48, 64] (windows 0 and 41) and
+    [6, 18,052, 48, 64], K3-lse and K4 at [3, 18,052, 48, 64], K1-train and
+    K2 at the 9 s TTT-MLP training scan (NC 804, CS 64, K 16: the last
+    group holds 4 steps) and K5-train and K6 at the 9 s TTT-linear one
+    (NC 3,216, CS 16, K 4), each with the 9 s rope tables, each against its
+    plain version with phase 2's tolerances (output, checkpoints and every
+    gradient), with kernel times.
+11. for each variant on its 9 s TOMLs (3 scenes, 37 frames, L = 51,456):
+    the 2-layer full-width DiT kernel vs plain (DIT_REL_L2_TOL); the
+    sampling entry at 42 layers, 2 denoise steps, from a 3-scene storyboard's
+    text (phase 7's tokenizer and XXL weights; the XXL's loader draws them
+    from phase 7's seed instead of reading a 9.5 GB file), ttt_mlp also
+    decoding with phase 8's VAE (37 latent frames to [145, 480, 720, 3]
+    uint8); the training entry at 4 layers, 3 steps, the TOML's qkvo and
+    policy none (as phase 6).
+12. the sampling entry on configs/eval/ttt-mlp/63s.toml at 42 layers, 2
+    denoise steps, random DiT weights, from phase 7's 21-scene storyboard:
+    the [parallelism] warning (the TOML asks for tp_sharding 2; the port
+    samples on one card), finite [253, 16, 60, 90] latents, s/eval, each
+    stage's peak, 84 K1 and 42 K3 launches an eval. No VAE decode
+    (scripts/profile_torch_vae.py --frames 253 times the 63 s decode).
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 8 and 9); the last line is
+the main-path runs of phases 4, 6 (both policies), 8, 9, 11 and 12); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -90,6 +119,7 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -106,8 +136,14 @@ def sample_args(variant: str) -> list[str]:
             "inputs/example.json", "--eval.num_denoising_steps", "3", "--guider.num_steps", "3"]
 
 
-def train_args(variant: str) -> list[str]:
-    return ["--job.config_file", f"configs/train/{variant.replace('_', '-')}/3s.toml", "--model.num_layers", "4",
+def long_sample_args(variant: str, length: str) -> list[str]:
+    """The sampling entry's flags for a variant's eval TOML of ``length`` (9s, 63s), 2 denoise steps."""
+    return ["--job.config_file", f"configs/eval/{variant.replace('_', '-')}/{length}.toml",
+            "--eval.num_denoising_steps", "2", "--guider.num_steps", "2"]
+
+
+def train_args(variant: str, length: str = "3s") -> list[str]:
+    return ["--job.config_file", f"configs/train/{variant.replace('_', '-')}/{length}.toml", "--model.num_layers", "4",
             "--training.steps", "3", "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1",
             "--parallelism.dp_sharding", "1"]
 
@@ -359,13 +395,13 @@ def _sampling_meta(variant):
                                   text_length=498)
 
 
-def _training_meta(variant):
+def _training_meta(variant, length: str = "3s"):
     from ttt_video_dit_torch import train
     from ttt_video_dit_torch.models.dit.dit import sequence_metadata
 
-    cfg = train.model_config(train.parse_args(train_args(variant)))
-    return cfg, sequence_metadata(cfg, num_frames=13, latent_height=60, latent_width=90, num_scenes=1,
-                                  text_length=498)
+    cfg = train.model_config(train.parse_args(train_args(variant, length)))
+    return cfg, sequence_metadata(cfg, num_frames=cfg.compressed_num_frames, latent_height=60, latent_width=90,
+                                  num_scenes=cfg.num_chunks, text_length=train.synthetic_text_length(cfg))
 
 
 def in_tolerances(name: str, a, b) -> float:
@@ -409,6 +445,61 @@ def check_ttt_forward(variant, gen, device) -> dict:
                   _ttt_bytes(variant, 2, 48, sl["NC"], CS), 2 * 48 * sl["NC"] * _ttt_flops_per_step(variant, CS))
 
 
+def _check_training_case(variant, B, H, NC, K, meta, eta, eta_scale, CS, gen, device) -> dict:
+    """K1-train and K2, or K5-train and K6, against their plain versions on one case: the output elementwise, the
+    checkpoints and every gradient in relative L2 (dXQ, dXK, dXV and d_gate also elementwise); at an ``eta`` other
+    than ``eta_scale`` the plain output must lie MOVED_TOLS tolerances from the eta = 0 output. Returns the inputs,
+    checkpoints, output gradient, errors and plain times."""
+    mod = _ttt_module(variant)
+    fwd, bwd = f"{variant}_forward_train", f"{variant}_backward"
+    fwd_k, bwd_k = getattr(mod, fwd), getattr(mod, bwd)
+    fwd_p, bwd_p = getattr(mod, f"{variant}_forward_plain"), getattr(mod, f"{variant}_backward_plain")
+    state = TTT[variant][0]
+    names = tuple(f"{n}_ck" for n in state)
+    gnames = ELEMENTWISE_GRADS + tuple(f"d{n}" for n in state) + ("dln_w", "dln_b")
+    a = _ttt_inputs(B, H, NC, gen, device, meta, CS=CS, variant=variant)
+    got = fwd_k(**a, eta_scale=eta, checkpoint_group=K)
+    want, fwd_plain_ms = timed(lambda: fwd_p(**a, eta_scale=eta, checkpoint_group=K))
+    out_err = compare(fwd, got[0], want[0])
+    errs = [compare_scaled(fwd, n, g, w) for n, g, w in zip(names, got[1:], want[1:])]
+    del got
+    moved = ""
+    if eta != eta_scale:
+        tols = in_tolerances(fwd, want[0], fwd_p(**a, eta_scale=0.0))
+        if tols < MOVED_TOLS:
+            raise AssertionError(f"{fwd} eta_scale={eta:.4g}: the plain output moved only {tols:.3g} "
+                                 f"tolerances from the eta = 0 output (at least {MOVED_TOLS} needed)")
+        moved = f"; the plain output {tols:.1f} tolerances from eta = 0's"
+    log(f"  {fwd} B={B} H={H} NC={NC} K={K} eta_scale={eta:.4g}: out max_abs_err {out_err:.4g}; checkpoints "
+        "max_abs_err / rel L2 " + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(names, errs)) + moved)
+    dout = torch.randn(*a["XQ"].shape, generator=gen, device=device).bfloat16()
+    ins = [a[n] for n in TRAIN_INPUTS]
+    gk = bwd_k(*ins, *want[1:], dout, eta, K)
+    gp, bwd_plain_ms = timed(lambda: bwd_p(*ins, *want[1:], dout, eta, K))
+    gerrs = [compare_scaled(bwd, n, g, w) for n, g, w in zip(gnames, gk, gp)]
+    log(f"  {bwd} B={B} H={H} NC={NC} K={K} eta_scale={eta:.4g}: max_abs_err / rel L2 "
+        + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(gnames, gerrs))
+        + f" (tol rel L2 {REL_L2_TOL}; {', '.join(ELEMENTWISE_GRADS)} also elementwise {KERNEL_TOL[bwd]})")
+    for n, g, w in zip(gnames, gk, gp):
+        if n in ELEMENTWISE_GRADS:
+            compare(bwd, g, w, n)
+    return dict(a=a, ck=want[1:], dout=dout, err=out_err, gerr=max(e for e, _ in gerrs), NC=NC,
+                fwd_plain_ms=fwd_plain_ms, bwd_plain_ms=bwd_plain_ms)
+
+
+TRAIN_INPUTS = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")  # the backward's leading arguments
+
+
+def _training_cost(variant, NC, K, CS) -> tuple[float, float, float, float]:
+    """(forward bytes, forward operations, backward bytes, backward operations) of the training scans of one
+    48-head batch row. Backward bytes: q/k/v and dout in, dXQ/dXK/dXV out (bf16), the gate in and d_gate out, the
+    tables, LN affine, checkpoints and initial-state-sized gradients."""
+    ck_bytes = -(-NC // K) * 48 * TTT[variant][1](64) * 4
+    return (_ttt_bytes(variant, 1, 48, NC, CS) + ck_bytes, 48 * NC * _ttt_flops_per_step(variant, CS),
+            _ttt_bytes(variant, 1, 48, NC, CS, bf16_tensors=7) + ck_bytes + NC * CS * 48 * 4,
+            48 * NC * _ttt_bwd_flops_per_step(variant, CS))
+
+
 def check_ttt_training(variant, gen, device) -> list[dict]:
     """K1-train and K2, or K5-train and K6, at the training slice (B=1, 48
     heads, the TOML's CS and K: ttt_mlp NC=282 at CS=64, K=16, last group 10;
@@ -420,14 +511,9 @@ def check_ttt_training(variant, gen, device) -> list[dict]:
     mod = _ttt_module(variant)
     fwd, bwd = f"{variant}_forward_train", f"{variant}_backward"
     fwd_k, bwd_k = getattr(mod, fwd), getattr(mod, bwd)
-    fwd_p, bwd_p = getattr(mod, f"{variant}_forward_plain"), getattr(mod, f"{variant}_backward_plain")
-    state = TTT[variant][0]
     cfg, meta = _training_meta(variant)
     K, CS = cfg.scan_checkpoint_group_size, cfg.mini_batch_size
     eta_scale = cfg.ttt_base_lr / 64 / CS
-    names = tuple(f"{n}_ck" for n in state)
-    gnames = ELEMENTWISE_GRADS + tuple(f"d{n}" for n in state) + ("dln_w", "dln_b")
-    inputs = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")
     cases = [(1, 48, SEQ // CS, K, meta, eta_scale), (1, 2, 7, 3, None, eta_scale),
              (1, 2, 7, 3, None, LARGE_ETA_FACTOR[variant] * eta_scale)]
     if variant == "ttt_linear":
@@ -437,46 +523,60 @@ def check_ttt_training(variant, gen, device) -> list[dict]:
         # the inputs of the kernels checked after these, advance as they did without them.
         if i >= 2:
             gen = torch.Generator(device).manual_seed(5 + 2 * (i - 2))
-        a = _ttt_inputs(B, H, NC, gen, device, m, CS=CS, variant=variant)
-        got = fwd_k(**a, eta_scale=eta, checkpoint_group=KK)
-        want, fwd_plain_ms = timed(lambda: fwd_p(**a, eta_scale=eta, checkpoint_group=KK))
-        out_err = compare(fwd, got[0], want[0])
-        errs = [compare_scaled(fwd, n, g, w) for n, g, w in zip(names, got[1:], want[1:])]
-        moved = ""
-        if eta != eta_scale:
-            tols = in_tolerances(fwd, want[0], fwd_p(**a, eta_scale=0.0))
-            if tols < MOVED_TOLS:
-                raise AssertionError(f"{fwd} eta_scale={eta:.4g}: the plain output moved only {tols:.3g} "
-                                     f"tolerances from the eta = 0 output (at least {MOVED_TOLS} needed)")
-            moved = f"; the plain output {tols:.1f} tolerances from eta = 0's"
-        log(f"  {fwd} B={B} H={H} NC={NC} K={KK} eta_scale={eta:.4g}: out max_abs_err {out_err:.4g}; checkpoints "
-            "max_abs_err / rel L2 " + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(names, errs)) + moved)
-        dout = torch.randn(*a["XQ"].shape, generator=gen, device=device).bfloat16()
-        ins = [a[n] for n in inputs]
-        gk = bwd_k(*ins, *want[1:], dout, eta, KK)
-        gp, bwd_plain_ms = timed(lambda: bwd_p(*ins, *want[1:], dout, eta, KK))
-        gerrs = [compare_scaled(bwd, n, g, w) for n, g, w in zip(gnames, gk, gp)]
-        log(f"  {bwd} B={B} H={H} NC={NC} K={KK} eta_scale={eta:.4g}: max_abs_err / rel L2 "
-            + ", ".join(f"{n} {e:.4g} / {r:.3g}" for n, (e, r) in zip(gnames, gerrs))
-            + f" (tol rel L2 {REL_L2_TOL}; {', '.join(ELEMENTWISE_GRADS)} also elementwise {KERNEL_TOL[bwd]})")
-        for n, g, w in zip(gnames, gk, gp):
-            if n in ELEMENTWISE_GRADS:
-                compare(bwd, g, w, n)
+        r = _check_training_case(variant, B, H, NC, KK, m, eta, eta_scale, CS, gen, device)
         if m is not None:
-            sl = dict(a=a, ck=want[1:], dout=dout, err=out_err, gerr=max(e for e, _ in gerrs), NC=NC,
-                      fwd_plain_ms=fwd_plain_ms, bwd_plain_ms=bwd_plain_ms)
+            sl = r
     a, ck, dout, NC = sl["a"], sl["ck"], sl["dout"], sl["NC"]
-    ins = [a[n] for n in inputs]
-    ck_bytes = -(-NC // K) * 48 * TTT[variant][1](64) * 4
+    ins = [a[n] for n in TRAIN_INPUTS]
     fwd_ms = cuda_ms(lambda: fwd_k(**a, eta_scale=eta_scale, checkpoint_group=K), 3)
     bwd_ms = cuda_ms(lambda: bwd_k(*ins, *ck, dout, eta_scale, K), 3)
-    # Backward bytes: q/k/v and dout in, dXQ/dXK/dXV out (bf16), the gate in and d_gate out, the
-    # tables, LN affine, checkpoints and initial-state-sized gradients.
+    fb, ff, bb, bf = _training_cost(variant, NC, K, CS)
     return [record(fwd, f"{variant}_forward.cu", TPU + TTT[variant][2][0], sl["err"], fwd_ms, sl["fwd_plain_ms"],
-                   _ttt_bytes(variant, 1, 48, NC, CS) + ck_bytes, 48 * NC * _ttt_flops_per_step(variant, CS)),
+                   fb, ff),
             record(bwd, f"{variant}_backward.cu", TPU + TTT[variant][2][1], sl["gerr"], bwd_ms, sl["bwd_plain_ms"],
-                   _ttt_bytes(variant, 1, 48, NC, CS, bf16_tensors=7) + ck_bytes + NC * CS * 48 * 4,
-                   48 * NC * _ttt_bwd_flops_per_step(variant, CS))]
+                   bb, bf)]
+
+
+def check_long_training(variant, gen, device) -> None:
+    """K1-train and K2, or K5-train and K6, at the 9 s training shape (B=1, 48 heads, the 9 s train TOML's CS and
+    K and its rope tables: ttt_mlp NC=804 at CS=64, K=16, last group 4; ttt_linear NC=3,216 at CS=16, K=4) against
+    their plain versions with phase 2's tolerances; kernel times against their bounds."""
+    mod = _ttt_module(variant)
+    fwd_k, bwd_k = getattr(mod, f"{variant}_forward_train"), getattr(mod, f"{variant}_backward")
+    cfg, meta = _training_meta(variant, "9s")
+    K, CS = cfg.scan_checkpoint_group_size, cfg.mini_batch_size
+    NC = (meta.seq_text_length + meta.num_video_tokens) // CS
+    eta_scale = cfg.ttt_base_lr / 64 / CS
+    r = _check_training_case(variant, 1, 48, NC, K, meta, eta_scale, eta_scale, CS, gen, device)
+    a, ck, dout = r["a"], r["ck"], r["dout"]
+    ins = [a[n] for n in TRAIN_INPUTS]
+    fwd_ms = cuda_ms(lambda: fwd_k(**a, eta_scale=eta_scale, checkpoint_group=K), 2)
+    bwd_ms = cuda_ms(lambda: bwd_k(*ins, *ck, dout, eta_scale, K), 2)
+    fb, ff, bb, bf = _training_cost(variant, NC, K, CS)
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = bound(fb, ff), bound(bb, bf)
+    log(f"    kernels at NC {NC}, K {K} (last group {NC - (-(-NC // K) - 1) * K}): {variant}_forward_train "
+        f"{fwd_ms:.3f} ms (bound {fwd_bound:.3f} ms, {fwd_by}; plain {r['fwd_plain_ms']:.1f}), {variant}_backward "
+        f"{bwd_ms:.3f} ms (bound {bwd_bound:.3f} ms, {bwd_by}; plain {r['bwd_plain_ms']:.1f})")
+
+
+def check_lse_backward(shape, gen, device) -> dict:
+    """K3 with the log-sum-exp and K4 against their plain versions on unit-variance inputs of ``shape``."""
+    from ttt_video_dit_torch.ops import attention
+
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+    out, lse = attention.attention_with_lse(q, k, v)
+    (want_out, want_lse), fwd_plain_ms = timed(lambda: attention.attention_plain(q, k, v, return_lse=True))
+    err3 = compare("attention_forward_lse", out, want_out)
+    lse_err = float((lse - want_lse).abs().max())
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"attention_forward_lse {list(shape)}: lse max_abs_err {lse_err:.4g} > {LSE_ATOL}")
+    got = attention.attention_backward(q, k, v, out, lse, do)
+    want, bwd_plain_ms = timed(lambda: attention.attention_backward_plain(q, k, v, out, lse, do))
+    err4 = max(compare("attention_backward", g, w) for g, w in zip(got, want))
+    log(f"  attention_forward_lse {list(shape)}: max_abs_err out {err3:.4g}, lse {lse_err:.4g}; "
+        f"attention_backward: max_abs_err {err4:.4g} (tol {KERNEL_TOL['attention_backward']})")
+    return dict(args=(q, k, v, out, lse, do), err3=err3, err4=err4, fwd_plain_ms=fwd_plain_ms,
+                bwd_plain_ms=bwd_plain_ms)
 
 
 def phase_kernels(device) -> list[dict]:
@@ -508,21 +608,9 @@ def phase_kernels(device) -> list[dict]:
     # K3 with the log-sum-exp at the training slice ([1, 18048, 48, 64]) and K4 there and ragged,
     # unit-variance inputs: the model's q and k come out of a LayerNorm.
     for shape in ((1, SEQ, 48, 64), (3, 417, 4, 64)):
-        q, k, v, do = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
-        out, lse = attention.attention_with_lse(q, k, v)
-        (want_out, want_lse), fwd_plain_ms = timed(lambda: attention.attention_plain(q, k, v, return_lse=True))
-        err3 = compare("attention_forward_lse", out, want_out)
-        lse_err = float((lse - want_lse).abs().max())
-        if not lse_err <= LSE_ATOL:
-            raise AssertionError(f"attention_forward_lse: lse max_abs_err {lse_err:.4g} > {LSE_ATOL}")
-        got = attention.attention_backward(q, k, v, out, lse, do)
-        want, bwd_plain_ms = timed(lambda: attention.attention_backward_plain(q, k, v, out, lse, do))
-        err4 = max(compare("attention_backward", g, w) for g, w in zip(got, want))
-        log(f"  attention_forward_lse {list(shape)}: max_abs_err out {err3:.4g}, lse {lse_err:.4g}; "
-            f"attention_backward: max_abs_err {err4:.4g} (tol {KERNEL_TOL['attention_backward']})")
+        r = check_lse_backward(shape, gen, device)
         if shape[1] == SEQ:
-            k4 = dict(args=(q, k, v, out, lse, do), err3=err3, err4=err4, fwd_plain_ms=fwd_plain_ms,
-                      bwd_plain_ms=bwd_plain_ms)
+            k4 = r
     q, k, v, out, lse, do = k4["args"]
     BC = 1
     ms = cuda_ms(lambda: attention.attention_with_lse(q, k, v), 5)
@@ -573,15 +661,20 @@ def phase_kernels(device) -> list[dict]:
     return records
 
 
-def phase_dit(device, variant) -> None:
+def phase_dit(device, variant, length: str = "3s") -> None:
+    """One full-width 2-layer DiT forward at the geometry of the variant's eval TOML of ``length``, kernel
+    path against the plain path (phase 3; at 9 s, phase 11)."""
     from ttt_video_dit_torch.sample import build_model, model_config, parse_args
 
     t0 = time.perf_counter()
-    cfg = model_config(parse_args(sample_args(variant) + ["--model.num_layers", "2"]))
+    args = sample_args(variant) if length == "3s" else long_sample_args(variant, length)
+    job = parse_args(args + ["--model.num_layers", "2"])
+    cfg, ev = model_config(job), job.eval
     model = build_model(cfg, device, seed=1)
     gen = torch.Generator(device).manual_seed(2)
-    video = torch.randn(2, 13, 16, 60, 90, generator=gen, device=device)
-    text = torch.randn(2, 1, 498, cfg.text_dim, generator=gen, device=device)
+    video = torch.randn(2, ev.sampling_num_frames, 16, ev.image_height // 8, ev.image_width // 8, generator=gen,
+                        device=device)
+    text = torch.randn(2, cfg.num_chunks, ev.txt_maxlen, cfg.text_dim, generator=gen, device=device)
     timesteps = torch.tensor([999.0, 500.0], device=device)
     outs = {}
     with torch.inference_mode():
@@ -594,7 +687,8 @@ def phase_dit(device, variant) -> None:
     rel = float((got - ref).norm() / ref.norm())
     if rel > DIT_REL_L2_TOL:
         raise AssertionError(f"{variant} DiT kernel path vs plain path: relative L2 error {rel:.4g} > {DIT_REL_L2_TOL}")
-    log(f"phase 3 {variant} DiT d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, kernel vs plain: "
+    log(f"phase {3 if length == '3s' else 11} {variant} {length} DiT d{cfg.model_dim} x {cfg.num_heads} heads x "
+        f"{cfg.num_layers} layers, video {list(video.shape[1:])}, text {list(text.shape[1:3])}, kernel vs plain: "
         f"rel L2 {rel:.4g} (tol {DIT_REL_L2_TOL}), max_abs_err {float((got - ref).abs().max()):.4g}: "
         f"{time.perf_counter() - t0:.1f} s")
     del model
@@ -697,7 +791,7 @@ def phase_grad(device, variant) -> None:
 
     held(f"kernel vs plain path under {policy}", results[True, policy], results[False, policy])
     held(f"kernel path, {policy} vs none", results[True, policy], results[True, "none"])
-    log(f"phase 5 {variant} training gradients d{cfg.model_dim} x {cfg.num_heads} heads x 2 layers: "
+    log(f"phase 5 {variant} training gradients d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers: "
         f"{time.perf_counter() - t0:.1f} s")
     del model, results
     torch.cuda.empty_cache()
@@ -736,15 +830,17 @@ def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
     return trained, idle
 
 
-def phase_train(device, variant, remat_policy=None) -> dict[str, int]:
-    """The training entry, 4 layers x 3 steps at full width, on the card,
-    under the TOML's remat policy or ``remat_policy``."""
+def phase_train(device, variant, remat_policy=None, length: str = "3s") -> dict[str, int]:
+    """The training entry, 4 layers x 3 steps at full width, on the card, on
+    the variant's train TOML of ``length``, under its remat policy or
+    ``remat_policy``."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     flags = ["--checkpoint.interval", "0", "--job.dump_folder", TRAIN_DIR]  # phase 9 covers saving
-    job = train.parse_args(train_args(variant) + flags + (["--remat.policy", remat_policy] if remat_policy else []))
+    job = train.parse_args(train_args(variant, length) + flags
+                           + (["--remat.policy", remat_policy] if remat_policy else []))
     reset_counts()
     summary = train.main(job)
     counts = read_counts()
@@ -771,7 +867,9 @@ def phase_train(device, variant, remat_policy=None) -> dict[str, int]:
     frozen = sum(1 for p in summary["model"].parameters() if not p.requires_grad)
     steady = summary["step_seconds"][1:]
     mfu = [m for m in summary["mfu"][1:]]
-    log(f"phase 6 {variant} train d{cfg.model_dim} x {cfg.num_heads} heads x {L} layers, CS {cfg.mini_batch_size}, "
+    log(f"phase {6 if length == '3s' else 11} {variant} {length} train d{cfg.model_dim} x {cfg.num_heads} heads x "
+        f"{L} layers, L {cfg.num_chunks * summary['text_length'] + cfg.compressed_num_frames * cfg.tokens_per_frame}, "
+        f"CS {cfg.mini_batch_size}, "
         f"K {cfg.scan_checkpoint_group_size}, adapter {cfg.adapter_method}, remat policy {cfg.remat_policy}, "
         f"{steps} steps: "
         f"{sum(steady) / len(steady):.3f} s/step after the first ({summary['step_seconds'][0]:.3f} s first), MFU "
@@ -783,6 +881,86 @@ def phase_train(device, variant, remat_policy=None) -> dict[str, int]:
     del summary, fresh
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return counts
+
+
+def _varint(n: int) -> bytes:
+    n &= (1 << 64) - 1  # int32 fields: negative values are 10-byte two's complement
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def _pb(num: int, value) -> bytes:
+    """One protobuf field: an int as a varint, a float as fixed32, bytes or str length-delimited."""
+    if isinstance(value, float):
+        return _varint(num << 3 | 5) + struct.pack("<f", value)
+    if isinstance(value, int):
+        return _varint(num << 3) + _varint(value)
+    value = value.encode("utf-8") if isinstance(value, str) else value
+    return _varint(num << 3 | 2) + _varint(len(value)) + value
+
+
+STORY_WORDS = ("a the fluffy orange cat walks through sunlit kitchen looking for food and then jumps onto wooden table "
+               "while rain falls outside window camera slowly pans across room toward dog sleeping near warm fireplace "
+               "light flickers soft shadows move wall bright morning sky over quiet city street people hurry past shop "
+               "with red door old man smiles waves child runs chasing blue ball green park trees sway wind").split()
+
+
+def fabricated_spiece(path: str, size: int = 32000, seed: int = 0) -> list:
+    """A SentencePiece unigram ``spiece.model`` of ``size`` pieces, written in
+    protobuf's wire format (no protobuf here): <pad>, </s>, <unk> (T5's ids
+    0, 1, 2), every printable ASCII character with and without the ``▁``
+    prefix, the storyboard words, then random letter strings, scores drawn
+    from ``seed``; the trainer's unk/eos/pad ids and an nmt_nfkc normalizer
+    with T5's flags. Returns the pieces [(piece, score, type)]."""
+    import random
+
+    rng = random.Random(seed)
+    f32 = lambda x: struct.unpack("<f", struct.pack("<f", x))[0]
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2)]
+    seen = {p for p, _, _ in pieces}
+
+    def add(p):
+        if p not in seen and len(pieces) < size:
+            seen.add(p)
+            pieces.append((p, f32(-rng.uniform(1.0, 14.0)), 1))
+
+    for c in ["▁"] + [chr(i) for i in range(33, 127)]:
+        add(c)
+        add("▁" + c)
+    for w in STORY_WORDS:
+        add("▁" + w)
+        add(w)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    while len(pieces) < size:
+        w = "".join(rng.choice(letters) for _ in range(rng.randint(2, 8)))
+        add(w if rng.random() < 0.4 else "▁" + w)
+    trainer = _pb(3, 1) + _pb(40, 2) + _pb(41, -1) + _pb(42, 1) + _pb(43, 0)
+    normalizer = _pb(1, "nmt_nfkc") + _pb(3, 1) + _pb(4, 1) + _pb(5, 1)
+    body = b"".join(_pb(1, _pb(1, p) + _pb(2, sc) + _pb(3, t)) for p, sc, t in pieces)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(body + _pb(2, trainer) + _pb(3, normalizer))
+    return pieces
+
+
+def fabricated_storyboard(path: str, scenes: int, seed: int) -> list:
+    """A ``scenes``-scene storyboard JSON (one video) of seeded sentences of
+    STORY_WORDS, 150-260 words a scene, with a negative prompt. Returns the
+    scene texts as the sampler's loader gives them (scene tokens inserted)."""
+    import random
+
+    from ttt_video_dit_torch.models.dit.sampler import load_storyboards
+
+    rng = random.Random(seed)
+    video = [{"text": " ".join(rng.choice(STORY_WORDS) for _ in range(rng.randint(150, 260))).capitalize() + ".",
+              "neg_text": "blurry, low quality, distorted"} for _ in range(scenes)]
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump([video], f)
+    return load_storyboards(path)[0][0]
 
 
 def _fabricated_t5_dir(path: str, layers: int, seed: int):
@@ -830,25 +1008,56 @@ def phase_t5(device) -> None:
         if out.shape != want or out.dtype != torch.float32 or not torch.isfinite(out).all():
             raise AssertionError(f"T5-XXL output {tuple(out.shape)} {out.dtype} not finite float32 {want}")
     peak = torch.cuda.max_memory_allocated(device)
-    del enc, outs
-    torch.cuda.empty_cache()
     c = T5_XXL
     log(f"phase 7 T5-XXL d{c['d_model']} x {c['num_heads']} heads x {c['num_layers']} layers, d_ff {c['d_ff']} "
         f"({params / 1e9:.3f} B parameters, bf16, vocab "
         f"{T5_SCENE_VOCAB}) on [2, 498] ids: {ms[0]:.2f} / {ms[1]:.2f} ms per encode (positive / negative, after a "
         f"warm-up), peak {peak / 2**30:.2f} GiB, outputs finite ({CARD})")
 
-    path = os.path.join(SERVE_DIR, "t5")
+    # A 21-scene storyboard from text: the port's tokenizer on a fabricated 32,000-piece spiece.model (the
+    # card's machine has no transformers or protobuf), then the XXL encoder on the ids.
+    from ttt_video_dit_torch.models import tokenizer
+
+    xxl_dir = os.path.join(SERVE_DIR, "t5xxl")  # the tokenizer and config.json of the entries' T5 (phases 11-12)
+    pieces = fabricated_spiece(os.path.join(xxl_dir, "spiece.model"), seed=16)
+    with open(os.path.join(xxl_dir, "config.json"), "w", encoding="utf-8") as f:
+        json.dump({**T5_XXL, "model_type": "t5"}, f)
+    texts = fabricated_storyboard(os.path.join(SERVE_DIR, "storyboard_63s.json"), scenes=21, seed=17)
+    tok = tokenizer.load(xxl_dir)
+    tok.add_special_tokens(["<end_scene>", "<start_scene>"])
+    t = time.perf_counter()
+    ids = tok(texts, 458)
+    tok_ms = (time.perf_counter() - t) * 1e3
+    lengths = [int((row != 0).sum()) for row in ids]
+    if len(tok) != len(pieces) + 102 or not (ids[:, 0] != 0).all() or (ids == 2).any():
+        raise AssertionError(f"tokenizer: {len(tok)} ids (expected {len(pieces) + 102}), lengths {lengths}, "
+                             f"{int((ids == 2).sum())} <unk>")
+    ids = torch.from_numpy(ids).to(device)
+    with torch.inference_mode():
+        enc(ids)  # warm-up at this shape
+        emb, enc_ms = timed(lambda: enc(ids))
+    if emb.shape != (21, 458, c["d_model"]) or not torch.isfinite(emb).all():
+        raise AssertionError(f"T5-XXL on the storyboard: {tuple(emb.shape)} not finite [21, 458, {c['d_model']}]")
+    del enc, outs, emb
+    torch.cuda.empty_cache()
+    log(f"  21-scene storyboard: tokenised in {tok_ms:.2f} ms ({len(tok)} ids, tokens a scene {min(lengths)}-"
+        f"{max(lengths)} of 458, none unknown), T5-XXL encode of [21, 458] {enc_ms:.2f} ms ({CARD})")
+
+    path = os.path.join(SERVE_DIR, "t5")  # 2 layers, with the tokenizer: phase 8's T5
     _fabricated_t5_dir(path, layers=2, seed=10)
-    ids = torch.randint(0, T5_XXL["vocab_size"], (2, 498), generator=torch.Generator().manual_seed(11))
-    got = load_text_encoder(path, "bfloat16", device).encode_ids(ids).cpu()
-    want = load_text_encoder(path, "float32", "cpu").encode_ids(ids)
+    shutil.copy(os.path.join(xxl_dir, "spiece.model"), path)
+    got_enc = load_text_encoder(path, "bfloat16", device)
+    got = got_enc.encode(texts[:2], 458).cpu()
+    want_enc = load_text_encoder(path, "float32", "cpu")
+    want = want_enc.encode(texts[:2], 458)
+    if not torch.equal(torch.from_numpy(got_enc.tokenizer(texts[:2], 458)), torch.from_numpy(ids[:2].cpu().numpy())):
+        raise AssertionError("T5TextEncoder.encode tokenised the storyboard differently from the tokenizer alone")
     rel = float((got - want).norm() / want.norm())
     if not torch.isfinite(got).all() or not rel <= T5_REL_L2_TOL:
         raise AssertionError(f"T5 loader, 2 layers: card bf16 vs CPU float32 relative L2 {rel:.4g} > {T5_REL_L2_TOL}")
-    log(f"  T5 loader end to end (config.json + model.safetensors, 2 layers): card bf16 vs CPU float32 relative L2 "
-        f"{rel:.4g} (tol {T5_REL_L2_TOL}), max_abs_err {float((got - want).abs().max()):.4g}: "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  T5 loader end to end from text (config.json + model.safetensors + spiece.model, 2 layers, 2 scenes): card "
+        f"bf16 vs CPU float32 relative L2 {rel:.4g} (tol {T5_REL_L2_TOL}), max_abs_err "
+        f"{float((got - want).abs().max()):.4g}: {time.perf_counter() - t0:.1f} s")
 
 
 def _fabricated_hf_shards(path: str, cfg, seed: int) -> int:
@@ -921,8 +1130,9 @@ def phase_serve(device) -> dict[str, int]:
     log(f"  serving files: {n_hf} HF tensors in 2 shards converted by the from_hf CLI, VAE 1.0 decoder checkpoint: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    job = sample.parse_args(flags + ["--checkpoint.init_state_dir", init_dir, "--eval.vae_checkpoint_path", vae_path,
-                                     "--eval.output_dir", os.path.join(SERVE_DIR, "out")])
+    t5 = ["--eval.t5_model_dir", os.path.join(SERVE_DIR, "t5")]  # phase 7's 2-layer T5 with the tokenizer
+    job = sample.parse_args(flags + t5 + ["--checkpoint.init_state_dir", init_dir, "--eval.vae_checkpoint_path",
+                                          vae_path, "--eval.output_dir", os.path.join(SERVE_DIR, "out")])
     reset_counts()
     summary = sample.main(job)
     counts = read_counts()
@@ -948,7 +1158,7 @@ def phase_serve(device) -> dict[str, int]:
         model, _ = from_hf.converted_model(hf_dir, config, seed=job.job.seed)
         return cast_matmul_weights_(model.to(device), compute_dtype(config)).eval()
 
-    in_memory_job = sample.parse_args(flags + ["--eval.output_dir", os.path.join(SERVE_DIR, "in_memory")])
+    in_memory_job = sample.parse_args(flags + t5 + ["--eval.output_dir", os.path.join(SERVE_DIR, "in_memory")])
     build = sample.build_model
     sample.build_model = build_in_memory
     try:
@@ -1110,6 +1320,199 @@ def phase_resume(device) -> dict[str, int]:
     return counts
 
 
+# The long-context shapes (phases 10-12). 63 s sampling: 21 scenes of 458 text tokens and 253 latent frames of
+# 30 x 45 tokens, L = 351,168, NC = 21,948 mini-batches of 16, 21 attention windows of S = 458 + 13 x 1,350 =
+# 18,008 tokens a CFG sample. 9 s: 3 scenes of 502 and 37 frames, L = 51,456, 3 windows of S = 18,052.
+SEQ_63S, S_63S, S_9S = 351168, 18008, 18052
+# Mini-batches of the 63 s scan's tail held to the plain scan: 4,096 tokens, of which batch row 1's last 3,286
+# lie past element 2^31 of the [2, L, 3072] tensors.
+TAIL = 256
+INT31 = 2**31
+
+
+def _long_meta(variant):
+    from ttt_video_dit_torch import sample
+    from ttt_video_dit_torch.models.dit.dit import sequence_metadata
+
+    cfg = sample.model_config(sample.parse_args(long_sample_args(variant, "63s")))
+    return cfg, sequence_metadata(cfg, num_frames=253, latent_height=60, latent_width=90, num_scenes=21,
+                                  text_length=458)
+
+
+def _scan_slice(a: dict, b: int, heads: slice, mbs: slice) -> dict:
+    """The inputs of batch row ``b``, ``heads`` and mini-batches ``mbs`` of a TTT scan, contiguous."""
+    cols = slice(heads.start * 64, heads.stop * 64)
+    out = {n: a[n][b : b + 1, mbs, :, cols].contiguous() for n in ("XQ", "XK", "XV")}
+    out["gate"] = a["gate"][b : b + 1, heads, mbs].contiguous()
+    out.update({n: a[n][mbs].contiguous() for n in ("rope_cos", "rope_sin")})
+    out.update({n: v[heads].contiguous() for n, v in a.items() if n not in out})
+    return out
+
+
+def check_long_scan(variant, gen, device, H: int = 48) -> None:
+    """K1 or K5 on the full 63 s tensors [2, 351,168, 48 x 64] (2,157,576,192 elements), with the 63 s rope tables.
+    The gate is -1e4 (eta 0: the state stays the initial one) but on the last TAIL mini-batches, so the kernel's
+    output there equals the plain scan run from the initial state on the tail alone: held on batch row 1's last
+    two heads, whose output offsets pass 2^31, and, at eta 0, on batch row 0's first two heads' first 64
+    mini-batches."""
+    mod, name = _ttt_module(variant), f"{variant}_forward"
+    kernel, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+    cfg, meta = _long_meta(variant)
+    CS, NC = cfg.mini_batch_size, SEQ_63S // cfg.mini_batch_size
+    eta = cfg.ttt_base_lr / 64 / CS
+    a = _ttt_inputs(1, H, 1, gen, device, None, CS=CS, variant=variant)  # the state and LN affine
+    from ttt_video_dit_torch.models.ttt.layer import scan_rope_tables
+
+    a["rope_cos"], a["rope_sin"] = scan_rope_tables(meta, 64, cfg.rope_theta, CS, device)
+    a.update({n: torch.randn(2, NC, CS, H * 64, generator=gen, device=device, dtype=torch.bfloat16)
+              for n in ("XQ", "XK", "XV")})
+    a["gate"] = torch.randn(2, H, NC, CS, generator=gen, device=device)
+    a["gate"][:, :, : NC - TAIL] = -1e4
+    out = kernel(**a, eta_scale=eta)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: kernel(**a, eta_scale=eta), 2)
+    last = out.numel() - 1
+    checks = ((f"batch row 1, heads {H - 2}-{H - 1}, the tail", 1, slice(H - 2, H), slice(NC - TAIL, NC)),
+              ("batch row 0, heads 0-1, mini-batches 0-63 at eta 0", 0, slice(0, 2), slice(0, 64)))
+    errs = []
+    for what, b, heads, mbs in checks:
+        want = plain(**_scan_slice(a, b, heads, mbs), eta_scale=eta)
+        got = out[b : b + 1, mbs, :, heads.start * 64 : heads.stop * 64]
+        errs.append(f"{what} max_abs_err {compare(name, got, want, what):.4g}")
+    first = ((NC + NC - TAIL) * CS) * H * 64 + (H - 2) * 64  # batch row 1's tail, head H - 2: its first element
+    if last < INT31 or first + (TAIL * CS - 1) * H * 64 < INT31:
+        raise AssertionError(f"{name}: the checked rows do not pass 2^31 ({first}, {last})")
+    bound_ms, bound_by = bound(_ttt_bytes(variant, 2, H, NC, CS), 2 * H * NC * _ttt_flops_per_step(variant, CS))
+    log(f"  {name} [2, {SEQ_63S}, {H} x 64] ({out.numel():,} elements, the last at offset {last:,} > 2^31), "
+        f"NC {NC}, eta_scale {eta:.4g} on the last {TAIL} mini-batches: " + "; ".join(errs)
+        + f" (tol {KERNEL_TOL[name]}); kernel {ms:.3f} ms a scan, bound {bound_ms:.3f} ms ({bound_by})")
+    del a, out
+
+
+def phase_long_kernels(device) -> None:
+    """K1, K5 and K3 on tensors of more than 2^31 elements (the 63 s shapes), K3 at the ragged 63 s and 9 s window
+    lengths, K3-lse and K4, K1-train and K2, K5-train and K6 at the 9 s training shapes, each against its plain
+    version."""
+    from ttt_video_dit_torch.ops import attention
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device).manual_seed(20)
+    for variant in VARIANTS:
+        check_long_scan(variant, gen, device)
+        torch.cuda.empty_cache()
+    # K3 at 63 s ([42, 18,008, 48, 64]: window 41 starts at element 2,268,008,448) on windows 0 and 41, and at 9 s
+    # ([6, 18,052, 48, 64]) on every window; neither S is a multiple of the 128-row KV block.
+    for shape, windows in (((42, S_63S, 48, 64), (0, 41)), ((6, S_9S, 48, 64), range(6))):
+        q, k, v = (torch.randn(*shape, generator=gen, device=device, dtype=torch.bfloat16).mul_(2.0)
+                   for _ in range(3))
+        out = attention.attention(q, k, v)
+        errs = [compare("attention_forward", out[w : w + 1], attention.attention_plain(q[w : w + 1], k[w : w + 1],
+                                                                                      v[w : w + 1]), f"window {w}")
+                for w in windows]
+        ms = cuda_ms(lambda: attention.attention(q, k, v), 2)
+        BC, S = shape[:2]
+        bound_ms, bound_by = bound(4 * q.numel() * 2, 4 * BC * 48 * S * S * 64)
+        log(f"  attention_forward {list(shape)} ({q.numel():,} elements a tensor; window {windows[-1]} starts at "
+            f"{windows[-1] * shape[1] * 48 * 64:,}): windows {list(windows)} max_abs_err {max(errs):.4g} "
+            f"(tol {KERNEL_TOL['attention_forward']}); kernel {ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    r = check_lse_backward((3, S_9S, 48, 64), gen, device)
+    q, k, v, out, lse, do = r["args"]
+    n = q.numel()
+    fwd_bound = bound(4 * n * 2 + 3 * 48 * S_9S * 4, 4 * 3 * 48 * S_9S * S_9S * 64)
+    bwd_bound = bound(8 * n * 2 + 3 * 48 * S_9S * 4, 10 * 3 * 48 * S_9S * S_9S * 64)
+    log(f"    kernels at [3, {S_9S}, 48, 64]: attention_forward_lse "
+        f"{cuda_ms(lambda: attention.attention_with_lse(q, k, v), 2):.3f} ms (bound {fwd_bound[0]:.3f} ms, "
+        f"{fwd_bound[1]}), attention_backward {cuda_ms(lambda: attention.attention_backward(q, k, v, out, lse, do), 2):.3f}"
+        f" ms (bound {bwd_bound[0]:.3f} ms, {bwd_bound[1]})")
+    del r, q, k, v, out, lse, do
+    torch.cuda.empty_cache()
+    for variant in VARIANTS:
+        check_long_training(variant, gen, device)
+        torch.cuda.empty_cache()
+    log(f"phase 10 long-context kernels vs plain ({CARD}): {time.perf_counter() - t0:.1f} s")
+
+
+class _Tee:
+    """A stdout that also keeps what is written to it."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_long_sample(device, variant: str, length: str, input_file: str, vae_path: str | None = None) -> dict:
+    """The sampling entry on the variant's eval TOML of ``length`` at its 42 layers, 2 denoise steps, random DiT
+    weights, from the storyboard's text: the tokenizer of phase 7's directory and the T5-XXL encoder with phase 7's
+    seeded weights (its loader draws them in place of reading a 9.5 GB file); with ``vae_path``, the VAE decode.
+    Launch counts from exactly that run; finite latents of the TOML's shape; the [parallelism] warning exactly
+    when the TOML asks for more than one card; s/eval and each stage's peak."""
+    import numpy as np
+
+    from ttt_video_dit_torch import sample
+    from ttt_video_dit_torch.models import t5
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    flags = long_sample_args(variant, length) + [
+        "--eval.input_file", input_file, "--eval.t5_model_dir", os.path.join(SERVE_DIR, "t5xxl"),
+        "--eval.output_dir", os.path.join(SERVE_DIR, f"out_{variant}_{length}")]
+    job = sample.parse_args(flags + (["--eval.vae_checkpoint_path", vae_path] if vae_path else []))
+    load = t5.T5Encoder.load_hf_weights
+    t5.T5Encoder.load_hf_weights = lambda enc, _dir: enc.init_weights_(
+        torch.Generator(enc.shared.weight.device).manual_seed(7))
+    stdout, sys.stdout = sys.stdout, _Tee(sys.stdout)
+    try:
+        reset_counts()
+        summary = sample.main(job)
+        counts = read_counts()
+    finally:
+        printed, sys.stdout = "".join(sys.stdout.text), stdout
+        t5.T5Encoder.load_hf_weights = load
+    cfg, ev, evals = summary["model_config"], job.eval, len(summary["eval_seconds"])
+    expect = {f"{variant}_forward": 2 * cfg.num_layers * evals, "attention_forward": cfg.num_layers * evals}
+    if counts != {**dict.fromkeys(counts, 0), **expect}:
+        raise AssertionError(f"{length} sampling: kernel launches {counts}, expected {expect}")
+    par = job.parallelism
+    wants_more = max(par.dp_replicate, par.dp_sharding, par.tp_sharding) > 1
+    if wants_more != ("WARNING: [parallelism] asks for" in printed):
+        raise AssertionError(f"{length} sampling: [parallelism] {par.dp_replicate}/{par.dp_sharding}/"
+                             f"{par.tp_sharding}, warning printed: {not wants_more}")
+    T = ev.sampling_num_frames
+    latents = np.load(summary["latents"][0])
+    if latents.shape != (T, 16, ev.image_height // 8, ev.image_width // 8) or not np.isfinite(latents).all():
+        raise AssertionError(f"{length} latents {latents.shape} not finite of shape {(T, 16, 60, 90)}")
+    decoded = ""
+    if vae_path:
+        frames = np.load(summary["frames"][0])["frames"]
+        want = (4 * T - 3, ev.image_height, ev.image_width, 3)
+        if frames.shape != want or frames.dtype != np.uint8 or frames.min() == frames.max():
+            raise AssertionError(f"frames {frames.shape} {frames.dtype} (min {frames.min()}, max {frames.max()}): "
+                                 f"expected non-constant {want} uint8")
+        decoded = f", VAE decode to {list(want)} uint8 {summary['vae_seconds'][0]:.2f} s"
+    steady = summary["eval_seconds"][1:] or summary["eval_seconds"]
+    peaks = summary["peak_memory_bytes"]
+    log(f"phase {12 if length == '63s' else 11} {variant} {length} sample from {summary['windows']} scenes of text: "
+        f"L {summary['seq_len']}, {summary['windows']} windows, d{cfg.model_dim} x {cfg.num_heads} heads "
+        f"x {cfg.num_layers} layers, {evals} evals: {sum(steady) / len(steady):.3f} s/eval after the first "
+        f"({summary['eval_seconds'][0]:.3f} s first), T5 stage {summary['t5_seconds']:.2f} s{decoded}, peak GiB by "
+        f"stage {{{', '.join(f'{k}: {v / 2**30:.2f}' for k, v in peaks.items())}}}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, [parallelism] warning {'printed' if wants_more else 'not asked for'}"
+        f", latents {list(latents.shape)} finite, std {float(latents.std()):.4f} ({CARD}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    del summary
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1139,13 +1542,25 @@ def main() -> int:
     try:
         phase_t5(device)
         counts.update(phase_serve(device))
+        log_clocks("after serving")
+        try:
+            counts.update(phase_resume(device))
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        phase_long_kernels(device)
+        log_clocks("after the long-context kernels")
+        board_9s = os.path.join(SERVE_DIR, "storyboard_9s.json")
+        fabricated_storyboard(board_9s, scenes=3, seed=18)
+        for variant in VARIANTS:
+            phase_dit(device, variant, "9s")
+            vae = os.path.join(SERVE_DIR, "vae.pt") if variant == "ttt_mlp" else None
+            counts.update(phase_long_sample(device, variant, "9s", board_9s, vae))
+            counts.update(phase_train(device, variant, length="9s"))
+            log_clocks(f"after {variant} 9 s")
+        counts.update(phase_long_sample(device, "ttt_mlp", "63s", os.path.join(SERVE_DIR, "storyboard_63s.json")))
+        log_clocks("after 63 s sampling")
     finally:
         shutil.rmtree(SERVE_DIR, ignore_errors=True)
-    log_clocks("after serving")
-    try:
-        counts.update(phase_resume(device))
-    finally:
-        shutil.rmtree(DATA_DIR, ignore_errors=True)
     for r in records:
         r["launches"] = counts[r["name"]]
         if not r["launches"]:

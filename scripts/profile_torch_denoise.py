@@ -1,8 +1,9 @@
 """Where one denoise eval of the PyTorch port spends its time on a CUDA card.
 
 Builds the 3 s sampling model (configs/eval/ttt-mlp/3s.toml, or the TOML
-given with --job.config_file, e.g. configs/eval/ttt-linear/3s.toml; random
-weights), runs one warm-up CFG-doubled denoise eval, then one eval under
+given with --job.config_file, e.g. configs/eval/ttt-linear/3s.toml or a 9 s
+or 63 s one: the TOML's frame count and scene count, random text of its
+txt_maxlen; random weights), runs one warm-up CFG-doubled denoise eval, then one eval under
 torch.profiler, and prints the eval's wall time, the summed device-kernel
 time (kernels run on one stream, so the sum is the busy time), the idle
 share, the time per kernel family and the top kernels.
@@ -49,9 +50,11 @@ def main(argv) -> None:
     device = torch.device("cuda", 0)
     model = build_model(cfg, device)
     gen = torch.Generator(device).manual_seed(0)
-    text = torch.randn(1, 1, job.eval.txt_maxlen, cfg.text_dim, generator=gen, device=device)
+    ev = job.eval
+    text = torch.randn(1, cfg.num_chunks, ev.txt_maxlen, cfg.text_dim, generator=gen, device=device)
     denoise = S.make_cfg_denoise_fn(model, text, torch.zeros_like(text))
-    x = torch.randn(1, 13, 16, 60, 90, generator=gen, device=device)
+    x = torch.randn(1, ev.sampling_num_frames, 16, ev.image_height // 8, ev.image_width // 8, generator=gen,
+                    device=device)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.inference_mode():
@@ -70,7 +73,8 @@ def main(argv) -> None:
             k[0] += 1
             k[1] += (evt.time_range.end - evt.time_range.start) / 1e6
     busy = sum(t for _, t in kernels.values())
-    print(f"{cfg.ssm_layer} d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, CFG batch 2: "
+    print(f"{cfg.ssm_layer} d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, "
+          f"{ev.sampling_num_frames} frames x {cfg.num_chunks} scenes of {ev.txt_maxlen} text tokens, CFG batch 2: "
           f"eval wall {wall:.4f} s, device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}")
     fams = {}
     for name, (n, t) in kernels.items():

@@ -11,7 +11,12 @@ algorithms per shape; still float32), and with cuDNN's TF32 allowed (the
 port decodes with it off), and prints how far those frames lie from the
 float32 ones.
 
-    python scripts/profile_torch_vae.py
+    python scripts/profile_torch_vae.py [--frames N]
+
+With ``--frames N`` (latent frames; 253 for a 63 s video, 4N - 3 frames out)
+the decode of N frames is timed once by the host clock after a warm-up on 13
+frames (the decoder's per-step shapes do not depend on N), with its peak
+memory, and nothing else is run.
 """
 
 from __future__ import annotations
@@ -41,7 +46,24 @@ def family(name: str) -> str:
     return "elementwise / reduction"
 
 
+def time_long_decode(vae, frames: int, device, card: str) -> None:
+    """One decode of ``frames`` seeded latent frames, after a warm-up on 13: seconds and peak memory."""
+    gen = torch.Generator(device).manual_seed(1)
+    vae.decode(torch.randn(13, 16, 60, 90, generator=gen, device=device))
+    latents = torch.randn(frames, 16, 60, 90, generator=gen, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out = vae.decode(latents)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"VAE 1.0 decode [{frames}, 16, 60, 90] -> {list(out.shape)}, float32, TF32 off: wall {wall:.4f} s, "
+          f"{wall / out.shape[0] * 1e3:.2f} ms a frame, peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB, "
+          f"finite {bool(torch.isfinite(out).all())} ({card})")
+
+
 def main() -> None:
+    frames = int(sys.argv[sys.argv.index("--frames") + 1]) if "--frames" in sys.argv else None
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     from ttt_video_dit_torch.config.model_config import VaeModelConfig
@@ -54,6 +76,8 @@ def main() -> None:
     torch.manual_seed(0)
     with torch.device(device):
         vae = autoencoder.VideoAutoencoder(None, VaeModelConfig.get_decoder_config()).eval()
+    if frames is not None:
+        return time_long_decode(vae, frames, device, card)
     latents = torch.randn(13, 16, 60, 90, generator=torch.Generator(device).manual_seed(1), device=device)
 
     def decode():

@@ -119,6 +119,45 @@ def test_attention_kernel_matches_plain(cuda, shape):
     _close(got, attention.attention_plain(q, k, v))
 
 
+def test_attention_kernel_at_the_63s_windows(cuda):
+    """K3 at the 63 s eval's [42 windows, S = 18,008, 48, 64] (2,323,464,192
+    elements a tensor; S is no multiple of the 128-row kv step): windows 0
+    and 41 (which starts past element 2^31) against the plain version."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    shape = (42, 18008, 48, 64)
+    q, k, v = (torch.randn(*shape, generator=gen, device=cuda, dtype=torch.bfloat16).mul_(2) for _ in range(3))
+    got = attention.attention(q, k, v)
+    assert 41 * 18008 * 48 * 64 > 2**31
+    for w in (0, 41):
+        _close(got[w : w + 1], attention.attention_plain(q[w : w + 1], k[w : w + 1], v[w : w + 1]))
+
+
+def test_ttt_kernel_past_2_31_elements(cuda):
+    """K1 on the 63 s eval's [2, 351,168 tokens, 48 x 64] q/k/v (2,157,576,192
+    elements). The gate is -1e4 (eta 0: the state stays the initial one) but
+    on the last 256 mini-batches, so batch row 1's last two heads there,
+    whose last 3,286 rows lie past element 2^31, equal the plain scan run on
+    their slice from the initial state."""
+    NC, H, tail = 21948, 48, 256
+    args = _ttt_inputs(cuda, 1, H, 1)
+    gen = torch.Generator(cuda).manual_seed(3)
+    for n in ("XQ", "XK", "XV"):
+        args[n] = torch.randn(2, NC, 16, H * 64, generator=gen, device=cuda, dtype=torch.bfloat16)
+    args["gate"] = torch.randn(2, H, NC, 16, generator=gen, device=cuda)
+    args["gate"][:, :, : NC - tail] = -1e4
+    angles = torch.rand(NC, 16, 32, generator=gen, device=cuda) * 6.3
+    args["rope_cos"], args["rope_sin"] = (t.repeat_interleave(2, -1).contiguous() for t in (angles.cos(), angles.sin()))
+    got = ttt_mlp_kernel.ttt_mlp_forward(**args, eta_scale=0.1 / 64 / 16)
+    heads, mbs = slice(H - 2, H), slice(NC - tail, NC)
+    part = {n: args[n][1:, mbs, :, (H - 2) * 64:].contiguous() for n in ("XQ", "XK", "XV")}
+    part["gate"] = args["gate"][1:, heads, mbs].contiguous()
+    part.update({n: args[n][mbs].contiguous() for n in ("rope_cos", "rope_sin")})
+    part.update({n: v[heads].contiguous() for n, v in args.items() if n not in part})
+    first = ((2 * NC - tail) * 16 * H + H - 2) * 64  # batch row 1's tail, head H - 2: its first element
+    assert first < 2**31 < first + (tail * 16 - 1) * H * 64  # its last 3,286 rows lie past element 2^31
+    _close(got[1:, mbs, :, (H - 2) * 64:], ttt_mlp_kernel.ttt_mlp_forward_plain(**part, eta_scale=0.1 / 64 / 16))
+
+
 def _scaled(got, want, tol, rel_l2=1e-2):
     """A float32 training-kernel output: relative L2 error within ``rel_l2``
     and the largest error within ``tol`` of the output's scale."""

@@ -14,7 +14,6 @@ the same latents (its own loader reading the same checkpoint) within
 after the uint8 mapping.
 """
 
-import json
 import os
 import subprocess
 import sys
@@ -29,6 +28,7 @@ pytest.importorskip("transformers")
 from ttt_video_dit_torch import sample  # noqa: E402
 from ttt_video_dit_torch.config.model_config import VaeModelConfig  # noqa: E402
 from ttt_video_dit_torch.models.vae.autoencoder import VideoAutoencoder  # noqa: E402
+from tests.test_torch_t5 import write_unigram_tokenizer  # noqa: E402
 from ttt_video_dit_torch.utils import safetensors  # noqa: E402
 
 torch.set_num_threads(1)
@@ -41,19 +41,12 @@ VAE = dict(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1, z_channels=16)
 
 
 def _t5_dir(root):
-    from tokenizers import Tokenizer
-    from tokenizers.models import WordLevel
-    from tokenizers.pre_tokenizers import Whitespace
     from transformers import T5Config, T5EncoderModel
 
     d = root / "t5"
     d.mkdir()
     words = ["<pad>", "</s>", "<unk>", "a", "cat", "walks", "through", "kitchen", "blurry", "low", "quality"]
-    tok = Tokenizer(WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
-    tok.pre_tokenizer = Whitespace()
-    tok.save(str(d / "tokenizer.json"))
-    (d / "tokenizer_config.json").write_text(json.dumps({
-        "tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>"}))
+    write_unigram_tokenizer(d, words)
     torch.manual_seed(0)
     T5EncoderModel(T5Config(vocab_size=len(words), d_model=4096, d_kv=8, d_ff=16, num_layers=1, num_heads=2,
                             dropout_rate=0.0, feed_forward_proj="gated-gelu")).save_pretrained(d)

@@ -1,7 +1,8 @@
 """The port's T5 encoder (ttt_video_dit_torch/models/t5.py) against HF's
 torch ``T5EncoderModel`` and the JAX package's ``FlaxT5TextEncoder``, on a
-tiny random T5 saved to disk with a WordLevel fast tokenizer (as
-tests/test_t5.py builds it), for both feed-forwards ("gated-gelu", "relu").
+tiny random T5 saved to disk with a Unigram fast tokenizer (the port reads
+its ``tokenizer.json``, the JAX package ``transformers``' reading of it), for
+both feed-forwards ("gated-gelu", "relu").
 
 Tolerance, float32: relative L2 error <= 1e-5 and |port - ref| <= 1e-5 +
 1e-5 |ref| elementwise (the same products and reductions in another order).
@@ -28,19 +29,29 @@ REL_L2 = 1e-5
 FEED_FORWARDS = ["gated-gelu", "relu"]
 
 
+def write_unigram_tokenizer(d, words):
+    """A T5-style Unigram ``tokenizer.json`` over ``words`` (the control pieces
+    <pad>, </s>, <unk> at ids 0-2, then one ``▁word`` piece a word; Metaspace
+    prefix, </s> appended, no extra ids) and a ``tokenizer_config.json``: read
+    by the port's tokenizer and by ``transformers.AutoTokenizer`` alike."""
+    from tokenizers import AddedToken, Tokenizer, models, pre_tokenizers, processors
+
+    vocab = [(w, 0.0) if w.startswith("<") else ("▁" + w, -float(i)) for i, w in enumerate(words)]
+    tok = Tokenizer(models.Unigram(vocab, unk_id=2))
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="always")
+    tok.post_processor = processors.TemplateProcessing(single=["$A", "</s>"], special_tokens=[("</s>", 1)])
+    tok.add_special_tokens([AddedToken(t, normalized=False, special=True) for t in words[:3]])
+    tok.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>"}))
+
+
 def _make_tiny_t5_dir(root, feed_forward_proj, **save_kw):
-    from tokenizers import Tokenizer
-    from tokenizers.models import WordLevel
-    from tokenizers.pre_tokenizers import Whitespace
     from transformers import T5Config, T5EncoderModel
 
     d = root / f"tiny-t5-{feed_forward_proj}"
     d.mkdir()
-    tok = Tokenizer(WordLevel({w: i for i, w in enumerate(WORDS)}, unk_token="<unk>"))
-    tok.pre_tokenizer = Whitespace()
-    tok.save(str(d / "tokenizer.json"))
-    (d / "tokenizer_config.json").write_text(json.dumps({
-        "tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>", "eos_token": "</s>", "unk_token": "<unk>"}))
+    write_unigram_tokenizer(d, WORDS)
     torch.manual_seed(0)
     cfg = T5Config(vocab_size=len(WORDS), d_model=32, d_kv=8, d_ff=64, num_layers=3, num_heads=4, dropout_rate=0.0,
                    feed_forward_proj=feed_forward_proj, relative_attention_num_buckets=8,
@@ -94,7 +105,7 @@ def test_encode_ids_matches_hf_torch_and_flax(tmp_path, rng, ffn):
 def test_encode_with_scene_tokens_matches_hf_torch_and_flax(tmp_path, ffn):
     """Prompts through the tokenizer (scene tokens, a None prompt, padding and
     truncation), with the port's two fresh rows copied into the others."""
-    from ttt_video_dit_tpu.models.t5 import FlaxT5TextEncoder, _tokenize
+    from ttt_video_dit_tpu.models.t5 import FlaxT5TextEncoder, _load_tokenizer, _tokenize
 
     d = _make_tiny_t5_dir(tmp_path, ffn)
     enc = port_t5.load_text_encoder(str(d))
@@ -103,7 +114,8 @@ def test_encode_with_scene_tokens_matches_hf_torch_and_flax(tmp_path, ffn):
     got = enc.encode(prompts, maxlen).numpy()
     rows = enc.model.shared.weight.detach().numpy()
     assert rows.shape == (len(WORDS) + 2, 32)
-    ids = _tokenize(enc.tokenizer, prompts, maxlen)
+    ids = enc.tokenizer(prompts, maxlen)
+    np.testing.assert_array_equal(ids, _tokenize(_load_tokenizer(str(d)), prompts, maxlen))
     assert ids.max() == len(WORDS) + 1 and (ids == len(WORDS)).any()  # both scene rows used
     assert np.isfinite(got).all() and got.shape == (3, maxlen, 32)
 
@@ -180,9 +192,15 @@ def test_loads_shards_and_pytorch_model_bin(tmp_path, rng, layout):
 
 
 def test_encode_without_transformers_names_it(tmp_path, monkeypatch):
+    """With ``transformers`` blocked, ``encode`` tokenises with the port's own
+    tokenizer; a directory with neither a Unigram tokenizer.json nor a
+    spiece.model is refused, naming both."""
     d = _make_tiny_t5_dir(tmp_path, "relu")
     enc = port_t5.load_text_encoder(str(d))
     monkeypatch.setitem(sys.modules, "transformers", None)
     assert enc.encode_ids(np.zeros((1, 4), np.int64)).shape == (1, 4, 32)
-    with pytest.raises(ImportError, match="transformers"):
-        enc.encode(["a cat"], 4)
+    ids = np.array([[3, 4, 1, 0]])  # ▁a ▁cat </s> <pad>
+    assert torch.equal(enc.encode(["a cat"], 4), enc.encode_ids(ids))
+    (d / "tokenizer.json").unlink()
+    with pytest.raises(FileNotFoundError, match="tokenizer.json and no spiece.model"):
+        port_t5.load_text_encoder(str(d)).encode(["a cat"], 4)

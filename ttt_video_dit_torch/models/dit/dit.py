@@ -111,8 +111,38 @@ class PatchEmbedding(nn.Module):
         return text, vid
 
 
+# The transient bytes one chunk of row-wise work may hold: the MLP's hidden
+# activations and GELU terms (4 x 4D values a token) and the attention's q/k
+# LayerNorm + rope terms in float32 (~12 bytes a value of a window). Tokens and
+# windows are independent rows, so chunking them changes no value beyond the
+# rounding of matmuls of other row counts; it bounds what a long sequence holds
+# at once (63 s: 351,168 tokens in 42 windows, where the eager GELU alone would
+# hold ~70 GB; scripts/profile_torch_long_context.py measures each site). The
+# 3 s and 9 s shapes (the MLP at L = 18,048, CFG batch 2: ~3.3 GiB; 6 windows
+# of 18,052: ~3.7 GiB) run in one chunk, exactly as without chunking.
+CHUNK_BYTES = 4 << 30
+
+
+def in_chunks(fn, x, row_bytes: int, dim: int = 1):
+    """``fn(chunk)`` over chunks of ``x`` along ``dim``, each holding at most
+    CHUNK_BYTES of transients at ``row_bytes`` an index of ``dim``; the results
+    are written into one tensor along ``dim``. One chunk: ``fn(x)``."""
+    n = x.shape[dim]
+    rows = max(1, CHUNK_BYTES // row_bytes)
+    if rows >= n:
+        return fn(x)
+    out = None
+    for i in range(0, n, rows):
+        y = fn(x.narrow(dim, i, min(rows, n - i)))
+        if out is None:
+            out = y.new_empty(y.shape[:dim] + (n,) + y.shape[dim + 1 :])
+        out.narrow(dim, i, y.shape[dim]).copy_(y)
+        del y
+    return out
+
+
 class MLP(nn.Module):
-    """4x GELU-tanh MLP."""
+    """4x GELU-tanh MLP, over chunks of the token axis (``in_chunks``)."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -120,7 +150,9 @@ class MLP(nn.Module):
         self.layer2 = Linear(4 * config.model_dim, config.model_dim)
 
     def forward(self, x):
-        return self.layer2(gelu_tanh(self.layer1(x)))
+        w1, w2 = self.layer1.pinned_weight(x.dtype), self.layer2.pinned_weight(x.dtype)  # one K7 cast, not a chunk's
+        hidden_bytes = 4 * self.layer1.out_features * x.element_size() * x.shape[0]  # a token of every batch row
+        return in_chunks(lambda t: self.layer2(gelu_tanh(self.layer1(t, w1)), w2), x, hidden_bytes)
 
 
 class SSMGating(nn.Module):
@@ -177,24 +209,30 @@ class SegmentLocalAttention(nn.Module):
 
         S = TL + WF * TPF
         x = torch.cat([win_text, win_vid], dim=2).reshape(B * C, S, D)
+        del win_vid  # x holds the windows now
         q = self.q(x).reshape(B * C, S, H, F)
         k = self.k(x).reshape(B * C, S, H, F)
         v = self.v(x).reshape(B * C, S, H, F)
-        q = layer_norm(q, self.q_norm, q.dtype)
-        k = layer_norm(k, self.k_norm, k.dtype)
+        del x
 
-        # Rope over local window positions (every window uses 0..WF*TPF).
+        # q/k LayerNorm, then rope over local window positions (every window
+        # uses 0..WF*TPF), a few windows at a time.
         cos, sin = precompute_rope_3d(F, meta.grid_height, meta.grid_width, meta.num_frames, cfg.theta)
-        q = apply_rope_prefixed(q, cos, sin, TL, seq_axis=1)
-        k = apply_rope_prefixed(k, cos, sin, TL, seq_axis=1)
+
+        def norm_rope(norm):
+            return lambda t: apply_rope_prefixed(layer_norm(t, norm, t.dtype), cos, sin, TL, seq_axis=1)
+
+        q = in_chunks(norm_rope(self.q_norm), q, 12 * S * D, dim=0)
+        k = in_chunks(norm_rope(self.k_norm), k, 12 * S * D, dim=0)
 
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled():  # K3 with the log-sum-exp and K4, or their plain versions
             attn = attention_ops.attention_train(q, k, v, plain=not cfg.use_kernel)
         else:
             attn = (attention_ops.attention if cfg.use_kernel else attention_ops.attention_plain)(q, k, v)
-        attn = attn.reshape(B * C, S, D)
-        out = self.o(attn).reshape(B, C, S, D)
+        del q, k, v
+        out = self.o(attn.reshape(B * C, S, D)).reshape(B, C, S, D)
+        del attn
 
         out_text = out[:, :, :TL].reshape(B, C * TL, D)
         w = out[:, :, TL:].reshape(B, C, WF, TPF, D)

@@ -31,9 +31,10 @@ same; a vocabulary that already has room, as T5-v1.1's 32,128 rows for
 
 Conventions of the reference, kept: pad to ``max_length``, truncate at
 ``maxlen``, no attention mask (padded positions attend), ``None`` prompts
-encode as empty strings. ``encode_ids`` needs only torch; ``encode`` loads
-the tokenizer with ``transformers.AutoTokenizer`` on first use, the one part
-that needs ``transformers``. The port has one T5 backend, this one, whatever
+encode as empty strings. ``encode`` loads the port's own tokenizer
+(``models/tokenizer.py``, plain Python) on first use, from the Unigram
+``tokenizer.json`` or ``spiece.model`` a T5 directory holds; nothing here
+needs ``transformers``. The port has one T5 backend, this one, whatever
 ``--eval.t5_backend`` says.
 """
 
@@ -50,6 +51,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
+from ttt_video_dit_torch.models import tokenizer
 from ttt_video_dit_torch.models.dit.sampler import SCENE_END_TOKEN, SCENE_START_TOKEN
 from ttt_video_dit_torch.ops.ln import gelu_tanh
 from ttt_video_dit_torch.utils import safetensors
@@ -268,20 +270,12 @@ class T5Encoder(nn.Module):
 
 
 def _load_tokenizer(model_dir: str):
-    try:
-        from transformers import AutoTokenizer
-    except ImportError as e:
-        raise ImportError("T5TextEncoder.encode needs the `transformers` package for the tokenizer; "
-                          "without it, pass token ids to encode_ids") from e
-    tokenizer = AutoTokenizer.from_pretrained(model_dir)
-    tokenizer.add_special_tokens({"additional_special_tokens": [SCENE_END_TOKEN, SCENE_START_TOKEN]})
-    return tokenizer
-
-
-def _tokenize(tokenizer, prompts: List[Optional[str]], maxlen: int) -> np.ndarray:
-    prompts = [p if p is not None else "" for p in prompts]
-    inputs = tokenizer(prompts, truncation=True, max_length=maxlen, padding="max_length", return_tensors="np")
-    return np.asarray(inputs["input_ids"], np.int64)
+    """The port's tokenizer of ``model_dir`` (``models/tokenizer.py``: its
+    Unigram ``tokenizer.json`` or ``spiece.model``), with the two scene tokens
+    added in the JAX package's order."""
+    tok = tokenizer.load(model_dir)
+    tok.add_special_tokens([SCENE_END_TOKEN, SCENE_START_TOKEN])
+    return tok
 
 
 class T5TextEncoder:
@@ -311,7 +305,7 @@ class T5TextEncoder:
         if self.tokenizer is None:
             self.tokenizer = _load_tokenizer(self.model_dir)
             self.model.resize_token_embeddings(len(self.tokenizer), self.generator)
-        return self.encode_ids(_tokenize(self.tokenizer, prompts, maxlen))
+        return self.encode_ids(self.tokenizer(prompts, maxlen))
 
 
 def load_text_encoder(model_dir: str, dtype: str = "float32", device: torch.device | str = "cpu") -> T5TextEncoder:

@@ -138,7 +138,8 @@ class TTTLayer(nn.Module):
         to_tm = lambda t: t.reshape(B, NC, CS, H * F)  # token-major: a pure reshape
         XQ, XK, XV = to_tm(self.wq(x, wq)), to_tm(self.wk(x, wk)), to_tm(self.wv(x, wv))
         gate = self.token_gate(x)
-        rope_cos, rope_sin = scan_rope_tables(meta, F, cfg.rope_theta, CS, x.device)
+        del x  # the projections hold what the scan needs; free the permuted stream before it runs
+        rope_cos, rope_sin = scan_rope_tables(meta, F, cfg.rope_theta, CS, hidden_states.device)
 
         if cfg.ssm_layer == "ttt_linear":  # K5-train / K6, K5
             train, forward, plain = (ttt_linear_kernel.ttt_linear_train, ttt_linear_kernel.ttt_linear_forward,
@@ -158,6 +159,7 @@ class TTTLayer(nn.Module):
             XQW = forward(*args)
         else:
             XQW = plain(*args)
+        del XQ, XK, XV, args  # before the post-norm's and wo's outputs are allocated
         out = XQW.reshape(B, L, D)
         out = self.wo(layer_norm(out, self.post_norm, out.dtype), wo)
         return undo_interleave(out, meta, reverse)

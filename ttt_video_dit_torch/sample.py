@@ -56,6 +56,19 @@ def model_config(job_config: JobConfig) -> ModelConfig:
     return ModelConfig.get_preset(job_config.model.size, job_config.model.video_length, job_config)
 
 
+def warn_parallelism(job_config: JobConfig) -> bool:
+    """The port samples on one card: when ``[parallelism]`` asks for more
+    (the 30 s and 63 s eval TOMLs set tp_sharding = 2), print the JAX entry's
+    warning with the card count and go on unsharded. Returns whether it warned."""
+    par = job_config.parallelism
+    if not any(ax > 1 for ax in (par.dp_replicate, par.dp_sharding, par.tp_sharding)):
+        return False
+    print(f"WARNING: [parallelism] asks for replicate={par.dp_replicate} fsdp={par.dp_sharding} "
+          f"tp={par.tp_sharding} but only {torch.cuda.device_count()} device(s) visible; sampling unsharded",
+          flush=True)
+    return True
+
+
 def build_model(config: ModelConfig, device: torch.device, seed: int = 0, init_state_dir: str | None = None):
     """CogVideoX with the weights of ``init_state_dir`` (a ``save_pretrained``
     directory), else random weights from ``seed``; the float32 masters are
@@ -149,6 +162,7 @@ def main(job_config: JobConfig) -> dict:
     peak allocation of each stage ("t5", "dit", "vae"; the entry resets the
     peak count at each stage's start)."""
     from ttt_video_dit_torch.models.dit import sampler as S
+    from ttt_video_dit_torch.models.dit.dit import sequence_metadata
 
     eval_cfg = job_config.eval
     if not eval_cfg.input_file:
@@ -157,10 +171,18 @@ def main(job_config: JobConfig) -> dict:
 
     device = resolve_device(job_config.job.platform)
     cfg = model_config(job_config)
+    storyboards = S.load_storyboards(eval_cfg.input_file)
+    T = eval_cfg.sampling_num_frames
+    meta = sequence_metadata(cfg, T, eval_cfg.image_height // 8, eval_cfg.image_width // 8, len(storyboards[0][0]),
+                             eval_cfg.txt_maxlen)
+    seq_len = meta.seq_text_length + meta.num_video_tokens
+    window = meta.text_length + (cfg.prefix_temporal_length + cfg.attn_length) * meta.tokens_per_frame
     print(f"device {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}); "
           f"model d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, "
-          f"dtype {cfg.dtype}, TTT mini-batch {cfg.mini_batch_size}", flush=True)
-    storyboards = S.load_storyboards(eval_cfg.input_file)
+          f"dtype {cfg.dtype}, TTT mini-batch {cfg.mini_batch_size}; sequence {seq_len} tokens "
+          f"({meta.num_chunks} scenes x {meta.text_length} text + {T} frames x {meta.tokens_per_frame}), "
+          f"{meta.num_chunks} attention windows of {window} tokens", flush=True)
+    warn_parallelism(job_config)
     peaks = {}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -174,7 +196,6 @@ def main(job_config: JobConfig) -> dict:
     print(f"model set-up {setup_seconds:.1f} s" + (f" (weights from {init_state_dir})" if init_state_dir else ""),
           flush=True)
 
-    T = eval_cfg.sampling_num_frames
     shape = (1, T, eval_cfg.latent_channels, eval_cfg.image_height // 8, eval_cfg.image_width // 8)
     sampler = S.DPMPP2MSampler(
         num_steps=eval_cfg.num_denoising_steps,
@@ -228,7 +249,8 @@ def main(job_config: JobConfig) -> dict:
         _end_stage(device, peaks, "vae")
     return {"device": str(device), "t5_seconds": t5_seconds, "setup_seconds": setup_seconds,
             "eval_seconds": eval_seconds, "vae_seconds": vae_seconds, "latents": latents_paths,
-            "frames": frame_paths, "peak_memory_bytes": peaks, "model_config": cfg}
+            "frames": frame_paths, "peak_memory_bytes": peaks, "model_config": cfg, "seq_len": seq_len,
+            "windows": meta.num_chunks}
 
 
 def parse_args(argv=None) -> JobConfig:
