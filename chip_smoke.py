@@ -105,9 +105,23 @@ Then the long-context shapes (9 s and 63 s):
     samples on one card), finite [253, 16, 60, 90] latents, s/eval, each
     stage's peak, 84 K1 and 42 K3 launches an eval. No VAE decode
     (scripts/profile_torch_vae.py --frames 253 times the 63 s decode).
+Then the multi-GPU path at world size 1 (the card's machine has one card,
+and NCCL takes one rank a device):
+13. the entries' torchrun branch, taken in-process with RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR and MASTER_PORT set: NCCL on cuda:0, the
+    (replica, fsdp, tensor) mesh 1 x 1 x 1, the tensor plan (head-sharded
+    DTensor parameters, local shards through parallel/sharded.py) and, in
+    training, FSDP2 per layer. The training entry on the ttt_mlp 3 s TOML at
+    4 layers, 3 steps under save_seq (phase 6's run): its losses held to
+    phase 6's within DIST_LOSS_RTOL (the largest difference printed), the
+    launch counts of K1-train, K2, K3-lse, K4 and K7 those of phase 6, s/step
+    and peak beside phase 6's; the sampling entry on the 3 s eval TOML at 42
+    layers, 3 denoise steps (phase 4's run): latents against phase 4's (the
+    largest difference printed, within DIST_LATENT_TOL), K1 and K3 counted,
+    s/eval and peak beside phase 4's.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 8, 9, 11 and 12); the last line is
+the main-path runs of phases 4, 6 (both policies), 8, 9, 11, 12 and 13); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -213,6 +227,12 @@ T5_REL_L2_TOL = 2e-2
 # and max|card - cpu| <= VAE_MAX_TOL * max|cpu|.
 VAE_REL_L2_TOL = 1e-4
 VAE_MAX_TOL = 1e-3
+# Phase 13 against phases 6 and 4, the same runs through the torchrun branch at world size 1: the arithmetic
+# is the same (every collective of a group of one is skipped or a copy), but K4 adds dq by float32
+# reduce-adds whose order varies between runs, so the losses after the first update may differ in their
+# last bits (as phase 9's resumed grad norm); sampling runs no K4, and its latents must be bit-equal.
+DIST_LOSS_RTOL = 1e-3
+DIST_LATENT_TOL = 0.0
 SERVE_DIR = "output/chip_smoke_serve"
 TRAIN_DIR = "output/chip_smoke_train"  # phase 6's logs
 DATA_DIR = "output/chip_smoke_data"  # phase 9's fabricated dataset, logs and checkpoints
@@ -714,7 +734,8 @@ def read_counts() -> dict[str, int]:
             "convert_f32_bf16": convert.launches}
 
 
-def phase_sample(device, variant) -> dict[str, int]:
+def phase_sample(device, variant, keep: dict | None = None) -> dict[str, int]:
+    """The sampling entry at 42 layers (phase 4); ``keep`` receives its latents, s/eval and peak (for phase 13)."""
     import numpy as np
 
     from ttt_video_dit_torch import sample
@@ -743,6 +764,8 @@ def phase_sample(device, variant) -> dict[str, int]:
         f"peak {summary['peak_memory_bytes']['dit'] / 2**30:.2f} GiB, launches "
         f"{ {k: v for k, v in counts.items() if v} }, latents finite, std {float(latents.std()):.4f}: "
         f"{time.perf_counter() - t0:.1f} s")
+    if keep is not None:
+        keep.update(latents=latents, eval_seconds=sum(steady) / len(steady), peak=summary["peak_memory_bytes"]["dit"])
     return counts
 
 
@@ -830,10 +853,11 @@ def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
     return trained, idle
 
 
-def phase_train(device, variant, remat_policy=None, length: str = "3s") -> dict[str, int]:
+def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: dict | None = None) -> dict[str, int]:
     """The training entry, 4 layers x 3 steps at full width, on the card, on
     the variant's train TOML of ``length``, under its remat policy or
-    ``remat_policy``."""
+    ``remat_policy``; ``keep`` receives its losses, s/step, peak and launch
+    counts (for phase 13)."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
@@ -878,6 +902,9 @@ def phase_train(device, variant, remat_policy=None, length: str = "3s") -> dict[
         f"{trained} trainable parameter tensors moved more than {DECAY_MARGIN:g}x weight decay alone ({frozen} "
         f"frozen), zero last gradient (not required to move): {idle or 'none'}, launches "
         f"{ {k: v for k, v in counts.items() if v} } ({CARD}): {time.perf_counter() - t0:.1f} s")
+    if keep is not None:
+        keep.update(losses=summary["losses"], grad_norms=summary["grad_norms"], step_seconds=sum(steady) / len(steady),
+                    peak=summary["peak_memory_bytes"], counts=counts)
     del summary, fresh
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return counts
@@ -1513,6 +1540,111 @@ def phase_long_sample(device, variant: str, length: str, input_file: str, vae_pa
     return counts
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _as_torchrun_rank_0(run):
+    """``run()`` with the environment torchrun gives rank 0 of a world of one (a fresh port each time)."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(_free_port())}
+    os.environ.update(env)
+    try:
+        return run()
+    finally:
+        for key in env:
+            del os.environ[key]
+
+
+def _collected_gib() -> float:
+    """Collect garbage (an FSDP2 model's hooks hold reference cycles), free the
+    cached blocks, and return the GiB still allocated on the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def phase_distributed(device, trained: dict, sampled: dict) -> dict[str, int]:
+    """Phase 13: the entries' torchrun branch at world size 1 (NCCL, the mesh,
+    the tensor plan, FSDP2 in training) against phase 6's training run
+    (``trained``) and phase 4's sampling run (``sampled``) of ttt_mlp. Each
+    run starts after a garbage collection, and its line prints what was
+    still allocated then (phases 4 and 6 ran first in a fresh process)."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from ttt_video_dit_torch import sample, train
+
+    t0 = time.perf_counter()
+    held = _collected_gib()
+    job = train.parse_args(train_args("ttt_mlp") + ["--parallelism.tp_sharding", "1", "--checkpoint.interval", "0",
+                                                    "--job.dump_folder", TRAIN_DIR])
+    reset_counts()
+    summary = _as_torchrun_rank_0(lambda: train.main(job))
+    counts = read_counts()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    model, cfg = summary["model"], summary["model_config"]
+    layer, attention = model.dit.layers[0], model.dit.layers[0].seq_modeling_block.attention
+    if dist.is_initialized() or summary["mesh"] != (1, 1, 1) or summary["device"] != "cuda:0":
+        raise AssertionError(f"training: mesh {summary['mesh']} on {summary['device']}, process group left "
+                             f"{not dist.is_initialized()}; expected 1 x 1 x 1 on cuda:0, left")
+    if not (isinstance(layer, FSDPModule) and isinstance(model, FSDPModule)
+            and isinstance(attention.q.weight, DTensor) and attention.tp.size == 1 and attention.q.style == "colwise"):
+        raise AssertionError("training: FSDP2 or the tensor plan was not applied")
+    if counts != trained["counts"]:
+        raise AssertionError(f"training launches {counts} != phase 6's {trained['counts']}")
+    want, got = trained["losses"], summary["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if len(got) != len(want) or not loss_rel <= DIST_LOSS_RTOL:
+        raise AssertionError(f"training losses {got} against phase 6's {want}: rel {loss_rel:.3g} > {DIST_LOSS_RTOL}")
+    steady = summary["step_seconds"][1:]
+    step_s = sum(steady) / len(steady)
+    log(f"phase 13 ttt_mlp 3s train through torchrun's branch, world 1 (NCCL, mesh 1 x 1 x 1, FSDP2 per layer, "
+        f"heads over tensor) d{cfg.model_dim} x {cfg.num_layers} layers, remat {cfg.remat_policy}: losses {got} vs "
+        f"phase 6's {want} (largest rel difference {loss_rel:.3g}, tol {DIST_LOSS_RTOL}; step 1 bit-equal "
+        f"{got[0] == want[0]}), grad norms {summary['grad_norms']} vs {trained['grad_norms']}, {step_s:.3f} s/step after the first vs phase 6's {trained['step_seconds']:.3f} "
+        f"({100 * (step_s / trained['step_seconds'] - 1):+.2f} %), peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB "
+        f"vs {trained['peak'] / 2**30:.2f} GiB ({held:.2f} GiB allocated before the run), launches "
+        f"{({k: v for k, v in counts.items() if v})} as phase 6 "
+        f"({CARD}): {time.perf_counter() - t0:.1f} s")
+    del summary, model, layer, attention
+    all_counts = Counter(counts)
+
+    t0 = time.perf_counter()
+    held = _collected_gib()
+    job = sample.parse_args(sample_args("ttt_mlp"))
+    reset_counts()
+    summary = _as_torchrun_rank_0(lambda: sample.main(job))
+    counts = read_counts()
+    cfg, evals = summary["model_config"], len(summary["eval_seconds"])
+    expect = {"ttt_mlp_forward": 2 * cfg.num_layers * evals, "attention_forward": cfg.num_layers * evals}
+    if counts != {**dict.fromkeys(counts, 0), **expect} or summary["mesh"] != (1, 1, 1):
+        raise AssertionError(f"sampling: launches {counts} (expected {expect}), mesh {summary['mesh']}")
+    latents = np.load(summary["latents"][0])
+    err = float(np.abs(latents - sampled["latents"]).max())
+    if latents.shape != sampled["latents"].shape or not err <= DIST_LATENT_TOL:
+        raise AssertionError(f"sampling latents {latents.shape} differ from phase 4's by {err:.4g} > {DIST_LATENT_TOL}")
+    steady = summary["eval_seconds"][1:] or summary["eval_seconds"]
+    eval_s = sum(steady) / len(steady)
+    log(f"phase 13 ttt_mlp 3s sample through torchrun's branch, world 1 (mesh 1 x 1 x 1, heads over tensor) "
+        f"{cfg.num_layers} layers, {evals} evals: latents vs phase 4's max abs difference {err:.4g} (tol "
+        f"{DIST_LATENT_TOL}), {eval_s:.3f} s/eval after the first vs phase 4's {sampled['eval_seconds']:.3f} "
+        f"({100 * (eval_s / sampled['eval_seconds'] - 1):+.2f} %), peak {summary['peak_memory_bytes']['dit'] / 2**30:.2f}"
+        f" GiB vs {sampled['peak'] / 2**30:.2f} GiB ({held:.2f} GiB allocated before the run), launches "
+        f"{({k: v for k, v in counts.items() if v})} ({CARD}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    all_counts.update(counts)
+    return dict(all_counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1531,12 +1663,13 @@ def main() -> int:
     records = phase_kernels(device)
     log_clocks("after the kernels")
     counts = Counter()
+    sampled, trained = {}, {}  # ttt_mlp's phase 4 and phase 6 (save_seq) runs, for phase 13
     for variant in VARIANTS:
         phase_dit(device, variant)
-        counts.update(phase_sample(device, variant))
+        counts.update(phase_sample(device, variant, keep=sampled if variant == "ttt_mlp" else None))
         log_clocks(f"after {variant} sampling")
         phase_grad(device, variant)
-        counts.update(phase_train(device, variant))
+        counts.update(phase_train(device, variant, keep=trained if variant == "ttt_mlp" else None))
         counts.update(phase_train(device, variant, remat_policy="none"))
         log_clocks(f"after {variant} training")
     try:
@@ -1559,6 +1692,8 @@ def main() -> int:
             log_clocks(f"after {variant} 9 s")
         counts.update(phase_long_sample(device, "ttt_mlp", "63s", os.path.join(SERVE_DIR, "storyboard_63s.json")))
         log_clocks("after 63 s sampling")
+        counts.update(phase_distributed(device, trained, sampled))
+        log_clocks("after the torchrun branch")
     finally:
         shutil.rmtree(SERVE_DIR, ignore_errors=True)
     for r in records:

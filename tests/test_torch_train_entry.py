@@ -1,7 +1,8 @@
 """The PyTorch port's training entry (python -m ttt_video_dit_torch.train) on a
 CPU-only host, and the pieces around the train step that need no JAX draws:
 the entry runs at a tiny size when the CPU is asked for, raises without a
-card otherwise, refuses more than one device and names what a data,
+card otherwise, refuses parallelism sizes that do not multiply to the world
+size (one process without torchrun) and names what a data,
 resume or weights flag points at when it is missing, and starts
 from weights loaded with --checkpoint.init_state_dir as from the same
 weights in memory (its logs and checkpoints go to a temporary
@@ -77,14 +78,17 @@ def test_train_entry_needs_gpu_unless_cpu_is_asked_for(monkeypatch):
                                   ["--checkpoint.init_state_dir", "weights/"], ["--parallelism.dp_sharding", "2"],
                                   ["--parallelism.dp_replicate", "2"], ["--parallelism.tp_sharding", "2"]])
 def test_train_entry_refuses_unported_flags(tmp_path, monkeypatch, flag):
-    """Each flag of a feature not ported (more than one device) raises,
-    naming the flag. Real data (``--training.jsonl_paths``), resume
-    (``--checkpoint.resume``) and loading weights
-    (``--checkpoint.init_state_dir``) are ported: a JSONL file that does not
-    exist, a checkpoint directory that holds no checkpoint and a weights
-    directory that holds none each raise, naming it."""
+    """Each flag that points at something missing or asks for what the world
+    cannot hold raises, naming it. Multi-GPU is ported (torchrun, the
+    (replica, fsdp, tensor) mesh): without torchrun the world is one process,
+    so a ``--parallelism.*`` size of 2 makes a mesh the world cannot hold and
+    raises ValueError naming the flag, as the JAX entry's build_mesh asserts.
+    Real data (``--training.jsonl_paths``), resume (``--checkpoint.resume``)
+    and loading weights (``--checkpoint.init_state_dir``) are ported: a JSONL
+    file that does not exist, a checkpoint directory that holds no checkpoint
+    and a weights directory that holds none each raise, naming it."""
     monkeypatch.chdir(REPO)
-    error, match = NotImplementedError, flag[0].replace(".", r"\.")
+    error, match = ValueError, flag[0].replace(".", r"\.") + " 2"
     if flag[0] == "--checkpoint.init_state_dir":
         error, match = FileNotFoundError, "weights/"
     elif flag[0] == "--training.jsonl_paths":

@@ -224,22 +224,28 @@ class SyntheticSampler:
 class SyntheticDataModule:
     """Random latents and text embeddings with the right geometry, drawn from
     a numpy generator seeded with ``seed`` (the same numbers as the JAX
-    module's for the same seed and shapes). Its sampler's state carries the
-    generator, so a resumed run draws what an uninterrupted one draws."""
+    module's for the same seed and shapes, in one process). Its sampler's
+    state carries the generator, so a resumed run draws what an
+    uninterrupted one draws. Every process draws the whole global batch and
+    keeps its contiguous shard (``process_index`` of ``process_count``), so
+    N processes train on the batch one process draws; the JAX module draws
+    only a shard's worth in each process, the same samples everywhere."""
 
-    def __init__(self, vid_shape, text_shape, seed: int = 0, process_count: int = 1):
+    def __init__(self, vid_shape, text_shape, seed: int = 0, process_index: int = 0, process_count: int = 1):
         self.vid_shape = vid_shape
         self.text_shape = text_shape
         self.sampler = SyntheticSampler(seed)
+        self.process_index = process_index
         self.process_count = process_count
 
     def batches(self, global_batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
         """Yields this process's shard (global / process_count)."""
         _check_divides(global_batch_size, self.process_count)
         local = global_batch_size // self.process_count
+        shard = slice(self.process_index * local, (self.process_index + 1) * local)
         rng = self.sampler.rng
         while True:
-            batch = {"vid": rng.standard_normal((local, *self.vid_shape)).astype(np.float32),
-                     "text": rng.standard_normal((local, *self.text_shape)).astype(np.float32)}
+            batch = {"vid": rng.standard_normal((global_batch_size, *self.vid_shape))[shard].astype(np.float32),
+                     "text": rng.standard_normal((global_batch_size, *self.text_shape))[shard].astype(np.float32)}
             self.sampler.counter += global_batch_size
             yield batch

@@ -41,6 +41,7 @@ from ttt_video_dit_torch.ops import attention as attention_ops
 from ttt_video_dit_torch.ops import ttt_linear_kernel, ttt_mlp_kernel  # noqa: F401  (registers their custom ops)
 from ttt_video_dit_torch.ops.ln import gelu_tanh
 from ttt_video_dit_torch.ops.rope import apply_rope_prefixed, precompute_rope_3d
+from ttt_video_dit_torch.parallel.sharded import NO_TENSOR_PARALLEL
 
 
 def compute_dtype(config: ModelConfig) -> torch.dtype:
@@ -173,7 +174,12 @@ class SegmentLocalAttention(nn.Module):
     window seeing its own scene's text. All windows go through one attention
     call as batch; the overlapping prefix frames are stitched back by
     slice/concat (prefix 1) or an index add (other prefixes), then divided by
-    their window count."""
+    their window count. Under head tensor parallelism (``tp``, of one by
+    default) q/k/v are column-parallel, the attention kernel runs on the
+    rank's H / tp heads and o is row-parallel; the windows, the stitching
+    and the q/k norms' parameters stay replicated."""
+
+    tp = NO_TENSOR_PARALLEL
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -186,7 +192,7 @@ class SegmentLocalAttention(nn.Module):
     def forward(self, vid_emb, text_emb, meta: SequenceMetadata):
         cfg = self.config
         B, D = vid_emb.shape[0], cfg.model_dim
-        H, F = cfg.num_heads, cfg.head_dim
+        H, F = self.tp.local_heads(cfg.num_heads), cfg.head_dim  # this rank's heads
         C, TL, TPF = meta.num_chunks, meta.text_length, meta.tokens_per_frame
         AL, P = cfg.attn_length, cfg.prefix_temporal_length
         WF = P + AL  # frames per window
@@ -208,7 +214,7 @@ class SegmentLocalAttention(nn.Module):
         win_text = text_emb.reshape(B, C, TL, D)
 
         S = TL + WF * TPF
-        x = torch.cat([win_text, win_vid], dim=2).reshape(B * C, S, D)
+        x = self.tp.copy(torch.cat([win_text, win_vid], dim=2).reshape(B * C, S, D))  # feeds the head-local q/k/v
         del win_vid  # x holds the windows now
         q = self.q(x).reshape(B * C, S, H, F)
         k = self.k(x).reshape(B * C, S, H, F)
@@ -220,10 +226,13 @@ class SegmentLocalAttention(nn.Module):
         cos, sin = precompute_rope_3d(F, meta.grid_height, meta.grid_width, meta.num_frames, cfg.theta)
 
         def norm_rope(norm):
-            return lambda t: apply_rope_prefixed(layer_norm(t, norm, t.dtype), cos, sin, TL, seq_axis=1)
+            # The norms' parameters are replicated and see only this rank's heads: their gradients sum over tp.
+            w, b = self.tp.copy(norm.weight), self.tp.copy(norm.bias)
+            return lambda t: apply_rope_prefixed(Fn.layer_norm(t.float(), (F,), w, b, norm.eps).to(t.dtype), cos, sin,
+                                                 TL, seq_axis=1)
 
-        q = in_chunks(norm_rope(self.q_norm), q, 12 * S * D, dim=0)
-        k = in_chunks(norm_rope(self.k_norm), k, 12 * S * D, dim=0)
+        q = in_chunks(norm_rope(self.q_norm), q, 12 * S * H * F, dim=0)
+        k = in_chunks(norm_rope(self.k_norm), k, 12 * S * H * F, dim=0)
 
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled():  # K3 with the log-sum-exp and K4, or their plain versions
@@ -231,7 +240,7 @@ class SegmentLocalAttention(nn.Module):
         else:
             attn = (attention_ops.attention if cfg.use_kernel else attention_ops.attention_plain)(q, k, v)
         del q, k, v
-        out = self.o(attn.reshape(B * C, S, D)).reshape(B, C, S, D)
+        out = self.o(attn.reshape(B * C, S, H * F)).reshape(B, C, S, D)
         del attn
 
         out_text = out[:, :, :TL].reshape(B, C * TL, D)

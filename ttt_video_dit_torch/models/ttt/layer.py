@@ -12,6 +12,11 @@ autograd on (training), the scan is the training kernels' autograd Function
 (K5-train/K6, K1-train/K2; with ``use_kernel = False``, the same Function
 over their plain versions); under no_grad/inference_mode (sampling), the
 forward-only K5 or K1, or its plain version.
+Under head tensor parallelism (parallel/sharding.py) the layer runs on its
+rank's H / tp heads: wq/wk/wv are column-parallel, the scan runs on the
+local heads with the local W1/b1/W2/b2, TTT norm and LR gate, the post-norm
+(a LayerNorm over all of D) normalises the heads gathered from the group,
+and wo is row-parallel.
 Rope is applied by SLOT of the interleaved layout, never by token: the slot
 tables (identity rows on text, video slot j -> angle j, forward-interleaved
 when multiscene) are the same for both directions.
@@ -30,6 +35,7 @@ from ttt_video_dit_torch.models.sequence import SequenceMetadata
 from ttt_video_dit_torch.models.ttt.interleave import interleave, undo_interleave
 from ttt_video_dit_torch.ops import convert, ttt_linear_kernel, ttt_mlp_kernel
 from ttt_video_dit_torch.ops.rope import interleaved_tables_prefixed, precompute_rope_3d
+from ttt_video_dit_torch.parallel.sharded import NO_TENSOR_PARALLEL, local
 
 
 @functools.lru_cache(maxsize=16)
@@ -53,21 +59,33 @@ class Linear(nn.Linear):
     model carries the config in ``pin``: its weight is cast through K7
     (ops/convert.py, or its plain version with ``use_kernel = False``), as
     the JAX pin (dit.py:_make_scan_param_pin) casts the stacked Dense
-    kernels; its bias keeps ``.to``."""
+    kernels; its bias keeps ``.to``. Under head tensor parallelism
+    (parallel/sharding.py) ``style`` is "colwise" (the weight's output rows
+    are this rank's heads; it adds its chunk of the replicated bias) or
+    "rowwise" (the input columns are; the partial products are summed over
+    ``tp``, then the bias is added), and the weight is a DTensor whose local
+    shard is used."""
 
     pin = None
+    tp = NO_TENSOR_PARALLEL
+    style = None
 
     def pinned_weight(self, dtype):
-        """The weight in ``dtype`` through K7 when pinned, else None (each call casts it)."""
+        """The (local) weight in ``dtype`` through K7 when pinned, else None (each call casts it)."""
         if self.pin is None:
             return None
-        return convert.opaque_convert(self.weight, dtype, plain=not self.pin.use_kernel)
+        return convert.opaque_convert(local(self.weight), dtype, plain=not self.pin.use_kernel)
 
     def forward(self, x, weight=None):
         """``weight``: this layer's weight already cast (by :meth:`pinned_weight`), shared by several calls."""
         if weight is None:
-            weight = self.weight.to(x.dtype) if self.pin is None else self.pinned_weight(x.dtype)
-        return Fn.linear(x, weight, self.bias.to(x.dtype))
+            weight = local(self.weight).to(x.dtype) if self.pin is None else self.pinned_weight(x.dtype)
+        bias = self.bias.to(x.dtype)
+        if self.style == "colwise":
+            bias = self.tp.split(bias, 0)
+        elif self.style == "rowwise" and self.tp.size > 1:
+            return self.tp.reduce(Fn.linear(x, weight)) + bias
+        return Fn.linear(x, weight, bias)
 
 
 def layer_norm(x, norm: nn.LayerNorm, out_dtype):
@@ -77,7 +95,10 @@ def layer_norm(x, norm: nn.LayerNorm, out_dtype):
 
 
 class TTTLayer(nn.Module):
-    """Bidirectional-capable TTT layer. Parameter names mirror the flax tree."""
+    """Bidirectional-capable TTT layer. Parameter names mirror the flax tree.
+    ``tp``: the tensor group (parallel/sharding.py), of one by default."""
+
+    tp = NO_TENSOR_PARALLEL
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -114,9 +135,10 @@ class TTTLayer(nn.Module):
         accumulated in float32 (the einsum's preferred_element_type)."""
         cfg = self.config
         B, L, _ = hidden_states.shape
-        w = self.learnable_ttt_lr_weight[:, 0, :].to(hidden_states.dtype).float()  # [H, D]
-        lr = hidden_states.float() @ w.t() + self.learnable_ttt_lr_bias.reshape(1, 1, -1)  # [B, L, H]
-        return lr.permute(0, 2, 1).reshape(B, cfg.num_heads, L // cfg.mini_batch_size, cfg.mini_batch_size).contiguous()
+        H = self.tp.local_heads(cfg.num_heads)
+        w = local(self.learnable_ttt_lr_weight)[:, 0, :].to(hidden_states.dtype).float()  # [H, D]
+        lr = hidden_states.float() @ w.t() + local(self.learnable_ttt_lr_bias).reshape(1, 1, -1)  # [B, L, H]
+        return lr.permute(0, 2, 1).reshape(B, H, L // cfg.mini_batch_size, cfg.mini_batch_size).contiguous()
 
     def pinned_weights(self, dtype):
         """wq/wk/wv/wo's weights cast through K7 once, for both directions
@@ -129,12 +151,12 @@ class TTTLayer(nn.Module):
         cfg = self.config
         wq, wk, wv, wo = weights or (None,) * 4
         B, L, D = hidden_states.shape
-        H, F, CS = cfg.num_heads, cfg.head_dim, cfg.mini_batch_size
+        H, F, CS = self.tp.local_heads(cfg.num_heads), cfg.head_dim, cfg.mini_batch_size  # this rank's heads
         if L % CS:
             raise ValueError(f"Sequence len {L} must be multiple of mini batch size {CS}.")
         NC = L // CS
 
-        x = interleave(hidden_states, meta, reverse)
+        x = self.tp.copy(interleave(hidden_states, meta, reverse))  # feeds the head-local projections and gate
         to_tm = lambda t: t.reshape(B, NC, CS, H * F)  # token-major: a pure reshape
         XQ, XK, XV = to_tm(self.wq(x, wq)), to_tm(self.wk(x, wk)), to_tm(self.wv(x, wv))
         gate = self.token_gate(x)
@@ -144,12 +166,13 @@ class TTTLayer(nn.Module):
         if cfg.ssm_layer == "ttt_linear":  # K5-train / K6, K5
             train, forward, plain = (ttt_linear_kernel.ttt_linear_train, ttt_linear_kernel.ttt_linear_forward,
                                      ttt_linear_kernel.ttt_linear_forward_plain)
-            state = (self.W1, self.b1)
+            state = (local(self.W1), local(self.b1))
         else:  # K1-train / K2, K1
             train, forward, plain = (ttt_mlp_kernel.ttt_mlp_train, ttt_mlp_kernel.ttt_mlp_forward,
                                      ttt_mlp_kernel.ttt_mlp_forward_plain)
-            state = (self.W1, self.b1, self.W2, self.b2)
-        args = (XQ, XK, XV, gate, rope_cos, rope_sin, self.ttt_norm_weight, self.ttt_norm_bias, *state, self.eta_scale)
+            state = (local(self.W1), local(self.b1), local(self.W2), local(self.b2))
+        args = (XQ, XK, XV, gate, rope_cos, rope_sin, local(self.ttt_norm_weight), local(self.ttt_norm_bias), *state,
+                self.eta_scale)
         if torch.is_grad_enabled():  # the training kernels, or with use_kernel=False their plain versions
             # The scan's output and state checkpoints are the outputs of one custom op (K1-train / K5-train),
             # which the save_seq policy keeps across the layer's recompute (models/dit/dit.py:_ckpt_policy),
@@ -160,6 +183,6 @@ class TTTLayer(nn.Module):
         else:
             XQW = plain(*args)
         del XQ, XK, XV, args  # before the post-norm's and wo's outputs are allocated
-        out = XQW.reshape(B, L, D)
-        out = self.wo(layer_norm(out, self.post_norm, out.dtype), wo)
+        out = self.tp.gather(XQW.reshape(B, L, H * F), -1)  # every head: the post-norm runs over all of D
+        out = self.wo(self.tp.split(layer_norm(out, self.post_norm, out.dtype), -1), wo)
         return undo_interleave(out, meta, reverse)

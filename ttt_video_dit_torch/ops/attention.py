@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from ttt_video_dit_torch.ops import _build
+from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): the forward
 # for sampling, the forward that writes the log-sum-exp, the backward.
@@ -128,6 +129,7 @@ def attention(q, k, v):
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
     raise on arguments it does not take). Writes no log-sum-exp."""
     global launches
+    refuse_dtensors("attention", q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     out, _ = _forward(q, k, v, with_lse=False)
@@ -165,6 +167,7 @@ def attention_backward(q, k, v, out, lse, dout):
     log-sum-exp. CPU tensors take the plain version; CUDA tensors launch the
     kernel (or raise on arguments it does not take)."""
     global bwd_launches
+    refuse_dtensors("attention_backward", q, k, v, out, lse, dout)
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, out, lse, dout)
     check_kernel_args(q, k, v)
@@ -209,4 +212,5 @@ class AttentionFunction(torch.autograd.Function):
 def attention_train(q, k, v, plain: bool = False):
     """Window attention for training: autograd through K3 and K4 (or, with
     ``plain``, through their plain versions)."""
+    refuse_dtensors("attention_train", q, k, v)
     return AttentionFunction.apply(q, k, v, plain)

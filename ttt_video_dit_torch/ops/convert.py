@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from ttt_video_dit_torch.ops import _build
+from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of the CUDA kernel (the plain version does not count).
 launches = 0
@@ -42,6 +43,7 @@ def convert_f32_bf16(x):
     """K7: ``x`` (float32, contiguous) rounded to bfloat16. CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise ValueError."""
     global launches
+    refuse_dtensors("convert_f32_bf16", x)
     if x.device.type == "cpu":
         return convert_f32_bf16_plain(x)
     if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous() or x.data_ptr() % 16:
@@ -74,6 +76,7 @@ class OpaqueConvertFunction(torch.autograd.Function):
 def opaque_convert(x, dtype, plain: bool = False):
     """``x`` in ``dtype``: through :class:`OpaqueConvertFunction` for a 2-D
     float32 -> bfloat16 cast (the JAX pin's _eligible), else ``x.to(dtype)``."""
+    refuse_dtensors("opaque_convert", x)
     if x.dtype == dtype:
         return x
     if x.ndim == 2 and x.dtype == torch.float32 and dtype == torch.bfloat16:

@@ -44,6 +44,7 @@ from ttt_video_dit_torch.ops.ttt_mlp_kernel import (
     scan_forward_plain,
 )
 from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_linear_step
+from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): K5 for
 # sampling, K5 for training, K6.
@@ -243,6 +244,7 @@ def ttt_linear_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1,
     take the plain version; CUDA tensors launch the kernel (or raise on
     arguments it does not take)."""
     global launches
+    refuse_dtensors("ttt_linear_forward", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1)
     if XQ.device.type == "cpu":
         return ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale)
     out = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, 0)[0]
@@ -287,6 +289,7 @@ def ttt_linear_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck,
     returns. CPU tensors take the plain version; CUDA tensors launch the
     kernel or raise."""
     global bwd_launches
+    refuse_dtensors("ttt_linear_backward", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout)
     if XQ.device.type == "cpu":
         return ttt_linear_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout,
                                          eta_scale, checkpoint_group)
@@ -344,5 +347,6 @@ def ttt_linear_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, e
                      checkpoint_group: int, plain: bool = False):
     """The fused TTT-linear scan for training: autograd through K5-train and
     K6 (or, with ``plain``, through their plain versions)."""
+    refuse_dtensors("ttt_linear_train", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1)
     return TTTLinearFunction.apply(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
                                    checkpoint_group, plain)

@@ -40,6 +40,7 @@ from ttt_video_dit_torch.ops import ln as ln_ops
 from ttt_video_dit_torch.ops.ln import gelu_bwd, gelu_tanh
 from ttt_video_dit_torch.ops.rope import pair_swap
 from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_mlp_step
+from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): K1 for
 # sampling, K1 for training, K2.
@@ -369,6 +370,7 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
     the plain version; CUDA tensors launch the kernel (or raise on arguments
     it does not take)."""
     global launches
+    refuse_dtensors("ttt_mlp_forward", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
     if XQ.device.type == "cpu":
         return ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale)
     args = (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
@@ -432,6 +434,8 @@ def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1
     returns. CPU tensors take the plain version; CUDA tensors launch the
     kernel (CS = 64) or raise."""
     global bwd_launches
+    refuse_dtensors("ttt_mlp_backward", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck,
+                    b2_ck, dout)
     if XQ.device.type == "cpu":
         return ttt_mlp_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck,
                                       dout, eta_scale, checkpoint_group)
@@ -497,5 +501,6 @@ def ttt_mlp_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, 
                   checkpoint_group: int, plain: bool = False):
     """The fused TTT-MLP scan for training: autograd through K1-train and K2
     (or, with ``plain``, through their plain versions)."""
+    refuse_dtensors("ttt_mlp_train", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
     return TTTMLPFunction.apply(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale,
                                 checkpoint_group, plain)

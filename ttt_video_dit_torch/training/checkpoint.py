@@ -17,6 +17,12 @@ without JAX.
   converted pretrained weights). A JAX run's params carry across through
   ``convert.flax_to_state_dict`` (a ``scan_layers`` tree is unstacked there),
   then ``save_pretrained``.
+
+Under FSDP2 and tensor parallelism (parallel/sharding.py) a save gathers
+each full tensor on every rank (a collective) and only the main process
+writes, in the same format; every rank waits at a barrier before going on.
+A restore reads the same files on every rank, each taking its own shards,
+so a checkpoint written at one world size resumes at another.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ttt_video_dit_torch.parallel.mesh import barrier, is_main_process
 from ttt_video_dit_torch.utils import safetensors
 
 WEIGHTS_NAME = "model.safetensors"
@@ -55,16 +62,22 @@ class Checkpointer:
              metadata: Dict[str, Any], extra: Optional[Callable[[str], None]] = None) -> dict:
         """Write step ``step``; ``extra(path)`` may add files before the
         directory is published. A directory of the same step is replaced.
-        Returns {"seconds", "bytes"}."""
+        Every rank calls it; the main process writes. Returns {"seconds",
+        "bytes"}."""
         t0 = time.perf_counter()
+        opt = optimizer.state_dict()
+        weights, moments = model.state_dict(), {f"{k}/{path}": t for k in ("mu", "nu") for path, t in opt[k].items()}
+        if not is_main_process():
+            safetensors.gather_only(weights)
+            safetensors.gather_only(moments)
+            barrier()
+            return {"seconds": time.perf_counter() - t0, "bytes": dir_bytes(self.step_dir(step))}
         os.makedirs(self.directory, exist_ok=True)
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        safetensors.save_file(model.state_dict(), os.path.join(tmp, WEIGHTS_NAME))
-        opt = optimizer.state_dict()
-        safetensors.save_file({f"{k}/{path}": t for k in ("mu", "nu") for path, t in opt[k].items()},
-                              os.path.join(tmp, OPTIMIZER_NAME))
+        safetensors.save_file(weights, os.path.join(tmp, WEIGHTS_NAME))
+        safetensors.save_file(moments, os.path.join(tmp, OPTIMIZER_NAME))
         with open(os.path.join(tmp, SAMPLER_NAME), "w", encoding="utf-8") as f:
             json.dump(sampler_state, f)
         if extra is not None:
@@ -80,6 +93,7 @@ class Checkpointer:
         os.replace(tmp, final)
         if old is not None:
             shutil.rmtree(old)
+        barrier()
         return {"seconds": time.perf_counter() - t0, "bytes": nbytes}
 
     def wait(self) -> None:
@@ -116,10 +130,15 @@ class Checkpointer:
 
 
 def save_pretrained(path: str, model: torch.nn.Module) -> str:
-    """Write ``model``'s state dict to ``path/model.safetensors``; returns the file."""
-    os.makedirs(path, exist_ok=True)
+    """Write ``model``'s state dict to ``path/model.safetensors``; returns the
+    file. Every rank calls it; the main process writes the full tensors."""
     out = os.path.join(path, WEIGHTS_NAME)
-    safetensors.save_file(model.state_dict(), out)
+    if is_main_process():
+        os.makedirs(path, exist_ok=True)
+        safetensors.save_file(model.state_dict(), out)
+    else:
+        safetensors.gather_only(model.state_dict())
+    barrier()
     return out
 
 

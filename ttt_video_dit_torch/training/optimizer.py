@@ -12,6 +12,12 @@ the JAX package builds, step for step:
 - add_decayed_weights: + wd * p;
 - scale_by_learning_rate: * -schedule(count), the count starting at 0, so the
   first update uses schedule(0).
+
+Under FSDP2 and head tensor parallelism (parallel/sharding.py) the
+parameters, their gradients and the moments (made like their parameters)
+are DTensors of one layout each: the update runs on their local shards,
+elementwise, and the clip reads the norm of the full gradient
+(parallel/sharded.py:square_sum, one all-reduce over the world).
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import re
 from typing import Callable
 
 import torch
+
+from ttt_video_dit_torch.parallel.sharded import copy_full_, local, square_sum
 
 NO_WEIGHT_DECAY_PATTERNS = ("bias", "norm", "b1", "b2")
 TTT_PARAMETER_PATTERNS = ("ttt", "ssm")
@@ -99,8 +107,9 @@ def make_lr_schedule(schedule_type: str, warmup_steps: int, total_steps: int, lr
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum of squares) over every tensor, in float32 (a device scalar)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    """sqrt(sum of squares) over every tensor, in float32 (a device scalar);
+    over the full tensors of DTensors."""
+    return torch.sqrt(square_sum(tensors))
 
 
 class GroupedAdamW:
@@ -132,6 +141,7 @@ class GroupedAdamW:
         t = self.count + 1
         bc1, bc2 = 1.0 - self.b1**t, 1.0 - self.b2**t
         for (path, p), g, m, v in zip(self.params, grads, self.mu, self.nu):
+            p, g, m, v = local(p), local(g), local(m), local(v)  # one layout: the update is elementwise
             g = torch.where(clip, (g / g_norm.to(g.dtype)) * self.clip_norm, g)
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)  # (1 - b1) g + b1 m
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
@@ -144,7 +154,8 @@ class GroupedAdamW:
         return g_norm
 
     def state_dict(self) -> dict:
-        """{"count": int, "mu": {flax path: tensor}, "nu": {flax path: tensor}} (the live tensors)."""
+        """{"count": int, "mu": {flax path: tensor}, "nu": {flax path: tensor}} (the live tensors, DTensors
+        under FSDP2)."""
         paths = [path for path, _ in self.params]
         return {"count": self.count, "mu": dict(zip(paths, self.mu)), "nu": dict(zip(paths, self.nu))}
 
@@ -152,8 +163,9 @@ class GroupedAdamW:
     def load_state_dict(self, state: dict) -> None:
         """Copy a :meth:`state_dict` in place, strictly: the same paths, each
         at its shape; values are cast to the moments' dtypes and devices one
-        tensor at a time (``state``'s moments may be any name -> tensor maps,
-        e.g. ``safetensors.LazyFile``s)."""
+        tensor at a time, a sharded moment taking its shard of the full value
+        (``state``'s moments may be any name -> tensor maps, e.g.
+        ``safetensors.LazyFile``s)."""
         paths = [path for path, _ in self.params]
         for key, live in (("mu", self.mu), ("nu", self.nu)):
             src = state[key]
@@ -165,7 +177,7 @@ class GroupedAdamW:
                 if tuple(value.shape) != tuple(t.shape):
                     raise ValueError(f"optimizer state {key}/{path}: shape {tuple(value.shape)}, "
                                      f"expected {tuple(t.shape)}")
-                t.copy_(value)
+                copy_full_(t, value)
         self.count = int(state["count"])
 
     def zero_grad(self) -> None:

@@ -21,6 +21,33 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device).manual_seed((int(state[0]) << 31) | (int(state[1]) >> 1))
 
 
+def global_draws(generator: torch.Generator, global_batch_size: int, vid_shape, text_dropout_prob: float,
+                 sigma_lo, sigma_hi, device) -> dict:
+    """The step's random draws for the whole global batch, in one order from
+    ``generator``: the text-dropout keep mask [G] (kept with probability
+    1 - ``text_dropout_prob``), the sigma index [G] (lo + u % max(hi - lo, 1)
+    with u uniform in [0, 2^30), from the global bounds) and the noise
+    [G, *vid_shape]. Every rank draws them all and takes its data rank's
+    slice (:func:`rank_draws`), so N ranks draw what one process draws for
+    the same global batch, as the JAX step draws over the global batch."""
+    G = global_batch_size
+    keep = torch.rand(G, generator=generator, device=device) < 1.0 - text_dropout_prob
+    u = torch.randint(0, 1 << 30, (G,), generator=generator, device=device)
+    lo, hi = (torch.as_tensor(x, device=device).long() for x in (sigma_lo, sigma_hi))
+    noise = torch.randn((G, *vid_shape), generator=generator, device=device)
+    return {"keep": keep, "idx": lo + u % torch.clamp(hi - lo, min=1), "noise": noise}
+
+
+def rank_draws(draws: dict, rank: int, ranks: int, grad_accum_steps: int) -> list:
+    """Data rank ``rank`` of ``ranks``'s contiguous slice of :func:`global_draws`,
+    split into the micro-batches of :func:`train_step` (its ``draws``)."""
+    local = draws["idx"].shape[0] // ranks
+    micro = local // grad_accum_steps
+    start = rank * local
+    return [{k: v[start + i * micro : start + (i + 1) * micro] for k, v in draws.items()}
+            for i in range(grad_accum_steps)]
+
+
 def apply_text_dropout(text, prob: float, generator: torch.Generator | None = None, keep=None):
     """Zero the whole text conditioning of a sample with probability ``prob``
     (classifier-free-guidance dropout). ``keep`` [B] (1 keeps, 0 drops)

@@ -1,5 +1,6 @@
 """Logging: a text log, the stats history, optional wandb (port of
-ttt_video_dit_tpu/utils/logging.py; one process, so no process-0 gate yet).
+ttt_video_dit_tpu/utils/logging.py). Under torchrun only rank 0 writes
+(files, stdout, wandb); the other ranks' loggers do nothing.
 
 The text log goes to stdout and to ``log_<exp_name>_<time>.txt``; every
 step's stats are appended to ``all_stats.jsonl`` (one JSON record a line), a
@@ -16,6 +17,8 @@ import json
 import os
 from typing import Any, Dict, Optional
 
+from ttt_video_dit_torch.parallel.mesh import is_main_process
+
 STATS_NAME = "all_stats.jsonl"
 
 
@@ -23,10 +26,13 @@ class MultiLogger:
     def __init__(self, dump_folder: str, exp_name: str = "job", enable_wandb: bool = False,
                  wandb_project: str = "ttt-video", wandb_entity: Optional[str] = None,
                  wandb_run_id: Optional[str] = None):
+        self.is_main = is_main_process()
         self.dump_folder = dump_folder
         self.stats: list[Dict[str, Any]] = []
         self._wandb = None
         self.wandb_run_id = wandb_run_id
+        if not self.is_main:
+            return
         os.makedirs(dump_folder, exist_ok=True)
         stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
         safe = "".join(c if c.isalnum() or c in "-_" else "_" for c in exp_name)
@@ -46,12 +52,16 @@ class MultiLogger:
                 self.write(f"wandb disabled ({e})")
 
     def write(self, msg: str) -> None:
+        if not self.is_main:
+            return
         line = f"[{datetime.datetime.now().strftime('%H:%M:%S')}] {msg}"
         print(line, flush=True)
         self._fh.write(line + "\n")
         self._fh.flush()
 
     def log_stats(self, step: int, stats: Dict[str, Any]) -> None:
+        if not self.is_main:
+            return
         record = {"global_step": step, **stats}
         self.stats.append(record)
         if self._wandb is not None:
@@ -61,6 +71,8 @@ class MultiLogger:
 
     def alert(self, title: str, text: str) -> None:
         """A wandb alert when wandb is on; always logged here, never fails the run."""
+        if not self.is_main:
+            return
         self.write(f"ALERT [{title}] {text}")
         if self._wandb is not None:
             try:
@@ -77,6 +89,8 @@ class MultiLogger:
         """Restore the history snapshotted into a checkpoint directory (a
         pre-JSONL ``all_stats.json`` too) and rewrite the live file to it, so
         later appends continue from the checkpoint's step; without one, warn."""
+        if not self.is_main:
+            return
         path, legacy = os.path.join(src_dir, STATS_NAME), os.path.join(src_dir, "all_stats.json")
         if os.path.exists(path):
             with open(path, encoding="utf-8") as f:
@@ -91,12 +105,16 @@ class MultiLogger:
 
     def snapshot_stats(self, dst_dir: str) -> None:
         """Write the stats history into a checkpoint directory."""
+        if not self.is_main:
+            return
         os.makedirs(dst_dir, exist_ok=True)
         self._write_history(os.path.join(dst_dir, STATS_NAME))
 
     def init_log(self, job_config, model_config, num_params: int, device) -> None:
         import torch
 
+        if not self.is_main:
+            return
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         self.write(f"experiment: {getattr(job_config.job, 'exp_name', '?')}")
         self.write(f"device: {device} ({name})")
@@ -104,4 +122,5 @@ class MultiLogger:
         self.write(f"model config: {model_config}")
 
     def close(self) -> None:
-        self._fh.close()
+        if self.is_main:
+            self._fh.close()

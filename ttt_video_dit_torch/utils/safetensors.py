@@ -13,7 +13,8 @@ bytes, so converting a checkpoint never holds the whole source in memory.
 :func:`load_into` copies such a stream into a module's state dict, strictly
 checked, and :class:`LazyFile` looks tensors up by name one at a time; every loader of the port (its own checkpoints, HF's DiT shards,
 T5) is built on it. :func:`save_file` writes the same layout, one tensor at
-a time.
+a time. Sharded parameters (DTensors, parallel/sharding.py) are written and
+read as their full tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from collections.abc import Mapping
 from typing import Callable, Iterable, Iterator, Optional
 
 import torch
+
+from ttt_video_dit_torch.parallel.sharded import copy_full_, full
 
 DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16, "I64": torch.int64}
 _NAMES = {v: k for k, v in DTYPES.items()}
@@ -129,7 +132,8 @@ def load_into(module: torch.nn.Module, source: str | Iterable[tuple[str, torch.T
               rename: Optional[Callable[[str], Optional[str]]] = None, strict: bool = True) -> int:
     """Copy the tensors of ``source`` (a file or a directory of shards, or an
     iterable of ``(name, tensor)``) into ``module``'s state dict in place, one
-    tensor at a time, cast to each entry's dtype and device. ``rename`` maps a
+    tensor at a time, cast to each entry's dtype and device (a DTensor entry
+    takes its shard of the full tensor). ``rename`` maps a
     source name to the module's name, or to None to skip the tensor. Every
     name kept must be one of the module's, at its shape; with ``strict``,
     every entry of the state dict must be loaded. Returns the count of
@@ -148,7 +152,7 @@ def load_into(module: torch.nn.Module, source: str | Iterable[tuple[str, torch.T
         if params[name].shape != value.shape:
             raise ValueError(f"{where}: {key} has shape {tuple(value.shape)}, the module's {name} "
                              f"{tuple(params[name].shape)}")
-        params[name].copy_(value)
+        copy_full_(params[name], value)
         missing.discard(name)
         n += 1
     if strict and missing:
@@ -159,7 +163,9 @@ def load_into(module: torch.nn.Module, source: str | Iterable[tuple[str, torch.T
 def save_file(tensors: dict[str, torch.Tensor], path: str) -> None:
     """Write ``tensors`` (F32, F16, BF16 or I64, any device) to ``path`` in the
     safetensors layout, one tensor at a time: only one tensor's host copy is
-    alive at once. The header is padded with spaces to 8 bytes, as the
+    alive at once. A DTensor is written as its full tensor, gathered when its
+    turn comes (a collective: every rank of its mesh must gather it too,
+    :func:`gather_only`). The header is padded with spaces to 8 bytes, as the
     ``safetensors`` package pads it."""
     header, offset = {}, 0
     for name, t in tensors.items():
@@ -176,5 +182,13 @@ def save_file(tensors: dict[str, torch.Tensor], path: str) -> None:
         f.write(blob)
         for t in tensors.values():
             if t.numel():
-                f.write(t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy().data)
+                f.write(full(t).detach().to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy().data)
     os.replace(tmp, path)
+
+
+def gather_only(tensors: dict[str, torch.Tensor]) -> None:
+    """What :func:`save_file` gathers, in its order, writing nothing: the
+    part of the ranks that do not write."""
+    for t in tensors.values():
+        if t.numel():
+            full(t)
