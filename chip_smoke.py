@@ -119,9 +119,31 @@ and NCCL takes one rank a device):
     layers, 3 denoise steps (phase 4's run): latents against phase 4's (the
     largest difference printed, within DIST_LATENT_TOL), K1 and K3 counted,
     s/eval and peak beside phase 4's.
+Then the offline data path (files under output/chip_smoke_offline/, removed at
+the end):
+14. the native reader built with g++ (raises if it does not build); a seeded
+    VAE 1.0 checkpoint with both halves; seeded uint8 episodes of 49 (3 s)
+    and 193 (12 s, 4 encode windows) frames at 480 x 720 encoded through
+    precompute_video.precompute_episode: seconds, frames/s, peak, finite
+    [13, 32, 60, 90] and [49, 32, 60, 90] posteriors; the card against the
+    CPU on a [49, 64, 96] crop within VAE_REL_L2_TOL / VAE_MAX_TOL; a rerun
+    that skips through validate_existing. precompute_text.main with T5-XXL
+    (phase 7's tokenizer and seeded weights) on 8 annotations at
+    --max-length 493: 32 files, ms a batch; 2 of its "both"-mode embeddings
+    against the same weights on the CPU within T5_REL_L2_TOL; phase 8's
+    2-layer T5 on 2 annotations at 498 tokens (the length the 3 s train
+    TOML's CS 64 tiles). A JSONL of the 3 s posterior with those
+    embeddings: 3 batches through the DataModule with the native pool and
+    in Python (the reader switched off), bit-equal, seconds a batch each;
+    one training step of the
+    3 s TOML at 2 layers on them (native reader in use, finite loss, launch
+    counts). The VAE with group= an NCCL group of one: bit-equal to the
+    one-device encode (a no-op check: a group of one runs the one-device
+    code, and parallel/spatial.py's split runs only at two ranks or more,
+    scripts/check_torch_vae_split.py).
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 8, 9, 11, 12 and 13); the last line is
+the main-path runs of phases 4, 6 (both policies), 8, 9, 11, 12, 13 and 14); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -1645,6 +1667,236 @@ def phase_distributed(device, trained: dict, sampled: dict) -> dict[str, int]:
     return dict(all_counts)
 
 
+# Phase 14: the offline data path. Episodes of 49 (3 s) and 193 (12 s, the tool's default, 4 encode windows)
+# frames at 480 x 720; 8 annotations; the 2-scene CPU comparisons; the loader's batches.
+OFFLINE_DIR = "output/chip_smoke_offline"
+EPISODES = {"3s": 49, "12s": 193}
+CROP = (49, 64, 96)  # frames, rows, columns of the card-vs-CPU posterior check
+
+
+def _words(rng, n: int) -> str:
+    return " ".join(rng.choice(STORY_WORDS) for _ in range(n)).capitalize() + "."
+
+
+def phase_offline(device) -> dict[str, int]:
+    """Phase 14: pixels -> VAE posterior and T5 embeddings -> JSONL -> loader -> a training step, through the
+    port's offline tools (precompute_video's per-episode function, precompute_text's main), the native reader
+    and the training entry; then the VAE split over an NCCL group of one. Returns the training step's kernel
+    launches."""
+    import contextlib
+    import random
+    from unittest import mock
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from ttt_video_dit_torch import train
+    from ttt_video_dit_torch.config.model_config import VaeModelConfig
+    from ttt_video_dit_torch.data import dataset, native, precompute_text, precompute_video
+    from ttt_video_dit_torch.models import t5
+    from ttt_video_dit_torch.models.vae.autoencoder import VideoAutoencoder
+    from ttt_video_dit_torch.models.vae.enc_dec import Decoder3D, Encoder3D
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError(f"the native reader did not build: {native.build_error()}")
+    log(f"  native reader (g++ -O2 of data/_native/npy_loader.cpp, -lz) built and loaded: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # The VAE 1.0 checkpoint with both halves at the published widths, seeded, under the reference's keys.
+    torch.manual_seed(19)
+    with torch.device(device):
+        halves = {"encoder": Encoder3D(VaeModelConfig.get_encoder_config()),
+                  "decoder": Decoder3D(VaeModelConfig.get_decoder_config())}
+    vae_path = os.path.join(OFFLINE_DIR, "vae.pt")
+    os.makedirs(OFFLINE_DIR, exist_ok=True)
+    torch.save({"state_dict": {f"{h}.{k}": v.cpu() for h, m in halves.items() for k, v in m.state_dict().items()}},
+               vae_path)
+    del halves
+    gen = torch.Generator(device).manual_seed(20)
+    frames = {k: torch.randint(0, 256, (n, 480, 720, 3), generator=gen, device=device, dtype=torch.uint8).cpu().numpy()
+              for k, n in EPISODES.items()}
+    torch.cuda.empty_cache()
+
+    # Encode each episode through the tool's per-episode function.
+    vae = VideoAutoencoder.from_torch_checkpoint(vae_path, device=device, halves=("encoder",))
+    data_dir = os.path.join(OFFLINE_DIR, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    posteriors, seconds, peaks = {}, {}, {}
+    for name, n in EPISODES.items():
+        path = os.path.join(data_dir, f"episode_{name}.npy")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        out = precompute_video.precompute_episode(vae, path, (n - 1) // 4 + 1, lambda: frames[name])
+        seconds[name] = time.perf_counter() - t
+        peaks[name] = torch.cuda.max_memory_allocated(device)
+        want = ((n - 1) // 4 + 1, 32, 60, 90)
+        if out is None or out.shape != want or not np.isfinite(out).all() or not np.array_equal(np.load(path), out):
+            raise AssertionError(f"{name} episode: posterior {None if out is None else out.shape}, expected finite "
+                                 f"{want} written to {path}")
+        posteriors[name] = out
+    torch.cuda.empty_cache()
+    log(f"phase 14 VAE encode through precompute_video.precompute_episode (float32, cuDNN TF32 off), seeded VAE 1.0 "
+        "encoder: " + "; ".join(
+            f"{name} episode [{n}, 480, 720, 3] uint8 -> {list(posteriors[name].shape)} finite in "
+            f"{seconds[name]:.2f} s ({n / seconds[name]:.2f} frames/s), peak {peaks[name] / 2**30:.2f} GiB"
+            for name, n in EPISODES.items()) + f" ({CARD})")
+
+    # The card against the CPU on a crop, then a rerun that must skip through validate_existing.
+    T, Hc, Wc = CROP
+    crop = np.ascontiguousarray(frames["3s"][:T, :Hc, :Wc])
+    t = time.perf_counter()
+    got = precompute_video.encode_episode(vae, crop)
+    want = precompute_video.encode_episode(VideoAutoencoder.from_torch_checkpoint(vae_path, halves=("encoder",)), crop)
+    rel, err, scale = (float(np.linalg.norm(got - want) / np.linalg.norm(want)), float(np.abs(got - want).max()),
+                       float(np.abs(want).max()))
+    if got.shape != want.shape or not rel <= VAE_REL_L2_TOL or err > VAE_MAX_TOL * scale:
+        raise AssertionError(f"VAE encode of the {list(crop.shape)} crop, card vs CPU: relative L2 {rel:.4g} "
+                             f"(tol {VAE_REL_L2_TOL}), max_abs_err {err:.4g} (tol {VAE_MAX_TOL} x {scale:.4g})")
+    log(f"  VAE encode of a {list(crop.shape)} crop -> {list(got.shape)}, card vs CPU float32: relative L2 {rel:.4g} "
+        f"(tol {VAE_REL_L2_TOL}), max_abs_err {err:.4g} (tol {VAE_MAX_TOL} x max {scale:.4g}): "
+        f"{time.perf_counter() - t:.1f} s")
+
+    def no_read():
+        raise AssertionError("a valid posterior was read and encoded again")
+
+    path_3s, unsplit_3s = os.path.join(data_dir, "episode_3s.npy"), posteriors["3s"]
+    mean, logvar = unsplit_3s[:, :16], unsplit_3s[:, 16:]
+    if not precompute_video.validate_existing(path_3s, 13):  # these seeded weights stay inside the ranges
+        raise AssertionError(f"the seeded posterior is outside validate_existing's ranges (mean {mean.min():.3g}.."
+                             f"{mean.max():.3g}, log var {logvar.min():.3g}..{logvar.max():.3g})")
+    if precompute_video.precompute_episode(vae, path_3s, 13, no_read) is not None:
+        raise AssertionError("the rerun did not skip the valid posterior")
+    log(f"  rerun of the 3 s episode (mean {mean.min():.3g}..{mean.max():.3g}, log var {logvar.min():.3g}.."
+        f"{logvar.max():.3g}): skipped through validate_existing, the frames not read")
+    del vae
+    torch.cuda.empty_cache()
+
+    # T5-XXL over 8 annotations in the four token modes (phase 7's tokenizer and seeded weights), then the same
+    # weights (the scene tokens' rows included) on the CPU on 2 of them in the "both" mode, card against CPU.
+    # Then phase 8's 2-layer T5 on 2 annotations at 498 tokens, the length the 3 s train TOML's CS 64 tiles
+    # (493 + 13 x 1,350 is not a multiple of 64), for the training step's files.
+    rng = random.Random(21)
+    annotations = os.path.join(OFFLINE_DIR, "annotations.jsonl")
+    scenes = [{"text": _words(rng, rng.randint(150, 260)), "name": f"scene{i}"} for i in range(8)]
+    with open(annotations, "w", encoding="utf-8") as f:
+        f.write("".join(json.dumps(a) + "\n" for a in scenes))
+    with open(os.path.join(OFFLINE_DIR, "annotations2.jsonl"), "w", encoding="utf-8") as f:
+        f.write("".join(json.dumps(a) + "\n" for a in scenes[:2]))
+    load, held = t5.T5Encoder.load_hf_weights, {}
+
+    def seeded(enc, _dir):
+        held["enc"] = enc
+        return enc.init_weights_(torch.Generator(enc.shared.weight.device).manual_seed(7))
+
+    t5.T5Encoder.load_hf_weights = seeded
+    torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    try:
+        xxl_dir = os.path.join(SERVE_DIR, "t5xxl")
+        xxl = precompute_text.main(["--t5-dir", xxl_dir, "--input-jsonl", annotations, "--output-path",
+                                    os.path.join(OFFLINE_DIR, "text_xxl"), "--max-length", "493", "--video-length",
+                                    "3"])
+    finally:
+        t5.T5Encoder.load_hf_weights = load
+    xxl_seconds, xxl_peak = time.perf_counter() - t, torch.cuda.max_memory_allocated(device)
+    names = sorted(os.path.relpath(os.path.join(d, n), OFFLINE_DIR) for d in xxl["dirs"] for n in os.listdir(d))
+    if xxl["files"] != 32 or len(names) != 32 or xxl["device"] != "cuda:0":
+        raise AssertionError(f"precompute_text on {xxl['device']} wrote {xxl['files']} files: {names}")
+    batch_ms = [1e3 * b for b in xxl["batch_seconds"]]
+    log(f"  precompute_text, T5-XXL (seeded, float32, TF32 off) on 8 annotations at --max-length 493: 32 files in "
+        f"4 token-mode directories, {batch_ms[0]:.1f} ms for the first batch of 8 (tokenizer load included), "
+        f"{sum(batch_ms[1:]) / 3:.1f} ms a batch of 8 after it, {xxl_seconds:.1f} s with the load, peak "
+        f"{xxl_peak / 2**30:.2f} GiB ({CARD})")
+    t = time.perf_counter()
+    got = np.stack([np.load(os.path.join(xxl["dirs"][1], f"scene{i}_txt_emb.npy")) for i in range(2)])
+    enc = held.pop("enc").cpu()
+    torch.cuda.empty_cache()
+    ids = t5._load_tokenizer(xxl_dir)([precompute_text.apply_token_mode(a["text"], "both") for a in scenes[:2]], 493)
+    with torch.inference_mode():
+        want = enc(torch.from_numpy(ids).long()).numpy()
+    del enc
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    if (got.shape != (2, 493, 4096) or want.shape != got.shape or got.dtype != np.float32
+            or not np.isfinite(got).all() or not rel <= T5_REL_L2_TOL):
+        raise AssertionError(f"precompute_text, T5-XXL, card {got.shape} {got.dtype} vs CPU {want.shape}: relative "
+                             f"L2 {rel:.4g} (tol {T5_REL_L2_TOL})")
+    log(f"  precompute_text's T5-XXL embeddings of 2 annotations ({xxl['dirs'][1]}, [2, 493, 4096] float32) vs the "
+        f"same weights on the CPU, float32: relative L2 {rel:.4g} (tol {T5_REL_L2_TOL}), max_abs_err "
+        f"{float(np.abs(got - want).max()):.4g}: {time.perf_counter() - t:.1f} s")
+    card = precompute_text.main(["--t5-dir", os.path.join(SERVE_DIR, "t5"), "--input-jsonl",
+                                 os.path.join(OFFLINE_DIR, "annotations2.jsonl"), "--max-length", "498",
+                                 "--video-length", "3", "--output-path", data_dir])
+    if card["files"] != 8:
+        raise AssertionError(f"precompute_text, 2-layer T5: {card['files']} files, expected 8")
+
+    # The JSONL metadata: the 3 s posterior with each 498-token embedding; the loader with and without the pool.
+    meta = os.path.join(data_dir, "meta.jsonl")
+    texts = sorted(os.path.relpath(os.path.join(d, n), data_dir) for d in card["dirs"] for n in os.listdir(d))
+    with open(meta, "w", encoding="utf-8") as f:
+        f.write("".join(json.dumps({"vid_emb": "episode_3s.npy", "text_chunk_emb": [p]}) + "\n" for p in texts))
+    cfg = train.model_config(train.parse_args(train_args("ttt_mlp")))
+    taken, loader_s = {}, {}
+    for pooled in (True, False):
+        with mock.patch.object(native, "available", return_value=False) if not pooled else contextlib.nullcontext():
+            module = dataset.DataModule(data_dir, cfg.scale_factor, meta, seed=0)
+            if module.native_reader != pooled:
+                raise AssertionError(f"DataModule reads natively: {module.native_reader}, expected {pooled}")
+            it = module.batches(1)
+            taken[pooled] = [next(it) for _ in range(3)]
+            it.close()
+        loader_s[pooled] = sum(module.load_seconds[:3]) / 3
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(taken[True], taken[False]) for k in ("vid", "text"))
+    shapes = {k: list(v.shape) for k, v in taken[True][0].items()}
+    if not same or shapes != {"vid": [1, 13, 16, 60, 90], "text": [1, 1, 498, 4096]}:
+        raise AssertionError(f"loader: native and Python batches bit-equal {same}, shapes {shapes}")
+    log(f"  loader: 3 batches {shapes} through the native pool and in Python bit-equal; {loader_s[True]:.4f} s a "
+        f"batch native, {loader_s[False]:.4f} s in Python (worker seconds: reads and the posterior draw)")
+
+    # One training step of the 3 s TOML at 2 layers on the precomputed files, through the training entry.
+    flags = ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "2", "--training.steps", "1",
+             "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
+             "--training.dataset_path", data_dir, "--training.jsonl_paths", meta, "--checkpoint.interval", "0",
+             "--job.dump_folder", os.path.join(OFFLINE_DIR, "run")]
+    reset_counts()
+    summary = train.main(train.parse_args(flags))
+    counts = read_counts()
+    L = summary["model_config"].num_layers
+    expect = {"ttt_mlp_forward_train": 2 * L, "ttt_mlp_backward": 2 * L, "attention_forward_lse": L,
+              "attention_backward": L, "convert_f32_bf16": 2 * 12 * L}
+    if counts != {**dict.fromkeys(counts, 0), **expect}:
+        raise AssertionError(f"training step: kernel launches {counts}, expected {expect}")
+    if not summary["native_reader"] or summary["text_length"] != 498 or not np.isfinite(summary["losses"]).all():
+        raise AssertionError(f"training step: native reader {summary['native_reader']}, text length "
+                             f"{summary['text_length']}, losses {summary['losses']}")
+    log(f"  training step, ttt_mlp 3 s TOML at 2 layers on the precomputed files (native reader in use, text length "
+        f"498): loss {summary['losses'][0]:.4f}, grad norm {summary['grad_norms'][0]:.4f}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    del summary
+    _collected_gib()
+
+    # The VAE split over an NCCL group of one: the one-device code, so bit-equal to the first encode.
+    def split_of_one():
+        dist.init_process_group("nccl", device_id=device)
+        try:
+            vae = VideoAutoencoder.from_torch_checkpoint(vae_path, device=device, halves=("encoder",),
+                                                         group=dist.group.WORLD)
+            return vae.shard, precompute_video.encode_episode(vae, frames["3s"])
+        finally:
+            dist.destroy_process_group()
+
+    t = time.perf_counter()
+    shard, split = _as_torchrun_rank_0(split_of_one)
+    if shard is not None or not np.array_equal(split, unsplit_3s):
+        raise AssertionError(f"VAE(group=NCCL group of one): shard {shard}, max |diff| from the unsplit encode "
+                             f"{float(np.abs(split - unsplit_3s).max()):.4g}")
+    log(f"  VAE(group=NCCL group of one) encode of the 3 s episode bit-equal to the one-device encode (a group of one "
+        f"runs the one-device code: parallel/spatial.py is not run here): {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1694,6 +1946,12 @@ def main() -> int:
         log_clocks("after 63 s sampling")
         counts.update(phase_distributed(device, trained, sampled))
         log_clocks("after the torchrun branch")
+        try:
+            t0 = time.perf_counter()
+            counts.update(phase_offline(device))
+            log(f"phase 14 offline data path: {time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
     finally:
         shutil.rmtree(SERVE_DIR, ignore_errors=True)
     for r in records:

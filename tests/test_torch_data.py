@@ -149,6 +149,9 @@ def test_loader_retries_then_names_the_sample(jsonl_dataset, monkeypatch):
     monkeypatch.setattr(t_data, "load_tensor", lambda path: (_ for _ in ()).throw(OSError("gone")))
     with pytest.raises(RuntimeError, match="sample 5 after 10 retries"):
         ds[5]
+    from ttt_video_dit_torch.data import native
+
+    monkeypatch.setattr(native, "available", lambda: False)  # the failure is injected into the Python reads
     mod = t_data.DataModule(root, SCALE, meta)
     with pytest.raises(RuntimeError, match="after 10 retries"):  # the worker's error reaches the consumer
         next(mod.batches(2))

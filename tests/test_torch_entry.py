@@ -52,6 +52,8 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr
     assert "ttt_video_dit_torch.sample" in modules and "ttt_video_dit_torch.ops.ttt_mlp_kernel" in modules
     assert "ttt_video_dit_torch.ops.ttt_linear_kernel" in modules and "ttt_video_dit_torch.ops.convert" in modules
+    assert {"ttt_video_dit_torch.data.precompute_text", "ttt_video_dit_torch.data.precompute_video",
+            "ttt_video_dit_torch.data.native", "ttt_video_dit_torch.parallel.spatial"} <= set(modules)
 
 
 def test_chip_smoke_imports_only_the_port():

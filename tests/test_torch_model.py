@@ -163,3 +163,16 @@ def test_cast_matmul_weights_rounds_once():
     ssm = layer.seq_modeling_block.ssm
     for p in (ssm.W1, ssm.ttt_norm_weight, ssm.post_norm.weight, layer.seq_modeling_block.forward_ssm_gating_text.gating_alpha):
         assert p.dtype == torch.float32
+
+
+@pytest.mark.parametrize("scenes", [1, 3, 21])
+def test_reverse_text_chunks_matches_jax(rng, scenes):
+    """The scenes' text blocks in reverse order, each block's tokens in order, and an involution."""
+    from ttt_video_dit_torch.models.ttt.interleave import reverse_text_chunks
+    from ttt_video_dit_tpu.models.ttt.interleave import reverse_text_chunks as jax_reverse_text_chunks
+
+    x = rng.standard_normal((2, scenes * 5, 4)).astype(np.float32)
+    got = reverse_text_chunks(torch.from_numpy(x), scenes)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_reverse_text_chunks(jnp.asarray(x), scenes)))
+    np.testing.assert_array_equal(got.numpy()[:, :5], x[:, -5:])
+    assert torch.equal(reverse_text_chunks(got, scenes), torch.from_numpy(x))

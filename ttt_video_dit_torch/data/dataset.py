@@ -8,9 +8,13 @@ draws one shared permutation per epoch (seed 0, then 1, ...), tracks an
 exact-resume ``counter``, and is checkpointable. Tensor files may be
 ``.npy``, ``.npz`` (its first array) or a ``torch.save``d ``.pt`` tensor.
 
-Batches are numpy; the training entry moves them to the device. The JAX
-package's native C++ reader (data/native.py) is not ported: the Python path
-here yields the batches it yields.
+Batches are numpy; the training entry moves them to the device. Files are
+read through the native reader (``data/native.py``, the JAX package's C++
+reader built with g++ at first use) where it builds and the file is one it
+reads: ``load_tensor`` for ``.npy``, ``.npz`` and single-tensor ``.pt``
+files, and in ``DataModule`` a pool of 4 C++ threads to which each batch's
+reads are submitted up front. Without it the Python path reads the same
+arrays, so the batches are bit-equal either way.
 """
 
 from __future__ import annotations
@@ -25,10 +29,30 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 
+_NATIVE_SUFFIXES = (".npy", ".npz", ".pt")
+
+
+def _finish(path: str, arr: np.ndarray) -> np.ndarray:
+    """The Python path's dtype for a natively read array: ``.pt`` payloads
+    cast to float32 as ``torch.load(...).to(torch.float32)``; array formats
+    as stored."""
+    return arr.astype(np.float32) if path.endswith(".pt") and arr.dtype != np.float32 else arr
+
+
 def load_tensor(path: str) -> np.ndarray:
     """A tensor file as numpy: ``.npz`` its first array, ``.npy`` as stored,
     anything else a ``torch.save``d tensor read with ``weights_only`` and
-    cast to float32."""
+    cast to float32. Where the native reader builds it reads what it can
+    (byte-equal to the Python path); the rest (a dict ``.pt``, zip64, other
+    layouts) is read in Python."""
+    if path.endswith(_NATIVE_SUFFIXES):
+        from ttt_video_dit_torch.data import native as reader
+
+        if reader.available():
+            try:
+                return _finish(path, reader.load_npy(path))
+            except IOError:
+                pass
     if path.endswith(".npz"):
         data = np.load(path)
         return data[list(data.keys())[0]]
@@ -89,6 +113,39 @@ class PreembeddingDataset:
         vae_emb = self.scale_factor * sample_diagonal_gaussian(posterior, self._rng, channel_axis=1)
         return {"vid": vae_emb, "text": txt.astype(np.float32)}
 
+    def load_batch(self, indices, pool=None) -> List[Dict[str, np.ndarray]]:
+        """The samples of ``indices``, in order. With a native ``PrefetchPool``
+        every read of the batch is submitted up front, so the files are read
+        concurrently off the GIL; each sample's posterior is drawn after its
+        reads, in sample order, so the generator is consumed as by
+        ``self[i]`` one at a time and the batch is bit-equal. A sample whose
+        read fails has its outstanding reads drained, then takes the
+        retrying path of ``self[i]`` (the generator untouched until then)."""
+        if pool is None:
+            return [self[i] for i in indices]
+        fetch = lambda p: pool.fetch(p) if p.endswith(_NATIVE_SUFFIXES) else None  # noqa: E731
+        plan = []
+        for i in indices:
+            md = self.metadata_list[i]
+            vid = self.abs_path(md["vid_emb"])
+            texts = [self.abs_path(p) for p in md["text_chunk_emb"]]
+            plan.append((i, vid, fetch(vid), texts, [fetch(p) for p in texts]))
+        read = lambda p, j: load_tensor(p) if j is None else _finish(p, pool.wait(j))  # noqa: E731
+        out = []
+        for i, vid, vid_job, texts, text_jobs in plan:
+            try:
+                posterior = read(vid, vid_job)
+                txt = np.stack([read(p, j) for p, j in zip(texts, text_jobs)], axis=0)
+            except Exception:  # noqa: BLE001 -- any failure takes the retrying path, as in the JAX package
+                for j in (vid_job, *text_jobs):
+                    if j is not None:
+                        pool.discard(j)
+                out.append(self[i])
+                continue
+            vae_emb = self.scale_factor * sample_diagonal_gaussian(posterior, self._rng, channel_axis=1)
+            out.append({"vid": vae_emb, "text": txt.astype(np.float32)})
+        return out
+
 
 class FaultTolerantSampler:
     """Deterministic shuffled index stream with exact-resume state: one
@@ -132,7 +189,9 @@ class DataModule:
     global batch. An epoch's tail shorter than a global batch is dropped and
     the next epoch's permutation begins, so every batch maps to exactly one
     (epoch_seed, counter). ``load_seconds`` holds the worker's seconds per
-    batch (file reads and the posterior draw)."""
+    batch (file reads and the posterior draw). Where the native reader
+    builds, the worker reads each batch through a native ``PrefetchPool`` of
+    4 threads; ``native_reader`` says whether it does."""
 
     PREFETCH = 2  # batches loaded ahead of the consumer
 
@@ -143,6 +202,13 @@ class DataModule:
         self.process_index = process_index
         self.process_count = process_count
         self.load_seconds: List[float] = []
+
+    @property
+    def native_reader(self) -> bool:
+        """Whether batches are read through the native pool (the reader builds)."""
+        from ttt_video_dit_torch.data import native
+
+        return native.available()
 
     def batches(self, global_batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
         """Infinite stream of this process's batch shards (global / process_count)."""
@@ -161,6 +227,18 @@ class DataModule:
             if self.sampler.rng_state is not None:
                 rng.bit_generator.state = self.sampler.rng_state
             remaining = FaultTolerantSampler.epoch_permutation(epoch_seed, n)[counter:].tolist()
+            pool = None
+            if self.native_reader:
+                from ttt_video_dit_torch.data import native
+
+                pool = native.PrefetchPool(num_threads=4)
+            try:
+                produce(epoch_seed, counter, rng, remaining, pool)
+            finally:
+                if pool is not None:
+                    pool.close()
+
+        def produce(epoch_seed, counter, rng, remaining, pool):
             while not stop.is_set():
                 try:
                     if len(remaining) < global_batch_size:
@@ -170,7 +248,7 @@ class DataModule:
                     counter += global_batch_size
                     t0 = time.perf_counter()
                     shard = idxs[self.process_index * local : (self.process_index + 1) * local]
-                    samples = [self.dataset[i] for i in shard]
+                    samples = self.dataset.load_batch(shard, pool)
                     item = ({k: np.stack([s[k] for s in samples]) for k in samples[0]},
                             (epoch_seed, counter, rng.bit_generator.state), time.perf_counter() - t0)
                 except Exception as e:  # noqa: BLE001 -- handed to the consumer, which raises it

@@ -68,3 +68,11 @@ def undo_interleave(x, meta: SequenceMetadata, reverse: bool = False):
     if not (meta.is_multiscene or reverse):
         return x
     return x.index_select(-2, _index(meta, reverse, True, x.device))
+
+
+def reverse_text_chunks(text, num_chunks: int):
+    """Reverse the order of the per-scene text blocks of [B, L, E], keeping
+    the token order within a scene: the text that mirrors the reversed video
+    of the reverse TTT direction (reference: ttt/models/cogvideo/dit.py:213-217)."""
+    B, L, E = text.shape
+    return text.reshape(B, num_chunks, L // num_chunks, E).flip(1).reshape(B, L, E)

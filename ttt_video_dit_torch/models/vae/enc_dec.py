@@ -17,9 +17,17 @@ The caller owns that state: ``Encoder3D``/``Decoder3D`` take a ``cache``
 dict (empty for a video's first window) and leave each conv's tail in it
 for the next window; a new video starts from a new dict, so nothing carries
 from one video into the next.
+
+Split over H across ranks (``parallel/spatial.py``): inside
+``spatial.sharded(shard)`` each spatial conv takes its halo rows from the
+neighbouring ranks first (zero rows at the edges of the whole) and each
+GroupNorm all-reduces its moments; outside it (one device) every module
+runs its plain code.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ import torch.nn.functional as Fn
 from torch import nn
 
 from ttt_video_dit_torch.config.model_config import VaeModelConfig
+from ttt_video_dit_torch.parallel import spatial
 
 # The reference's SafeConv3d splits a conv whose input exceeds 2 GB into
 # temporal parts: cuDNN refuses or mis-indexes larger tensors. Splitting a
@@ -49,6 +58,26 @@ def _group_norm(channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(32, channels, eps=1e-6)
 
 
+def _norm(norm: nn.GroupNorm, x):
+    """``norm(x)``, its moments over every rank's rows when H is split."""
+    shard = spatial.current()
+    return norm(x) if shard is None else shard.group_norm(norm, x)
+
+
+def _split_conv(conv, x):
+    """(the conv to apply, its input): ``conv`` and ``x`` on one device;
+    with H split, x with its halo rows and ``conv``'s weights with no H
+    padding (the halo takes its place)."""
+    shard = spatial.current()
+    ph = conv.padding[-2]
+    if shard is None or not ph:
+        return conv, x
+    fn = Fn.conv3d if isinstance(conv, nn.Conv3d) else Fn.conv2d
+    padding = (*conv.padding[:-2], 0, conv.padding[-1])
+    split = functools.partial(fn, weight=conv.weight, bias=conv.bias, stride=conv.stride, padding=padding)
+    return split, shard.halo(x, ph, ph)
+
+
 class CausalConv3d(nn.Module):
     """3D conv, causal in time (reference: ContextParallelCausalConv3d)."""
 
@@ -65,12 +94,13 @@ class CausalConv3d(nn.Module):
             pad = x[:, :, :1].expand(-1, -1, kt - 1, -1, -1) if prev is None else prev
             x = torch.cat([pad, x], dim=2)
             cache[self] = x[:, :, -(kt - 1):].clone()  # a copy: a view would keep the window alive
+        conv, x = _split_conv(self.conv, x)
         t_out = x.shape[2] - (kt - 1)
         chunks = _conv_time_chunks(t_out, x.numel() * x.element_size(), CONV_CHUNK_BYTES)
         if len(chunks) == 1:
-            return self.conv(x)
+            return conv(x)
         # Output range [s, e) reads input frames [s, e + kt - 1).
-        return torch.cat([self.conv(x[:, :, s : e + kt - 1]) for s, e in chunks], dim=2)
+        return torch.cat([conv(x[:, :, s : e + kt - 1]) for s, e in chunks], dim=2)
 
 
 def _nearest_resize(x, size):
@@ -97,7 +127,7 @@ class SpatialNorm3D(nn.Module):
                            dim=2)
         else:
             zq = _nearest_resize(zq, (T, H, W))
-        return self.norm_layer(f) * self.conv_y(zq, cache) + self.conv_b(zq, cache)
+        return _norm(self.norm_layer, f) * self.conv_y(zq, cache) + self.conv_b(zq, cache)
 
 
 def _repeat2(x, dims):
@@ -107,7 +137,8 @@ def _repeat2(x, dims):
 
 
 def _per_frame(conv: nn.Conv2d, x):
-    """A 2-D conv applied to every frame of [B, C, T, H, W]."""
+    """A 2-D conv applied to every frame of [B, C, T, H, W] (with its halo rows when H is split)."""
+    conv, x = _split_conv(conv, x)
     B, C, T, H, W = x.shape
     y = conv(x.transpose(1, 2).reshape(B * T, C, H, W))
     return y.reshape(B, T, *y.shape[1:]).transpose(1, 2)
@@ -154,6 +185,9 @@ class DownSample3D(nn.Module):
                 x = torch.cat([first, rest], dim=2)
             else:
                 x = x.reshape(B, C, T // 2, 2, H, W).mean(dim=3)
+        shard = spatial.current()
+        if shard is not None:  # the next rank's first row in place of the bottom pad (a zero row at the end)
+            return _per_frame(self.conv, Fn.pad(shard.halo(x, 0, 1), (0, 1)))
         return _per_frame(self.conv, Fn.pad(x, (0, 1, 0, 1)))
 
 
@@ -174,7 +208,7 @@ class ResnetBlock3D(nn.Module):
             self.nin_shortcut = nn.Conv3d(in_channels, out_channels, 1)
 
     def _norm(self, norm, h, zq, cache):
-        return norm(h, zq, cache) if isinstance(norm, SpatialNorm3D) else norm(h)
+        return norm(h, zq, cache) if isinstance(norm, SpatialNorm3D) else _norm(norm, h)
 
     def forward(self, x, cache: dict, zq=None):
         h = self.conv1(Fn.silu(self._norm(self.norm1, x, zq, cache)), cache)
@@ -209,6 +243,7 @@ class Encoder3D(nn.Module):
         super().__init__()
         cfg = config
         temporal_level = int(np.log2(temporal_compress_times))
+        self.spatial_factor = 2 ** (len(cfg.ch_mult) - 1)  # pixel rows per latent row
         self.conv_in = CausalConv3d(cfg.in_channels, cfg.ch)
         self.down = nn.ModuleList()
         block_in = cfg.ch
@@ -231,7 +266,7 @@ class Encoder3D(nn.Module):
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         h = self.mid.block_2(self.mid.block_1(h, cache), cache)
-        return self.conv_out(Fn.silu(self.norm_out(h)), cache)
+        return self.conv_out(Fn.silu(_norm(self.norm_out, h)), cache)
 
 
 class Decoder3D(nn.Module):
@@ -244,6 +279,7 @@ class Decoder3D(nn.Module):
         n = len(cfg.ch_mult)
         temporal_level = int(np.log2(temporal_compress_times))
         z = cfg.z_channels
+        self.spatial_factor = 2 ** (n - 1)  # pixel rows per latent row
         block_in = cfg.ch * cfg.ch_mult[-1]
         self.conv_in = CausalConv3d(z, block_in)
         self.mid = _Mid(block_in, z)

@@ -30,8 +30,9 @@ DiT's heads are split over ``tensor`` (attention and TTT on H / tp heads,
 every kernel on its rank's heads; no FSDP, the weights are cast once), and
 the storyboards are dealt over the data ranks as
 ``storyboards[data_rank::data_ranks]``. Each rank T5-encodes its own; the
-first rank of each tensor group writes ``video_<data_rank>_<i>`` (latents,
-frames) and decodes the VAE alone. With fewer ranks than the TOML asks for,
+ranks of each tensor group decode the VAE together, split over H
+(``VideoAutoencoder(group=...)``, ``parallel/spatial.py``), and the first of
+them writes ``video_<data_rank>_<i>`` (latents, frames). With fewer ranks than the TOML asks for,
 the JAX entry's warning is printed and every rank samples unsharded. Only
 rank 0 prints.
 
@@ -59,16 +60,16 @@ from ttt_video_dit_torch.parallel import mesh as pmesh
 from ttt_video_dit_torch.parallel.mesh import say
 
 
-def resolve_device(platform: str | None) -> torch.device:
-    """``--job.platform``: unset/"cuda"/"gpu" -> the CUDA device (raises
-    without one): under torchrun ``cuda:LOCAL_RANK``, else the current one;
-    "cpu" -> the CPU."""
+def resolve_device(platform: str | None, flag: str = "--job.platform") -> torch.device:
+    """``--job.platform`` (or the tool's ``flag``): unset/"cuda"/"gpu" -> the
+    CUDA device (raises without one): under torchrun ``cuda:LOCAL_RANK``,
+    else the current one; "cpu" -> the CPU."""
     if platform == "cpu":
         return torch.device("cpu")
     if platform not in (None, "", "cuda", "gpu"):
-        raise ValueError(f"unsupported --job.platform {platform!r} (cuda or cpu)")
+        raise ValueError(f"unsupported {flag} {platform!r} (cuda or cpu)")
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass --job.platform cpu to sample on the CPU")
+        raise RuntimeError(f"no CUDA device available; pass {flag} cpu to run on the CPU")
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", torch.cuda.current_device())))
 
 
@@ -236,7 +237,7 @@ def _sample(job_config: JobConfig, device: torch.device, distributed: bool) -> d
     sizes = sampling_mesh_shape(job_config)
     mesh = pmesh.build_mesh(*sizes, device_type=device.type) if distributed else None
     dp_rank, dp_size = pmesh.data_rank(mesh), pmesh.data_size(mesh)
-    writer = pmesh.tensor_rank(mesh) == 0  # the first rank of each tensor group writes and decodes
+    writer = pmesh.tensor_rank(mesh) == 0  # the first rank of each tensor group writes
     storyboards = storyboards[dp_rank::dp_size]
     if mesh is not None:
         say(f"{pmesh.world_size()} ranks, mesh replica x fsdp x tensor = {' x '.join(map(str, sizes))}: "
@@ -265,7 +266,7 @@ def _sample(job_config: JobConfig, device: torch.device, distributed: bool) -> d
     )
     os.makedirs(eval_cfg.output_dir, exist_ok=True)
 
-    eval_seconds, latents_paths = [], []
+    eval_seconds, latents_paths, videos = [], [], []
     for vi, (pos, neg) in enumerate(texts):
         denoise = S.make_cfg_denoise_fn(model, pos, neg, sigma_interval=job_config.denoiser.num_idx,
                                         quantize_c_noise=job_config.denoiser.quantize_c_noise)
@@ -282,10 +283,11 @@ def _sample(job_config: JobConfig, device: torch.device, distributed: bool) -> d
         generator = torch.Generator(device).manual_seed(job_config.job.seed + vi)
         with torch.inference_mode():
             latents = sampler(timed_denoise, shape, generator=generator, device=device)
+        videos.append(latents[0].cpu().numpy() / cfg.scale_factor)  # [T, C, H, W]
         if not writer:
             continue
         path = os.path.join(eval_cfg.output_dir, f"video_{dp_rank}_{vi}_latents.npy")
-        np.save(path, latents[0].cpu().numpy() / cfg.scale_factor)  # [T, C, H, W]
+        np.save(path, videos[-1])
         latents_paths.append(path)
         say(f"[{vi}] saved latents to {path}", flush=True)
     del model, texts
@@ -294,18 +296,22 @@ def _sample(job_config: JobConfig, device: torch.device, distributed: bool) -> d
     vae_seconds, frame_paths = [], []
     if not eval_cfg.vae_checkpoint_path:
         say("no --eval.vae_checkpoint_path: latents only (no VAE decode)", flush=True)
-    elif writer:
+    else:
         from ttt_video_dit_torch.models.vae.autoencoder import VideoAutoencoder
 
+        group = None if mesh is None else mesh.get_group(pmesh.TENSOR)
         vae = VideoAutoencoder.load_decoder(eval_cfg.vae_checkpoint_path, scale_factor=eval_cfg.vae_scale_factor,
-                                            device=device)
-        for vi, path in enumerate(latents_paths):
+                                            device=device, group=group)
+        split = "" if vae.shard is None else f", split over {vae.shard.size} tensor ranks"
+        for vi, latents in enumerate(videos):
             t = time.perf_counter()
-            frames = frames_to_uint8(vae.decode(torch.from_numpy(np.load(path))))  # [T*4-3, H*8, W*8, 3]
+            frames = frames_to_uint8(vae.decode(torch.from_numpy(latents)))  # [T*4-3, H*8, W*8, 3]
             vae_seconds.append(time.perf_counter() - t)
+            if not writer:
+                continue
             frame_paths.append(save_video(frames, os.path.join(eval_cfg.output_dir, f"video_{dp_rank}_{vi}.mp4"),
                                           fps=eval_cfg.sampling_fps))
-            say(f"[{vi}] VAE decode {vae_seconds[-1]:.2f} s; wrote {frame_paths[-1]} {list(frames.shape)}",
+            say(f"[{vi}] VAE decode {vae_seconds[-1]:.2f} s{split}; wrote {frame_paths[-1]} {list(frames.shape)}",
                 flush=True)
         del vae
         _end_stage(device, peaks, "vae")

@@ -15,8 +15,9 @@ peak).
 Data: with ``--training.jsonl_paths`` (and ``--training.dataset_path``, the
 root of relative paths) the precomputed-latent loader
 (``data/dataset.py:DataModule``: posteriors sampled at load, a prefetch
-thread, an exact-resume sampler), the text length from the files; otherwise
-synthetic latents and text embeddings.
+thread, an exact-resume sampler, reads through the native reader where it
+builds: the log says once whether it is in use), the text length from the
+files; otherwise synthetic latents and text embeddings.
 
 Checkpoints (``training/checkpoint.py:Checkpointer``) go to
 ``<dump_folder>/checkpoint/<step>/``: every ``--checkpoint.interval`` steps,
@@ -144,7 +145,8 @@ def main(job_config: JobConfig) -> dict:
     """Train to ``--training.steps``. Returns a summary: the device, the mesh
     sizes, the first step, per-step loss, grad norm, seconds, data seconds
     (the wait for the next batch) and MFU (on the card), the loader's seconds
-    per batch (the real-data loader), each checkpoint's step, seconds and
+    per batch and whether it read through the native reader (the real-data
+    loader; None for synthetic data), each checkpoint's step, seconds and
     bytes, the restore's, peak memory, the data sampler's final state, and
     the trained model (its last step's gradients kept) and optimizer. Under
     torchrun every rank returns its own, and the process group is left at
@@ -197,8 +199,12 @@ def _train(job_config: JobConfig, device: torch.device, mesh, sizes) -> dict:
     data, tl = build_data(job_config, cfg, dp_rank, dp_size)
     local_bs = global_bs // dp_size
     rows = slice(dp_rank * local_bs, (dp_rank + 1) * local_bs)
+    native_reader = getattr(data, "native_reader", None)
     if tl is None:
-        logger.write(f"data: {len(data.dataset)} samples from {tr.jsonl_paths}")
+        from ttt_video_dit_torch.data import native
+
+        reader = "native reader in use" if native_reader else f"native reader unavailable ({native.build_error()})"
+        logger.write(f"data: {len(data.dataset)} samples from {tr.jsonl_paths}; {reader}")
     else:
         logger.write(f"synthetic data: text_length={tl}, "
                      f"seq={cfg.num_chunks * tl + cfg.compressed_num_frames * cfg.tokens_per_frame}")
@@ -305,7 +311,8 @@ def _train(job_config: JobConfig, device: torch.device, mesh, sizes) -> dict:
     logger.close()
     return {"device": str(device), "mesh": sizes, "setup_seconds": setup_seconds, "start_step": start_step, "losses": losses,
             "grad_norms": grad_norms, "step_seconds": step_seconds, "data_seconds": data_seconds,
-            "load_seconds": list(getattr(data, "load_seconds", [])), "checkpoints": saved, "restore": restored,
+            "load_seconds": list(getattr(data, "load_seconds", [])), "native_reader": native_reader,
+            "checkpoints": saved, "restore": restored,
             "mfu": mfus, "peak_memory_bytes": peak, "step_flops": flops, "num_params": num_params, "text_length": tl,
             "sampler_state": data.sampler.state_dict(), "model_config": cfg, "model": model, "optimizer": optimizer}
 
