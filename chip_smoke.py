@@ -90,7 +90,14 @@ Then the long-context shapes (9 s and 63 s):
     group holds 4 steps) and K5-train and K6 at the 9 s TTT-linear one
     (NC 3,216, CS 16, K 4), each with the 9 s rope tables, each against its
     plain version with phase 2's tolerances (output, checkpoints and every
-    gradient), with kernel times.
+    gradient), with kernel times. Then the 63 s training shapes (the train
+    TOMLs under sequence parallelism run them on each rank's heads): K1-train
+    and K2 at NC 5,508, CS 64, K 16 and K5-train and K6 at NC 22,011, CS
+    16, K 4, the plain versions (which loop over the mini-batches) on the
+    last two checkpoint groups, with eta 0 and a zero output gradient before
+    them (check_63s_training); K3-lse and K4 at [21, 18,072, 48, 64], the
+    plain versions on windows 0 and 20 x heads 0-1; the slices, the plain
+    times, the kernel times and bounds printed.
 11. for each variant on its 9 s TOMLs (3 scenes, 37 frames, L = 51,456):
     the 2-layer full-width DiT kernel vs plain (DIT_REL_L2_TOL); the
     sampling entry at 42 layers, 2 denoise steps, from a 3-scene storyboard's
@@ -141,9 +148,21 @@ the end):
     one-device encode (a no-op check: a group of one runs the one-device
     code, and parallel/spatial.py's split runs only at two ranks or more,
     scripts/check_torch_vae_split.py).
+Then the longest training stage one card holds:
+15. the training entry on the ttt_mlp 30 s train TOML (L = 168,640: 10
+    scenes of 529 synthetic text tokens and 121 frames; NC 2,635 at CS 64,
+    K 16; remat policy none, scan_layers) at 2 layers, 2 steps: the TOML's
+    shard_transformer_inputs and tp_sharding 2 ask for two tensor ranks, so
+    it runs train_toml's one-card copy (both off, every other line the
+    TOML's). Finite losses, every trained tensor moved, launch counts,
+    s/step, MFU and peak. A 63 s layer does not fit one card (its backward
+    keeps ~43 times the 2.02 GiB bf16 stream); the 63 s TOMLs and the
+    sequence-parallel layout itself, which runs only at a tensor group of
+    two or more, are scripts/check_torch_sequence_parallel.py's, on 2 and 4
+    cards.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 8, 9, 11, 12, 13 and 14); the last line is
+the main-path runs of phases 4, 6 (both policies), 8, 9, 11, 12, 13, 14 and 15); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -164,6 +183,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 VARIANTS = ("ttt_mlp", "ttt_linear")
 
 
@@ -178,10 +198,34 @@ def long_sample_args(variant: str, length: str) -> list[str]:
             "--eval.num_denoising_steps", "2", "--guider.num_steps", "2"]
 
 
-def train_args(variant: str, length: str = "3s") -> list[str]:
-    return ["--job.config_file", f"configs/train/{variant.replace('_', '-')}/{length}.toml", "--model.num_layers", "4",
-            "--training.steps", "3", "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1",
-            "--parallelism.dp_sharding", "1"]
+def one_card_toml(path: str, out: str) -> str:
+    """The TOML at ``path`` (from the repo's root) as one card runs it: ``tp_sharding`` 1 and ``[remat]
+    shard_transformer_inputs`` false (the 30 s and 63 s train TOMLs set it, and, as in the JAX package, it asks for
+    a tensor axis of more than one rank), every other line the TOML's. ``path`` itself where both already hold,
+    else a copy written under ``out``."""
+    with open(os.path.join(ROOT, path), encoding="utf-8") as f:
+        text = f.read()
+    one = text.replace("\nshard_transformer_inputs = true", "\nshard_transformer_inputs = false")
+    if "\ntp_sharding = 1\n" not in one:
+        one = one.replace("\ntp_sharding = ", "\ntp_sharding = 1\n# the TOML's tp_sharding = ")
+    if one == text:
+        return path
+    os.makedirs(out, exist_ok=True)
+    dst = os.path.join(out, path.replace("/", "_"))
+    with open(dst, "w", encoding="utf-8") as f:
+        f.write(one)
+    return dst
+
+
+def train_toml(variant: str, length: str) -> str:
+    """The variant's train TOML of ``length``, as one card runs it (one_card_toml)."""
+    return one_card_toml(f"configs/train/{variant.replace('_', '-')}/{length}.toml", "output")
+
+
+def train_args(variant: str, length: str = "3s", layers: int = 4, steps: int = 3) -> list[str]:
+    return ["--job.config_file", train_toml(variant, length), "--model.num_layers", str(layers),
+            "--training.steps", str(steps), "--training.global_batch_size", "1", "--training.grad_accum_steps", "1",
+            "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1"]
 
 
 KERNELS = ("attention_forward", "attention_backward", "ttt_mlp_forward", "ttt_mlp_backward", "ttt_linear_forward",
@@ -601,6 +645,104 @@ def check_long_training(variant, gen, device) -> None:
         f"{bwd_ms:.3f} ms (bound {bwd_bound:.3f} ms, {bwd_by}; plain {r['bwd_plain_ms']:.1f})")
 
 
+def check_63s_training(variant, gen, device) -> None:
+    """K1-train and K2, or K5-train and K6, at the 63 s train TOML's scan (B=1, 48 heads, its CS, K and rope
+    tables: ttt_mlp NC 5,508 at CS 64, K 16, last group 4; ttt_linear NC 22,011 at CS 16, K 4, last group 3). The
+    plain versions loop over the mini-batches, so they are held to the kernels on a slice of them: the gate is
+    -1e4 (eta 0: the state stays the initial one) but on the last two checkpoint groups, and the output gradient
+    is 0 but there. Then the kernels' output and checkpoints on that tail equal the plain scan of the tail alone
+    from the initial state, their checkpoints before it the initial state, their output on the first 64
+    mini-batches the plain scan of those, every gradient the plain backward of the tail alone, and the input
+    gradients before the tail 0; phase 2's tolerances. Kernel times over the whole scan against their bounds."""
+    mod = _ttt_module(variant)
+    fwd, bwd = f"{variant}_forward_train", f"{variant}_backward"
+    fwd_k, bwd_k = getattr(mod, fwd), getattr(mod, bwd)
+    fwd_p, bwd_p = getattr(mod, f"{variant}_forward_plain"), getattr(mod, f"{variant}_backward_plain")
+    cfg, meta = _training_meta(variant, "63s")
+    K, CS, H = cfg.scan_checkpoint_group_size, cfg.mini_batch_size, 48
+    NC = (meta.seq_text_length + meta.num_video_tokens) // CS
+    NG = -(-NC // K)
+    tail0 = (NG - 2) * K  # the last two groups
+    eta = cfg.ttt_base_lr / 64 / CS
+    state = TTT[variant][0]
+    a = _ttt_inputs(1, H, NC, gen, device, meta, CS=CS, variant=variant)
+    a["gate"][:, :, :tail0] = -1e4
+    got = fwd_k(**a, eta_scale=eta, checkpoint_group=K)
+    tail = _scan_slice(a, 0, slice(0, H), slice(tail0, NC))
+    want, fwd_plain_ms = timed(lambda: fwd_p(**tail, eta_scale=eta, checkpoint_group=K))
+    errs = [compare(fwd, got[0][:, tail0:], want[0], "the tail")]
+    errs.append(compare(fwd, got[0][:, :64], fwd_p(**_scan_slice(a, 0, slice(0, H), slice(0, 64)), eta_scale=eta,
+                                                  checkpoint_group=K)[0], "mini-batches 0-63 at eta 0"))
+    for n, g, w in zip(state, got[1:], want[1:]):
+        compare_scaled(fwd, f"{n}_ck on the tail", g[:, :, NG - 2 :], w)
+        compare_scaled(fwd, f"{n}_ck before the tail", g[:, :, : NG - 2], a[n][None, :, None].expand_as(g[:, :, : NG - 2]))
+    dout = torch.zeros_like(a["XQ"])
+    dout[:, tail0:] = torch.randn(*dout[:, tail0:].shape, generator=gen, device=device).bfloat16()
+    ins = [a[n] for n in TRAIN_INPUTS]
+    gk = bwd_k(*ins, *got[1:], dout, eta, K)
+    gp, bwd_plain_ms = timed(lambda: bwd_p(*[tail[n] for n in TRAIN_INPUTS], *want[1:], dout[:, tail0:], eta, K))
+    gnames = ELEMENTWISE_GRADS + tuple(f"d{n}" for n in state) + ("dln_w", "dln_b")
+    gerr = 0.0
+    for n, g, w in zip(gnames, gk, gp):
+        if n in ELEMENTWISE_GRADS:
+            at = (slice(None), slice(None), slice(tail0, None)) if n == "d_gate" else (slice(None), slice(tail0, None))
+            before = (slice(None), slice(None), slice(0, tail0)) if n == "d_gate" else (slice(None), slice(0, tail0))
+            gerr = max(gerr, compare(bwd, g[at], w, f"{n} on the tail"))
+            compare(bwd, g[before], torch.zeros_like(g[before]), f"{n} before the tail")
+        else:
+            gerr = max(gerr, compare_scaled(bwd, n, g, w)[0])
+    del got, gk, gp
+    fwd_ms = cuda_ms(lambda: fwd_k(**a, eta_scale=eta, checkpoint_group=K), 2)
+    ck = fwd_k(**a, eta_scale=eta, checkpoint_group=K)[1:]
+    bwd_ms = cuda_ms(lambda: bwd_k(*ins, *ck, dout, eta, K), 2)
+    fb, ff, bb, bf = _training_cost(variant, NC, K, CS)
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = bound(fb, ff), bound(bb, bf)
+    log(f"  {fwd} / {bwd} at the 63 s train scan, B 1, {H} heads, NC {NC} at CS {CS}, K {K} (last group "
+        f"{NC - (NG - 1) * K}): output max_abs_err {max(errs):.4g}, gradients {gerr:.4g} (tol {KERNEL_TOL[fwd]}; "
+        f"checkpoints and state gradients rel L2 {REL_L2_TOL}); the plain versions on mini-batches {tail0}-{NC - 1} "
+        f"of all {H} heads (the tail), forward {fwd_plain_ms:.1f} ms, backward {bwd_plain_ms:.1f} ms; kernels over "
+        f"all {NC}: {fwd} {fwd_ms:.3f} ms (bound {fwd_bound:.3f} ms, {fwd_by}), {bwd} {bwd_ms:.3f} ms (bound "
+        f"{bwd_bound:.3f} ms, {bwd_by})")
+    del a, ck, dout, ins
+
+
+def check_63s_attention(gen, device, windows=(0, 20), heads=slice(0, 2)) -> None:
+    """K3-lse and K4 at the 63 s TTT-MLP train TOML's windows [21, 18,072, 48, 64] against their plain versions
+    on ``windows`` x ``heads`` (attention is independent per window and head), with kernel times over all."""
+    from ttt_video_dit_torch.ops import attention
+
+    shape = (21, S_63S_TRAIN, 48, 64)
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+    out, lse = attention.attention_with_lse(q, k, v)
+    got = attention.attention_backward(q, k, v, out, lse, do)
+    err3 = err4 = lse_err = 0.0
+    fwd_plain_ms = bwd_plain_ms = 0.0
+    for w in windows:
+        sl = lambda t: t[w : w + 1, :, heads].contiguous()
+        (po, plse), ms = timed(lambda: attention.attention_plain(sl(q), sl(k), sl(v), return_lse=True))
+        fwd_plain_ms += ms
+        err3 = max(err3, compare("attention_forward_lse", sl(out), po, f"window {w}"))
+        lse_err = max(lse_err, float((lse[w : w + 1, heads] - plse).abs().max()))
+        pg, ms = timed(lambda: attention.attention_backward_plain(sl(q), sl(k), sl(v), po, plse, sl(do)))
+        bwd_plain_ms += ms
+        err4 = max(err4, max(compare("attention_backward", sl(g), p, f"window {w}") for g, p in zip(got, pg)))
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"attention_forward_lse {list(shape)}: lse max_abs_err {lse_err:.4g} > {LSE_ATOL}")
+    del got
+    n, BC, S = q.numel(), shape[0], shape[1]
+    fwd_bound = bound(4 * n * 2 + BC * 48 * S * 4, 4 * BC * 48 * S * S * 64)
+    bwd_bound = bound(8 * n * 2 + BC * 48 * S * 4, 10 * BC * 48 * S * S * 64)
+    fwd_ms = cuda_ms(lambda: attention.attention_with_lse(q, k, v), 2)
+    bwd_ms = cuda_ms(lambda: attention.attention_backward(q, k, v, out, lse, do), 2)
+    log(f"  attention_forward_lse / attention_backward at the 63 s train windows {list(shape)}: max_abs_err out "
+        f"{err3:.4g}, lse {lse_err:.4g}, gradients {err4:.4g} (tol {KERNEL_TOL['attention_backward']}); the plain "
+        f"versions on windows {list(windows)} x heads {heads.start}-{heads.stop - 1}, forward {fwd_plain_ms:.1f} ms, "
+        f"backward {bwd_plain_ms:.1f} ms; kernels over all: attention_forward_lse {fwd_ms:.3f} ms (bound "
+        f"{fwd_bound[0]:.3f} ms, {fwd_bound[1]}), attention_backward {bwd_ms:.3f} ms (bound {bwd_bound[0]:.3f} ms, "
+        f"{bwd_bound[1]})")
+    del q, k, v, do, out, lse
+
+
 def check_lse_backward(shape, gen, device) -> dict:
     """K3 with the log-sum-exp and K4 against their plain versions on unit-variance inputs of ``shape``."""
     from ttt_video_dit_torch.ops import attention
@@ -875,26 +1017,28 @@ def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
     return trained, idle
 
 
-def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: dict | None = None) -> dict[str, int]:
-    """The training entry, 4 layers x 3 steps at full width, on the card, on
-    the variant's train TOML of ``length``, under its remat policy or
-    ``remat_policy``; ``keep`` receives its losses, s/step, peak and launch
-    counts (for phase 13)."""
+def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: dict | None = None, layers: int = 4,
+                steps: int = 3, phase: int | None = None) -> dict[str, int]:
+    """The training entry, ``layers`` layers x ``steps`` steps at full width,
+    on the card, on the variant's train TOML of ``length`` (train_toml),
+    under its remat policy or ``remat_policy``; ``keep`` receives its
+    losses, s/step, peak and launch counts (for phase 13)."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     flags = ["--checkpoint.interval", "0", "--job.dump_folder", TRAIN_DIR]  # phase 9 covers saving
-    job = train.parse_args(train_args(variant, length) + flags
+    job = train.parse_args(train_args(variant, length, layers, steps) + flags
                            + (["--remat.policy", remat_policy] if remat_policy else []))
     reset_counts()
     summary = train.main(job)
     counts = read_counts()
-    cfg, steps = summary["model_config"], len(summary["losses"])
+    cfg = summary["model_config"]
     if summary["device"].split(":")[0] != "cuda":
         raise AssertionError(f"training ran on {summary['device']}, not the card")
-    if steps != 3 or not all(map(math.isfinite, summary["losses"] + summary["grad_norms"])):
-        raise AssertionError(f"losses {summary['losses']} / grad norms {summary['grad_norms']} not 3 finite steps")
+    if len(summary["losses"]) != steps or not all(map(math.isfinite, summary["losses"] + summary["grad_norms"])):
+        raise AssertionError(f"losses {summary['losses']} / grad norms {summary['grad_norms']} not {steps} finite "
+                             f"steps")
     # Per step and layer: the training TTT forward once per direction, and under remat policy "none" once
     # more in the per-layer recompute (save_seq keeps its outputs); its backward once per direction; K3
     # with the log-sum-exp once (twice under "none"), K4 once; with scan_layers, K7 once per 2-D layer
@@ -913,7 +1057,8 @@ def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: di
     frozen = sum(1 for p in summary["model"].parameters() if not p.requires_grad)
     steady = summary["step_seconds"][1:]
     mfu = [m for m in summary["mfu"][1:]]
-    log(f"phase {6 if length == '3s' else 11} {variant} {length} train d{cfg.model_dim} x {cfg.num_heads} heads x "
+    phase = phase or (6 if length == "3s" else 11)
+    log(f"phase {phase} {variant} {length} train ({job.job.config_file}) d{cfg.model_dim} x {cfg.num_heads} heads x "
         f"{L} layers, L {cfg.num_chunks * summary['text_length'] + cfg.compressed_num_frames * cfg.tokens_per_frame}, "
         f"CS {cfg.mini_batch_size}, "
         f"K {cfg.scan_checkpoint_group_size}, adapter {cfg.adapter_method}, remat policy {cfg.remat_policy}, "
@@ -1373,6 +1518,8 @@ def phase_resume(device) -> dict[str, int]:
 # 30 x 45 tokens, L = 351,168, NC = 21,948 mini-batches of 16, 21 attention windows of S = 458 + 13 x 1,350 =
 # 18,008 tokens a CFG sample. 9 s: 3 scenes of 502 and 37 frames, L = 51,456, 3 windows of S = 18,052.
 SEQ_63S, S_63S, S_9S = 351168, 18008, 18052
+# 63 s training (the TTT-MLP train TOML, 21 scenes of 522 synthetic text tokens): windows of 522 + 13 x 1,350 tokens.
+S_63S_TRAIN = 18072
 # Mini-batches of the 63 s scan's tail held to the plain scan: 4,096 tokens, of which batch row 1's last 3,286
 # lie past element 2^31 of the [2, L, 3072] tensors.
 TAIL = 256
@@ -1481,6 +1628,10 @@ def phase_long_kernels(device) -> None:
     for variant in VARIANTS:
         check_long_training(variant, gen, device)
         torch.cuda.empty_cache()
+        check_63s_training(variant, gen, device)
+        torch.cuda.empty_cache()
+    check_63s_attention(gen, device)
+    torch.cuda.empty_cache()
     log(f"phase 10 long-context kernels vs plain ({CARD}): {time.perf_counter() - t0:.1f} s")
 
 
@@ -1619,7 +1770,8 @@ def phase_distributed(device, trained: dict, sampled: dict) -> dict[str, int]:
         raise AssertionError(f"training: mesh {summary['mesh']} on {summary['device']}, process group left "
                              f"{not dist.is_initialized()}; expected 1 x 1 x 1 on cuda:0, left")
     if not (isinstance(layer, FSDPModule) and isinstance(model, FSDPModule)
-            and isinstance(attention.q.weight, DTensor) and attention.tp.size == 1 and attention.q.style == "colwise"):
+            and isinstance(attention.q.weight, DTensor) and attention.tp.size == 1 and attention.q.style == "colwise"
+            and model.dit.tp is attention.tp and layer.seq_modeling_block.tp is attention.tp):
         raise AssertionError("training: FSDP2 or the tensor plan was not applied")
     if counts != trained["counts"]:
         raise AssertionError(f"training launches {counts} != phase 6's {trained['counts']}")
@@ -1630,7 +1782,7 @@ def phase_distributed(device, trained: dict, sampled: dict) -> dict[str, int]:
     steady = summary["step_seconds"][1:]
     step_s = sum(steady) / len(steady)
     log(f"phase 13 ttt_mlp 3s train through torchrun's branch, world 1 (NCCL, mesh 1 x 1 x 1, FSDP2 per layer, "
-        f"heads over tensor) d{cfg.model_dim} x {cfg.num_layers} layers, remat {cfg.remat_policy}: losses {got} vs "
+        f"heads and the sequence-parallel stream over a tensor group of one) d{cfg.model_dim} x {cfg.num_layers} layers, remat {cfg.remat_policy}: losses {got} vs "
         f"phase 6's {want} (largest rel difference {loss_rel:.3g}, tol {DIST_LOSS_RTOL}; step 1 bit-equal "
         f"{got[0] == want[0]}), grad norms {summary['grad_norms']} vs {trained['grad_norms']}, {step_s:.3f} s/step after the first vs phase 6's {trained['step_seconds']:.3f} "
         f"({100 * (step_s / trained['step_seconds'] - 1):+.2f} %), peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB "
@@ -1952,6 +2104,8 @@ def main() -> int:
             log(f"phase 14 offline data path: {time.perf_counter() - t0:.1f} s")
         finally:
             shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+        counts.update(phase_train(device, "ttt_mlp", length="30s", layers=2, steps=2, phase=15))
+        log_clocks("after 30 s training")
     finally:
         shutil.rmtree(SERVE_DIR, ignore_errors=True)
     for r in records:

@@ -20,6 +20,18 @@ re-run is dense and elementwise work only.
 
 Layouts: video latents [B, T, C, H, W]; text [B, scenes, S, text_dim];
 token streams [B, L, D] with text first.
+
+Between the layers the stream is one [B, L, D] tensor, [text; video]. Under
+tensor parallelism (a group of more than one rank, parallel/sharding.py)
+it is token-sharded over the group, as the JAX package's ``shard_boundary``
+and ``maybe_shard`` constraints lay it out (parallel/sharded.py): each rank
+holds L / tp rows (padded when tp does not divide L), runs the adaLN
+modulation, LayerNorms, gates, residual adds and the MLP on them, and saves
+only them at each layer-group checkpoint. Its rows may straddle the text
+and the video, and each part takes its own shift, scale and gate. The
+attention and the TTT layer gather every token and run on the rank's heads;
+their partial sums over heads are reduce-scattered back to the rows. The
+final layer runs on the rank's video rows, and its output is gathered.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint
 
 from ttt_video_dit_torch.config.model_config import ModelConfig
 from ttt_video_dit_torch.models.dit.schedule import timestep_embedding
+from ttt_video_dit_torch.models import recompute
 from ttt_video_dit_torch.models.sequence import SequenceMetadata
 from ttt_video_dit_torch.models.ttt.layer import Linear, TTTLayer, layer_norm
 from ttt_video_dit_torch.ops import attention as attention_ops
@@ -104,12 +117,13 @@ class PatchEmbedding(nn.Module):
         self.text_proj = Linear(config.text_dim, config.model_dim)
 
     def forward(self, video, text_encoding):
+        """(text [B, scenes * S, D], video [B, T * tokens a frame, D]) in the compute dtype."""
         dtype = compute_dtype(self.config)
         B, T, C, H, W = video.shape
         vid = self.vid_proj(video.reshape(B * T, C, H, W).to(dtype))  # [B*T, D, h, w]
         vid = vid.permute(0, 2, 3, 1).reshape(B, -1, self.config.model_dim)
         text = self.text_proj(text_encoding.to(dtype))
-        return text, vid
+        return text.reshape(B, -1, self.config.model_dim), vid
 
 
 # The transient bytes one chunk of row-wise work may hold: the MLP's hidden
@@ -153,7 +167,9 @@ class MLP(nn.Module):
     def forward(self, x):
         w1, w2 = self.layer1.pinned_weight(x.dtype), self.layer2.pinned_weight(x.dtype)  # one K7 cast, not a chunk's
         hidden_bytes = 4 * self.layer1.out_features * x.element_size() * x.shape[0]  # a token of every batch row
-        return in_chunks(lambda t: self.layer2(gelu_tanh(self.layer1(t, w1)), w2), x, hidden_bytes)
+        # Where the layer recomputes, the GELU keeps only its input for the backward (models/recompute.py).
+        return in_chunks(lambda t: self.layer2(recompute.recomputed(gelu_tanh, self.layer1(t, w1)), w2), x,
+                         hidden_bytes)
 
 
 class SSMGating(nn.Module):
@@ -176,8 +192,11 @@ class SegmentLocalAttention(nn.Module):
     slice/concat (prefix 1) or an index add (other prefixes), then divided by
     their window count. Under head tensor parallelism (``tp``, of one by
     default) q/k/v are column-parallel, the attention kernel runs on the
-    rank's H / tp heads and o is row-parallel; the windows, the stitching
-    and the q/k norms' parameters stay replicated."""
+    rank's H / tp heads and o is row-parallel, so the output is this rank's
+    partial sums over its heads: the stitch, linear, runs on them before the
+    caller's reduce-scatter (SeqModelingBlock). The q/k norms' parameters
+    are replicated and see only the rank's heads: their gradients are
+    partial, as every replicated parameter's is."""
 
     tp = NO_TENSOR_PARALLEL
 
@@ -190,6 +209,7 @@ class SegmentLocalAttention(nn.Module):
         self.k_norm = nn.LayerNorm(F, eps=config.layer_norm_eps)
 
     def forward(self, vid_emb, text_emb, meta: SequenceMetadata):
+        """The whole video and text streams -> [B, L, D], text first."""
         cfg = self.config
         B, D = vid_emb.shape[0], cfg.model_dim
         H, F = self.tp.local_heads(cfg.num_heads), cfg.head_dim  # this rank's heads
@@ -214,7 +234,7 @@ class SegmentLocalAttention(nn.Module):
         win_text = text_emb.reshape(B, C, TL, D)
 
         S = TL + WF * TPF
-        x = self.tp.copy(torch.cat([win_text, win_vid], dim=2).reshape(B * C, S, D))  # feeds the head-local q/k/v
+        x = torch.cat([win_text, win_vid], dim=2).reshape(B * C, S, D)
         del win_vid  # x holds the windows now
         q = self.q(x).reshape(B * C, S, H, F)
         k = self.k(x).reshape(B * C, S, H, F)
@@ -225,11 +245,10 @@ class SegmentLocalAttention(nn.Module):
         # uses 0..WF*TPF), a few windows at a time.
         cos, sin = precompute_rope_3d(F, meta.grid_height, meta.grid_width, meta.num_frames, cfg.theta)
 
-        def norm_rope(norm):
-            # The norms' parameters are replicated and see only this rank's heads: their gradients sum over tp.
-            w, b = self.tp.copy(norm.weight), self.tp.copy(norm.bias)
-            return lambda t: apply_rope_prefixed(Fn.layer_norm(t.float(), (F,), w, b, norm.eps).to(t.dtype), cos, sin,
-                                                 TL, seq_axis=1)
+        def norm_rope(norm):  # recomputing, the backward keeps q or k, not the LayerNorm's float32 input
+            fn = lambda t, w, b: apply_rope_prefixed(Fn.layer_norm(t.float(), (F,), w, b, norm.eps).to(t.dtype), cos,
+                                                     sin, TL, seq_axis=1)
+            return lambda t: recompute.recomputed(fn, t, norm.weight, norm.bias)
 
         q = in_chunks(norm_rope(self.q_norm), q, 12 * S * H * F, dim=0)
         k = in_chunks(norm_rope(self.k_norm), k, 12 * S * H * F, dim=0)
@@ -262,7 +281,13 @@ class SegmentLocalAttention(nn.Module):
 
 
 class SeqModelingBlock(nn.Module):
-    """Segment-local attention followed by bidirectional gated TTT."""
+    """Segment-local attention followed by bidirectional gated TTT, on this
+    rank's rows of the stream (all of it without tensor parallelism). Each
+    of the three head-local calls gathers the tokens first and
+    reduce-scatters its partial sums over heads back to the rows after
+    (``tp``, of one by default: both are then the identity)."""
+
+    tp = NO_TENSOR_PARALLEL
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -273,23 +298,31 @@ class SeqModelingBlock(nn.Module):
         self.backward_ssm_gating_text = SSMGating(config)
         self.backward_ssm_gating_video = SSMGating(config)
 
-    @staticmethod
-    def _gate(text_gate, video_gate, residual, ssm_out, stl: int):
-        return residual + torch.cat([text_gate(ssm_out[:, :stl]), video_gate(ssm_out[:, stl:])], dim=1)
-
-    def forward(self, vid_emb, text_emb, meta: SequenceMetadata):
-        stl = meta.seq_text_length
-        emb = self.attention(vid_emb, text_emb, meta)
+    def forward(self, x, meta: SequenceMetadata, nt: int):
+        """``x``: this rank's rows of [text; video], the first ``nt`` of them text."""
+        stl, L = meta.seq_text_length, meta.seq_text_length + meta.num_video_tokens
+        full = self.tp.all_gather(x, L)
+        emb = self.tp.reduce_scatter(self.attention(full[:, stl:], full[:, :stl], meta))
+        del full
         w = self.ssm.pinned_weights(emb.dtype)
-        emb = self._gate(self.forward_ssm_gating_text, self.forward_ssm_gating_video, emb,
-                         self.ssm(emb, meta, weights=w), stl)
-        emb = self._gate(self.backward_ssm_gating_text, self.backward_ssm_gating_video, emb,
-                         self.ssm(emb, meta, reverse=True, weights=w), stl)
-        return emb[:, stl:], emb[:, :stl]  # (video, text)
+        for reverse, text_gate, video_gate in ((False, self.forward_ssm_gating_text, self.forward_ssm_gating_video),
+                                               (True, self.backward_ssm_gating_text, self.backward_ssm_gating_video)):
+            out = self.tp.reduce_scatter(self.ssm(self.tp.all_gather(emb, L), meta, reverse=reverse, weights=w))
+            emb = emb + by_part(out, nt, text_gate, video_gate)
+        return emb
+
+
+def by_part(x, nt: int, text_fn, video_fn):
+    """``text_fn`` on the first ``nt`` rows of [B, n, D] and ``video_fn`` on
+    the rest, concatenated: a rank's rows may hold text, video or both."""
+    return torch.cat([text_fn(x[:, :nt]), video_fn(x[:, nt:])], dim=1)
 
 
 class TransformerLayer(nn.Module):
-    """adaLN-modulated sequence-modeling block + MLP."""
+    """adaLN-modulated sequence-modeling block + MLP, on this rank's rows of
+    the stream; the text rows take the text shift, scale and gate. Where its
+    saves would bind the card's memory (models/recompute.py:binds), its
+    elementwise chains keep only their inputs and run again in the backward."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -301,28 +334,23 @@ class TransformerLayer(nn.Module):
         self.pre_mlp_layernorm = nn.LayerNorm(D, eps=eps)
         self.mlp = MLP(config)
 
-    def forward(self, vid_emb, text_emb, t_emb, meta: SequenceMetadata):
-        dtype = vid_emb.dtype
-        stl = meta.seq_text_length
-
-        shift, scale, gate, t_shift, t_scale, t_gate = self.pre_seq_adaLN_modulation(Fn.silu(t_emb)).chunk(6, dim=-1)
-        vid_in = modulate(layer_norm(vid_emb, self.pre_seq_layernorm, dtype), shift, scale)
-        text_in = modulate(layer_norm(text_emb, self.pre_seq_layernorm, dtype), t_shift, t_scale)
-        vid_out, text_out = self.seq_modeling_block(vid_in, text_in, meta)
-        vid_emb = vid_emb + gate[:, None, :] * vid_out
-        text_emb = text_emb + t_gate[:, None, :] * text_out
-
-        shift, scale, gate, t_shift, t_scale, t_gate = self.pre_mlp_adaLN_modulation(Fn.silu(t_emb)).chunk(6, dim=-1)
-        vid_in = modulate(layer_norm(vid_emb, self.pre_mlp_layernorm, dtype), shift, scale)
-        text_in = modulate(layer_norm(text_emb, self.pre_mlp_layernorm, dtype), t_shift, t_scale)
-        mlp_output = self.mlp(torch.cat([text_in, vid_in], dim=1))
-        vid_emb = vid_emb + gate[:, None, :] * mlp_output[:, stl:]
-        text_emb = text_emb + t_gate[:, None, :] * mlp_output[:, :stl]
-        return vid_emb, text_emb
+    def forward(self, x, t_emb, meta: SequenceMetadata, nt: int):
+        """``x``: this rank's rows of [text; video], the first ``nt`` of them text."""
+        dtype = x.dtype
+        with recompute.when(recompute.binds(x)):
+            for adaLN, norm, block in ((self.pre_seq_adaLN_modulation, self.pre_seq_layernorm,
+                                        lambda h: self.seq_modeling_block(h, meta, nt)),
+                                       (self.pre_mlp_adaLN_modulation, self.pre_mlp_layernorm, self.mlp)):
+                shift, scale, gate, t_shift, t_scale, t_gate = adaLN(Fn.silu(t_emb)).chunk(6, dim=-1)
+                h = by_part(layer_norm(x, norm, dtype), nt, lambda t: modulate(t, t_shift, t_scale),
+                            lambda v: modulate(v, shift, scale))
+                x = x + by_part(block(h), nt, lambda t: t_gate[:, None, :] * t, lambda v: gate[:, None, :] * v)
+        return x
 
 
 class FinalLayer(nn.Module):
-    """adaLN + linear + unpatchify back to latent video."""
+    """adaLN + linear, per video token; :func:`unpatchify` turns the tokens
+    back into latent video."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -332,16 +360,18 @@ class FinalLayer(nn.Module):
         self.norm = nn.LayerNorm(D, eps=config.layer_norm_eps)
         self.linear = Linear(D, p * p * c)
 
-    def forward(self, vid_emb, t_emb, meta: SequenceMetadata):
-        cfg = self.config
-        p, c = cfg.patch_size, cfg.out_channels
+    def forward(self, vid_emb, t_emb):
+        """[B, n, D] video tokens -> [B, n, p * p * out_channels]."""
         shift, scale = self.adaLN_modulation(Fn.silu(t_emb)).chunk(2, dim=-1)
-        vid_emb = modulate(layer_norm(vid_emb, self.norm, vid_emb.dtype), shift, scale)
-        x = self.linear(vid_emb)
-        # Unpatchify: [B, (t h w), (c p q)] -> [B, t, c, h*p, w*q].
-        B, h, w, t = x.shape[0], meta.latent_height // p, meta.latent_width // p, meta.num_frames
-        x = x.reshape(B, t, h, w, c, p, p).permute(0, 1, 4, 2, 5, 3, 6)
-        return x.reshape(B, t, c, h * p, w * p)
+        return self.linear(modulate(layer_norm(vid_emb, self.norm, vid_emb.dtype), shift, scale))
+
+
+def unpatchify(x, meta: SequenceMetadata, out_channels: int):
+    """[B, (t h w), (c p q)] -> [B, t, c, h*p, w*q]."""
+    p = meta.patch_size
+    B, h, w, t = x.shape[0], meta.latent_height // p, meta.latent_width // p, meta.num_frames
+    x = x.reshape(B, t, h, w, out_channels, p, p).permute(0, 1, 4, 2, 5, 3, 6)
+    return x.reshape(B, t, out_channels, h * p, w * p)
 
 
 def sequence_metadata(config: ModelConfig, num_frames: int, latent_height: int, latent_width: int,
@@ -358,7 +388,11 @@ def sequence_metadata(config: ModelConfig, num_frames: int, latent_height: int, 
 
 class DiffusionTransformer(nn.Module):
     """The full DiT: (video [B,T,C,H,W], text [B,scenes,S,text_dim], timesteps [B])
-    -> latent v-prediction [B,T,C,H,W]."""
+    -> latent v-prediction [B,T,C,H,W]. ``tp``: the tensor group over whose
+    ranks the stream is token-sharded between the layers (of one by
+    default); the output is whole on every rank."""
+
+    tp = NO_TENSOR_PARALLEL
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -386,24 +420,27 @@ class DiffusionTransformer(nn.Module):
 
         text_emb, vid_emb = self.patch_embedding(video, text)
         meta = sequence_metadata(cfg, T, H_lat, W_lat, num_scenes, text_length)
-        text_emb = text_emb.reshape(B, num_scenes * text_length, cfg.model_dim)
+        stl = meta.seq_text_length
+        x = self.tp.shard(torch.cat([text_emb, vid_emb], dim=1))  # this rank's rows of [text; video]
+        del text_emb, vid_emb
+        nt = min(max(stl - self.tp.rank * x.shape[1], 0), x.shape[1])  # of them text
         remat = cfg.remat_transformer_layers and torch.is_grad_enabled()
         context_fn = _ckpt_policy(cfg) if remat else None
         kw = {} if context_fn is None else {"context_fn": context_fn}
         group = max(cfg.remat_transformer_layer_group_size, 1)
         for i in range(0, cfg.num_layers, group):
-            def run(v, t, _layers=self.layers[i : i + group]):
+            def run(h, _layers=self.layers[i : i + group]):
                 for layer in _layers:
-                    v, t = layer(v, t, t_emb, meta)
-                return v, t
+                    h = layer(h, t_emb, meta, nt)
+                return h
 
-            if remat:
-                vid_emb, text_emb = torch.utils.checkpoint.checkpoint(run, vid_emb, text_emb, use_reentrant=False,
-                                                                      **kw)
-            else:
-                vid_emb, text_emb = run(vid_emb, text_emb)
-        vid_emb = layer_norm(vid_emb, self.transformer_norm, dtype)
-        return self.final_layer(vid_emb, t_emb, meta)
+            x = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False, **kw) if remat else run(x)
+        with recompute.when(recompute.binds(x)):
+            out = self.final_layer(layer_norm(x[:, nt:], self.transformer_norm, dtype), t_emb)  # this rank's video rows
+        del x
+        # Every rank's rows (the text rows as zeros), then the video tokens: the output is whole on every rank.
+        out = self.tp.gather(Fn.pad(out, (0, 0, nt, 0)), 1).narrow(1, stl, meta.num_video_tokens)
+        return unpatchify(out, meta, cfg.out_channels)
 
 
 # ------------------------------------------------------------ set-up helpers

@@ -12,11 +12,13 @@ autograd on (training), the scan is the training kernels' autograd Function
 (K5-train/K6, K1-train/K2; with ``use_kernel = False``, the same Function
 over their plain versions); under no_grad/inference_mode (sampling), the
 forward-only K5 or K1, or its plain version.
-Under head tensor parallelism (parallel/sharding.py) the layer runs on its
-rank's H / tp heads: wq/wk/wv are column-parallel, the scan runs on the
-local heads with the local W1/b1/W2/b2, TTT norm and LR gate, the post-norm
-(a LayerNorm over all of D) normalises the heads gathered from the group,
-and wo is row-parallel.
+Under head tensor parallelism (parallel/sharding.py) the layer runs on
+its rank's H / tp heads of the whole stream, which the caller gathered
+(models/dit/dit.py:SeqModelingBlock): wq/wk/wv are column-parallel, the scan
+runs on the local heads with the local W1/b1/W2/b2, TTT norm and LR gate,
+the post-norm (a LayerNorm over all of D) normalises the heads gathered from
+the group, and wo is row-parallel: the layer returns this rank's partial
+sums over its heads, which the caller reduce-scatters over tokens.
 Rope is applied by SLOT of the interleaved layout, never by token: the slot
 tables (identity rows on text, video slot j -> angle j, forward-interleaved
 when multiscene) are the same for both directions.
@@ -31,6 +33,7 @@ import torch.nn.functional as Fn
 from torch import nn
 
 from ttt_video_dit_torch.config.model_config import ModelConfig
+from ttt_video_dit_torch.models.recompute import recomputed
 from ttt_video_dit_torch.models.sequence import SequenceMetadata
 from ttt_video_dit_torch.models.ttt.interleave import interleave, undo_interleave
 from ttt_video_dit_torch.ops import convert, ttt_linear_kernel, ttt_mlp_kernel
@@ -60,11 +63,13 @@ class Linear(nn.Linear):
     (ops/convert.py, or its plain version with ``use_kernel = False``), as
     the JAX pin (dit.py:_make_scan_param_pin) casts the stacked Dense
     kernels; its bias keeps ``.to``. Under head tensor parallelism
-    (parallel/sharding.py) ``style`` is "colwise" (the weight's output rows
-    are this rank's heads; it adds its chunk of the replicated bias) or
-    "rowwise" (the input columns are; the partial products are summed over
-    ``tp``, then the bias is added), and the weight is a DTensor whose local
-    shard is used."""
+    (parallel/sharding.py) the weight is a DTensor whose local shard is
+    used, and ``style`` is "colwise" (the weight's output rows are this
+    rank's heads; it adds its slice of the replicated bias) or "rowwise"
+    (the input columns are; the output is this rank's partial sums, with
+    the bias added on tensor rank 0 only, and the caller reduce-scatters
+    them over tokens). Either way the bias's gradient is partial, as every
+    replicated parameter's is under sequence parallelism."""
 
     pin = None
     tp = NO_TENSOR_PARALLEL
@@ -82,16 +87,18 @@ class Linear(nn.Linear):
             weight = local(self.weight).to(x.dtype) if self.pin is None else self.pinned_weight(x.dtype)
         bias = self.bias.to(x.dtype)
         if self.style == "colwise":
-            bias = self.tp.split(bias, 0)
-        elif self.style == "rowwise" and self.tp.size > 1:
-            return self.tp.reduce(Fn.linear(x, weight)) + bias
+            bias = self.tp.shard(bias, 0)
+        elif self.style == "rowwise" and self.tp.rank:
+            bias = None  # the partial sums carry the bias once, on rank 0
         return Fn.linear(x, weight, bias)
 
 
 def layer_norm(x, norm: nn.LayerNorm, out_dtype):
     """flax LayerNorm(dtype=out_dtype, param_dtype=float32): statistics and
-    affine in float32, result in ``out_dtype``."""
-    return Fn.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps).to(out_dtype)
+    affine in float32, result in ``out_dtype``; where the layer recomputes,
+    the backward keeps ``x``, not its float32 copy (models/recompute.py)."""
+    return recomputed(lambda t, w, b: Fn.layer_norm(t.float(), norm.normalized_shape, w, b, norm.eps).to(out_dtype),
+                      x, norm.weight, norm.bias)
 
 
 class TTTLayer(nn.Module):
@@ -136,8 +143,9 @@ class TTTLayer(nn.Module):
         cfg = self.config
         B, L, _ = hidden_states.shape
         H = self.tp.local_heads(cfg.num_heads)
-        w = local(self.learnable_ttt_lr_weight)[:, 0, :].to(hidden_states.dtype).float()  # [H, D]
-        lr = hidden_states.float() @ w.t() + local(self.learnable_ttt_lr_bias).reshape(1, 1, -1)  # [B, L, H]
+        # Where the layer recomputes, the backward keeps the stream, not its float32 copy (models/recompute.py).
+        lr = recomputed(lambda x, w, b: x.float() @ w[:, 0, :].to(x.dtype).float().t() + b.reshape(1, 1, -1),
+                        hidden_states, local(self.learnable_ttt_lr_weight), local(self.learnable_ttt_lr_bias))
         return lr.permute(0, 2, 1).reshape(B, H, L // cfg.mini_batch_size, cfg.mini_batch_size).contiguous()
 
     def pinned_weights(self, dtype):
@@ -147,7 +155,9 @@ class TTTLayer(nn.Module):
         return tuple(lin.pinned_weight(dtype) for lin in (self.wq, self.wk, self.wv, self.wo))
 
     def forward(self, hidden_states, meta: SequenceMetadata, reverse: bool = False, weights=None):
-        """One direction; ``weights`` from :meth:`pinned_weights`, shared with the other direction."""
+        """One direction over the whole [B, L, D] stream; ``weights`` from
+        :meth:`pinned_weights`, shared with the other direction. Under head
+        tensor parallelism the output is this rank's partial sums."""
         cfg = self.config
         wq, wk, wv, wo = weights or (None,) * 4
         B, L, D = hidden_states.shape
@@ -156,7 +166,7 @@ class TTTLayer(nn.Module):
             raise ValueError(f"Sequence len {L} must be multiple of mini batch size {CS}.")
         NC = L // CS
 
-        x = self.tp.copy(interleave(hidden_states, meta, reverse))  # feeds the head-local projections and gate
+        x = interleave(hidden_states, meta, reverse)
         to_tm = lambda t: t.reshape(B, NC, CS, H * F)  # token-major: a pure reshape
         XQ, XK, XV = to_tm(self.wq(x, wq)), to_tm(self.wk(x, wk)), to_tm(self.wv(x, wv))
         gate = self.token_gate(x)
@@ -183,6 +193,8 @@ class TTTLayer(nn.Module):
         else:
             XQW = plain(*args)
         del XQ, XK, XV, args  # before the post-norm's and wo's outputs are allocated
-        out = self.tp.gather(XQW.reshape(B, L, H * F), -1)  # every head: the post-norm runs over all of D
-        out = self.wo(self.tp.split(layer_norm(out, self.post_norm, out.dtype), -1), wo)
-        return undo_interleave(out, meta, reverse)
+        # Every head: the post-norm runs over all of D. Its gradient reaches this rank's features only, so the
+        # gathered features' gradient is a partial sum (reduce-scattered) and post_norm's is partial too.
+        out = self.tp.all_gather(XQW.reshape(B, L, H * F), D, -1)
+        out = self.wo(self.tp.shard(layer_norm(out, self.post_norm, out.dtype), -1), wo)
+        return undo_interleave(out, meta, reverse)  # partial sums over heads: a permutation before their reduce-scatter

@@ -1,5 +1,5 @@
-"""Local shards for the kernels, and the collectives of head tensor
-parallelism (the counterpart of ttt_video_dit_tpu/ops/pallas/sharded.py).
+"""Local shards for the kernels, and the collectives of sequence and head
+tensor parallelism (the counterpart of ttt_video_dit_tpu/ops/pallas/sharded.py).
 
 ``pl.pallas_call`` has no GSPMD rule, so the JAX package runs each TTT
 kernel under ``shard_map`` on the local batch and heads. Here the same
@@ -11,12 +11,21 @@ head-sharded DTensor parameters into local tensors with :func:`local`
 kernels run on the local heads with no collective; a DTensor that reaches a
 wrapper raises (:func:`refuse_dtensors`).
 
-:class:`TensorParallel` holds a module's tensor group and the four
-autograd-aware collectives around the head-local work (Megatron's f and g,
-and a split and a gather along the feature dimension); on a group of one
-each is the identity. Whatever a rank computes outside the head-local work
-is replicated over the group, so every replicated parameter gets the same
-gradient on every rank of it.
+:class:`TensorParallel` holds a module's tensor group and the collectives of
+sequence parallelism (the counterpart of the JAX package's ``shard_boundary``
+and ``maybe_shard`` constraints, parallel/mesh.py:92-143, which GSPMD turns
+into the same collectives). Between the head-local blocks the [B, L, D]
+stream is token-sharded over the group: each rank holds its rows of the
+joined [text; video] stream (:meth:`TensorParallel.shard`), and the adaLN
+modulation, the LayerNorms, the gates, the residual adds and the MLP run on
+them with the replicated parameters. The head-local work gathers the tokens
+(:meth:`~TensorParallel.all_gather`; its backward reduce-scatters) and hands
+back its partial sums over heads by a reduce-scatter over tokens
+(:meth:`~TensorParallel.reduce_scatter`; its backward all-gathers). So every
+replicated parameter sees only this rank's tokens or heads and gets a
+partial gradient, which training sums over the group before the clip
+(parallel/sharding.py:sum_replicated_grads). On a group of one each
+collective is the identity and the code is the one-device code.
 """
 
 from __future__ import annotations
@@ -92,73 +101,92 @@ def square_sum(tensors) -> torch.Tensor:
     return total
 
 
-class _Copy(torch.autograd.Function):
-    """Identity forward; the backward all-reduces the gradient over the group
-    (a replicated input feeding head-local work)."""
+def _all_gather(x, dim: int, group, size: int):
+    """Every rank's ``x`` concatenated along ``dim``, contiguous: one
+    all-gather into [size, *x.shape], then a copy that puts each rank's
+    chunk in its place along ``dim`` (none when the axes before ``dim`` are
+    of length 1, as the token axis of one batch row)."""
+    dim %= x.ndim
+    parts = x.new_empty((size,) + x.shape)
+    dist.all_gather_into_tensor(parts.view(-1), x.contiguous().view(-1), group=group)  # flat: any backend's layout
+    return parts.movedim(0, dim).reshape(x.shape[:dim] + (size * x.shape[dim],) + x.shape[dim + 1 :])
+
+
+def _reduce_scatter(x, dim: int, group, size: int):
+    """This rank's chunk along ``dim`` of the sum of every rank's ``x``,
+    contiguous: one reduce-scatter of ``x`` with its ``size`` chunks laid out
+    first (a copy, but none when the axes before ``dim`` are of length 1)."""
+    dim %= x.ndim
+    n = x.shape[dim] // size
+    chunks = x.reshape(x.shape[:dim] + (size, n) + x.shape[dim + 1 :]).movedim(dim, 0).contiguous()
+    out = x.new_empty(x.shape[:dim] + (n,) + x.shape[dim + 1 :])
+    dist.reduce_scatter_tensor(out.view(-1), chunks.view(-1), group=group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    """The chunks of every rank concatenated along ``dim``; the backward
+    reduce-scatters the gradient (the gathered tensor feeds head-local work,
+    so each rank's gradient of it is a partial sum)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _Reduce(torch.autograd.Function):
-    """All-reduce forward (partial sums over heads); identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _Split(torch.autograd.Function):
-    """This rank's chunk along ``dim``; the backward all-gathers the chunks'
-    gradients (a replicated tensor consumed by head-local work)."""
-
-    @staticmethod
-    def forward(ctx, x, dim, group, size, rank):
+    def forward(ctx, x, dim, group, size):
         ctx.dim, ctx.group, ctx.size = dim, group, size
-        return x.chunk(size, dim)[rank].contiguous()
+        return _all_gather(x, dim, group, size)
 
     @staticmethod
     def backward(ctx, g):
-        parts = [torch.empty_like(g) for _ in range(ctx.size)]
-        dist.all_gather(parts, g.contiguous(), group=ctx.group)
-        return torch.cat(parts, dim=ctx.dim), None, None, None, None
+        return _reduce_scatter(g, ctx.dim, ctx.group, ctx.size), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """This rank's chunk along ``dim`` of the sum over the group (partial sums
+    over heads); the backward all-gathers the chunks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        return _reduce_scatter(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group, ctx.size), None, None, None
 
 
 class _Gather(torch.autograd.Function):
     """The chunks of every rank concatenated along ``dim``; the backward takes
-    this rank's chunk (the gathered tensor feeds replicated work)."""
+    this rank's chunk (the gathered tensor feeds replicated work: the loss)."""
 
     @staticmethod
     def forward(ctx, x, dim, group, size, rank):
         ctx.dim, ctx.size, ctx.rank = dim, size, rank
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim=dim)
+        return _all_gather(x, dim, group, size)
 
     @staticmethod
     def backward(ctx, g):
         return g.chunk(ctx.size, ctx.dim)[ctx.rank].contiguous(), None, None, None, None
 
 
+def _pad_to(x, dim: int, n: int):
+    """``x`` with zeros appended along ``dim`` up to length ``n``."""
+    dim %= x.ndim
+    extra = n - x.shape[dim]
+    if not extra:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:dim] + (extra,) + x.shape[dim + 1 :])], dim=dim)
+
+
 class TensorParallel:
     """A module's tensor group: its size, this rank's index in it, and the
-    collectives of head tensor parallelism. ``mesh``: the 1-D ``tensor``
-    submesh, or None for no tensor parallelism (a group of one)."""
+    collectives of sequence and head tensor parallelism. ``mesh``: the 1-D
+    ``tensor`` submesh, or None for no tensor parallelism (a group of one,
+    where every method returns its input).
+
+    A token axis of length L is split into ``rows(L)`` = ceil(L / size) rows
+    a rank, rank r holding rows [r * rows, (r + 1) * rows): a length the
+    group does not divide is padded with zero rows at the end, which the
+    gathers drop again (:meth:`shard`, :meth:`all_gather`), where the JAX
+    package's ``shard_boundary`` falls back to the feature axis."""
 
     def __init__(self, mesh=None):
         self.group = None if mesh is None else mesh.get_group()
@@ -168,20 +196,41 @@ class TensorParallel:
     def local_heads(self, H: int) -> int:
         return local_head_count(H, self.size)
 
-    def copy(self, x):
-        """Identity; the gradient is all-reduced over the group."""
-        return x if self.size == 1 else _Copy.apply(x, self.group)
+    def rows(self, L: int) -> int:
+        """The rows of a length-``L`` axis each rank holds."""
+        return -(-L // self.size)
 
-    def reduce(self, x):
-        """The sum over the group; the gradient passes through."""
-        return x if self.size == 1 else _Reduce.apply(x, self.group)
+    def shard(self, x, dim: int = 1):
+        """This rank's rows of ``x`` along ``dim`` (zero-padded to ``size *
+        rows``), in storage of their own. A plain slice: the gradient is zero
+        outside the rank's rows, so a replicated parameter upstream gets a
+        partial gradient, summed over the group with the others
+        (parallel/sharding.py:sum_replicated_grads)."""
+        if self.size == 1:
+            return x
+        n = self.rows(x.shape[dim])
+        return _pad_to(x, dim, n * self.size).narrow(dim, self.rank * n, n).clone()
 
-    def split(self, x, dim: int):
-        """This rank's chunk along ``dim``; the gradients are gathered."""
-        return x if self.size == 1 else _Split.apply(x, dim, self.group, self.size, self.rank)
+    def all_gather(self, x, length: int, dim: int = 1):
+        """Every rank's rows along ``dim``, concatenated and cut to ``length``;
+        the gradient is reduce-scattered (the inverse of :meth:`shard`, for
+        head-local work)."""
+        if self.size == 1:
+            return x
+        return _AllGather.apply(x, dim, self.group, self.size).narrow(dim, 0, length)
+
+    def reduce_scatter(self, x, dim: int = 1):
+        """This rank's rows along ``dim`` of the sum over the group of ``x``
+        (each rank's partial sums over its heads, zero-padded to ``size *
+        rows``); the gradient is all-gathered."""
+        if self.size == 1:
+            return x
+        x = _pad_to(x, dim, self.rows(x.shape[dim]) * self.size)
+        return _ReduceScatter.apply(x, dim, self.group, self.size)
 
     def gather(self, x, dim: int):
-        """Every rank's chunk along ``dim``, concatenated; the gradient is split."""
+        """Every rank's chunk along ``dim``, concatenated; the gradient is this
+        rank's chunk of it (the gathered tensor feeds replicated work)."""
         return x if self.size == 1 else _Gather.apply(x, dim, self.group, self.size, self.rank)
 
 

@@ -16,6 +16,18 @@ torch layouts (a ``Linear`` weight is [out, in], a flax kernel [in, out]):
 - everything else (the MLP, adaLN, norms, gates, embeddings) is replicated
   over ``tensor``.
 
+Sequence parallelism comes with the tensor axis (no flag of its own, as the
+JAX package's constraints apply whenever its mesh has a tensor axis): the
+stream between the head-local blocks is token-sharded over ``tensor``
+(models/dit/dit.py, parallel/sharded.py), so each layer-group checkpoint
+saves 1/tp of the stream, what ``[remat] shard_transformer_inputs`` asks
+of the JAX package. Every replicated parameter then sees a token shard (the
+MLP, adaLN, LayerNorms, gates, final layer, patch and time embeddings) or a
+head shard (the q/k norms, the post-norm, the q/k/v/o and wq/wk/wv/wo
+biases) and gets a partial gradient on each tensor rank:
+:func:`sum_replicated_grads` sums them over the group before the clip and
+the step (FSDP2 reduces over the data axes only).
+
 An axis that does not divide its dim is dropped, as ``_spec_for`` drops it.
 On a tensor axis of one rank the Shard placement is kept (a no-op), so one
 card runs the code of N cards; the JAX package drops size-1 axes instead.
@@ -40,13 +52,15 @@ from __future__ import annotations
 
 import re
 
+import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import Shard, distribute_tensor
 
 from ttt_video_dit_torch.parallel.mesh import FSDP, REPLICA, TENSOR
-from ttt_video_dit_torch.parallel.sharded import TensorParallel
+from ttt_video_dit_torch.parallel.sharded import TensorParallel, local
 from ttt_video_dit_torch.training.optimizer import flax_path
 
 # (regex over the flax-mirrored path, the torch dim sharded over ``tensor``).
@@ -75,9 +89,10 @@ def tensor_dim(path: str, shape, tp: int) -> int | None:
 def apply_tensor_parallel(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """Shard ``model``'s head-structured parameters over ``mesh["tensor"]``
     in place (DTensors, each rank slicing its own shard of the full
-    parameter it holds) and give the attention, TTT and their Linears the
-    tensor group."""
-    from ttt_video_dit_torch.models.dit.dit import SegmentLocalAttention
+    parameter it holds), give the DiT, its sequence-modeling blocks, the
+    attention, TTT and their Linears the tensor group, and record the
+    replicated parameters' names for :func:`sum_replicated_grads`."""
+    from ttt_video_dit_torch.models.dit.dit import DiffusionTransformer, SegmentLocalAttention, SeqModelingBlock
     from ttt_video_dit_torch.models.ttt.layer import Linear, TTTLayer
 
     tp_mesh = mesh[TENSOR]
@@ -86,18 +101,38 @@ def apply_tensor_parallel(model: nn.Module, mesh: DeviceMesh) -> nn.Module:
     if H % tp:
         raise ValueError(f"--parallelism.tp_sharding {tp} does not divide the {H} heads (--model.num_heads)")
     group = TensorParallel(tp_mesh)
+    replicated = []
     for name, module in model.named_modules():
-        if isinstance(module, (SegmentLocalAttention, TTTLayer)):
+        if isinstance(module, (DiffusionTransformer, SeqModelingBlock, SegmentLocalAttention, TTTLayer)):
             module.tp = group
         for pname, p in list(module.named_parameters(recurse=False)):
-            dim = tensor_dim(flax_path(f"{name}.{pname}"), p.shape, tp)
+            full_name = f"{name}.{pname}" if name else pname
+            dim = tensor_dim(flax_path(full_name), p.shape, tp)
             if dim is None:
+                replicated.append(full_name)
                 continue
             sharded = distribute_tensor(p.detach(), tp_mesh, [Shard(dim)], src_data_rank=None)
             module.register_parameter(pname, nn.Parameter(sharded, requires_grad=p.requires_grad))
             if isinstance(module, Linear) and pname == "weight":
                 module.tp, module.style = group, LINEAR_STYLES[dim]
+    model.tensor_parallel, model.tensor_replicated = group, frozenset(replicated)
     return model
+
+
+@torch.no_grad()
+def sum_replicated_grads(model: nn.Module) -> None:
+    """Sum the gradient of every parameter the tensor rules replicate over
+    the tensor group, in place (one all-reduce each), so that every tensor
+    rank holds the whole gradient; a rank with none (a row-parallel bias off
+    rank 0) adds zeros. A no-op without tensor parallelism."""
+    tp = getattr(model, "tensor_parallel", None)
+    if tp is None or tp.size == 1:
+        return
+    for name, p in model.named_parameters():
+        if name in model.tensor_replicated and p.requires_grad:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            dist.all_reduce(local(p.grad), group=tp.group)
 
 
 def apply_fsdp(model: nn.Module, mesh: DeviceMesh) -> nn.Module:

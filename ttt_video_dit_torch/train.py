@@ -49,7 +49,10 @@ with ``dp_sharding = -1`` inferred. Every rank builds the full float32
 model from the seed (or loads it), then shards it: head tensor parallelism
 over ``tensor`` (attention and TTT on H / tp local heads, every kernel on
 its rank's heads), then FSDP2 per layer over (replica, fsdp), HSDP when
-replica > 1 (parallel/sharding.py). Each data rank (rank // tp) loads its
+replica > 1 (parallel/sharding.py); between the head-local blocks the
+stream is token-sharded over ``tensor`` (sequence parallelism, logged once
+with the rows a rank holds), and the replicated parameters' partial
+gradients are summed over ``tensor`` before the clip. Each data rank (rank // tp) loads its
 contiguous shard of the global batch and takes its slice of the global
 batch's sigma bounds (stratified over the data ranks) and draws; the loss
 logged is the mean over the data ranks and MFU counts the world's FLOPs
@@ -274,6 +277,11 @@ def _train(job_config: JobConfig, device: torch.device, mesh, sizes) -> dict:
             if flops is None:
                 tl = host["text"].shape[2]
                 flops = train_step_flops(cfg, global_bs, tl)
+            if step == start_step + 1 and sizes[2] > 1:
+                L = cfg.num_chunks * tl + cfg.compressed_num_frames * cfg.tokens_per_frame
+                tp = model.tensor_parallel
+                logger.write(f"sequence parallel: the stream token-sharded over tensor: {tp.rows(L)} of {L} tokens "
+                             f"a rank{'' if L % tp.size == 0 else f' (the last rank {tp.rows(L) * tp.size - L} padded)'}")
             t = time.perf_counter()
             count = optimizer.count
             draws = global_draws(step_generator(job.seed, count, device), global_bs, batch["vid"].shape[1:],

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ttt_video_dit_torch.parallel.sharding import sum_replicated_grads
+
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of optimizer step ``step`` (0-based: the optimizer's
@@ -82,5 +84,6 @@ def train_step(model, optimizer, batch: dict, *, grad_accum_steps: int = 1, text
                      idx=d.get("idx"), noise=d.get("noise")).mean()
         (loss / grad_accum_steps).backward()
         loss_sum = loss_sum + loss.detach()
+    sum_replicated_grads(model)  # under sequence parallelism each tensor rank holds a partial sum
     grad_norm = optimizer.step()
     return {"loss": loss_sum / grad_accum_steps, "grad_norm": grad_norm}
