@@ -7,6 +7,14 @@ non-zero, and no result line is printed):
 
 1. device, card name and power limit; build and load the CUDA kernels from
    ttt_video_dit_torch/csrc/ (nvcc, sm_90a, one nvcc per source, all at once).
+16. (right after phase 1) the kernel self-test a benchmark runs before it
+    times anything, ttt_video_dit_torch/utils/selftest.py:kernel_selftest:
+    every kernel against its plain version at small discriminating shapes
+    (full/ragged checkpoint-group pairs, 12 local heads, a large eta, three
+    ragged attention windows forward and backward, the sampling scans at an
+    even and an odd NC, K7 bit for bit), each check on a line of its own with
+    its tolerance; the worst check of each kernel, the seconds it took after
+    the build, and again warm. Raises when a check fails.
 2. each kernel against its plain PyTorch version on the card, at the 3 s
    slices' shapes and at a small ragged shape, with times, the bound the
    card sets for the same work, and the time of one PyTorch call computing
@@ -80,6 +88,16 @@ output/chip_smoke_data/, removed at the end):
    are equal, the grad norms and parameters agree within the stated
    tolerances; the loader's seconds a batch against the wait for it, and
    the save and restore seconds and bytes.
+17. the Slurm launcher's in-job half (ttt_video_dit_torch/train_submitit.py:
+    Trainer; the card's machine has no submitit) in a fabricated one-task
+    Slurm environment (SLURM_NTASKS 1, SLURM_PROCID 0, SLURM_LOCALID 0, this
+    host's name as the node list): phase 9's samples and model, a checkpoint
+    every step. Run A saves steps 1 and 2, computes step 3 and is preempted
+    while saving it; the Trainer that A's checkpoint() hands to submitit (a
+    stand-in DelayedSubmission) resumes from step 2 and takes step 3 again.
+    Its step-3 batch and loss equal A's bit for bit, the sampler states are
+    equal, grad norms and parameters are held as in phase 9; both runs go
+    through torchrun's branch (NCCL, a group of one, FSDP2).
 Then the long-context shapes (9 s and 63 s):
 10. K1 and K5 on the full 63 s q/k/v [2, 351,168, 48 x 64] (more than 2^31
     elements; the gate holds eta at 0 but on the last 256 mini-batches, so
@@ -162,7 +180,7 @@ Then the longest training stage one card holds:
     cards.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 8, 9, 11, 12, 13, 14 and 15); the last line is
+the main-path runs of phases 4, 6 (both policies), 8, 9, 17, 11, 12, 13, 14 and 15); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -402,6 +420,30 @@ def phase_build():
             "ttt_linear_backward": _build.load("ttt_linear_backward").ttt_linear_backward_smem_bytes()}
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: "
         + ", ".join(f"{k} {v} bytes" for k, v in smem.items()) + ")")
+
+
+def phase_selftest(device) -> None:
+    """Phase 16 (right after phase 1): utils/selftest.py:kernel_selftest, every kernel against its plain version
+    at small discriminating shapes, each check on a line of its own; then once more, for its time warm. Raises
+    when a check fails."""
+    from ttt_video_dit_torch.utils.selftest import kernel_selftest
+
+    result = kernel_selftest(device, log=log)
+    failed = [n for n, e in result["checks"].items() if not e <= result["tolerances"][n]]
+    if failed:
+        raise AssertionError(f"kernel self-test: {len(failed)} checks failed: {failed}")
+    warm = kernel_selftest(device)
+    if not warm["ok"]:
+        raise AssertionError(f"kernel self-test, second run: {warm['checks']}")
+    worst = {}  # row: (check, error, tolerance) of the check nearest its tolerance
+    for name, err in result["checks"].items():
+        row, tol = name[name.rindex("[") + 1 : -1], result["tolerances"][name]
+        share = err / tol if tol else float(err > 0)
+        if row not in worst or share > worst[row][0]:
+            worst[row] = (share, name[: name.rindex("[") - 1], err, tol)
+    log(f"phase 16 kernel self-test: {len(result['checks'])} checks within their tolerances; worst per kernel: "
+        + ", ".join(f"{row} {n} {e:.3g} (tol {t:.0e})" for row, (_, n, e, t) in worst.items())
+        + f"; {result['seconds']:.2f} s (first run, after the build), {warm['seconds']:.2f} s (second) ({CARD})")
 
 
 def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16, variant="ttt_mlp"):
@@ -1418,6 +1460,29 @@ def _fabricated_dataset(path: str, samples: int, seed: int) -> str:
     return meta
 
 
+def data_train_flags(meta: str, interval: int, dump: str) -> list[str]:
+    """The training entry on phase 9's fabricated samples: ttt_mlp 3 s TOML at 2 layers, 3 steps, a checkpoint
+    every ``interval`` steps under ``dump``."""
+    return ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "2", "--training.steps", "3",
+            "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
+            "--training.dataset_path", os.path.join(DATA_DIR, "data"), "--training.jsonl_paths", meta,
+            "--checkpoint.interval", str(interval), "--job.dump_folder", dump]
+
+
+def recording_batches(seen: list):
+    """A DataModule.batches that appends a copy of each batch it yields to ``seen``."""
+    from ttt_video_dit_torch.data import dataset
+
+    batches = dataset.DataModule.batches
+
+    def recording(self, *args, **kwargs):
+        for b in batches(self, *args, **kwargs):
+            seen.append({k: v.copy() for k, v in b.items()})
+            yield b
+
+    return recording
+
+
 def phase_resume(device) -> dict[str, int]:
     """The training entry on fabricated precomputed latents (ttt_mlp 3 s TOML,
     full width, 2 layers), saving and resuming: run A takes 3 steps with
@@ -1439,19 +1504,10 @@ def phase_resume(device) -> dict[str, int]:
     meta = _fabricated_dataset(os.path.join(DATA_DIR, "data"), samples=4, seed=15)
     log(f"  dataset: 4 samples (posteriors [13, 32, 60, 90], text [498, 4096], .npy and .pt): "
         f"{time.perf_counter() - t0:.1f} s")
-    flags = ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "2", "--training.steps", "3",
-             "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
-             "--training.dataset_path", os.path.join(DATA_DIR, "data"), "--training.jsonl_paths", meta,
-             "--checkpoint.interval", "2", "--job.dump_folder", os.path.join(DATA_DIR, "run")]
+    flags = data_train_flags(meta, interval=2, dump=os.path.join(DATA_DIR, "run"))
     seen = []
     batches = dataset.DataModule.batches
-
-    def recording(self, *args, **kwargs):
-        for b in batches(self, *args, **kwargs):
-            seen.append({k: v.copy() for k, v in b.items()})
-            yield b
-
-    dataset.DataModule.batches = recording
+    dataset.DataModule.batches = recording_batches(seen)
     try:
         reset_counts()
         a = train.main(train.parse_args(flags))
@@ -1511,6 +1567,147 @@ def phase_resume(device) -> dict[str, int]:
         f"{a['peak_memory_bytes'] / 2**30:.2f} GiB ({CARD}): {time.perf_counter() - t0:.1f} s")
     del a, b, got, opt
     torch.cuda.empty_cache()
+    return counts
+
+
+class Preempted(Exception):
+    """Stands in for Slurm's preemption signal in phase 17: raised in place of a training step."""
+
+
+def _free_job_id(base: int, span: int) -> str:
+    """A SLURM_JOB_ID whose MASTER_PORT (``base`` + id mod ``span``, train_submitit's rule) is free now."""
+    while True:
+        port = _free_port()
+        if base <= port < base + span:
+            return str(port - base)
+
+
+def phase_requeue(device) -> dict[str, int]:
+    """Phase 17: the Slurm launcher's in-job half (train_submitit.Trainer, no
+    submitit on the card's machine) in a fabricated one-task Slurm
+    environment (SLURM_NTASKS 1, SLURM_PROCID 0, SLURM_LOCALID 0, this host's
+    name as the node list), on phase 9's fabricated samples (ttt_mlp 3 s TOML,
+    full width, 2 layers, a checkpoint every step). Run A saves steps 1 and 2,
+    computes step 3 and is preempted while saving it; the Trainer that A's
+    checkpoint() hands to submitit (a stand-in DelayedSubmission, as submitit
+    would requeue it) resumes from step 2 and takes step 3 again. Its step-3
+    batch and loss equal A's bit for bit, the sampler states are equal, the
+    grad norms and parameters are held as phase 9 holds them. (A's own step 3
+    is the uninterrupted reference: a second, independent run would differ
+    from the first update on, as K4 adds dq in an order that varies.) Both
+    runs go through torchrun's branch (NCCL, a group of one, FSDP2)."""
+    import socket
+    import types
+
+    import numpy as np
+
+    from ttt_video_dit_torch import train, train_submitit
+    from ttt_video_dit_torch.data import dataset
+    from ttt_video_dit_torch.training import checkpoint, train_step
+    from ttt_video_dit_torch.training.optimizer import flax_path
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    host = socket.gethostname()
+    try:
+        socket.getaddrinfo(host, None)
+    except OSError:
+        log(f"  this host's name {host!r} does not resolve; the node list is localhost")
+        host = "localhost"
+    slurm = {"SLURM_NTASKS": "1", "SLURM_PROCID": "0", "SLURM_LOCALID": "0", "SLURM_JOB_NODELIST": host,
+             "SLURM_JOB_ID": _free_job_id(train_submitit.PORT_BASE, train_submitit.PORT_SPAN)}
+    dump = os.path.join(DATA_DIR, "requeue")
+    submitit = types.ModuleType("submitit")  # what checkpoint() needs of it: helpers.DelayedSubmission
+    submitit.helpers = types.SimpleNamespace(DelayedSubmission=lambda fn, *args, **kwargs: (fn, args, kwargs))
+    summaries, seen, steps_a, at_step_3 = [], [], [], {}
+    main, batches = train.main, dataset.DataModule.batches
+    step, save = train_step.train_step, checkpoint.Checkpointer.save
+    full = lambda p: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().clone()
+
+    def keeping(job):  # the Trainer returns the summary without the model: keep it whole here
+        summaries.append(main(job))
+        return summaries[-1]
+
+    def recording_step(*args, **kwargs):
+        out = step(*args, **kwargs)
+        steps_a.append((float(out["loss"]), float(out["grad_norm"])))
+        return out
+
+    def preempted_save(self, n, model, optimizer, sampler_state, *args, **kwargs):
+        if n < 3:
+            return save(self, n, model, optimizer, sampler_state, *args, **kwargs)
+        at_step_3.update(sampler=sampler_state, optimizer=optimizer,
+                         params={name: full(p) for name, p in model.named_parameters()})
+        raise Preempted
+
+    saved_env = dict(os.environ)
+    os.environ.update(slurm)
+    train.main, dataset.DataModule.batches, sys.modules["submitit"] = keeping, recording_batches(seen), submitit
+    train_step.train_step, checkpoint.Checkpointer.save = recording_step, preempted_save
+    try:
+        reset_counts()
+        first = train_submitit.Trainer(data_train_flags(os.path.join(DATA_DIR, "data", "meta.jsonl"), interval=1,
+                                                        dump=dump))
+        try:
+            first()
+            raise AssertionError("run A was not preempted")
+        except Preempted:
+            pass
+        exported = {k: os.environ[k] for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        train_step.train_step, checkpoint.Checkpointer.save = step, save
+        saved_a = sorted(os.listdir(os.path.join(dump, "checkpoint")))
+        batches_a, seen[:] = list(seen), []
+        fn, args, kwargs = first.checkpoint()
+        fn(*args, **kwargs)
+        counts = read_counts()
+        batches_c = list(seen)
+    finally:
+        train.main, dataset.DataModule.batches = main, batches
+        train_step.train_step, checkpoint.Checkpointer.save = step, save
+        del sys.modules["submitit"]
+        os.environ.clear()
+        os.environ.update(saved_env)
+    (c,) = summaries
+    L = c["model_config"].num_layers
+    expect = {"ttt_mlp_forward_train": 2 * L * 4, "ttt_mlp_backward": 2 * L * 4, "attention_forward_lse": L * 4,
+              "attention_backward": L * 4, "convert_f32_bf16": 2 * 12 * L * 4}  # A's 3 steps, then step 3 again
+    if counts != {**dict.fromkeys(counts, 0), **expect}:
+        raise AssertionError(f"kernel launches {counts}, expected {expect}")
+    if fn.argv != first.argv + ["--checkpoint.resume"] or saved_a != ["1", "2"] or c["mesh"] != (1, 1, 1):
+        raise AssertionError(f"requeued argv {fn.argv}, run A saved {saved_a}, mesh {c['mesh']}")
+    if c["start_step"] != 2 or len(c["losses"]) != 1 or len(batches_a) != 3 or len(batches_c) != 1:
+        raise AssertionError(f"the requeued run started at {c['start_step']} and took {len(c['losses'])} steps "
+                             f"(expected 2 and 1); batches {len(batches_a)} / {len(batches_c)}")
+    (loss_a, norm_a), same_batch = steps_a[2], all(np.array_equal(batches_a[2][k], batches_c[0][k])
+                                                   for k in ("vid", "text"))
+    if not same_batch or loss_a != c["losses"][0] or at_step_3["sampler"] != c["sampler_state"]:
+        raise AssertionError(f"requeue: step-3 batch equal {same_batch}, loss {loss_a!r} vs {c['losses'][0]!r}, "
+                             f"sampler {at_step_3['sampler']} vs {c['sampler_state']}")
+    norm_rel = abs(norm_a - c["grad_norms"][0]) / norm_a
+    if not norm_rel <= RESUME_GRAD_NORM_RTOL:
+        raise AssertionError(f"requeue: step-3 grad norm {norm_a} vs {c['grad_norms'][0]}")
+    opt = at_step_3["optimizer"]
+    lrs = opt.learning_rates(2)
+    worst, n_equal = (0.0, ""), 0
+    for name, p in c["model"].named_parameters():
+        diff = float((full(p) - at_step_3["params"][name]).abs().max())
+        n_equal += diff == 0.0
+        lr = lrs[opt.labels[flax_path(name)]]
+        if diff > 2 * lr:
+            raise AssertionError(f"requeue: {name} differs by {diff:.4g} > 2 x lr {lr:.3g}")
+        worst = max(worst, (diff / lr, name))
+    log(f"phase 17 Slurm requeue: train_submitit.Trainer in a fabricated one-task Slurm environment "
+        f"({', '.join(f'{k}={v}' for k, v in slurm.items())}; exported {exported}), without submitit; ttt_mlp "
+        f"d{c['model_config'].model_dim} x {L} layers on phase 9's samples, mesh {' x '.join(map(str, c['mesh']))} "
+        f"(NCCL, FSDP2): run A losses {[l for l, _ in steps_a]}, saved steps {saved_a}, preempted while saving "
+        f"step 3; the Trainer its checkpoint() returned (argv + --checkpoint.resume) resumed at step "
+        f"{c['start_step']}: loss {c['losses']}, step-3 batch and loss bit-equal to A's, sampler (and its "
+        f"generator) equal, grad norm rel diff {norm_rel:.3g} (tol {RESUME_GRAD_NORM_RTOL}), parameters {n_equal} "
+        f"of {len(at_step_3['params'])} bit-equal, worst {worst[1]} {worst[0]:.3g} x lr (tol 2); restore "
+        f"{c['restore']['bytes'] / 2**30:.3f} GiB in {c['restore']['seconds']:.2f} s, peak "
+        f"{c['peak_memory_bytes'] / 2**30:.2f} GiB ({CARD}): {time.perf_counter() - t0:.1f} s")
+    del c, opt, summaries, at_step_3
+    _collected_gib()
     return counts
 
 
@@ -2063,6 +2260,7 @@ def main() -> int:
     log(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x {torch.cuda.device_count()}; tf32 off")
     phase_build()
+    phase_selftest(device)
     log_clocks("before the kernels")
     records = phase_kernels(device)
     log_clocks("after the kernels")
@@ -2082,6 +2280,7 @@ def main() -> int:
         log_clocks("after serving")
         try:
             counts.update(phase_resume(device))
+            counts.update(phase_requeue(device))
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
         phase_long_kernels(device)

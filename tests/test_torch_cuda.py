@@ -419,3 +419,12 @@ def test_vae_decode_on_the_card_matches_the_cpu(cuda, tmp_path):
     got = got.cpu()
     assert float((got - want).norm() / want.norm()) <= VAE_REL_L2
     assert float((got - want).abs().max()) <= VAE_MAX * float(want.abs().max())
+
+
+def test_kernel_selftest_holds_every_kernel_on_the_card(cuda):
+    """utils/selftest.py:kernel_selftest, the benchmark's check before it times anything: every check within
+    its tolerance, every kernel launched."""
+    from ttt_video_dit_torch.utils.selftest import kernel_selftest
+
+    result = kernel_selftest(cuda)
+    assert result["ok"], {n: e for n, e in result["checks"].items() if not e <= result["tolerances"][n]}
