@@ -11,10 +11,12 @@ non-zero, and no result line is printed):
     times anything, ttt_video_dit_torch/utils/selftest.py:kernel_selftest:
     every kernel against its plain version at small discriminating shapes
     (full/ragged checkpoint-group pairs, 12 local heads, a large eta, three
-    ragged attention windows forward and backward, the sampling scans at an
-    even and an odd NC, K7 bit for bit), each check on a line of its own with
-    its tolerance; the worst check of each kernel, the seconds it took after
-    the build, and again warm. Raises when a check fails.
+    ragged attention windows forward and backward, K4 launched twice with
+    dq, dk and dv bit-equal (its determinism check, named on a line of its
+    own), the sampling scans at an even and an odd NC, K7 bit for bit), each
+    check on a line of its own with its tolerance; the worst check of each
+    kernel, the seconds it took after the build, and again warm. Raises when
+    a check fails.
 2. each kernel against its plain PyTorch version on the card, at the 3 s
    slices' shapes and at a small ragged shape, with times, the bound the
    card sets for the same work, and the time of one PyTorch call computing
@@ -55,10 +57,12 @@ at the end):
    heads x d_kv 64, d_ff 10240, gated-GELU, 32 buckets / max distance 128,
    24 layers, 32,128 + 2 vocab), seeded bf16 weights, encodes seeded ids
    [2 scenes, 498] twice (positive and negative): ms per encode, peak
-   memory, finite output. Then text: a 32,000-piece spiece.model written in
-   protobuf's wire format by fabricated_spiece (the card's machine has no
-   transformers or protobuf) and a seeded 21-scene storyboard, tokenised by
-   the port's tokenizer (ms, no unknown pieces) and encoded by the XXL
+   memory, finite output. Then text: a 32,000-piece spiece.model with a
+   precompiled character map (CHARSMAP_RULES) written in protobuf's wire
+   format by fabricated_spiece (the card's machine has no transformers,
+   tokenizers, regex or protobuf) and a seeded 21-scene storyboard,
+   tokenised by the port's tokenizer (ms, no unknown pieces; 'a\\nb' and
+   'a b', 'a\\u200bb' and 'ab' give the same ids) and encoded by the XXL
    encoder ([21, 458], ms). Then the loader end to end at 2 layers: a
    fabricated directory (config.json + model.safetensors from the port's
    writer + the spiece.model) loaded in bf16 on the card and in float32 on
@@ -84,20 +88,20 @@ output/chip_smoke_data/, removed at the end):
    [13, 32, 60, 90], text [498, 4096], .npy and torch.save'd .pt files,
    seeded), ttt_mlp 3 s TOML at full width cut to 2 layers: run A takes 3
    steps saving at steps 2 and 3, run B resumes from step 2 and takes step
-   3. B's step-3 batch and loss equal A's bit for bit, the sampler states
-   are equal, the grad norms and parameters agree within the stated
-   tolerances; the loader's seconds a batch against the wait for it, and
-   the save and restore seconds and bytes.
+   3. B's step-3 batch, loss, grad norm and parameters equal A's bit for
+   bit, the sampler states are equal; the loader's seconds a batch against
+   the wait for it, and the save and restore seconds and bytes.
 17. the Slurm launcher's in-job half (ttt_video_dit_torch/train_submitit.py:
     Trainer; the card's machine has no submitit) in a fabricated one-task
     Slurm environment (SLURM_NTASKS 1, SLURM_PROCID 0, SLURM_LOCALID 0, this
     host's name as the node list): phase 9's samples and model, a checkpoint
-    every step. Run A saves steps 1 and 2, computes step 3 and is preempted
-    while saving it; the Trainer that A's checkpoint() hands to submitit (a
-    stand-in DelayedSubmission) resumes from step 2 and takes step 3 again.
-    Its step-3 batch and loss equal A's bit for bit, the sampler states are
-    equal, grad norms and parameters are held as in phase 9; both runs go
-    through torchrun's branch (NCCL, a group of one, FSDP2).
+    every step. Run R takes 3 steps uninterrupted; run A, independent of it,
+    saves steps 1 and 2, computes step 3 and is preempted while saving it;
+    the Trainer that A's checkpoint() hands to submitit (a stand-in
+    DelayedSubmission) resumes from step 2 and takes step 3 again. A's steps
+    equal R's, and the requeued step 3's batch, loss, grad norm, sampler
+    state and parameters equal R's, bit for bit; all runs go through
+    torchrun's branch (NCCL, a group of one, FSDP2).
 Then the long-context shapes (9 s and 63 s):
 10. K1 and K5 on the full 63 s q/k/v [2, 351,168, 48 x 64] (more than 2^31
     elements; the gate holds eta at 0 but on the last 256 mini-batches, so
@@ -137,8 +141,10 @@ and NCCL takes one rank a device):
     (replica, fsdp, tensor) mesh 1 x 1 x 1, the tensor plan (head-sharded
     DTensor parameters, local shards through parallel/sharded.py) and, in
     training, FSDP2 per layer. The training entry on the ttt_mlp 3 s TOML at
-    4 layers, 3 steps under save_seq (phase 6's run): its losses held to
-    phase 6's within DIST_LOSS_RTOL (the largest difference printed), the
+    4 layers, 3 steps under save_seq (phase 6's run): its step-1 loss
+    bit-equal to phase 6's and the later ones within DIST_LOSS_RTOL (FSDP2
+    reorders the bf16 sum of the time embedding's gradient; the largest
+    difference printed), the
     launch counts of K1-train, K2, K3-lse, K4 and K7 those of phase 6, s/step
     and peak beside phase 6's; the sampling entry on the 3 s eval TOML at 42
     layers, 3 denoise steps (phase 4's run): latents against phase 4's (the
@@ -291,8 +297,6 @@ DIT_REL_L2_TOL = 2e-2
 # gradient, kernel path vs plain path: the forward's 3e-3 (phase 3) carried
 # back through two layers of bf16 backward.
 GRAD_REL_L2_TOL = {"loss": 1e-2, "grad": 5e-2}
-# Phase 9: the step-3 grad norm after a resume against the uninterrupted run's (K4's dq order only).
-RESUME_GRAD_NORM_RTOL = 1e-3
 # H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s and dense bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -311,11 +315,17 @@ T5_REL_L2_TOL = 2e-2
 # and max|card - cpu| <= VAE_MAX_TOL * max|cpu|.
 VAE_REL_L2_TOL = 1e-4
 VAE_MAX_TOL = 1e-3
-# Phase 13 against phases 6 and 4, the same runs through the torchrun branch at world size 1: the arithmetic
-# is the same (every collective of a group of one is skipped or a copy), but K4 adds dq by float32
-# reduce-adds whose order varies between runs, so the losses after the first update may differ in their
-# last bits (as phase 9's resumed grad norm); sampling runs no K4, and its latents must be bit-equal.
-DIST_LOSS_RTOL = 1e-3
+# Phase 13 against phases 6 and 4, the same runs through the torchrun branch at world size 1 (every
+# collective of a group of one is skipped or a copy, every kernel is deterministic). Sampling's latents and
+# training's step-1 loss must be bit-equal. Training's gradients are not: the bf16 time embedding feeds every
+# layer's adaLN, autograd sums its gradient over the layers in bf16 in the order the layers' gradients arrive,
+# and FSDP2's per-layer backward hooks change that order. So only time_embed_0/2's four gradients differ, at
+# bf16's rounding (tests/test_torch_parallel_mesh.py::test_fsdp2_on_a_world_of_one_reorders_only_the_time_
+# embeddings_gradient), the step-1 grad norm by ~2e-4 relative (3.446570634841919 against 3.445925235748291 on
+# an H100) and the losses after the first update by up to 7.3e-6 relative there; DIST_LOSS_RTOL leaves 13x.
+# Two runs of one branch are bit-equal (phase 17 in the torchrun branch, scripts/compare_torch_train_steps.py
+# outside it).
+DIST_LOSS_RTOL = 1e-4
 DIST_LATENT_TOL = 0.0
 SERVE_DIR = "output/chip_smoke_serve"
 TRAIN_DIR = "output/chip_smoke_train"  # phase 6's logs
@@ -426,13 +436,13 @@ def phase_selftest(device) -> None:
     """Phase 16 (right after phase 1): utils/selftest.py:kernel_selftest, every kernel against its plain version
     at small discriminating shapes, each check on a line of its own; then once more, for its time warm. Raises
     when a check fails."""
-    from ttt_video_dit_torch.utils.selftest import kernel_selftest
+    from ttt_video_dit_torch.utils import selftest
 
-    result = kernel_selftest(device, log=log)
+    result = selftest.kernel_selftest(device, log=log)
     failed = [n for n, e in result["checks"].items() if not e <= result["tolerances"][n]]
     if failed:
         raise AssertionError(f"kernel self-test: {len(failed)} checks failed: {failed}")
-    warm = kernel_selftest(device)
+    warm = selftest.kernel_selftest(device)
     if not warm["ok"]:
         raise AssertionError(f"kernel self-test, second run: {warm['checks']}")
     worst = {}  # row: (check, error, tolerance) of the check nearest its tolerance
@@ -441,6 +451,9 @@ def phase_selftest(device) -> None:
         share = err / tol if tol else float(err > 0)
         if row not in worst or share > worst[row][0]:
             worst[row] = (share, name[: name.rindex("[") - 1], err, tol)
+    rerun = selftest.RERUN_CHECK
+    log(f"phase 16 K4 determinism check '{rerun}': dq, dk, dv bit-equal over two launches "
+        f"(share of elements differing: {result['checks'][rerun]:g}), passed")
     log(f"phase 16 kernel self-test: {len(result['checks'])} checks within their tolerances; worst per kernel: "
         + ", ".join(f"{row} {n} {e:.3g} (tol {t:.0e})" for row, (_, n, e, t) in worst.items())
         + f"; {result['seconds']:.2f} s (first run, after the build), {warm['seconds']:.2f} s (second) ({CARD})")
@@ -1145,13 +1158,59 @@ STORY_WORDS = ("a the fluffy orange cat walks through sunlit kitchen looking for
                "with red door old man smiles waves child runs chasing blue ball green park trees sway wind").split()
 
 
+# The character map fabricated_spiece writes: some of the rules of T5's nmt_nfkc map (newlines, tabs and
+# carriage returns to a space, other control characters and the zero-width space to nothing, fullwidth letters
+# and digits to ASCII).
+CHARSMAP_RULES = {"\n": " ", "\t": " ", "\r": " ", "\u200b": "",
+                  **{chr(c): "" for c in [*range(1, 9), 0xB, 0xC, *range(0xE, 0x20), 0x7F]},
+                  **{chr(0xFF10 + i): chr(0x30 + i) for i in range(10)},
+                  **{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
+                  **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)}}
+
+
+def precompiled_charsmap(rules: dict) -> bytes:
+    """SentencePiece's precompiled character map of ``rules`` (key -> the
+    string it normalises to): a little-endian u32 trie size in bytes, a
+    darts-clone double array over the keys' UTF-8 bytes (a node's children
+    at base ^ label, its leaf at base with bit 31 set and the offset of its
+    string as value; each node takes the first base whose slots are free),
+    then the NUL-terminated strings."""
+    strings, trie = b"", {}
+    for key, value in rules.items():
+        node = trie
+        for c in key.encode("utf-8"):
+            node = node.setdefault(c, {})
+        node[None] = len(strings)
+        strings += value.encode("utf-8") + b"\0"
+    units, used = {0: 0}, {0}
+
+    def place(node: dict, pos: int) -> None:
+        labels = sorted(c for c in node if c is not None) + ([0] if None in node else [])
+        base = 256
+        while any(base ^ c in used for c in labels):
+            base += 1
+        used.update(base ^ c for c in labels)
+        units[pos] |= (pos ^ base) << 10 | (0x100 if None in node else 0)  # offset (< 2^21), has-leaf
+        if None in node:
+            units[base] = 1 << 31 | node[None]
+        for c in labels:
+            if c:
+                units[base ^ c] = c
+                place(node[c], base ^ c)
+
+    place(trie, 0)
+    n = (max(units) // 256 + 1) * 256
+    return struct.pack(f"<I{n}I", 4 * n, *(units.get(i, 0) for i in range(n))) + strings
+
+
 def fabricated_spiece(path: str, size: int = 32000, seed: int = 0) -> list:
     """A SentencePiece unigram ``spiece.model`` of ``size`` pieces, written in
     protobuf's wire format (no protobuf here): <pad>, </s>, <unk> (T5's ids
     0, 1, 2), every printable ASCII character with and without the ``▁``
     prefix, the storyboard words, then random letter strings, scores drawn
     from ``seed``; the trainer's unk/eos/pad ids and an nmt_nfkc normalizer
-    with T5's flags. Returns the pieces [(piece, score, type)]."""
+    with T5's flags and a precompiled character map of CHARSMAP_RULES.
+    Returns the pieces [(piece, score, type)]."""
     import random
 
     rng = random.Random(seed)
@@ -1175,7 +1234,7 @@ def fabricated_spiece(path: str, size: int = 32000, seed: int = 0) -> list:
         w = "".join(rng.choice(letters) for _ in range(rng.randint(2, 8)))
         add(w if rng.random() < 0.4 else "▁" + w)
     trainer = _pb(3, 1) + _pb(40, 2) + _pb(41, -1) + _pb(42, 1) + _pb(43, 0)
-    normalizer = _pb(1, "nmt_nfkc") + _pb(3, 1) + _pb(4, 1) + _pb(5, 1)
+    normalizer = _pb(1, "nmt_nfkc") + _pb(2, precompiled_charsmap(CHARSMAP_RULES)) + _pb(3, 1) + _pb(4, 1) + _pb(5, 1)
     body = b"".join(_pb(1, _pb(1, p) + _pb(2, sc) + _pb(3, t)) for p, sc, t in pieces)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
@@ -1268,6 +1327,10 @@ def phase_t5(device) -> None:
     if len(tok) != len(pieces) + 102 or not (ids[:, 0] != 0).all() or (ids == 2).any():
         raise AssertionError(f"tokenizer: {len(tok)} ids (expected {len(pieces) + 102}), lengths {lengths}, "
                              f"{int((ids == 2).sum())} <unk>")
+    mapped = (("a\nb", "a b"), ("a\u200bb", "ab"), ("the\tcat\r\n", "the cat"), ("Ｃａｔ\x07", "Cat"))
+    for text, same in mapped:  # the character map, where neither tokenizers nor transformers is installed
+        if tok.encode(text) != tok.encode(same):
+            raise AssertionError(f"character map: {text!r} gave {tok.encode(text)}, {same!r} {tok.encode(same)}")
     ids = torch.from_numpy(ids).to(device)
     with torch.inference_mode():
         enc(ids)  # warm-up at this shape
@@ -1277,7 +1340,9 @@ def phase_t5(device) -> None:
     del enc, outs, emb
     torch.cuda.empty_cache()
     log(f"  21-scene storyboard: tokenised in {tok_ms:.2f} ms ({len(tok)} ids, tokens a scene {min(lengths)}-"
-        f"{max(lengths)} of 458, none unknown), T5-XXL encode of [21, 458] {enc_ms:.2f} ms ({CARD})")
+        f"{max(lengths)} of 458, none unknown), T5-XXL encode of [21, 458] {enc_ms:.2f} ms; the spiece.model's "
+        f"character map ({len(CHARSMAP_RULES)} rules) gave {', '.join(f'{a!r}' for a, _ in mapped)} the ids of "
+        f"{', '.join(f'{b!r}' for _, b in mapped)} ({CARD})")
 
     path = os.path.join(SERVE_DIR, "t5")  # 2 layers, with the tokenizer: phase 8's T5
     _fabricated_t5_dir(path, layers=2, seed=10)
@@ -1487,17 +1552,14 @@ def phase_resume(device) -> dict[str, int]:
     """The training entry on fabricated precomputed latents (ttt_mlp 3 s TOML,
     full width, 2 layers), saving and resuming: run A takes 3 steps with
     --checkpoint.interval 2 (saves at steps 2 and 3); run B resumes from step
-    2 and takes step 3. B's step-3 batch and loss equal A's bit for bit (the
-    restore is exact and the forward deterministic), the sampler states after
-    step 3 are equal, the grad norms within RESUME_GRAD_NORM_RTOL and every
-    parameter within 2 x its group's learning rate (K4 adds dq in an order
-    that varies between runs, so step 3's gradients and update may differ in
-    their last bits)."""
+    2 and takes step 3. B's step-3 batch, loss, grad norm and every parameter
+    after step 3 equal A's bit for bit (the restore is exact and every kernel
+    of the step deterministic), and the sampler states after step 3 are
+    equal."""
     import numpy as np
 
     from ttt_video_dit_torch import train
     from ttt_video_dit_torch.data import dataset
-    from ttt_video_dit_torch.training.optimizer import flax_path
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1532,20 +1594,12 @@ def phase_resume(device) -> dict[str, int]:
     if not same_batch or a["losses"][2] != b["losses"][0] or a["sampler_state"] != b["sampler_state"]:
         raise AssertionError(f"resume: step-3 batch equal {same_batch}, loss {a['losses'][2]!r} vs {b['losses'][0]!r}, "
                              f"sampler {a['sampler_state']} vs {b['sampler_state']}")
-    norm_rel = abs(a["grad_norms"][2] - b["grad_norms"][0]) / a["grad_norms"][2]
-    if not norm_rel <= RESUME_GRAD_NORM_RTOL:
-        raise AssertionError(f"resume: step-3 grad norm {a['grad_norms'][2]} vs {b['grad_norms'][0]}")
-    opt = a["optimizer"]
-    lrs = opt.learning_rates(2)
+    if a["grad_norms"][2] != b["grad_norms"][0]:
+        raise AssertionError(f"resume: step-3 grad norm {a['grad_norms'][2]!r} vs {b['grad_norms'][0]!r}")
     got = dict(b["model"].named_parameters())
-    worst, n_equal = (0.0, ""), 0
-    for name, p in a["model"].named_parameters():
-        diff = float((p.detach() - got[name].detach()).abs().max())
-        n_equal += diff == 0.0
-        lr = lrs[opt.labels[flax_path(name)]]
-        if diff > 2 * lr:
-            raise AssertionError(f"resume: {name} differs by {diff:.4g} > 2 x lr {lr:.3g}")
-        worst = max(worst, (diff / lr, name))
+    differ = [name for name, p in a["model"].named_parameters() if not torch.equal(p, got[name])]
+    if differ:
+        raise AssertionError(f"resume: {len(differ)} of {len(got)} parameters differ after step 3: {differ[:5]}")
     n_params = len(got)
     data_wait = a["data_seconds"][1:]
     loads = a["load_seconds"]
@@ -1553,10 +1607,9 @@ def phase_resume(device) -> dict[str, int]:
     log(f"phase 9 data, save, resume: ttt_mlp d{a['model_config'].model_dim} x {L} layers on 4 fabricated samples "
         f"(text length {a['text_length']} from the files): run A losses {a['losses']}, run B (from step 2) "
         f"{b['losses']}; step-3 batch and loss bit-equal, sampler "
-        f"{ {k: v for k, v in b['sampler_state'].items() if k != 'rng'} } (and its generator) equal, grad norm "
-        f"rel diff "
-        f"{norm_rel:.3g} (tol {RESUME_GRAD_NORM_RTOL}), parameters: {n_equal} of {n_params} bit-equal, worst "
-        f"{worst[1]} {worst[0]:.3g} x lr (tol 2); loader {sum(loads) / len(loads):.3f} s a batch (worker), wait for "
+        f"{ {k: v for k, v in b['sampler_state'].items() if k != 'rng'} } (and its generator) equal, step-3 grad "
+        f"norm bit-equal ({b['grad_norms'][0]!r}), all {n_params} parameters bit-equal after step 3; loader "
+        f"{sum(loads) / len(loads):.3f} s a batch (worker), wait for "
         f"the next batch {sum(data_wait) / len(data_wait):.4f} s after the first ({a['data_seconds'][0]:.3f} s first) "
         f"against {sum(a['step_seconds'][1:]) / 2:.3f} s/step: "
         f"{'hidden under the step' if max(data_wait) < 0.1 * min(a['step_seconds'][1:]) else 'NOT hidden'}; saves "
@@ -1565,7 +1618,7 @@ def phase_resume(device) -> dict[str, int]:
         + f"; restore {b['restore']['bytes'] / 2**30:.3f} GiB in {b['restore']['seconds']:.2f} s "
         f"({b['restore']['bytes'] / b['restore']['seconds'] / 2**30:.2f} GiB/s); peak A "
         f"{a['peak_memory_bytes'] / 2**30:.2f} GiB ({CARD}): {time.perf_counter() - t0:.1f} s")
-    del a, b, got, opt
+    del a, b, got
     torch.cuda.empty_cache()
     return counts
 
@@ -1587,15 +1640,15 @@ def phase_requeue(device) -> dict[str, int]:
     submitit on the card's machine) in a fabricated one-task Slurm
     environment (SLURM_NTASKS 1, SLURM_PROCID 0, SLURM_LOCALID 0, this host's
     name as the node list), on phase 9's fabricated samples (ttt_mlp 3 s TOML,
-    full width, 2 layers, a checkpoint every step). Run A saves steps 1 and 2,
-    computes step 3 and is preempted while saving it; the Trainer that A's
+    full width, 2 layers, a checkpoint every step). Run R takes 3 steps
+    uninterrupted: the reference. Run A, independent of R, saves steps 1 and
+    2, computes step 3 and is preempted while saving it; the Trainer that A's
     checkpoint() hands to submitit (a stand-in DelayedSubmission, as submitit
-    would requeue it) resumes from step 2 and takes step 3 again. Its step-3
-    batch and loss equal A's bit for bit, the sampler states are equal, the
-    grad norms and parameters are held as phase 9 holds them. (A's own step 3
-    is the uninterrupted reference: a second, independent run would differ
-    from the first update on, as K4 adds dq in an order that varies.) Both
-    runs go through torchrun's branch (NCCL, a group of one, FSDP2)."""
+    would requeue it) resumes from step 2 and takes step 3 again. A's three
+    steps equal R's, and the requeued step 3's batch, loss, grad norm,
+    sampler state and every parameter after it equal R's, bit for bit (every
+    kernel of the step is deterministic). All runs go through torchrun's
+    branch (NCCL, a group of one, FSDP2)."""
     import socket
     import types
 
@@ -1604,7 +1657,6 @@ def phase_requeue(device) -> dict[str, int]:
     from ttt_video_dit_torch import train, train_submitit
     from ttt_video_dit_torch.data import dataset
     from ttt_video_dit_torch.training import checkpoint, train_step
-    from ttt_video_dit_torch.training.optimizer import flax_path
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1616,38 +1668,43 @@ def phase_requeue(device) -> dict[str, int]:
         host = "localhost"
     slurm = {"SLURM_NTASKS": "1", "SLURM_PROCID": "0", "SLURM_LOCALID": "0", "SLURM_JOB_NODELIST": host,
              "SLURM_JOB_ID": _free_job_id(train_submitit.PORT_BASE, train_submitit.PORT_SPAN)}
+    meta = os.path.join(DATA_DIR, "data", "meta.jsonl")
     dump = os.path.join(DATA_DIR, "requeue")
     submitit = types.ModuleType("submitit")  # what checkpoint() needs of it: helpers.DelayedSubmission
     submitit.helpers = types.SimpleNamespace(DelayedSubmission=lambda fn, *args, **kwargs: (fn, args, kwargs))
-    summaries, seen, steps_a, at_step_3 = [], [], [], {}
+    summaries, seen, steps = [], [], []
     main, batches = train.main, dataset.DataModule.batches
     step, save = train_step.train_step, checkpoint.Checkpointer.save
     full = lambda p: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().clone()
 
-    def keeping(job):  # the Trainer returns the summary without the model: keep it whole here
-        summaries.append(main(job))
-        return summaries[-1]
+    def keeping(job):  # the Trainer returns the summary without the model: keep what is compared here
+        s = main(job)
+        summaries.append({k: s[k] for k in ("losses", "grad_norms", "sampler_state", "start_step", "mesh",
+                                            "model_config", "restore", "peak_memory_bytes")})
+        summaries[-1]["params"] = {name: full(p) for name, p in s["model"].named_parameters()}
+        return s
 
     def recording_step(*args, **kwargs):
         out = step(*args, **kwargs)
-        steps_a.append((float(out["loss"]), float(out["grad_norm"])))
+        steps.append((float(out["loss"]), float(out["grad_norm"])))
         return out
 
-    def preempted_save(self, n, model, optimizer, sampler_state, *args, **kwargs):
+    def preempted_save(self, n, *args, **kwargs):
         if n < 3:
-            return save(self, n, model, optimizer, sampler_state, *args, **kwargs)
-        at_step_3.update(sampler=sampler_state, optimizer=optimizer,
-                         params={name: full(p) for name, p in model.named_parameters()})
+            return save(self, n, *args, **kwargs)
         raise Preempted
 
     saved_env = dict(os.environ)
     os.environ.update(slurm)
     train.main, dataset.DataModule.batches, sys.modules["submitit"] = keeping, recording_batches(seen), submitit
-    train_step.train_step, checkpoint.Checkpointer.save = recording_step, preempted_save
+    train_step.train_step = recording_step
     try:
         reset_counts()
-        first = train_submitit.Trainer(data_train_flags(os.path.join(DATA_DIR, "data", "meta.jsonl"), interval=1,
-                                                        dump=dump))
+        train_submitit.Trainer(data_train_flags(meta, interval=1, dump=os.path.join(DATA_DIR, "requeue_reference")))()
+        steps_r, batches_r = list(steps), list(seen)
+        steps[:], seen[:] = [], []
+        checkpoint.Checkpointer.save = preempted_save
+        first = train_submitit.Trainer(data_train_flags(meta, interval=1, dump=dump))
         try:
             first()
             raise AssertionError("run A was not preempted")
@@ -1656,7 +1713,7 @@ def phase_requeue(device) -> dict[str, int]:
         exported = {k: os.environ[k] for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
         train_step.train_step, checkpoint.Checkpointer.save = step, save
         saved_a = sorted(os.listdir(os.path.join(dump, "checkpoint")))
-        batches_a, seen[:] = list(seen), []
+        steps_a, batches_a, seen[:] = list(steps), list(seen), []
         fn, args, kwargs = first.checkpoint()
         fn(*args, **kwargs)
         counts = read_counts()
@@ -1667,46 +1724,39 @@ def phase_requeue(device) -> dict[str, int]:
         del sys.modules["submitit"]
         os.environ.clear()
         os.environ.update(saved_env)
-    (c,) = summaries
+    r, c = summaries
     L = c["model_config"].num_layers
-    expect = {"ttt_mlp_forward_train": 2 * L * 4, "ttt_mlp_backward": 2 * L * 4, "attention_forward_lse": L * 4,
-              "attention_backward": L * 4, "convert_f32_bf16": 2 * 12 * L * 4}  # A's 3 steps, then step 3 again
+    expect = {"ttt_mlp_forward_train": 2 * L * 7, "ttt_mlp_backward": 2 * L * 7, "attention_forward_lse": L * 7,
+              "attention_backward": L * 7, "convert_f32_bf16": 2 * 12 * L * 7}  # R's 3 steps, A's 3, step 3 again
     if counts != {**dict.fromkeys(counts, 0), **expect}:
         raise AssertionError(f"kernel launches {counts}, expected {expect}")
     if fn.argv != first.argv + ["--checkpoint.resume"] or saved_a != ["1", "2"] or c["mesh"] != (1, 1, 1):
         raise AssertionError(f"requeued argv {fn.argv}, run A saved {saved_a}, mesh {c['mesh']}")
-    if c["start_step"] != 2 or len(c["losses"]) != 1 or len(batches_a) != 3 or len(batches_c) != 1:
+    if c["start_step"] != 2 or len(c["losses"]) != 1 or (len(batches_r), len(batches_a), len(batches_c)) != (3, 3, 1):
         raise AssertionError(f"the requeued run started at {c['start_step']} and took {len(c['losses'])} steps "
-                             f"(expected 2 and 1); batches {len(batches_a)} / {len(batches_c)}")
-    (loss_a, norm_a), same_batch = steps_a[2], all(np.array_equal(batches_a[2][k], batches_c[0][k])
-                                                   for k in ("vid", "text"))
-    if not same_batch or loss_a != c["losses"][0] or at_step_3["sampler"] != c["sampler_state"]:
-        raise AssertionError(f"requeue: step-3 batch equal {same_batch}, loss {loss_a!r} vs {c['losses'][0]!r}, "
-                             f"sampler {at_step_3['sampler']} vs {c['sampler_state']}")
-    norm_rel = abs(norm_a - c["grad_norms"][0]) / norm_a
-    if not norm_rel <= RESUME_GRAD_NORM_RTOL:
-        raise AssertionError(f"requeue: step-3 grad norm {norm_a} vs {c['grad_norms'][0]}")
-    opt = at_step_3["optimizer"]
-    lrs = opt.learning_rates(2)
-    worst, n_equal = (0.0, ""), 0
-    for name, p in c["model"].named_parameters():
-        diff = float((full(p) - at_step_3["params"][name]).abs().max())
-        n_equal += diff == 0.0
-        lr = lrs[opt.labels[flax_path(name)]]
-        if diff > 2 * lr:
-            raise AssertionError(f"requeue: {name} differs by {diff:.4g} > 2 x lr {lr:.3g}")
-        worst = max(worst, (diff / lr, name))
+                             f"(expected 2 and 1); batches {len(batches_r)} / {len(batches_a)} / {len(batches_c)}")
+    if steps_a != steps_r:
+        raise AssertionError(f"two independent runs: A's (loss, grad norm) {steps_a} != R's {steps_r}")
+    same_batch = all(np.array_equal(batches_r[2][k], b[k]) for b in (batches_a[2], batches_c[0])
+                     for k in ("vid", "text"))
+    if not same_batch or (c["losses"][0], c["grad_norms"][0]) != steps_r[2] or r["sampler_state"] != c["sampler_state"]:
+        raise AssertionError(f"requeue: step-3 batch equal {same_batch}, loss and grad norm "
+                             f"{(c['losses'][0], c['grad_norms'][0])!r} vs R's {steps_r[2]!r}, sampler "
+                             f"{c['sampler_state']} vs {r['sampler_state']}")
+    differ = [name for name, p in c["params"].items() if not torch.equal(p, r["params"][name])]
+    if differ:
+        raise AssertionError(f"requeue: {len(differ)} of {len(c['params'])} parameters differ from R's: {differ[:5]}")
     log(f"phase 17 Slurm requeue: train_submitit.Trainer in a fabricated one-task Slurm environment "
         f"({', '.join(f'{k}={v}' for k, v in slurm.items())}; exported {exported}), without submitit; ttt_mlp "
         f"d{c['model_config'].model_dim} x {L} layers on phase 9's samples, mesh {' x '.join(map(str, c['mesh']))} "
-        f"(NCCL, FSDP2): run A losses {[l for l, _ in steps_a]}, saved steps {saved_a}, preempted while saving "
-        f"step 3; the Trainer its checkpoint() returned (argv + --checkpoint.resume) resumed at step "
-        f"{c['start_step']}: loss {c['losses']}, step-3 batch and loss bit-equal to A's, sampler (and its "
-        f"generator) equal, grad norm rel diff {norm_rel:.3g} (tol {RESUME_GRAD_NORM_RTOL}), parameters {n_equal} "
-        f"of {len(at_step_3['params'])} bit-equal, worst {worst[1]} {worst[0]:.3g} x lr (tol 2); restore "
+        f"(NCCL, FSDP2): run R (uninterrupted) losses {[l for l, _ in steps_r]}, grad norms "
+        f"{[g for _, g in steps_r]}; run A (independent of R) bit-equal to R in all 3 steps, saved steps {saved_a}, "
+        f"preempted while saving step 3; the Trainer its checkpoint() returned (argv + --checkpoint.resume) resumed "
+        f"at step {c['start_step']}: step-3 batch, loss {c['losses'][0]!r}, grad norm {c['grad_norms'][0]!r}, "
+        f"sampler (and its generator) and all {len(c['params'])} parameters bit-equal to R's; restore "
         f"{c['restore']['bytes'] / 2**30:.3f} GiB in {c['restore']['seconds']:.2f} s, peak "
         f"{c['peak_memory_bytes'] / 2**30:.2f} GiB ({CARD}): {time.perf_counter() - t0:.1f} s")
-    del c, opt, summaries, at_step_3
+    del r, c, summaries
     _collected_gib()
     return counts
 
@@ -1974,14 +2024,16 @@ def phase_distributed(device, trained: dict, sampled: dict) -> dict[str, int]:
         raise AssertionError(f"training launches {counts} != phase 6's {trained['counts']}")
     want, got = trained["losses"], summary["losses"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-    if len(got) != len(want) or not loss_rel <= DIST_LOSS_RTOL:
-        raise AssertionError(f"training losses {got} against phase 6's {want}: rel {loss_rel:.3g} > {DIST_LOSS_RTOL}")
+    if len(got) != len(want) or got[0] != want[0] or not loss_rel <= DIST_LOSS_RTOL:
+        raise AssertionError(f"training losses {got} against phase 6's {want}: step 1 bit-equal {got[0] == want[0]}, "
+                             f"largest rel difference {loss_rel:.3g} (tol {DIST_LOSS_RTOL})")
     steady = summary["step_seconds"][1:]
     step_s = sum(steady) / len(steady)
     log(f"phase 13 ttt_mlp 3s train through torchrun's branch, world 1 (NCCL, mesh 1 x 1 x 1, FSDP2 per layer, "
-        f"heads and the sequence-parallel stream over a tensor group of one) d{cfg.model_dim} x {cfg.num_layers} layers, remat {cfg.remat_policy}: losses {got} vs "
-        f"phase 6's {want} (largest rel difference {loss_rel:.3g}, tol {DIST_LOSS_RTOL}; step 1 bit-equal "
-        f"{got[0] == want[0]}), grad norms {summary['grad_norms']} vs {trained['grad_norms']}, {step_s:.3f} s/step after the first vs phase 6's {trained['step_seconds']:.3f} "
+        f"heads and the sequence-parallel stream over a tensor group of one) d{cfg.model_dim} x {cfg.num_layers} "
+        f"layers, remat {cfg.remat_policy}: losses {got} vs phase 6's {want} (step 1 bit-equal, largest rel "
+        f"difference {loss_rel:.3g}, tol {DIST_LOSS_RTOL}), grad norms {summary['grad_norms']} vs "
+        f"{trained['grad_norms']}, {step_s:.3f} s/step after the first vs phase 6's {trained['step_seconds']:.3f} "
         f"({100 * (step_s / trained['step_seconds'] - 1):+.2f} %), peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB "
         f"vs {trained['peak'] / 2**30:.2f} GiB ({held:.2f} GiB allocated before the run), launches "
         f"{({k: v for k, v in counts.items() if v})} as phase 6 "

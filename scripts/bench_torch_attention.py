@@ -2,9 +2,12 @@
 
 At the 3 s slices' shapes (chip_smoke.py's): K3 at [2, 18048, 48, 64] (the
 sampling launch, no log-sum-exp), K3 with the log-sum-exp and K4 at
-[1, 18048, 48, 64]; beside each, scaled_dot_product_attention (forward, or
-its backward through autograd) on the same inputs. Times are means over
---reps launches after one warm-up, by CUDA events. Prints one JSON line.
+[1, 18048, 48, 64]; K4 also at the 9 s and 63 s training windows
+[3, 18052, 48, 64] and [21, 18072, 48, 64]; beside each,
+scaled_dot_product_attention (forward, or its backward through autograd) on
+the same inputs. Times are means over --reps launches after one warm-up, by
+CUDA events; at the 3 s shape also K4's kernels one by one (torch.profiler
+device time) and the MiB one K4 call allocates. Prints one JSON line.
 
     python scripts/bench_torch_attention.py [--reps N] [--tree DIR]
 
@@ -26,6 +29,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ = 18048
+# K4's shapes: the 3 s training windows, the 9 s ones (3 windows of 18,052) and the 63 s TTT-MLP train TOML's
+# (21 windows of 18,072), all heads.
+K4_SHAPES = {"K4": (1, SEQ, 48, 64), "K4_9s": (3, 18052, 48, 64), "K4_63s": (21, 18072, 48, 64)}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -39,6 +45,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(fn) -> tuple[dict, float]:
+    """({kernel name: device ms} of one ``fn()`` under torch.profiler, the MiB it allocated above what was
+    allocated before it)."""
+    import re
+
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = lambda key: (re.findall(r"(\w+)(?:<[^(]*>)?\(", key) or [key])[0]
+    kernels = {names(e.key): e.device_time_total / e.count / 1e3 for e in prof.key_averages()
+               if e.device_time_total > 0}
+    return kernels, (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
 def measure(tree: str, reps: int) -> dict:
@@ -64,12 +89,20 @@ def measure(tree: str, reps: int) -> dict:
     q, k, v, do = (torch.randn(1, SEQ, 48, 64, generator=gen, device=device).bfloat16() for _ in range(4))
     out["K3_lse_ms"] = cuda_ms(lambda: attention.attention_with_lse(q, k, v), reps)
     out["K3_lse_sdpa_ms"] = cuda_ms(lambda: sdpa(q, k, v), reps)
-    o, lse = attention.attention_with_lse(q, k, v)
-    out["K4_ms"] = cuda_ms(lambda: attention.attention_backward(q, k, v, o, lse, do), reps)
-    ql, kl, vl = (heads(x).detach().requires_grad_(True) for x in (q, k, v))
-    lib_out = Fn.scaled_dot_product_attention(ql, kl, vl)
-    out["K4_sdpa_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), heads(do), retain_graph=True),
-                                reps)
+    for key, shape in K4_SHAPES.items():
+        if shape != (1, SEQ, 48, 64):
+            del q, k, v, do
+            torch.cuda.empty_cache()
+            q, k, v, do = (torch.randn(*shape, generator=gen, device=device).bfloat16() for _ in range(4))
+        o, lse = attention.attention_with_lse(q, k, v)
+        out[f"{key}_ms"] = cuda_ms(lambda: attention.attention_backward(q, k, v, o, lse, do), reps)
+        if key == "K4":  # its launches one by one, and the memory one call allocates
+            out["K4_kernels"], out["K4_alloc_mib"] = profiled(lambda: attention.attention_backward(q, k, v, o, lse, do))
+        ql, kl, vl = (heads(x).detach().requires_grad_(True) for x in (q, k, v))
+        lib_out = Fn.scaled_dot_product_attention(ql, kl, vl)
+        out[f"{key}_sdpa_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), heads(do), retain_graph=True), reps)
+        del o, lse, ql, kl, vl, lib_out
     return out
 
 

@@ -4,13 +4,15 @@ archive``), and with the layers' recompute (models/recompute.py) forced on
 and off: the steps of chip_smoke.py's phases 6 (3 s), 11 (9 s) and 15
 (30 s at 2 layers), through the training entry at full width.
 
-    python scripts/compare_torch_train_steps.py --parent DIR [--out DIR]
+    python scripts/compare_torch_train_steps.py --parent DIR [--out DIR] [--lengths 3s]
 
 Each pass is a process of its own with its tree's package on PYTHONPATH and
 the tree as its working directory, in the order parent, this tree, this
 tree with the recompute on in every layer, this tree again, parent, and
 last this tree with the recompute off in every layer at 30 s (where its
-layers recompute by default). A pass runs every configuration; one that
+layers recompute by default). ``--lengths`` keeps the configurations of the
+lengths it names and only the four passes with the default recompute. A
+pass runs every configuration; one that
 fails (out of memory) is reported with its error. Prints one line a pass
 and configuration (s/step after the first, peak, losses), the card's name
 and power limit, and a JSON summary as its last line (also written to
@@ -107,9 +109,12 @@ def launcher(args) -> int:
             print(f"built the kernels of {tree} in {seconds:.1f} s", flush=True)
     summary = {"card": card(), "passes": []}
     print(summary["card"], flush=True)
+    only = args.lengths.split(",") if args.lengths else None
     for i, (name, tree, recompute, lengths) in enumerate(PASSES):
+        if only and recompute != "default":
+            continue
         configs = [(f"{v} {ln} {p or 'TOML policy'} {k} layers", config_flags((v, ln, p, k, s), work))
-                   for v, ln, p, k, s in CONFIGS if lengths is None or ln in lengths]
+                   for v, ln, p, k, s in CONFIGS if (lengths is None or ln in lengths) and (not only or ln in only)]
         result = os.path.join(work, f"pass_{i}.json")
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, HERE, "--worker", result, "--recompute", recompute, "--configs",
@@ -140,6 +145,7 @@ def main() -> int:
     ap.add_argument("--work", default=os.path.join(ROOT, "output", "compare_torch_train_steps"),
                     help="the passes' files")
     ap.add_argument("--timeout", type=int, default=600, help="seconds a pass may take")
+    ap.add_argument("--lengths", help="only these lengths (e.g. 3s or 3s,9s), in the default-recompute passes")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--recompute", default="default", help=argparse.SUPPRESS)
     ap.add_argument("--configs", help=argparse.SUPPRESS)

@@ -85,6 +85,22 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     assert not bad, bad
 
 
+TOKENIZER_PACKAGES = ("regex", "tokenizers", "transformers")
+
+
+def test_no_import_statement_names_regex_tokenizers_or_transformers():
+    """Every .py file of the port, and chip_smoke.py, parsed with ast: no
+    import of regex, tokenizers or transformers (the card's machine has none
+    of them; the tokenizer carries its own grapheme table and character-map
+    reader). scripts/gen_torch_grapheme_table.py, which writes the table, may."""
+    files = sorted((REPO / "ttt_video_dit_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert REPO / "ttt_video_dit_torch" / "models" / "graphemes.py" in files
+    bad = {str(f.relative_to(REPO)): m for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in TOKENIZER_PACKAGES}
+    assert not bad, bad
+    assert "regex" in _imported_modules(REPO / "scripts" / "gen_torch_grapheme_table.py")
+
+
 TRAIN_ARGS = ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "4",
               "--training.steps", "3", "--parallelism.dp_sharding", "1", "--remat.scan_checkpoint_group_size", "8"]
 EVAL_ARGS = ["--job.config_file", "configs/eval/ttt-mlp/3s.toml", "--eval.input_file", "inputs/example.json",

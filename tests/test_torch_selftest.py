@@ -9,7 +9,8 @@ mode (tests/test_pallas_kernels.py::test_kernel_selftest_harness).
 - Substitutes that corrupt only the last, short checkpoint group of a TTT
   scan (and the last mini-batch of an odd-NC sampling scan), only the last
   attention window, and one low bit of K7's output fail exactly the checks
-  that should see them; the full cases pass.
+  that should see them; the full cases pass. An attention whose gradients
+  change between two launches fails K4's rerun check alone.
 - The plain references agree with the JAX package's own path at the
   self-test's full and ragged shapes, on the same numpy inputs: the Pallas
   TTT kernels in interpret mode in their fused-preproc, token-major,
@@ -132,8 +133,30 @@ def test_a_corrupt_ragged_group_fails_ragged_checks_and_passes_full_ones(corrupt
 
 
 def test_a_corrupt_last_window_fails_the_folded_window_checks(corrupted_result):
+    """Every value check of the folded windows fails; the rerun check (K4's determinism) passes, as the
+    corruption is the same on both launches."""
     splash = {n for n in corrupted_result["checks"] if n.startswith("splash folded-windows")}
-    assert len(splash) == 5 and splash <= _failed(corrupted_result)
+    assert len(splash) == 6 and splash - _failed(corrupted_result) == {selftest.RERUN_CHECK}
+
+
+def _drifting(fn):
+    """``fn`` with its output scaled by 1 + n / 64 on its n-th call from 0: the first launch is exact, a second
+    one on the same inputs gives other gradient bits."""
+    calls = []
+
+    def drifting(q, k, v):
+        calls.append(None)
+        return fn(q, k, v) * (1 + (len(calls) - 1) / 64)
+
+    return drifting
+
+
+def test_a_backward_that_changes_between_launches_fails_only_the_rerun_check():
+    """K4's determinism check: an attention whose gradients differ between two launches on the same inputs
+    (within every value tolerance) fails it, and nothing else."""
+    kernels = {**selftest.PLAIN, "attention_train": _drifting(selftest.PLAIN["attention_train"])}
+    result = selftest.kernel_selftest(CPU, kernels=kernels)
+    assert _failed(result) == {selftest.RERUN_CHECK} and result["checks"][selftest.RERUN_CHECK] > 0.5
 
 
 def test_a_flipped_low_bit_fails_k7(corrupted_result):

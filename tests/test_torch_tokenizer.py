@@ -5,17 +5,20 @@ written two ways:
 
 - ``tokenizer.json``: a ``tokenizers.models.Unigram`` (T5's pieces, then its
   100 extra ids counting down) wrapped in ``transformers.T5TokenizerFast`` and
-  saved with ``save_pretrained``;
+  saved with ``save_pretrained``, its normaliser T5's: a ``Precompiled``
+  character map (or NFKC), a right strip and the ``" {2,}"`` replace;
 - ``spiece.model``: a ``ModelProto`` built with the protobuf classes that
   ``transformers`` bundles. Without ``sentencepiece`` on this host,
   ``AutoTokenizer`` cannot build the slow tokenizer it converts, so the test
   hands ``transformers``' own ``T5Converter`` the file (it reads it with
-  protobuf) in place of that conversion.
+  protobuf) in place of that conversion; the converter is not patched
+  otherwise.
 
-A fabricated ``spiece.model`` carries no precompiled character map (building
-one needs SentencePiece's trainer); the reference gets NFKC in its place when
-the normaliser's name says ``nmt_nfkc``, which is what the port reproduces
-for a ``Precompiled`` map. Ids must be equal, exactly.
+Both carry a precompiled character map built here from a dict of rules
+(chip_smoke.py's darts-clone writer, :func:`_charsmap`), which
+``tokenizers``' ``Precompiled`` reads; one case writes an ``nmt_nfkc``
+``spiece.model`` without a map, which ``transformers`` normalises with no
+NFKC. Ids must be equal, exactly.
 """
 
 import json
@@ -34,9 +37,17 @@ from ttt_video_dit_torch.models import t5 as port_t5  # noqa: E402
 from ttt_video_dit_torch.models import tokenizer as port_tok  # noqa: E402
 from ttt_video_dit_torch.models.dit.sampler import SCENE_END_TOKEN, SCENE_START_TOKEN  # noqa: E402
 
+import chip_smoke  # noqa: E402
+
 torch.set_num_threads(1)
 ROUTES = ["tokenizer_json", "spiece_model"]
-BLOCKED = ("transformers", "tokenizers", "sentencepiece", "google.protobuf", "google")
+BLOCKED = ("transformers", "tokenizers", "sentencepiece", "google.protobuf", "google", "regex")
+# The fabricated vocabularies' character map: chip_smoke.py's rules (whitespace and control characters, the
+# zero-width space, fullwidth letters) and rules for ligatures, decomposed accents, the variation selector,
+# a regional indicator, a compatibility jamo, Hangul jamo pairs (6 bytes: never looked up whole) and the
+# prefixes of longer keys (Ａ before Ａ + U+0301).
+RULES = {**chip_smoke.CHARSMAP_RULES, "ﬁ": "fi", "ﬂ": "fl", "e\u0301": "é", "a\u0301": "á", "\ufe0f": "",
+         "\u3000": " ", "Ａ\u0301": "Á", "\U0001F1FA": "U", "\u3131": "\u1100", "\u1100\u1161": "가", "Ⅳ": "IV"}
 WORDS = ["the", "cat", "walk", "walks", "kitchen", "sun", "lit", "sunlit", "food", "look", "ing", "for", "through",
          "orange", "fluffy", "a", "an", "in", "on", "of", "and", "scene", "fi", "fine", "café", "dog", "runs", "park",
          "rain", "bow", "rainbow", "over", "city", "night", "light", "s"]
@@ -56,6 +67,15 @@ PROMPTS = {
     "ligatures": ["ﬁne ﬂow", "Ⅳ ½ ™ ㎏"],  # fi, fl ligatures; IV, 1/2, TM, kg
     "extra_ids": ["<extra_id_0> the <extra_id_99>", "a<extra_id_7>b", "<extra_id_100>"],
     "unknown": ["q#w##", "世界 cat", "a\tb"],
+    # The character map's cases (the first four lie where NFKC alone gave other ids).
+    "newlines_and_tabs": ["a\nb", "x\ty", "a\rb", "a\r\nb", "the cat\nwalks\n\n", "\tthe\t cat"],
+    "control_characters": ["a\x01b", "\x07the\x1f cat\x7f", "\x00a"],
+    "zero_width_space": ["a\u200bb", "the\u200b cat", "\u200b"],
+    "short_cluster": ["Ａ\u0301", "Ａ\u0301Ｂ", "a\u0301", "ｃａｆe\u0301"],  # under 6 bytes: replaced whole
+    "long_cluster": ["Ａ\u0301\u0301", "e\u0301\u0301\u0301", "a\u0301\u0308"],  # 6 bytes or more: per code point
+    "emoji": ["a 👨\u200d👩\u200d👧 b", "❤\ufe0f cat", "1\ufe0f", "👍🏽"],
+    "regional_indicators": ["🇺🇸 city", "🇺 a", "🇺🇸🇺"],
+    "hangul": ["가 ㄱ", "\u1100\u1161 cat", "한국 cat", "\u1100\u1161\u11a8"],
 }
 MAXLEN = {"overlong": 17, "multiscene": 9}
 
@@ -81,7 +101,7 @@ def _write_spiece(d, pieces, **normalizer):
     m.trainer_spec.model_type = 1
     m.trainer_spec.unk_id, m.trainer_spec.bos_id, m.trainer_spec.eos_id, m.trainer_spec.pad_id = 2, -1, 1, 0
     m.normalizer_spec.name = "nmt_nfkc"
-    for k, v in normalizer.items():
+    for k, v in normalizer.items():  # precompiled_charsmap=blob gives it a character map
         setattr(m.normalizer_spec, k, v)
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "spiece.model"), "wb") as f:
@@ -91,13 +111,20 @@ def _write_spiece(d, pieces, **normalizer):
     return d
 
 
-def _write_tokenizer_json(d, pieces, prepend_scheme="always", whitespace_split=False):
+def _charsmap(rules=None) -> bytes:
+    """A precompiled character map of ``rules`` (default RULES): chip_smoke.py's darts-clone writer."""
+    return chip_smoke.precompiled_charsmap(RULES if rules is None else rules)
+
+
+def _write_tokenizer_json(d, pieces, prepend_scheme="always", whitespace_split=False, charsmap=None):
+    """T5's tokenizer.json: a Precompiled normaliser of ``charsmap`` first, or NFKC without one."""
     from tokenizers import AddedToken, Regex, Tokenizer, models, normalizers, pre_tokenizers, processors
     from transformers import T5TokenizerFast
 
     vocab = [(p, s) for p, s, _ in pieces] + [(f"<extra_id_{i}>", 0.0) for i in range(99, -1, -1)]
     tok = Tokenizer(models.Unigram(vocab, unk_id=2))
-    tok.normalizer = normalizers.Sequence([normalizers.NFKC(), normalizers.Strip(left=False, right=True),
+    first = normalizers.Precompiled(charsmap) if charsmap else normalizers.NFKC()
+    tok.normalizer = normalizers.Sequence([first, normalizers.Strip(left=False, right=True),
                                            normalizers.Replace(Regex(" {2,}"), "▁")])
     meta = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme=prepend_scheme)
     tok.pre_tokenizer = pre_tokenizers.Sequence([pre_tokenizers.WhitespaceSplit(), meta]) if whitespace_split else meta
@@ -114,7 +141,6 @@ def converter_for_spiece(monkeypatch):
     """Let ``AutoTokenizer`` load a ``spiece.model`` directory without
     ``sentencepiece``: ``transformers``' T5 converter reads the file with
     protobuf, as it would after building the slow tokenizer."""
-    from tokenizers import normalizers
     from transformers import tokenization_utils_fast
     from transformers.convert_slow_tokenizer import T5Converter
 
@@ -128,18 +154,17 @@ def converter_for_spiece(monkeypatch):
             return {"</s>": 1}[token]
 
     def convert(fast, from_tiktoken=False):
-        conv = T5Converter(Slow(fast.vocab_file))
-        tok = conv.converted()
-        if "nfkc" in conv.proto.normalizer_spec.name and not conv.proto.normalizer_spec.precompiled_charsmap:
-            tok.normalizer = normalizers.Sequence([normalizers.NFKC(), tok.normalizer])
-        return tok
+        return T5Converter(Slow(fast.vocab_file)).converted()
 
     monkeypatch.setattr(tokenization_utils_fast, "convert_slow_tokenizer", convert)
 
 
 def _directory(tmp_path, route, **kw):
-    d = str(tmp_path / route)
-    return _write_spiece(d, _pieces()) if route == "spiece_model" else _write_tokenizer_json(d, _pieces(), **kw)
+    """The fabricated vocabulary with RULES' character map, written the ``route``'s way."""
+    d, blob = str(tmp_path / route), _charsmap()
+    if route == "spiece_model":
+        return _write_spiece(d, _pieces(), precompiled_charsmap=blob)
+    return _write_tokenizer_json(d, _pieces(), charsmap=blob, **kw)
 
 
 def _jax_ids(d, prompts, maxlen):
@@ -153,8 +178,8 @@ def _jax_ids(d, prompts, maxlen):
 @pytest.mark.parametrize("route", ROUTES)
 def test_ids_match_the_jax_tokenize(tmp_path, converter_for_spiece, route, group):
     """Ids, truncation to maxlen - 1 plus </s>, right padding, the scene and
-    extra-id tokens, unknown characters and the NFKC range: port == JAX's
-    ``_tokenize(_load_tokenizer(dir))`` on the same directory."""
+    extra-id tokens, unknown characters and the character map's cases: port
+    == JAX's ``_tokenize(_load_tokenizer(dir))`` on the same directory."""
     d = _directory(tmp_path, route)
     maxlen = MAXLEN.get(group, 24)
     want, n = _jax_ids(d, PROMPTS[group], maxlen)
@@ -253,12 +278,13 @@ def _tiny_t5(d, vocab):
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_encode_runs_with_transformers_blocked(tmp_path, converter_for_spiece, monkeypatch, route):
-    """With transformers, tokenizers, sentencepiece and google.protobuf
-    blocked from import, T5TextEncoder.encode turns storyboard text into the
-    JAX package's ids and encodes them as encode_ids does."""
+    """With transformers, tokenizers, sentencepiece, google.protobuf and
+    regex blocked from import, T5TextEncoder.encode turns storyboard text
+    (the character map's cases among it) into the JAX package's ids and
+    encodes them as encode_ids does."""
     d = _directory(tmp_path, route)
     _tiny_t5(d, len(_pieces()) + 100)
-    prompts = PROMPTS["multiscene"] + PROMPTS["plain"] + [None]
+    prompts = PROMPTS["multiscene"] + PROMPTS["plain"] + PROMPTS["newlines_and_tabs"] + ["Ａ\u0301 a\u200bb", None]
     want, _ = _jax_ids(d, prompts, 16)
     for name in BLOCKED:
         monkeypatch.setitem(sys.modules, name, None)
@@ -272,12 +298,11 @@ def test_encode_runs_with_transformers_blocked(tmp_path, converter_for_spiece, m
     assert torch.equal(got, enc.encode_ids(want))
 
 
-def test_chip_smoke_spiece_writer_reads_back(tmp_path):
+def test_chip_smoke_spiece_writer_reads_back(tmp_path, converter_for_spiece):
     """chip_smoke.py's wire-format writer (no protobuf on the card's machine)
-    writes a spiece.model that protobuf parses and the port reads back."""
+    writes a spiece.model, with its character map, that protobuf parses, the
+    port reads back, and ``transformers`` tokenises as the port does."""
     from transformers.utils import sentencepiece_model_pb2_new as pb
-
-    import chip_smoke
 
     path = str(tmp_path / "spiece.model")
     pieces = chip_smoke.fabricated_spiece(path, size=600, seed=3)
@@ -286,7 +311,75 @@ def test_chip_smoke_spiece_writer_reads_back(tmp_path):
         m.ParseFromString(f.read())
     assert [(p.piece, p.score, p.type) for p in m.pieces] == pieces
     assert (m.trainer_spec.unk_id, m.trainer_spec.eos_id, m.trainer_spec.pad_id) == (2, 1, 0)
+    assert m.normalizer_spec.precompiled_charsmap == chip_smoke.precompiled_charsmap(chip_smoke.CHARSMAP_RULES)
     tok = port_tok.load(str(tmp_path))
     assert len(tok) == 600 + 100
     ids = tok.encode("a fluffy orange cat walks through a sunlit kitchen")
     assert ids and 2 not in ids  # every character has a piece
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump({"model_type": "t5"}, f)
+    prompts = ["a fluffy orange cat\nwalks", "a\u200bb ab", "the\tcat\r\n", "Ｃａｔ\x07 １２", "a\nb a b"]
+    want, _ = _jax_ids(str(tmp_path), prompts, 32)
+    np.testing.assert_array_equal(tok(prompts, 32), want)
+    assert tok.encode("a\nb") == tok.encode("a b") and tok.encode("a\u200bb") == tok.encode("ab")
+
+
+def test_an_nmt_nfkc_spiece_model_without_a_map_applies_no_nfkc(tmp_path, converter_for_spiece):
+    """An ``nmt_nfkc`` spiece.model that carries no character map: the
+    reference normalises it with no NFKC (SpmConverter.normalizer), so
+    fullwidth letters, ligatures, decomposed accents and newlines keep their
+    own ids, as in the port."""
+    d = _write_spiece(str(tmp_path / "sp"), _pieces())
+    prompts = PROMPTS["full_width"] + PROMPTS["ligatures"] + PROMPTS["latin_accents"] + PROMPTS["newlines_and_tabs"]
+    want, _ = _jax_ids(d, prompts, 24)
+    np.testing.assert_array_equal(port_t5._load_tokenizer(d)(prompts, 24), want)
+    assert port_tok.load(d).normalizers[0] is port_tok._rstrip_spaces  # no character map, no NFKC
+
+
+# Code point ranges of the random strings: ASCII, C0 and C1 controls, combining marks, Hangul jamo and
+# syllables, regional indicators, emoji and skin tones, the zero-width characters, variation selectors,
+# Devanagari consonants, nukta and virama (GB9c), Arabic prepended marks, Devanagari spacing marks, fullwidth
+# forms, ligatures, the Thai block, and the map's own keys.
+RANGES = [(0x20, 0x7E), (0x01, 0x1F), (0x7F, 0x9F), (0x300, 0x36F), (0x1100, 0x1112), (0x1161, 0x1175),
+          (0x11A8, 0x11C2), (0xAC00, 0xAC40), (0x1F1E6, 0x1F1FF), (0x1F600, 0x1F64F), (0x1F3FB, 0x1F3FF),
+          (0x200B, 0x200D), (0xFE00, 0xFE0F), (0x915, 0x939), (0x93C, 0x94D), (0x600, 0x605), (0x900, 0x903),
+          (0xFF01, 0xFF5E), (0xFB00, 0xFB06), (0xE01, 0xE3A), (0x3131, 0x3133), (0x2160, 0x2163)]
+
+
+def _random_texts(seed: int, n: int = 200) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        picks = rng.integers(0, len(RANGES), int(rng.integers(1, 13)))
+        out.append("".join(chr(int(rng.integers(RANGES[i][0], RANGES[i][1] + 1))) for i in picks))
+    return out
+
+
+def test_grapheme_clusters_match_regex():
+    """The port's segmenter (models/graphemes.py, plain Python) against
+    ``regex``'s ``\\X`` on 200 seeded strings drawn from RANGES and on the
+    rules' edge cases: CR LF, Hangul L V T, emoji ZWJ sequences, regional
+    indicator pairs, prepended marks, Indic conjuncts (GB9c)."""
+    regex = pytest.importorskip("regex")
+    from ttt_video_dit_torch.models import graphemes
+
+    edges = ["a\r\nb\n\r", "\u1100\u1161\u11a8\uac00\u11a8", "👨\u200d👩\u200d👧x", "🇺🇸🇺🇸🇺", "\u0600a",
+             "क\u094d\u0937", "क\u093c\u094d\u200dष", "a\u0903\u0301", ""]
+    for text in _random_texts(0) + edges:
+        assert graphemes.clusters(text) == regex.findall(r"\X", text), [hex(ord(c)) for c in text]
+    assert graphemes.UNICODE_VERSION == "17.0.0"
+
+
+def test_character_map_matches_tokenizers_precompiled():
+    """The port's PrecompiledCharsMap against ``tokenizers``'
+    ``Precompiled(blob).normalize_str`` on 200 seeded strings drawn from
+    RANGES, with RULES' map; a blob too short for its trie is refused."""
+    from tokenizers import normalizers
+
+    blob = _charsmap()
+    want, port = normalizers.Precompiled(blob), port_tok.PrecompiledCharsMap(blob)
+    for text in _random_texts(1) + ["\x00a\x01", "Ａ\u0301", "Ａ\u0301\u0301", "\r\n"]:
+        assert port(text) == want.normalize_str(text), [hex(ord(c)) for c in text]
+    for bad in (b"", blob[:-len(blob) // 2]):
+        with pytest.raises(ValueError):
+            port_tok.PrecompiledCharsMap(bad)

@@ -10,11 +10,14 @@ calls it:
 1. added tokens (the model's control and user-defined pieces, T5's 100
    ``<extra_id_N>`` and the scene tokens added by :meth:`add_special_tokens`)
    are matched whole, leftmost-longest, before anything else;
-2. every other segment is normalised: the ``Precompiled`` normaliser
-   (SentencePiece's character map) is reproduced as Unicode NFKC through
-   ``unicodedata`` (the map of T5's ``nmt_nfkc`` is NFKC plus a few
-   whitespace and control-character rules, which are not reproduced), then
-   trailing spaces are stripped and runs of two or more spaces collapsed;
+2. every other segment is normalised: by the model's precompiled character
+   map (SentencePiece's ``nmt_nfkc`` rules, :class:`PrecompiledCharsMap`,
+   applied as ``tokenizers``' ``Precompiled`` normaliser applies it: per
+   extended grapheme cluster, a cluster of under 6 UTF-8 bytes whose
+   shortest prefix the map holds replaced whole) where the model has one
+   (a ``tokenizer.json`` of type ``NFKC`` gets Unicode NFKC through
+   ``unicodedata``, and a model with neither nothing), then trailing spaces
+   are stripped and runs of two or more spaces collapsed;
 3. spaces become ``▁``, a ``▁`` is prepended (``add_dummy_prefix``; "always"
    before every segment, "first" only at the start of the text) and the
    segment is split before every ``▁``;
@@ -35,6 +38,7 @@ pieces counting down (``<extra_id_0>`` is the last id, ``vocab_size + 99``).
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import re
@@ -43,6 +47,8 @@ import unicodedata
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ttt_video_dit_torch.models import graphemes
 
 SPACE = "▁"
 UNK_PENALTY = 10.0  # tokenizers' K_UNK_PENALTY: an unknown character scores min_score - 10
@@ -127,6 +133,77 @@ def read_sentencepiece_model(path: str) -> dict:
                 elif n in (3, 4, 5):
                     out[("add_dummy_prefix", "remove_extra_whitespaces", "escape_whitespaces")[n - 3]] = bool(v)
     return out
+
+
+# ------------------------------------------------------------ the precompiled character map
+
+
+def _offset(unit: int) -> int:
+    """The offset a darts-clone double-array unit holds."""
+    return (unit >> 10) << ((unit & 0x200) >> 6)
+
+
+class PrecompiledCharsMap:
+    """SentencePiece's precompiled character map (``normalizer_spec.
+    precompiled_charsmap``; ``tokenizers``' ``Precompiled`` normaliser), as
+    ``tokenizers`` applies it.
+
+    The blob is a little-endian u32 trie size in bytes, that many bytes of
+    darts-clone double-array units (u32: has-leaf bit 8, label
+    ``unit & 0x800000FF``, offset ``(unit >> 10) << ((unit & 0x200) >> 6)``,
+    a leaf's value ``unit & 0x7FFFFFFF``), then the NUL-separated normalised
+    strings the leaves point into. A text is looked up one extended grapheme
+    cluster at a time: a cluster of fewer than 6 UTF-8 bytes that has a
+    match becomes the string of its shortest matching prefix, whole (so
+    ``Ａ`` + U+0301 becomes ``A`` where the map holds ``Ａ``); any other
+    cluster is looked up one code point at a time, each kept as it is where
+    the map holds no prefix of it."""
+
+    def __init__(self, blob: bytes):
+        if len(blob) < 4:
+            raise ValueError(f"a precompiled character map of {len(blob)} bytes has no trie size")
+        (size,) = struct.unpack_from("<I", blob)
+        if size % 4 or 4 + size > len(blob):
+            raise ValueError(f"a precompiled character map of {len(blob)} bytes cannot hold a {size}-byte trie")
+        self.units = struct.unpack_from(f"<{size // 4}I", blob, 4)
+        self.normalized = bytes(blob[4 + size :])
+        self.normalized.decode("utf-8")  # tokenizers refuses a map whose strings are not UTF-8
+        self._cache: Dict[str, Optional[str]] = {}
+
+    def lookup(self, chunk: str) -> Optional[str]:
+        """The normalised string of the shortest prefix of ``chunk``'s UTF-8
+        bytes that the map holds (a NUL byte ends the key), or None."""
+        if chunk in self._cache:
+            return self._cache[chunk]
+        units, out = self.units, None
+        pos = _offset(units[0])
+        for c in chunk.encode("utf-8"):
+            if c == 0:
+                break
+            pos ^= c
+            unit = units[pos]
+            if unit & 0x800000FF != c:
+                break
+            pos ^= _offset(unit)
+            if unit >> 8 & 1:
+                start = units[pos] & 0x7FFFFFFF
+                end = self.normalized.find(b"\0", start)
+                out = self.normalized[start : end if end >= 0 else len(self.normalized)].decode("utf-8")
+                break
+        self._cache[chunk] = out
+        return out
+
+    def __call__(self, text: str) -> str:
+        out = []
+        for cluster in graphemes.clusters(text):
+            norm = self.lookup(cluster) if len(cluster.encode("utf-8")) < 6 else None
+            if norm is not None:
+                out.append(norm)
+                continue
+            for ch in cluster:
+                norm = self.lookup(ch)
+                out.append(ch if norm is None else norm)
+        return "".join(out)
 
 
 # ------------------------------------------------------------ the tokenizer
@@ -280,9 +357,7 @@ class UnigramTokenizer:
         pieces += [(f"<extra_id_{i}>", 0.0) for i in range(extra_ids - 1, -1, -1)]
         added = {p: i for i, (p, _, t) in enumerate(m["pieces"]) if t in (CONTROL, USER_DEFINED)}
         added.update({p: i for i, (p, _) in enumerate(pieces) if p.startswith("<extra_id_")})
-        norms = []
-        if m["precompiled_charsmap"] or "nfkc" in m["name"].lower():
-            norms.append(_nfkc)
+        norms = [PrecompiledCharsMap(m["precompiled_charsmap"])] if m["precompiled_charsmap"] else []
         if m["remove_extra_whitespaces"]:
             norms += [_rstrip_spaces, _collapse_spaces]
         eos = next(i for i, (p, _) in enumerate(pieces) if p == "</s>")
@@ -330,7 +405,9 @@ def _json_normalizers(spec) -> list:
     kind = spec["type"]
     if kind == "Sequence":
         return [f for s in spec["normalizers"] for f in _json_normalizers(s)]
-    if kind in ("Precompiled", "NFKC"):
+    if kind == "Precompiled":
+        return [PrecompiledCharsMap(base64.b64decode(spec["precompiled_charsmap"]))]
+    if kind == "NFKC":
         return [_nfkc]
     if kind == "Strip":
         left, right = spec.get("strip_left", False), spec.get("strip_right", False)

@@ -6,7 +6,10 @@ forward K3 and its custom-VJP backward K4, reached through _splash_padded /
 _splash_kernel). The kernels are ``csrc/attention_forward.cu`` (forward,
 optionally writing the log-sum-exp) and ``csrc/attention_backward.cu``; they
 mask the ragged KV edge themselves, so the splash padding and block tuning
-have no counterpart here. Attention windows ride as batch: q/k/v
+have no counterpart here. The backward is the splash backward's non-fused
+form: dk and dv in one kernel, dq in one of its own, each output element one
+sum in registers in a fixed order, so the same inputs give the same gradient
+bits on every launch. Attention windows ride as batch: q/k/v
 [B * windows, S, H, F]; the log-sum-exp is [B * windows, H, S] float32, the
 natural log of the row sums of exp(q k^T / sqrt(F)).
 """
@@ -85,7 +88,7 @@ def _lib(name: str = "attention_forward"):
         lib.attention_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
         lib.attention_forward.restype = ctypes.c_int
     if name == "attention_backward" and lib.attention_backward.argtypes is None:
-        lib.attention_backward.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+        lib.attention_backward.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                                            + [ctypes.c_float, ctypes.c_void_p])
         lib.attention_backward.restype = ctypes.c_int
     return lib
@@ -165,7 +168,9 @@ def _(q, k, v):
 def attention_backward(q, k, v, out, lse, dout):
     """K4: (dq, dk, dv) of attention from the forward's output and
     log-sum-exp. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (or raise on arguments it does not take)."""
+    kernel (or raise on arguments it does not take). Each output element is
+    one sum in a fixed order (dk and dv in one kernel, dq in another), so the
+    same inputs give the same bits on every launch."""
     global bwd_launches
     refuse_dtensors("attention_backward", q, k, v, out, lse, dout)
     if q.device.type == "cpu":
@@ -178,11 +183,10 @@ def attention_backward(q, k, v, out, lse, dout):
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(BC, H, S, dtype=torch.float32, device=q.device)  # D = rowsum(dout * out)
-    dq_acc = torch.zeros(BC, H, S, F, dtype=torch.float32, device=q.device)  # head-major: the kernel adds dS K tiles
     lib = _lib("attention_backward")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_backward(*(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta, dq_acc)),
+        err = lib.attention_backward(*(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta)),
                                      BC, S, H, 1.0 / (F**0.5), stream)
     _build.check(lib, err, "attention_backward launch")
     bwd_launches += 1

@@ -15,7 +15,8 @@ max|kernel - plain| / max|plain|:
 - 12 local heads (48 heads at tp 4) with a ragged last group (NC 9, K 8);
 - the LR gate at a large eta, where the state update moves the output;
 - folded-window attention (3 windows of a ragged 417 tokens), forward and
-  backward;
+  backward, and the backward launched twice: dq, dk and dv must be
+  bit-equal (K4 sums each element in a fixed order);
 - the sampling scans (B 2, CS 16) at an even and an odd NC (K1's ring has two
   stages), and K7 bit for bit on a [12288, 3072] weight.
 
@@ -49,7 +50,7 @@ from ttt_video_dit_torch.ops.rope import interleaved_tables_prefixed, precompute
 # Tolerances of the metric, each beside what it holds. The JAX self-test's where they hold against the plain
 # versions' bf16 rounding points: a forward's loss 2e-4, input gradients 2e-2, the attention forward 2e-2 and
 # backward 3e-2. The TTT initial-state and LN gradients: chip_smoke.py's SCALED_TOL for K2 and K6 (1e-2 of
-# their maximum). K7: bit-exact (the value is the share of elements whose bits differ).
+# their maximum). K7 and K4's rerun: bit-exact (the value is the share of elements whose bits differ).
 FWD_TOL = 2e-4
 GRAD_TOL = 2e-2
 STATE_GRAD_TOL = 1e-2
@@ -107,10 +108,16 @@ SAMPLE_CASES = (
     ("ttt_linear sampling ragged", "ttt_linear", 2, 8, 9, 9),
 )
 ATTENTION_SHAPE = (3, 417, 4, 64)  # 3 windows of a ragged 417 tokens, 4 heads
+RERUN_CHECK = "splash folded-windows rerun bit-equal [K4]"  # K4's determinism: two launches, the same bits
 CONVERT_SHAPE = (12288, 3072)  # the MLP's layer2 weight, [out, in]
 # K7's first elements: ties, subnormals, signed zeros, +-inf, NaN and values past the bf16 maximum.
 CONVERT_SPECIAL = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 3.4e38, -3.39e38, 1e-40, -1e-45, 1.00390625,
                             1.01171875, -1.00390625, 3.0e-39], np.float32)
+
+
+def bits_differ(a, b) -> float:
+    """The share of the elements of two equal-shaped bf16 tensors whose bits differ (0: torch.equal bit for bit)."""
+    return int((a.view(torch.int16) != b.view(torch.int16)).sum()) / a.numel()
 
 
 def rel_err(a, b) -> float:
@@ -196,8 +203,8 @@ def convert_array(rng) -> np.ndarray:
 def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] = None,
                     kernels: Optional[dict] = None) -> dict:
     """Every kernel against its plain version on ``device``. Returns {"ok": bool, "checks": {name: error},
-    "tolerances": {name: tol}, "seconds": float}; an error is the metric of the module docstring (K7's: the
-    share of elements whose bits differ).
+    "tolerances": {name: tol}, "seconds": float}; an error is the metric of the module docstring (K7's and
+    K4's rerun's: the share of elements whose bits differ).
 
     ``kernels``: substitutes for every entry of KERNELS (the harness's own tests pass the plain versions, or
     corrupted ones). Without them the kernels run, which needs a CUDA device: on any other device this raises
@@ -219,6 +226,11 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
         checks[name], tolerances[name] = err, tol
         if log:
             log(f"  {name}: rel_err {err:.2e} (tol {tol:.0e}) {'ok' if err <= tol else 'FAIL'}")
+
+    def exact(name: str, differ: float, what: str) -> None:
+        checks[name], tolerances[name] = differ, 0.0
+        if log:
+            log(f"  {name}: a share of {differ:.2e} of the {what} (bit-equal needed) {'ok' if differ == 0 else 'FAIL'}")
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -257,15 +269,14 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
         check("splash folded-windows fwd-lse [K3-lse]", rel_err(out_k, out_p), ATTENTION_FWD_TOL)
         for g, w, what in zip(grads_k, grads_p, ("dq", "dk", "dv")):
             check(f"splash folded-windows {what} [K4]", rel_err(g, w), ATTENTION_GRAD_TOL)
+        again = attention_out_and_grads(kernels["attention_train"], a, device)[1]
+        differ = bits_differ(torch.cat([g.reshape(-1) for g in grads_k]), torch.cat([g.reshape(-1) for g in again]))
+        exact(RERUN_CHECK, differ, "elements of dq, dk, dv differ between two launches")
 
         w = torch.from_numpy(convert_array(rng)).to(device)
         with torch.no_grad():
-            got, want = kernels["convert_f32_bf16"](w), convert.convert_f32_bf16_plain(w)
-            differ = int((got.view(torch.int16) != want.view(torch.int16)).sum()) / w.numel()
-        checks["convert bit-exact [K7]"], tolerances["convert bit-exact [K7]"] = differ, 0.0
-        if log:
-            log(f"  convert bit-exact [K7]: {differ:.2e} of {w.numel()} elements differ (bit-exact needed) "
-                f"{'ok' if differ == 0.0 else 'FAIL'}")
+            differ = bits_differ(kernels["convert_f32_bf16"](w), convert.convert_f32_bf16_plain(w))
+        exact("convert bit-exact [K7]", differ, "elements differ from the plain cast")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     finally:
