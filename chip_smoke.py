@@ -41,6 +41,12 @@ its own 3 s TOMLs:
    (the same autograd Functions over the plain versions), same weights and
    draws: relative L2 of the loss and of every parameter's gradient; and the
    kernel path under save_seq against the kernel path under "none".
+18. (ttt_mlp, right after phase 5) windows with a 2-frame prefix
+    (prefix_temporal_length 2, which no TOML sets): one forward and
+    backward of the same full-width 2-layer bf16 DiT through the kernels at
+    38 frames = 2 + 3 windows x 12 and 3 scenes, run twice: the loss, the
+    output and every gradient bit-equal (the window gather and stitch sum
+    in a fixed order), each run's seconds.
 6. the training entry (ttt_video_dit_torch.train.main) at full width, 4
    layers, 3 steps (ttt_mlp: adapter sft; ttt_linear: qkvo), under the
    TOML's save_seq and again under "none": on the card,
@@ -141,10 +147,10 @@ and NCCL takes one rank a device):
     (replica, fsdp, tensor) mesh 1 x 1 x 1, the tensor plan (head-sharded
     DTensor parameters, local shards through parallel/sharded.py) and, in
     training, FSDP2 per layer. The training entry on the ttt_mlp 3 s TOML at
-    4 layers, 3 steps under save_seq (phase 6's run): its step-1 loss
-    bit-equal to phase 6's and the later ones within DIST_LOSS_RTOL (FSDP2
-    reorders the bf16 sum of the time embedding's gradient; the largest
-    difference printed), the
+    4 layers, 3 steps under save_seq (phase 6's run): its losses, grad
+    norms and every parameter after step 3 bit-equal to phase 6's (FSDP2
+    reorders the arrival of the time embedding's gradients; the DiT sums
+    them in layer order), the
     launch counts of K1-train, K2, K3-lse, K4 and K7 those of phase 6, s/step
     and peak beside phase 6's; the sampling entry on the 3 s eval TOML at 42
     layers, 3 denoise steps (phase 4's run): latents against phase 4's (the
@@ -316,16 +322,10 @@ T5_REL_L2_TOL = 2e-2
 VAE_REL_L2_TOL = 1e-4
 VAE_MAX_TOL = 1e-3
 # Phase 13 against phases 6 and 4, the same runs through the torchrun branch at world size 1 (every
-# collective of a group of one is skipped or a copy, every kernel is deterministic). Sampling's latents and
-# training's step-1 loss must be bit-equal. Training's gradients are not: the bf16 time embedding feeds every
-# layer's adaLN, autograd sums its gradient over the layers in bf16 in the order the layers' gradients arrive,
-# and FSDP2's per-layer backward hooks change that order. So only time_embed_0/2's four gradients differ, at
-# bf16's rounding (tests/test_torch_parallel_mesh.py::test_fsdp2_on_a_world_of_one_reorders_only_the_time_
-# embeddings_gradient), the step-1 grad norm by ~2e-4 relative (3.446570634841919 against 3.445925235748291 on
-# an H100) and the losses after the first update by up to 7.3e-6 relative there; DIST_LOSS_RTOL leaves 13x.
-# Two runs of one branch are bit-equal (phase 17 in the torchrun branch, scripts/compare_torch_train_steps.py
-# outside it).
-DIST_LOSS_RTOL = 1e-4
+# collective of a group of one is skipped or a copy, every kernel is deterministic): sampling's latents, and
+# training's losses, grad norms and every parameter after its steps, bit-equal. FSDP2's per-layer backward
+# hooks change the order in which the layers' gradients of the time embedding arrive; the DiT sums them in
+# layer order (models/dit/dit.py:FanOut), so that order changes nothing.
 DIST_LATENT_TOL = 0.0
 SERVE_DIR = "output/chip_smoke_serve"
 TRAIN_DIR = "output/chip_smoke_train"  # phase 6's logs
@@ -1039,6 +1039,65 @@ def phase_grad(device, variant) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_prefix_rerun(device) -> None:
+    """Phase 18: windows with a 2-frame prefix (prefix_temporal_length 2, which
+    no TOML sets; the window gather and stitch are sums in a fixed order,
+    models/dit/dit.py:WindowGather / WindowStitch). One forward and backward of
+    the full-width 2-layer bf16 DiT of the ttt_mlp 3 s train config through the
+    kernels (K1-train, K2, K3-lse, K4, K7) at 38 frames = 2 + 3 windows x 12,
+    3 scenes, run twice on the same weights and inputs: the loss, the output
+    and every gradient must be bit-equal."""
+    from ttt_video_dit_torch import train
+
+    t0 = time.perf_counter()
+    job = train.parse_args(train_args("ttt_mlp"))
+    cfg = train.model_config(job)
+    cfg.num_layers, cfg.prefix_temporal_length, frames, scenes = 2, 2, 38, 3
+    if frames != cfg.prefix_temporal_length + scenes * cfg.attn_length:
+        raise AssertionError(f"38 frames are not 2 + 3 x attention length {cfg.attn_length}")
+    text_length = 498  # near the reference's 498 text tokens, the sequence a multiple of the mini-batch
+    while (scenes * text_length + frames * cfg.tokens_per_frame) % cfg.mini_batch_size:
+        text_length += 1
+    model = train.build_model(cfg, device, seed=5)
+    gen = torch.Generator(device).manual_seed(6)
+    video = torch.randn(1, frames, 16, 60, 90, generator=gen, device=device).to(torch.bfloat16)
+    text = torch.randn(1, scenes, text_length, cfg.text_dim, generator=gen, device=device)
+    timesteps = torch.tensor([600.0], device=device)
+    cot = torch.randn(video.shape, generator=gen, device=device)
+    runs, seconds = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        out = model.dit(video, text, timesteps)
+        loss = (out.float() * cot).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        runs.append((loss.detach().clone(), out.detach().clone(), read_counts(),
+                     {n: p.grad.clone() for n, p in model.named_parameters()}))
+    (loss_a, out_a, counts, grads_a), (loss_b, out_b, counts_b, grads_b) = runs
+    kernels = ("ttt_mlp_forward_train", "ttt_mlp_backward", "attention_forward_lse", "attention_backward",
+               "convert_f32_bf16")
+    if counts != counts_b or not all(counts[k] for k in kernels):
+        raise AssertionError(f"prefix 2: launches {counts} / {counts_b}, each of {kernels} expected in both")
+    if not torch.isfinite(out_a).all() or out_a.shape != video.shape:
+        raise AssertionError(f"prefix 2: output {tuple(out_a.shape)} not finite of shape {tuple(video.shape)}")
+    differ = [n for n, g in grads_a.items() if not torch.equal(g, grads_b[n])]
+    if not torch.equal(loss_a, loss_b) or not torch.equal(out_a, out_b) or differ:
+        raise AssertionError(f"prefix 2, two runs: loss {loss_a.item()!r} / {loss_b.item()!r}, output bit-equal "
+                             f"{torch.equal(out_a, out_b)}, {len(differ)} of {len(grads_a)} gradients differ: "
+                             f"{differ[:6]}")
+    log(f"phase 18 prefix_temporal_length 2: ttt_mlp d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} "
+        f"layers, bf16, remat {cfg.remat_policy}, {frames} frames = 2 + {scenes} windows x {cfg.attn_length}, text "
+        f"{scenes} x {text_length}, L {scenes * text_length + frames * cfg.tokens_per_frame}: two runs' loss "
+        f"({loss_a.item()!r}), output and all {len(grads_a)} gradients bit-equal; {seconds[0]:.3f} s and "
+        f"{seconds[1]:.3f} s a run, launches a run { {k: v for k, v in counts.items() if v} } ({CARD}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    del model, runs, grads_a, grads_b
+    torch.cuda.empty_cache()
+
+
 def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
     """Every trainable tensor of ``model`` must have moved from its initial
     value in ``fresh`` more than DECAY_MARGIN times as far as weight decay
@@ -1126,7 +1185,8 @@ def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: di
         f"{ {k: v for k, v in counts.items() if v} } ({CARD}): {time.perf_counter() - t0:.1f} s")
     if keep is not None:
         keep.update(losses=summary["losses"], grad_norms=summary["grad_norms"], step_seconds=sum(steady) / len(steady),
-                    peak=summary["peak_memory_bytes"], counts=counts)
+                    peak=summary["peak_memory_bytes"], counts=counts,
+                    params={n: p.detach().cpu() for n, p in summary["model"].named_parameters()})
     del summary, fresh
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return counts
@@ -1993,7 +2053,8 @@ def _collected_gib() -> float:
 def phase_distributed(device, trained: dict, sampled: dict) -> dict[str, int]:
     """Phase 13: the entries' torchrun branch at world size 1 (NCCL, the mesh,
     the tensor plan, FSDP2 in training) against phase 6's training run
-    (``trained``) and phase 4's sampling run (``sampled``) of ttt_mlp. Each
+    (``trained``: losses, grad norms and parameters) and phase 4's sampling
+    run (``sampled``) of ttt_mlp, bit for bit. Each
     run starts after a garbage collection, and its line prints what was
     still allocated then (phases 4 and 6 ran first in a fresh process)."""
     import numpy as np
@@ -2002,6 +2063,7 @@ def phase_distributed(device, trained: dict, sampled: dict) -> dict[str, int]:
     from torch.distributed.tensor import DTensor
 
     from ttt_video_dit_torch import sample, train
+    from ttt_video_dit_torch.parallel.sharded import full
 
     t0 = time.perf_counter()
     held = _collected_gib()
@@ -2023,22 +2085,26 @@ def phase_distributed(device, trained: dict, sampled: dict) -> dict[str, int]:
     if counts != trained["counts"]:
         raise AssertionError(f"training launches {counts} != phase 6's {trained['counts']}")
     want, got = trained["losses"], summary["losses"]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-    if len(got) != len(want) or got[0] != want[0] or not loss_rel <= DIST_LOSS_RTOL:
-        raise AssertionError(f"training losses {got} against phase 6's {want}: step 1 bit-equal {got[0] == want[0]}, "
-                             f"largest rel difference {loss_rel:.3g} (tol {DIST_LOSS_RTOL})")
+    kept, params = trained["params"], {n: full(p).detach().cpu() for n, p in model.named_parameters()}
+    differ = {n: float((p.float() - kept[n].float()).abs().max())
+              for n, p in params.items() if not torch.equal(p, kept[n])}
+    if got != want or summary["grad_norms"] != trained["grad_norms"] or differ or params.keys() != kept.keys():
+        raise AssertionError(f"training through torchrun's branch against phase 6: losses {got} vs {want}, grad norms "
+                             f"{summary['grad_norms']} vs {trained['grad_norms']}, {len(differ)} of {len(kept)} "
+                             f"parameters differ after step {len(want)} (largest differences: "
+                             f"{sorted(differ.items(), key=lambda kv: -kv[1])[:6]})")
     steady = summary["step_seconds"][1:]
     step_s = sum(steady) / len(steady)
     log(f"phase 13 ttt_mlp 3s train through torchrun's branch, world 1 (NCCL, mesh 1 x 1 x 1, FSDP2 per layer, "
         f"heads and the sequence-parallel stream over a tensor group of one) d{cfg.model_dim} x {cfg.num_layers} "
-        f"layers, remat {cfg.remat_policy}: losses {got} vs phase 6's {want} (step 1 bit-equal, largest rel "
-        f"difference {loss_rel:.3g}, tol {DIST_LOSS_RTOL}), grad norms {summary['grad_norms']} vs "
-        f"{trained['grad_norms']}, {step_s:.3f} s/step after the first vs phase 6's {trained['step_seconds']:.3f} "
+        f"layers, remat {cfg.remat_policy}: losses {got} and grad norms {summary['grad_norms']} bit-equal to phase "
+        f"6's, all {len(kept)} parameters bit-equal after step {len(want)}, {step_s:.3f} s/step after the first vs "
+        f"phase 6's {trained['step_seconds']:.3f} "
         f"({100 * (step_s / trained['step_seconds'] - 1):+.2f} %), peak {summary['peak_memory_bytes'] / 2**30:.2f} GiB "
         f"vs {trained['peak'] / 2**30:.2f} GiB ({held:.2f} GiB allocated before the run), launches "
         f"{({k: v for k, v in counts.items() if v})} as phase 6 "
         f"({CARD}): {time.perf_counter() - t0:.1f} s")
-    del summary, model, layer, attention
+    del summary, model, layer, attention, params
     all_counts = Counter(counts)
 
     t0 = time.perf_counter()
@@ -2323,6 +2389,8 @@ def main() -> int:
         counts.update(phase_sample(device, variant, keep=sampled if variant == "ttt_mlp" else None))
         log_clocks(f"after {variant} sampling")
         phase_grad(device, variant)
+        if variant == "ttt_mlp":
+            phase_prefix_rerun(device)
         counts.update(phase_train(device, variant, keep=trained if variant == "ttt_mlp" else None))
         counts.update(phase_train(device, variant, remat_policy="none"))
         log_clocks(f"after {variant} training")

@@ -430,3 +430,46 @@ def test_kernel_selftest_holds_every_kernel_on_the_card(cuda):
 
     result = kernel_selftest(cuda)
     assert result["ok"], {n: e for n, e in result["checks"].items() if not e <= result["tolerances"][n]}
+
+
+def prefix_windows_step(device, runs: int = 2):
+    """``runs`` forward + backward passes of a 2-layer bf16 DiT at prefix 2
+    (38 frames = 2 + 3 windows x 12, 3 scenes of 32 text tokens, 8 x 8
+    latents: L = 704 = 11 mini-batches of 64; 2 heads of 64, remat save_seq)
+    on the same weights and inputs: [(loss, output, {name: gradient})]."""
+    from ttt_video_dit_torch.config.model_config import ModelConfig
+    from ttt_video_dit_torch.models.dit.dit import DiffusionTransformer, init_params_
+
+    cfg = ModelConfig(model_dim=128, num_heads=2, num_layers=2, ssm_layer="ttt_mlp", mini_batch_size=64,
+                      latent_height=8, latent_width=8, compressed_num_frames=38, attn_length=12,
+                      prefix_temporal_length=2, text_dim=64, time_embed_dim=64, scan_checkpoint_group_size=4,
+                      use_kernel=True, dtype="bfloat16", remat_policy="save_seq")
+    model = init_params_(DiffusionTransformer(cfg), torch.Generator().manual_seed(0)).to(device)
+    gen = torch.Generator().manual_seed(1)
+    video = torch.randn(1, 38, 16, 8, 8, generator=gen).to(device, torch.bfloat16)
+    text = torch.randn(1, 3, 32, 64, generator=gen).to(device)
+    timesteps, cot = torch.tensor([600.0], device=device), torch.randn(video.shape, generator=gen).to(device)
+    out = []
+    for _ in range(runs):
+        model.zero_grad(set_to_none=True)
+        y = model(video, text, timesteps)
+        loss = (y.float() * cot).mean()
+        loss.backward()
+        out.append((loss.detach(), y.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}))
+    return out
+
+
+def test_prefix_windows_training_step_reruns_agree(cuda):
+    """Two kernel-path runs at prefix_temporal_length 2 (the window gather and
+    stitch sum in a fixed order; K1-train, K2, K3-lse and K4 launched):
+    the loss, the output and every gradient bit-equal."""
+    before = (ttt_mlp_kernel.train_launches, ttt_mlp_kernel.bwd_launches, attention.lse_launches,
+              attention.bwd_launches)
+    (loss_a, out_a, grads_a), (loss_b, out_b, grads_b) = prefix_windows_step(cuda)
+    after = (ttt_mlp_kernel.train_launches, ttt_mlp_kernel.bwd_launches, attention.lse_launches,
+             attention.bwd_launches)
+    assert all(b > a for a, b in zip(before, after))
+    assert torch.isfinite(out_a).all() and out_a.shape == (1, 38, 16, 8, 8)
+    assert torch.equal(loss_a, loss_b) and torch.equal(out_a, out_b)
+    for name, g in grads_a.items():
+        assert torch.equal(g, grads_b[name]), name

@@ -52,7 +52,12 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 # frames, attention length, scenes, text tokens a scene, checkpoint group: 63 s (21 x 4 + 43 x 4 = 256 tokens,
 # NC 32, groups of 5) and 9 s (3 x 4 + 37 x 4 = 160 tokens, NC 20, groups of 6).
-GEOMETRIES = {"63s_21_scenes": (43, 2, 21, 4, 5), "9s_3_scenes": (37, 12, 3, 4, 6)}
+GEOMETRIES = {"63s_21_scenes": (43, 2, 21, 4, 5), "9s_3_scenes": (37, 12, 3, 4, 6),
+              # Windows of 2 + 12 and 3 + 12 frames (3 x 8 + 38 x 4 = 176 and 3 x 4 + 39 x 4 = 168 tokens, NC 22 and
+              # 21, groups of 6): tests/test_torch_prefix_windows.py.
+              "38f_prefix_2": (38, 12, 3, 8, 6), "39f_prefix_3": (39, 12, 3, 4, 6)}
+# prefix_temporal_length of a geometry; 1 where it is not named.
+PREFIX = {"38f_prefix_2": 2, "39f_prefix_3": 3}
 # The JAX compiles of both geometries take ~55 s: this file holds the 63 s cases, tests/test_torch_long_context_9s.py
 # the 9 s ones (xdist deals whole files, so each stays under a minute).
 VARIANTS = ["ttt_mlp", "ttt_linear"]
@@ -64,7 +69,8 @@ CHUNKED_REL_L2 = {"float32": 1e-6, "bfloat16": 1e-2}
 def _config(cls, geometry, variant, **kw):
     frames, attn, _, _, group = GEOMETRIES[geometry]
     return cls(model_dim=32, num_heads=2, num_layers=1, ssm_layer=variant, mini_batch_size=8, latent_height=2,
-               latent_width=2, compressed_num_frames=frames, attn_length=attn, prefix_temporal_length=1, text_dim=16,
+               latent_width=2, compressed_num_frames=frames, attn_length=attn,
+               prefix_temporal_length=PREFIX.get(geometry, 1), text_dim=16,
                time_embed_dim=16, scan_checkpoint_group_size=group, use_kernel=False, dtype="float32",
                ttt_base_lr=1.0 if variant == "ttt_linear" else 0.1, **kw)
 

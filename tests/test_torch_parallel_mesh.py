@@ -7,9 +7,9 @@ CPU devices; the tensor-axis placement of every parameter of the tiny model
 ``ttt_video_dit_tpu.parallel.sharding._spec_for`` at tp 2, 3 (every axis
 dropped) and 8; ``local_head_count`` against the JAX one; and, on a gloo
 world of one, the plan applied on size-1 axes (DTensor parameters, the same
-forward bit for bit), the plan and FSDP2 there (every gradient bit-equal but
-the time embedding's, whose bf16 sum FSDP2 reorders) and every kernel
-wrapper refusing a DTensor.
+forward bit for bit), the plan and FSDP2 there (every gradient bit-equal,
+the time embedding's included: the DiT's fan-out sums it in layer order),
+the fan-out itself, and every kernel wrapper refusing a DTensor.
 """
 
 import dataclasses
@@ -28,6 +28,7 @@ from torch.testing._internal.distributed.fake_pg import FakeStore  # noqa: E402
 import __graft_entry__  # noqa: E402
 from ttt_video_dit_torch import convert  # noqa: E402
 from ttt_video_dit_torch.models.dit.diffusion import CogVideoX as TorchCogVideoX  # noqa: E402
+from ttt_video_dit_torch.models.dit import dit  # noqa: E402
 from ttt_video_dit_torch.models.dit.dit import init_params_  # noqa: E402
 from ttt_video_dit_torch.ops import attention, ttt_linear_kernel, ttt_mlp_kernel  # noqa: E402
 from ttt_video_dit_torch.ops import convert as convert_ops  # noqa: E402
@@ -164,14 +165,13 @@ def test_tensor_plan_on_size_one_axes_keeps_the_forward(world_of_one):
         torch.testing.assert_close(t_sharded.full(p.grad), grads[name].grad, rtol=0, atol=0, msg=name)
 
 
-def test_fsdp2_on_a_world_of_one_reorders_only_the_time_embeddings_gradient(world_of_one):
+def test_fsdp2_on_a_world_of_one_gives_the_unsharded_gradients(world_of_one):
     """The tensor plan and FSDP2 at world 1 (the training entry's torchrun
     branch, chip_smoke.py phase 13) against the unsharded model, in bf16 at 2
-    layers: the loss and every gradient bit-equal but the time embedding's.
-    Its output feeds every layer's adaLN; autograd sums its gradient over the
-    layers in bf16 in the order they arrive, and FSDP2's per-layer backward
-    hooks change that order, so time_embed_0/2's gradients may differ, at
-    bf16's rounding (relative L2 2.5e-3 to 4.9e-3 here; 1e-2 allowed)."""
+    layers: the loss and every gradient bit-equal, the time embedding's
+    included. Its output feeds every layer's adaLN and FSDP2's per-layer
+    backward hooks change the order in which those gradients arrive; the
+    DiT's fan-out (models/dit/dit.py:FanOut) sums them in layer order."""
     cfg = dataclasses.replace(CFG, num_layers=2, use_kernel=True, dtype="bfloat16")
     plain = init_params_(TorchCogVideoX(cfg), torch.Generator().manual_seed(3))
     model = init_params_(TorchCogVideoX(cfg), torch.Generator().manual_seed(3))
@@ -189,11 +189,25 @@ def test_fsdp2_on_a_world_of_one_reorders_only_the_time_embeddings_gradient(worl
     assert torch.equal(*losses)
     grads = dict(plain.named_parameters())
     for name, p in model.named_parameters():
-        got, want = t_sharded.full(p.grad), grads[name].grad
-        if name.startswith("dit.time_embed_"):
-            assert float((got - want).norm() / want.norm()) <= 1e-2, name  # bf16 rounding: 2^-8 = 3.9e-3
-        else:
-            assert torch.equal(got, want), name
+        assert torch.equal(t_sharded.full(p.grad), grads[name].grad), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "float32"])
+def test_fan_out_sums_its_gradients_in_copy_order(dtype):
+    """dit.FanOut's backward against the plain sum of its cotangents in the
+    copies' order (float32, one rounding to the dtype), bit for bit, whatever
+    order autograd reaches the consumers in."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, generator=gen).to(dtype).requires_grad_()
+    cots = [torch.randn(2, 16, generator=gen).to(dtype) * 4.0 ** (i % 5) for i in range(9)]
+    want = cots[0].float()
+    for c in cots[1:]:
+        want = want + c.float()
+    copies = dit.FanOut.apply(x, len(cots))
+    assert len(copies) == len(cots) and all(torch.equal(c, x) for c in copies)
+    torch.autograd.backward([copies[i] * 1 for i in (4, 0, 8, 2, 6, 1, 7, 3, 5)],
+                            [cots[i] for i in (4, 0, 8, 2, 6, 1, 7, 3, 5)])
+    assert x.grad.dtype == dtype and torch.equal(x.grad, want.to(dtype))
 
 
 def _dtensor_calls():

@@ -207,21 +207,29 @@ def test_tokenizer_json_pre_tokenizer_variants(tmp_path, pre):
     np.testing.assert_array_equal(port_t5._load_tokenizer(d)(prompts, 20), want)
 
 
-@pytest.mark.parametrize("flags", [dict(add_dummy_prefix=False), dict(remove_extra_whitespaces=False)],
-                         ids=["no_dummy_prefix", "keep_whitespace"])
-def test_spiece_normalizer_flags_are_read(tmp_path, flags):
-    """The normalizer_spec flags, read from the wire: no dummy prefix means no
-    leading ``▁``; without whitespace removal, runs of spaces stay."""
-    d = _write_spiece(str(tmp_path / "sp"), _pieces(), **flags)
-    tok = port_tok.load(d)
+# normalizer_spec flags set false; transformers' converter ignores them all (SpmConverter.normalizer and
+# .converted: the right strip, the " {2,}" replace, "▁" and the "always" prepend scheme whatever they say).
+FLAGS = {"no_dummy_prefix": dict(add_dummy_prefix=False), "keep_whitespace": dict(remove_extra_whitespaces=False),
+         "neither": dict(add_dummy_prefix=False, remove_extra_whitespaces=False),
+         "no_escape": dict(escape_whitespaces=False)}
+# Runs of spaces, leading and trailing spaces, whitespace the map turns into spaces.
+SPACES = ["the  cat ", "  the cat   ", "a \t b  ", "the\u3000 cat", " "]
+
+
+@pytest.mark.parametrize("flags", list(FLAGS.values()), ids=list(FLAGS))
+def test_spiece_normalizer_flags_are_read(tmp_path, converter_for_spiece, flags):
+    """The normalizer_spec flags, read from the wire, and then ignored as
+    ``transformers``' converter ignores them: on a ``spiece.model`` that sets
+    them false, the ids of every prompt group equal the JAX package's
+    ``_tokenize`` on the same file."""
+    d = _write_spiece(str(tmp_path / "sp"), _pieces(), precompiled_charsmap=_charsmap(), **flags)
     m = port_tok.read_sentencepiece_model(os.path.join(d, "spiece.model"))
     assert all(m[k] == v for k, v in flags.items())
-    ids = tok.encode("the  cat ")
-    pieces = [tok.pieces[i][0] for i in ids]
-    if "add_dummy_prefix" in flags:
-        assert pieces[0] == "the"
-    else:
-        assert pieces[0] == "▁the" and pieces.count("▁") >= 2
+    tok = port_t5._load_tokenizer(d)
+    for group, prompts in [*PROMPTS.items(), ("spaces", SPACES)]:
+        maxlen = MAXLEN.get(group, 24)
+        want, _ = _jax_ids(d, prompts, maxlen)
+        np.testing.assert_array_equal(tok(prompts, maxlen), want, err_msg=group)
 
 
 def test_wire_reader_matches_protobuf(tmp_path):

@@ -2,19 +2,21 @@
 ``__graft_entry__.dryrun_multichip`` at the repo root).
 
 The mesh is the JAX dry run's factorisation (``_dryrun_body``): tensor 2
-when n is even, replica 2 when it divides what is left, fsdp the rest. With
-n cards visible it runs n NCCL ranks on them through the kernels (the tiny
-model widened to the kernels' head dim 64 and training mini-batch 64, in
-bf16); with fewer, n gloo ranks on the CPU through the plain versions (the
-JAX package re-runs itself on n virtual CPU devices the same way). Either way
-it launches ``torchrun --standalone --nproc_per_node n -m
-ttt_video_dit_torch.dryrun n [--cpu]``, and each rank runs
+when n is even, replica 2 when it divides what is left, fsdp the rest. It runs
+n NCCL ranks on n cards through the kernels (the tiny model widened to the
+kernels' head dim 64 and training mini-batch 64, in bf16), and raises
+RuntimeError when fewer cards are visible; asked with ``cpu=True``, it runs
+n gloo ranks on the CPU through the plain versions (where the JAX package
+re-runs itself on n virtual CPU devices). Either way it launches
+``torchrun --standalone --nproc_per_node n -m ttt_video_dit_torch.dryrun n
+[--cpu]``, and each rank runs
 :func:`_dryrun_body`: the model from a seed, the tensor plan and FSDP2, the
 grouped AdamW and one step of the global batch, unrolled and again with the
 layer weights cast through K7 (``scan_layers``), each printing its loss.
 
 Usage:
-    python -c "from ttt_video_dit_torch.dryrun import dryrun_multichip; dryrun_multichip(4)"
+    python -c "from ttt_video_dit_torch.dryrun import dryrun_multichip; dryrun_multichip(4)"  # 4 cards
+    python -c "from ttt_video_dit_torch.dryrun import dryrun_multichip; dryrun_multichip(4, cpu=True)"
 """
 
 from __future__ import annotations
@@ -100,11 +102,16 @@ def _dryrun_body(n: int, cpu: bool) -> None:
     pmesh.end_distributed()
 
 
-def dryrun_multichip(n_devices: int) -> str:
-    """Run :func:`_dryrun_body` on ``n_devices`` ranks: NCCL on the cards
-    when that many are visible, else gloo on the CPU. Returns rank 0's output
-    (also printed); raises RuntimeError if a rank fails."""
-    cpu = not (torch.cuda.is_available() and torch.cuda.device_count() >= n_devices)
+def dryrun_multichip(n_devices: int, cpu: bool = False) -> str:
+    """Run :func:`_dryrun_body` on ``n_devices`` ranks: NCCL on as many
+    cards, or with ``cpu`` gloo on the CPU. Returns rank 0's output (also
+    printed); raises RuntimeError, before launching anything, when ``cpu``
+    is false and fewer cards are visible, and if a rank fails."""
+    if not cpu:
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < n_devices:
+            raise RuntimeError(f"dryrun_multichip({n_devices}) needs {n_devices} cards and sees {cards}; "
+                               f"pass cpu=True to run {n_devices} gloo ranks on the CPU")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
     if cpu:
         env["OMP_NUM_THREADS"] = "1"

@@ -185,14 +185,78 @@ class SSMGating(nn.Module):
         return torch.tanh(self.gating_alpha).to(x.dtype) * x
 
 
+def gather_windows(frames, AL: int, WF: int):
+    """[B, T, ...] -> [B, C, WF, ...]: window c holds frames c * AL .. c * AL + WF - 1."""
+    return frames.unfold(1, WF, AL).movedim(-1, 2).contiguous()
+
+
+def stitch_windows(w, T: int, AL: int):
+    """[B, C, WF, ...] -> [B, T, ...], the adjoint of :func:`gather_windows`:
+    each frame the sum of the windows that hold it, added in window order."""
+    out = w.new_zeros((w.shape[0], T) + w.shape[3:])
+    for c in range(w.shape[1]):
+        out[:, c * AL : c * AL + w.shape[2]] += w[:, c]
+    return out
+
+
+class WindowGather(torch.autograd.Function):
+    """:func:`gather_windows`, whose backward is :func:`stitch_windows`: the
+    frames' gradient is a sum in a fixed order, where ``index_select``'s
+    backward adds repeated indices with atomics on CUDA."""
+
+    @staticmethod
+    def forward(ctx, frames, AL: int, WF: int):
+        ctx.T, ctx.AL = frames.shape[1], AL
+        return gather_windows(frames, AL, WF)
+
+    @staticmethod
+    def backward(ctx, g):
+        return stitch_windows(g, ctx.T, ctx.AL), None, None
+
+
+class WindowStitch(torch.autograd.Function):
+    """:func:`stitch_windows` (a fixed-order sum, where ``index_add_`` adds
+    with atomics on CUDA), whose backward is :func:`gather_windows`."""
+
+    @staticmethod
+    def forward(ctx, w, T: int, AL: int):
+        ctx.AL, ctx.WF = AL, w.shape[2]
+        return stitch_windows(w, T, AL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_windows(g, ctx.AL, ctx.WF), None, None
+
+
+class FanOut(torch.autograd.Function):
+    """``n`` copies of ``x``, one for each of its consumers. The backward
+    receives the ``n`` gradients at once and adds them in float32 in the
+    copies' order, then rounds once to ``x``'s dtype: the sum no longer
+    depends on the order in which autograd delivers them (FSDP2's per-layer
+    hooks change that order), and a bf16 sum is rounded once, not ``n - 1``
+    times."""
+
+    @staticmethod
+    def forward(ctx, x, n: int):
+        return tuple(x.clone() for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = grads[0].float()
+        for g in grads[1:]:
+            total = total + g.float()
+        return total.to(grads[0].dtype), None
+
+
 class SegmentLocalAttention(nn.Module):
     """Attention over overlapping (prefix + attn_length)-frame windows, each
     window seeing its own scene's text. All windows go through one attention
     call as batch; the overlapping prefix frames are stitched back by
-    slice/concat (prefix 1) or an index add (other prefixes), then divided by
-    their window count. Under head tensor parallelism (``tp``, of one by
-    default) q/k/v are column-parallel, the attention kernel runs on the
-    rank's H / tp heads and o is row-parallel, so the output is this rank's
+    slice/concat (prefix 1) or a sum over the windows in window order (other
+    prefixes: :class:`WindowStitch`), then divided by their window count.
+    Under head tensor parallelism (``tp``, of one by default) q/k/v are
+    column-parallel, the attention kernel runs on the rank's H / tp heads
+    and o is row-parallel, so the output is this rank's
     partial sums over its heads: the stitch, linear, runs on them before the
     caller's reduce-scatter (SeqModelingBlock). The q/k norms' parameters
     are replicated and see only the rank's heads: their gradients are
@@ -228,8 +292,7 @@ class SegmentLocalAttention(nn.Module):
             lead = torch.cat([frames[:, :1], interior[:, :-1, -1]], dim=1)
             win_vid = torch.cat([lead[:, :, None], interior], dim=2)
         else:
-            idx = torch.from_numpy(window_idx.reshape(-1)).to(vid_emb.device)
-            win_vid = frames.index_select(1, idx)
+            win_vid = WindowGather.apply(frames, AL, WF)
         win_vid = win_vid.reshape(B, C, WF * TPF, D)
         win_text = text_emb.reshape(B, C, TL, D)
 
@@ -272,8 +335,7 @@ class SegmentLocalAttention(nn.Module):
             body = torch.cat([w[:, :, 1:AL], last[:, :, None]], dim=2)
             stitched = torch.cat([w[:, :1, 0], body.reshape(B, C * AL, TPF, D)], dim=1)
         else:
-            stitched = torch.zeros(B, meta.num_frames, TPF, D, dtype=out.dtype, device=out.device)
-            stitched.index_add_(1, idx, w.reshape(B, C * WF, TPF, D))
+            stitched = WindowStitch.apply(w, meta.num_frames, AL)
         counts = np.zeros((meta.num_frames,), np.float32)
         np.add.at(counts, window_idx.reshape(-1), 1.0)
         stitched = stitched / torch.from_numpy(counts).to(device=out.device, dtype=out.dtype)[None, :, None, None]
@@ -335,13 +397,15 @@ class TransformerLayer(nn.Module):
         self.mlp = MLP(config)
 
     def forward(self, x, t_emb, meta: SequenceMetadata, nt: int):
-        """``x``: this rank's rows of [text; video], the first ``nt`` of them text."""
+        """``x``: this rank's rows of [text; video], the first ``nt`` of them
+        text; ``t_emb``: the time embedding's copies for the two adaLNs
+        (pre-sequence-modeling, pre-MLP), from :class:`FanOut`."""
         dtype = x.dtype
         with recompute.when(recompute.binds(x)):
-            for adaLN, norm, block in ((self.pre_seq_adaLN_modulation, self.pre_seq_layernorm,
-                                        lambda h: self.seq_modeling_block(h, meta, nt)),
-                                       (self.pre_mlp_adaLN_modulation, self.pre_mlp_layernorm, self.mlp)):
-                shift, scale, gate, t_shift, t_scale, t_gate = adaLN(Fn.silu(t_emb)).chunk(6, dim=-1)
+            for t, adaLN, norm, block in ((t_emb[0], self.pre_seq_adaLN_modulation, self.pre_seq_layernorm,
+                                           lambda h: self.seq_modeling_block(h, meta, nt)),
+                                          (t_emb[1], self.pre_mlp_adaLN_modulation, self.pre_mlp_layernorm, self.mlp)):
+                shift, scale, gate, t_shift, t_scale, t_gate = adaLN(Fn.silu(t)).chunk(6, dim=-1)
                 h = by_part(layer_norm(x, norm, dtype), nt, lambda t: modulate(t, t_shift, t_scale),
                             lambda v: modulate(v, shift, scale))
                 x = x + by_part(block(h), nt, lambda t: t_gate[:, None, :] * t, lambda v: gate[:, None, :] * v)
@@ -417,6 +481,8 @@ class DiffusionTransformer(nn.Module):
 
         t_emb = timestep_embedding(timesteps, cfg.model_dim, dtype=dtype)
         t_emb = self.time_embed_2(Fn.silu(self.time_embed_0(t_emb)))
+        # One copy for each adaLN, in layer order, the final layer's last: their gradients are summed in that order.
+        t_embs = FanOut.apply(t_emb, 2 * cfg.num_layers + 1)
 
         text_emb, vid_emb = self.patch_embedding(video, text)
         meta = sequence_metadata(cfg, T, H_lat, W_lat, num_scenes, text_length)
@@ -429,14 +495,15 @@ class DiffusionTransformer(nn.Module):
         kw = {} if context_fn is None else {"context_fn": context_fn}
         group = max(cfg.remat_transformer_layer_group_size, 1)
         for i in range(0, cfg.num_layers, group):
-            def run(h, _layers=self.layers[i : i + group]):
-                for layer in _layers:
-                    h = layer(h, t_emb, meta, nt)
+            def run(h, _layers=self.layers[i : i + group], _t=t_embs[2 * i : 2 * (i + group)]):
+                for j, layer in enumerate(_layers):
+                    h = layer(h, _t[2 * j : 2 * j + 2], meta, nt)
                 return h
 
             x = torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False, **kw) if remat else run(x)
         with recompute.when(recompute.binds(x)):
-            out = self.final_layer(layer_norm(x[:, nt:], self.transformer_norm, dtype), t_emb)  # this rank's video rows
+            # this rank's video rows
+            out = self.final_layer(layer_norm(x[:, nt:], self.transformer_norm, dtype), t_embs[-1])
         del x
         # Every rank's rows (the text rows as zeros), then the video tokens: the output is whole on every rank.
         out = self.tp.gather(Fn.pad(out, (0, 0, nt, 0)), 1).narrow(1, stl, meta.num_video_tokens)

@@ -18,7 +18,7 @@ calls it:
    (a ``tokenizer.json`` of type ``NFKC`` gets Unicode NFKC through
    ``unicodedata``, and a model with neither nothing), then trailing spaces
    are stripped and runs of two or more spaces collapsed;
-3. spaces become ``▁``, a ``▁`` is prepended (``add_dummy_prefix``; "always"
+3. spaces become ``▁``, a ``▁`` is prepended (the prepend scheme: "always"
    before every segment, "first" only at the start of the text) and the
    segment is split before every ``▁``;
 4. each piece is segmented by Viterbi over the unigram scores, unknown
@@ -31,7 +31,9 @@ calls it:
 :func:`read_sentencepiece_model`: the pieces (piece, score, type), the
 trainer's unk/eos/pad ids and the ``normalizer_spec`` flags. As
 ``transformers``' converter does, T5's 100 extra ids are appended to its
-pieces counting down (``<extra_id_0>`` is the last id, ``vocab_size + 99``).
+pieces counting down (``<extra_id_0>`` is the last id, ``vocab_size + 99``),
+and steps 2 and 3 ignore the flags: the strip, the collapse, ``▁`` and the
+"always" scheme apply whatever they say.
 ``tokenizer.json`` is HF's serialisation; only its Unigram model is read
 (:func:`is_unigram_tokenizer_json` says whether a file holds one).
 """
@@ -349,7 +351,13 @@ class UnigramTokenizer:
 
     @classmethod
     def from_sentencepiece(cls, path: str, extra_ids: int = EXTRA_IDS) -> "UnigramTokenizer":
-        """The tokenizer ``transformers``' T5 converter builds from ``spiece.model``."""
+        """The tokenizer ``transformers``' T5 converter builds from
+        ``spiece.model``. As its ``SpmConverter`` does, it ignores the
+        normalizer_spec's ``add_dummy_prefix``, ``remove_extra_whitespaces``
+        and ``escape_whitespaces``: it always strips trailing whitespace,
+        replaces runs of spaces by one ``▁``, pre-tokenizes with ``▁`` and
+        prepends it ("always", the slow tokenizer's default
+        ``add_prefix_space=True``)."""
         m = read_sentencepiece_model(path)
         if m["model_type"] != 1:
             raise ValueError(f"{path}: model_type {m['model_type']} is not unigram (1)")
@@ -358,12 +366,10 @@ class UnigramTokenizer:
         added = {p: i for i, (p, _, t) in enumerate(m["pieces"]) if t in (CONTROL, USER_DEFINED)}
         added.update({p: i for i, (p, _) in enumerate(pieces) if p.startswith("<extra_id_")})
         norms = [PrecompiledCharsMap(m["precompiled_charsmap"])] if m["precompiled_charsmap"] else []
-        if m["remove_extra_whitespaces"]:
-            norms += [_rstrip_spaces, _collapse_spaces]
+        norms += [_rstrip_spaces, _collapse_spaces]
         eos = next(i for i, (p, _) in enumerate(pieces) if p == "</s>")
         pad = m["pad_id"] if m["pad_id"] >= 0 else 0
-        return cls(pieces, m["unk_id"], added, norms, prepend="always" if m["add_dummy_prefix"] else "never",
-                   suffix=[eos], pad_id=pad, replacement=SPACE if m["escape_whitespaces"] else " ")
+        return cls(pieces, m["unk_id"], added, norms, prepend="always", suffix=[eos], pad_id=pad, replacement=SPACE)
 
     @classmethod
     def from_tokenizer_json(cls, path: str) -> "UnigramTokenizer":
