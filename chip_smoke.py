@@ -28,7 +28,14 @@ non-zero, and no result line is printed):
    log-sum-exp and K4 (attention backward), K5 (TTT-linear, sampling; also
    at 3 x 48 scans and at a large eta), K5-train and K6 (TTT-linear
    training forward and backward; also at a large eta and at 3 x 48
-   scans), K7 (the float32 -> bf16 weight cast, bit-exact).
+   scans), K7 (the float32 -> bf16 weight cast, bit-exact). Then the
+   kernels' instantiations at the model's default mini-batch, CS 64, at
+   phase 19's slices (check_wide_mini_batch; rows "<kernel>@CS64" of the
+   kernels line): K5 at the debug eval TOML's (B 2, 8 heads, NC 282), K1 at
+   the 5B TTT-MLP eval TOML's at CS 64 (B 2, 48 heads, NC 282), K5-train
+   and K6 at the 5B TTT-linear train TOML's at CS 64 (NC 282, K 4, the last
+   group 2), each also ragged, at 3 x 48 scans and at a large eta; and K5,
+   K5-train and K6 at CS 32 on a ragged shape.
 Then, for each model variant the repo ships (ttt_mlp, then ttt_linear), on
 its own 3 s TOMLs:
 3. one DiffusionTransformer forward at full width (d3072, 48 heads) and
@@ -56,6 +63,17 @@ its own 3 s TOMLs:
    launch counts of the training kernels for the run's policy (K7 included:
    the TOMLs set scan_layers) from exactly that run; seconds per step, peak
    memory, MFU.
+19. the TTT kernels at the model's default mini-batch, CS 64, through the
+    entries (phase_wide_mini_batch): the 2-layer full-width DiT of each
+    variant at CS 64 kernel vs plain (DIT_REL_L2_TOL); both debug TOMLs as
+    written (configs/train/debug.toml: d512 x 8 heads x 6 layers,
+    TTT-linear, CS 64, K 16, 2 steps; configs/eval/debug.toml: 4 denoise
+    steps from inputs/example.json, L 18,048; both TOMLs' output folders,
+    /tmp/ttt_debug, moved under output/); the 5B TTT-linear 3 s train
+    TOML at --model.mini_batch_size 64 (NC 282, K 4) at 4 layers, 3 steps,
+    save_seq; the 5B TTT-MLP 3 s eval TOML at --model.mini_batch_size 64 at
+    42 layers, 2 denoise steps. Finite losses, grad norms and latents, every
+    trained tensor moved, launch counts (rows "<kernel>@CS64").
 Then the serving path (ttt_mlp, its 3 s eval TOML, full width; every
 weight file fabricated from a seed under output/chip_smoke_serve/, removed
 at the end):
@@ -192,7 +210,7 @@ Then the longest training stage one card holds:
     cards.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 8, 9, 17, 11, 12, 13, 14 and 15); the last line is
+the main-path runs of phases 4, 6 (both policies), 19, 8, 9, 17, 11, 12, 13, 14 and 15); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -422,12 +440,14 @@ def phase_build():
     for name, info in _build.build_info.items():
         usage = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: built in {info['seconds']:.1f} s; ptxas: {' | '.join(usage)}")
-    fwd = _build.load("ttt_mlp_forward")
-    smem = {"ttt_mlp_forward": fwd.ttt_mlp_forward_smem_bytes(),
+    fwd, lin = ttt_mlp_kernel._lib(), ttt_linear_kernel._lib()
+    lin_bwd = ttt_linear_kernel._lib("ttt_linear_backward")
+    smem = {"ttt_mlp_forward": fwd.ttt_mlp_forward_smem_bytes(16),
             "ttt_mlp_forward_train": fwd.ttt_mlp_forward_train_smem_bytes(),
-            "ttt_mlp_backward": _build.load("ttt_mlp_backward").ttt_mlp_backward_smem_bytes(),
-            "ttt_linear_forward": _build.load("ttt_linear_forward").ttt_linear_forward_smem_bytes(),
-            "ttt_linear_backward": _build.load("ttt_linear_backward").ttt_linear_backward_smem_bytes()}
+            "ttt_mlp_backward": _build.load("ttt_mlp_backward").ttt_mlp_backward_smem_bytes()}
+    for cs in ttt_linear_kernel.KERNEL_MINI_BATCHES:
+        smem[f"ttt_linear_forward CS {cs}"] = lin.ttt_linear_forward_smem_bytes(cs)
+        smem[f"ttt_linear_backward CS {cs}"] = lin_bwd.ttt_linear_backward_smem_bytes(cs)
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: "
         + ", ".join(f"{k} {v} bytes" for k, v in smem.items()) + ")")
 
@@ -527,20 +547,21 @@ def _ttt_module(variant):
     return ttt_linear_kernel if variant == "ttt_linear" else ttt_mlp_kernel
 
 
-def _sampling_meta(variant):
+def _sampling_meta(args: list[str]):
+    """The model config and 3 s sequence metadata of the sampling entry's flags ``args`` (an eval TOML's)."""
     from ttt_video_dit_torch import sample
     from ttt_video_dit_torch.models.dit.dit import sequence_metadata
 
-    cfg = sample.model_config(sample.parse_args(sample_args(variant)))
+    cfg = sample.model_config(sample.parse_args(args))
     return cfg, sequence_metadata(cfg, num_frames=13, latent_height=60, latent_width=90, num_scenes=1,
                                   text_length=498)
 
 
-def _training_meta(variant, length: str = "3s"):
+def _training_meta(variant, length: str = "3s", extra: tuple = ()):
     from ttt_video_dit_torch import train
     from ttt_video_dit_torch.models.dit.dit import sequence_metadata
 
-    cfg = train.model_config(train.parse_args(train_args(variant, length)))
+    cfg = train.model_config(train.parse_args(train_args(variant, length) + list(extra)))
     return cfg, sequence_metadata(cfg, num_frames=cfg.compressed_num_frames, latent_height=60, latent_width=90,
                                   num_scenes=cfg.num_chunks, text_length=train.synthetic_text_length(cfg))
 
@@ -552,16 +573,17 @@ def in_tolerances(name: str, a, b) -> float:
     return float(((a - b).abs() / (atol + rtol * b.abs())).max())
 
 
-def check_ttt_forward(variant, gen, device) -> dict:
-    """K1 or K5 at the sampling slice (B=2 CFG, 48 heads, NC=1128 at CS=16, the 3 s tables), ragged, at 3 x 48
-    scans (more blocks than SMs) and at an eta 1,000x the slice's, where the plain output must move at least
-    MOVED_TOLS tolerances away from the eta = 0 output (so a wrong state update cannot hide)."""
+def check_ttt_forward(variant, gen, device, args: list[str] | None = None) -> dict:
+    """K1 or K5 at the sampling slice of the eval TOML's flags ``args`` (default the variant's 3 s TOML: B=2 CFG,
+    48 heads, NC=1128 at CS=16, the 3 s tables), ragged, at 3 x 48 scans (more blocks than SMs) and at an eta
+    1,000x the slice's, where the plain output must move at least MOVED_TOLS tolerances away from the eta = 0
+    output (so a wrong state update cannot hide). The record's row is the kernel's at the TOML's CS."""
     mod, name = _ttt_module(variant), f"{variant}_forward"
     kernel, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
-    cfg, meta = _sampling_meta(variant)
-    CS = cfg.mini_batch_size
+    cfg, meta = _sampling_meta(args or sample_args(variant))
+    CS, H = cfg.mini_batch_size, cfg.num_heads
     eta_scale = cfg.ttt_base_lr / 64 / CS
-    cases = [(2, 48, SEQ // CS, meta, eta_scale), (1, 2, 7, None, eta_scale), (3, 48, 4, None, eta_scale),
+    cases = [(2, H, SEQ // CS, meta, eta_scale), (1, 2, 7, None, eta_scale), (3, 48, 4, None, eta_scale),
              (1, 2, 17, None, 1000 * eta_scale)]
     for i, (B, H, NC, m, eta) in enumerate(cases):
         # ttt_linear's cases after the first two draw from their own generators, so the caller's generator, and
@@ -578,12 +600,14 @@ def check_ttt_forward(variant, gen, device) -> dict:
                 raise AssertionError(f"{name} eta_scale={eta:.4g}: the plain output moved only {tols:.3g} "
                                      f"tolerances from the eta = 0 output (at least {MOVED_TOLS} needed)")
             moved = f"; the plain output {tols:.1f} tolerances from eta = 0's"
-        log(f"  {name} B={B} H={H} NC={NC} eta_scale={eta:.4g}: max_abs_err {err:.4g} (tol {KERNEL_TOL[name]}){moved}")
+        log(f"  {name} B={B} H={H} NC={NC} CS={CS} eta_scale={eta:.4g}: max_abs_err {err:.4g} "
+            f"(tol {KERNEL_TOL[name]}){moved}")
         if m is not None:
-            sl = dict(a=a, err=err, plain_ms=plain_ms, NC=NC)
+            sl = dict(a=a, err=err, plain_ms=plain_ms, NC=NC, H=H)
     ms = cuda_ms(lambda: kernel(**sl["a"], eta_scale=eta_scale), 5)
-    return record(name, f"{name}.cu", TPU + TTT[variant][2][0], sl["err"], ms, sl["plain_ms"],
-                  _ttt_bytes(variant, 2, 48, sl["NC"], CS), 2 * 48 * sl["NC"] * _ttt_flops_per_step(variant, CS))
+    H = sl["H"]
+    return record(row_name(name, CS), f"{name}.cu", TPU + TTT[variant][2][0], sl["err"], ms, sl["plain_ms"],
+                  _ttt_bytes(variant, 2, H, sl["NC"], CS), 2 * H * sl["NC"] * _ttt_flops_per_step(variant, CS))
 
 
 def _check_training_case(variant, B, H, NC, K, meta, eta, eta_scale, CS, gen, device) -> dict:
@@ -641,18 +665,20 @@ def _training_cost(variant, NC, K, CS) -> tuple[float, float, float, float]:
             48 * NC * _ttt_bwd_flops_per_step(variant, CS))
 
 
-def check_ttt_training(variant, gen, device) -> list[dict]:
+def check_ttt_training(variant, gen, device, extra: tuple = ()) -> list[dict]:
     """K1-train and K2, or K5-train and K6, at the training slice (B=1, 48
-    heads, the TOML's CS and K: ttt_mlp NC=282 at CS=64, K=16, last group 10;
-    ttt_linear NC=1128 at CS=16, K=4; the 3 s training tables) and at a
-    small ragged shape (NC=7, K=3: the last group has one step), also at a
-    large eta (LARGE_ETA_FACTOR x the slice's), where the plain output must
-    lie MOVED_TOLS tolerances from the eta = 0 output; K5-train and K6 also
-    at 3 x 48 scans (more blocks than SMs)."""
+    heads, the TOML's CS and K, or those ``extra`` flags set: ttt_mlp NC=282
+    at CS=64, K=16, last group 10; ttt_linear NC=1128 at CS=16, K=4, or NC=282
+    at CS=64, K=4, last group 2; the 3 s training tables) and at a small
+    ragged shape (NC=7, K=3: the last group has one step), also at a large
+    eta (LARGE_ETA_FACTOR x the slice's), where the plain output must lie
+    MOVED_TOLS tolerances from the eta = 0 output; K5-train and K6 also at
+    3 x 48 scans (more blocks than SMs). The records' rows are the kernels'
+    at that CS."""
     mod = _ttt_module(variant)
     fwd, bwd = f"{variant}_forward_train", f"{variant}_backward"
     fwd_k, bwd_k = getattr(mod, fwd), getattr(mod, bwd)
-    cfg, meta = _training_meta(variant)
+    cfg, meta = _training_meta(variant, extra=extra)
     K, CS = cfg.scan_checkpoint_group_size, cfg.mini_batch_size
     eta_scale = cfg.ttt_base_lr / 64 / CS
     cases = [(1, 48, SEQ // CS, K, meta, eta_scale), (1, 2, 7, 3, None, eta_scale),
@@ -672,10 +698,10 @@ def check_ttt_training(variant, gen, device) -> list[dict]:
     fwd_ms = cuda_ms(lambda: fwd_k(**a, eta_scale=eta_scale, checkpoint_group=K), 3)
     bwd_ms = cuda_ms(lambda: bwd_k(*ins, *ck, dout, eta_scale, K), 3)
     fb, ff, bb, bf = _training_cost(variant, NC, K, CS)
-    return [record(fwd, f"{variant}_forward.cu", TPU + TTT[variant][2][0], sl["err"], fwd_ms, sl["fwd_plain_ms"],
-                   fb, ff),
-            record(bwd, f"{variant}_backward.cu", TPU + TTT[variant][2][1], sl["gerr"], bwd_ms, sl["bwd_plain_ms"],
-                   bb, bf)]
+    return [record(row_name(fwd, CS), f"{variant}_forward.cu", TPU + TTT[variant][2][0], sl["err"], fwd_ms,
+                   sl["fwd_plain_ms"], fb, ff),
+            record(row_name(bwd, CS), f"{variant}_backward.cu", TPU + TTT[variant][2][1], sl["gerr"], bwd_ms,
+                   sl["bwd_plain_ms"], bb, bf)]
 
 
 def check_long_training(variant, gen, device) -> None:
@@ -896,18 +922,53 @@ def phase_kernels(device) -> list[dict]:
                           6 * w.numel(), w.numel(), lib_ms))
     del k7, w
     torch.cuda.empty_cache()
+    records += check_wide_mini_batch(device)
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
     return records
 
 
-def phase_dit(device, variant, length: str = "3s") -> None:
-    """One full-width 2-layer DiT forward at the geometry of the variant's eval TOML of ``length``, kernel
-    path against the plain path (phase 3; at 9 s, phase 11)."""
+# The TOMLs' flags that run the TTT kernels at the model's default mini-batch, CS 64 (phase 19): the debug eval
+# TOML (d512, 8 heads, TTT-linear), the 5B TTT-MLP 3 s eval TOML and the 5B TTT-linear 3 s train TOML at
+# --model.mini_batch_size 64.
+CS64 = ("--model.mini_batch_size", "64")
+# The debug eval TOML writes its latents under /tmp/ttt_debug: here they go under output/, as every other run's.
+DEBUG_SAMPLE = ["--job.config_file", "configs/eval/debug.toml", "--eval.input_file", "inputs/example.json",
+                "--eval.output_dir", "output/chip_smoke_debug"]
+DEBUG_TRAIN = ["--job.config_file", "configs/train/debug.toml", "--training.steps", "2"]
+
+
+def check_wide_mini_batch(device) -> list[dict]:
+    """The kernels' instantiations past CS 16 against their plain versions, with their own generators (the
+    inputs of every check before them are as they were without these): K5 at the debug eval TOML's sampling
+    slice (B 2, 8 heads, NC 282 at CS 64) and K1 at the 5B TTT-MLP eval TOML's at CS 64 (B 2, 48 heads, NC
+    282, the training kernel with no checkpoints), each also ragged, at 3 x 48 scans and at a large eta;
+    K5-train and K6 at the 5B TTT-linear train TOML's slice at CS 64 (B 1, 48 heads, NC 282, K 4, last group
+    2), ragged, at a large eta and at 3 x 48 scans; and at CS 32 (no TOML's: the records keep to the main
+    path) K5 and K5-train/K6 on a ragged shape. Records rows "<kernel>@CS64"."""
+    gen = lambda seed: torch.Generator(device).manual_seed(seed)
+    records = [check_ttt_forward("ttt_linear", gen(20), device, DEBUG_SAMPLE),
+               check_ttt_forward("ttt_mlp", gen(21), device, sample_args("ttt_mlp") + list(CS64))]
+    records += check_ttt_training("ttt_linear", gen(22), device, CS64)
+    eta = 1.0 / 64 / 32
+    a = _ttt_inputs(1, 2, 7, gen(23), device, CS=32, variant="ttt_linear")
+    from ttt_video_dit_torch.ops import ttt_linear_kernel
+
+    err = compare("ttt_linear_forward", ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=eta),
+                  ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=eta))
+    log(f"  ttt_linear_forward B=1 H=2 NC=7 CS=32 eta_scale={eta:.4g}: max_abs_err {err:.4g}")
+    _check_training_case("ttt_linear", 1, 2, 7, 3, None, eta, eta, 32, gen(24), device)
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_dit(device, variant, length: str = "3s", extra: tuple = (), phase: int | None = None) -> None:
+    """One full-width 2-layer DiT forward at the geometry of the variant's eval TOML of ``length`` (with the
+    flags ``extra``), kernel path against the plain path (phase 3; at 9 s, phase 11; at CS 64, phase 19)."""
     from ttt_video_dit_torch.sample import build_model, model_config, parse_args
 
     t0 = time.perf_counter()
     args = sample_args(variant) if length == "3s" else long_sample_args(variant, length)
-    job = parse_args(args + ["--model.num_layers", "2"])
+    job = parse_args(args + ["--model.num_layers", "2"] + list(extra))
     cfg, ev = model_config(job), job.eval
     model = build_model(cfg, device, seed=1)
     gen = torch.Generator(device).manual_seed(2)
@@ -926,8 +987,9 @@ def phase_dit(device, variant, length: str = "3s") -> None:
     rel = float((got - ref).norm() / ref.norm())
     if rel > DIT_REL_L2_TOL:
         raise AssertionError(f"{variant} DiT kernel path vs plain path: relative L2 error {rel:.4g} > {DIT_REL_L2_TOL}")
-    log(f"phase {3 if length == '3s' else 11} {variant} {length} DiT d{cfg.model_dim} x {cfg.num_heads} heads x "
-        f"{cfg.num_layers} layers, video {list(video.shape[1:])}, text {list(text.shape[1:3])}, kernel vs plain: "
+    log(f"phase {phase or (3 if length == '3s' else 11)} {variant} {length} DiT d{cfg.model_dim} x {cfg.num_heads} "
+        f"heads x {cfg.num_layers} layers, CS {cfg.mini_batch_size}, video {list(video.shape[1:])}, text "
+        f"{list(text.shape[1:3])}, kernel vs plain: "
         f"rel L2 {rel:.4g} (tol {DIT_REL_L2_TOL}), max_abs_err {float((got - ref).abs().max()):.4g}: "
         f"{time.perf_counter() - t0:.1f} s")
     del model
@@ -938,23 +1000,40 @@ def reset_counts() -> None:
 
     ttt_mlp_kernel.launches = ttt_mlp_kernel.train_launches = ttt_mlp_kernel.bwd_launches = 0
     ttt_linear_kernel.launches = ttt_linear_kernel.train_launches = ttt_linear_kernel.bwd_launches = 0
+    ttt_mlp_kernel.launches_by_cs.clear()
+    ttt_linear_kernel.launches_by_cs.clear()
     attention.launches = attention.lse_launches = attention.bwd_launches = 0
     convert.launches = 0
 
 
+# The kernels with an instantiation per mini-batch: their launches_by_cs counter and first CS. Their row in the
+# counts and in the kernels line is the name at the first CS, "<name>@CS<n>" at another (row_name).
+BY_CS = {"ttt_mlp_forward": ("ttt_mlp", "launches", 16), "ttt_linear_forward": ("ttt_linear", "launches", 16),
+         "ttt_linear_forward_train": ("ttt_linear", "train_launches", 16),
+         "ttt_linear_backward": ("ttt_linear", "bwd_launches", 16)}
+
+
+def row_name(name: str, CS: int) -> str:
+    return f"{name}@CS{CS}" if name in BY_CS and CS != BY_CS[name][2] else name
+
+
 def read_counts() -> dict[str, int]:
-    from ttt_video_dit_torch.ops import attention, convert, ttt_linear_kernel, ttt_mlp_kernel
+    from ttt_video_dit_torch.ops import attention, convert, ttt_mlp_kernel
 
-    return {"ttt_mlp_forward": ttt_mlp_kernel.launches, "ttt_mlp_forward_train": ttt_mlp_kernel.train_launches,
-            "ttt_mlp_backward": ttt_mlp_kernel.bwd_launches, "ttt_linear_forward": ttt_linear_kernel.launches,
-            "ttt_linear_forward_train": ttt_linear_kernel.train_launches,
-            "ttt_linear_backward": ttt_linear_kernel.bwd_launches, "attention_forward": attention.launches,
-            "attention_forward_lse": attention.lse_launches, "attention_backward": attention.bwd_launches,
-            "convert_f32_bf16": convert.launches}
+    counts = {"ttt_mlp_forward_train": ttt_mlp_kernel.train_launches, "ttt_mlp_backward": ttt_mlp_kernel.bwd_launches,
+              "attention_forward": attention.launches, "attention_forward_lse": attention.lse_launches,
+              "attention_backward": attention.bwd_launches, "convert_f32_bf16": convert.launches}
+    for name, (variant, attr, first) in BY_CS.items():
+        by_cs = _ttt_module(variant).launches_by_cs
+        counts[name] = by_cs[attr, first]
+        counts.update({row_name(name, cs): n for (a, cs), n in by_cs.items() if a == attr and cs != first and n})
+    return counts
 
 
-def phase_sample(device, variant, keep: dict | None = None) -> dict[str, int]:
-    """The sampling entry at 42 layers (phase 4); ``keep`` receives its latents, s/eval and peak (for phase 13)."""
+def phase_sample(device, variant, keep: dict | None = None, args: list[str] | None = None,
+                 phase: int = 4) -> dict[str, int]:
+    """The sampling entry at 42 layers on the variant's 3 s eval TOML, or on the flags ``args`` (phase 4);
+    ``keep`` receives its latents, s/eval and peak (for phase 13)."""
     import numpy as np
 
     from ttt_video_dit_torch import sample
@@ -962,7 +1041,7 @@ def phase_sample(device, variant, keep: dict | None = None) -> dict[str, int]:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    job = sample.parse_args(sample_args(variant))
+    job = sample.parse_args(args or sample_args(variant))
     reset_counts()
     summary = sample.main(job)
     counts = read_counts()
@@ -971,14 +1050,16 @@ def phase_sample(device, variant, keep: dict | None = None) -> dict[str, int]:
     if summary["device"].split(":")[0] != "cuda":
         raise AssertionError(f"sampling ran on {summary['device']}, not the card")
     # Per eval and layer: the TTT scan once per direction, attention once.
-    expect = {f"{variant}_forward": 2 * cfg.num_layers * evals, "attention_forward": cfg.num_layers * evals}
+    expect = {row_name(f"{variant}_forward", cfg.mini_batch_size): 2 * cfg.num_layers * evals,
+              "attention_forward": cfg.num_layers * evals}
     if counts != {**dict.fromkeys(counts, 0), **expect}:
         raise AssertionError(f"kernel launches {counts} do not match {cfg.num_layers} layers x {evals} evals")
     latents = np.load(summary["latents"][0])
     if latents.shape != (13, 16, 60, 90) or not np.isfinite(latents).all():
         raise AssertionError(f"latents {latents.shape} not finite of shape (13, 16, 60, 90)")
     steady = summary["eval_seconds"][1:] or summary["eval_seconds"]
-    log(f"phase 4 {variant} sample d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers, {evals} evals: "
+    log(f"phase {phase} {variant} sample ({job.job.config_file}) d{cfg.model_dim} x {cfg.num_heads} heads x "
+        f"{cfg.num_layers} layers, CS {cfg.mini_batch_size}, {evals} evals: "
         f"{sum(steady) / len(steady):.3f} s/eval after the first ({summary['eval_seconds'][0]:.3f} s first), "
         f"peak {summary['peak_memory_bytes']['dit'] / 2**30:.2f} GiB, launches "
         f"{ {k: v for k, v in counts.items() if v} }, latents finite, std {float(latents.std()):.4f}: "
@@ -1132,18 +1213,20 @@ def check_trained(model, fresh, optimizer, steps: int) -> tuple[int, list[str]]:
 
 
 def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: dict | None = None, layers: int = 4,
-                steps: int = 3, phase: int | None = None) -> dict[str, int]:
+                steps: int = 3, phase: int | None = None, args: list[str] | None = None) -> dict[str, int]:
     """The training entry, ``layers`` layers x ``steps`` steps at full width,
-    on the card, on the variant's train TOML of ``length`` (train_toml),
-    under its remat policy or ``remat_policy``; ``keep`` receives its
-    losses, s/step, peak and launch counts (for phase 13)."""
+    on the card, on the variant's train TOML of ``length`` (train_toml), or
+    on the flags ``args``, under its remat policy or ``remat_policy``;
+    ``keep`` receives its losses, s/step, peak and launch counts (for phase
+    13)."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     flags = ["--checkpoint.interval", "0", "--job.dump_folder", TRAIN_DIR]  # phase 9 covers saving
-    job = train.parse_args(train_args(variant, length, layers, steps) + flags
+    job = train.parse_args((args or train_args(variant, length, layers, steps)) + flags
                            + (["--remat.policy", remat_policy] if remat_policy else []))
+    steps = job.training.steps
     reset_counts()
     summary = train.main(job)
     counts = read_counts()
@@ -1158,9 +1241,10 @@ def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: di
     # with the log-sum-exp once (twice under "none"), K4 once; with scan_layers, K7 once per 2-D layer
     # weight and forward, twice over (the recompute casts again): adaLN x 2, attention q/k/v/o, MLP x 2
     # and the TTT wq/wk/wv/wo, shared by both directions = 12.
-    L = cfg.num_layers
+    L, CS = cfg.num_layers, cfg.mini_batch_size
     runs = 1 if cfg.remat_policy == "save_seq" else 2
-    expect = {f"{variant}_forward_train": 2 * runs * L * steps, f"{variant}_backward": 2 * L * steps,
+    expect = {row_name(f"{variant}_forward_train", CS): 2 * runs * L * steps,
+              row_name(f"{variant}_backward", CS): 2 * L * steps,
               "attention_forward_lse": runs * L * steps, "attention_backward": L * steps}
     if cfg.scan_layers:
         expect["convert_f32_bf16"] = 2 * 12 * L * steps
@@ -1189,6 +1273,31 @@ def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: di
                     params={n: p.detach().cpu() for n, p in summary["model"].named_parameters()})
     del summary, fresh
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return counts
+
+
+def phase_wide_mini_batch(device) -> dict[str, int]:
+    """Phase 19: the paths that run the TTT kernels at the model's default mini-batch, CS 64, through the
+    entries a user calls. Both debug TOMLs as written (configs/train/debug.toml: the debug preset d512 x 8 heads
+    x 6 layers, TTT-linear, CS 64, K 16, 2 steps; configs/eval/debug.toml: its 4 denoise steps from
+    inputs/example.json, L 18,048, its latents written under output/); the 5B TTT-linear 3 s train TOML at
+    --model.mini_batch_size 64 (NC 282,
+    K 4: 71 groups, the last of 2) at 4 layers, 3 steps under its save_seq; the 5B TTT-MLP 3 s eval TOML at
+    --model.mini_batch_size 64 at 42 layers, 2 denoise steps (K1 through the training kernel with no
+    checkpoints). Before them, the 2-layer full-width DiT of each variant at CS 64, kernel path against the
+    plain path (DIT_REL_L2_TOL). Each run checks its finite losses, grad norms or latents and its launch
+    counts (phase_train, phase_sample)."""
+    t0 = time.perf_counter()
+    for variant in VARIANTS:
+        phase_dit(device, variant, extra=CS64, phase=19)
+    counts = Counter()
+    counts.update(phase_train(device, "ttt_linear", args=DEBUG_TRAIN, phase=19))
+    counts.update(phase_sample(device, "ttt_linear", args=DEBUG_SAMPLE, phase=19))
+    counts.update(phase_train(device, "ttt_linear", args=train_args("ttt_linear") + list(CS64), phase=19))
+    counts.update(phase_sample(device, "ttt_mlp", args=sample_args("ttt_mlp") + list(CS64) + [
+        "--eval.num_denoising_steps", "2", "--guider.num_steps", "2"], phase=19))
+    shutil.rmtree("output/chip_smoke_debug", ignore_errors=True)
+    log(f"phase 19 the TTT kernels at CS 64 through the entries: {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -2394,6 +2503,8 @@ def main() -> int:
         counts.update(phase_train(device, variant, keep=trained if variant == "ttt_mlp" else None))
         counts.update(phase_train(device, variant, remat_policy="none"))
         log_clocks(f"after {variant} training")
+    counts.update(phase_wide_mini_batch(device))
+    log_clocks("after the CS-64 paths")
     try:
         phase_t5(device)
         counts.update(phase_serve(device))

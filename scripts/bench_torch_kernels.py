@@ -6,7 +6,13 @@ At the 3 s slices' shapes (chip_smoke.py's): K1 at [B 2, NC 1,128, CS 16,
 CS 64, 48 heads x 64], K 16, eta_scale 0.1 / 64 / 64, and K2 from its
 checkpoints; K5 at [B 2, NC 1,128, CS 16, 48 heads x 64] with eta_scale
 1.0 / 64 / 16; K5-train at [B 1, NC 1,128, CS 16], K 4, the same eta, and
-K6 from its checkpoints (--reps launches each); K7 on a [12288, 3072]
+K6 from its checkpoints (--reps launches each); at the model's default
+mini-batch CS 64 (chip_smoke.py's phase-19 slices), K5 at [B 2, NC 282,
+8 heads] (the debug eval TOML), K5-train and K6 at [B 1, NC 282, 48 heads],
+K 4, eta_scale 1.0 / 64 / 64, and K1 at [B 2, NC 282, 48 heads] with
+eta_scale 0.1 / 64 / 64; and K5 at CS 32, [B 2, NC 564, 48 heads] (keys
+``*_cs64_ms``, ``K5_cs32_ms``, only for a tree whose wrappers take those
+mini-batches); K7 on a [12288, 3072]
 float32 weight beside ``.to(torch.bfloat16)`` on the same tensor, the two
 timed in turns (--rounds rounds of --k7-reps launches each, after one
 untimed round). Times are means
@@ -64,6 +70,19 @@ def device_us(fn, reps: int) -> float | None:
         torch.cuda.synchronize()
     times = [ev.device_time for ev in prof.key_averages() if ev.count == reps and ev.device_time > 0]
     return max(times) if times else None
+
+
+def linear_inputs(gen, device, B: int, NC: int, CS: int, H: int) -> dict:
+    """A TTT scan's q/k/v, gate, rope tables and LN affine (no state) at [B, NC, CS, H heads x 64]."""
+    import torch
+
+    randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=device) * std
+    angles = torch.rand(NC, CS, F // 2, generator=gen, device=device) * 6.3
+    return dict(XQ=randn(B, NC, CS, H * F).bfloat16(), XK=randn(B, NC, CS, H * F).bfloat16(),
+                XV=randn(B, NC, CS, H * F).bfloat16(), gate=randn(B, H, NC, CS),
+                rope_cos=torch.cos(angles).repeat_interleave(2, -1).contiguous(),
+                rope_sin=torch.sin(angles).repeat_interleave(2, -1).contiguous(),
+                ln_w=1 + randn(H, F, std=0.1), ln_b=randn(H, F, std=0.1))
 
 
 def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
@@ -127,6 +146,33 @@ def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
         ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
         out["K6_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_backward(*ins, *ck, dout, eta, K_LINEAR), reps)
     del t, ck, dout, ins
+
+    # The wider mini-batches, where the tree's wrappers take them.
+    wide = getattr(ttt_linear_kernel, "KERNEL_MINI_BATCHES", (16,))
+    linear = lambda B, NC, CS, H: dict(linear_inputs(gen, device, B, NC, CS, H), W1=randn(H, F, F, std=0.02),
+                                       b1=randn(H, 1, F, std=0.02))
+    if 64 in wide:
+        eta = 1.0 / 64 / 64
+        t = linear(2, NC_TRAIN, 64, 8)
+        out["K5_cs64_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_forward(**t, eta_scale=eta), reps)
+        t = linear(1, NC_TRAIN, 64, H)
+        fwd = lambda: ttt_linear_kernel.ttt_linear_forward_train(**t, eta_scale=eta, checkpoint_group=K_LINEAR)
+        out["K5_train_cs64_ms"] = cuda_ms(fwd, reps)
+        ck = fwd()[1:]
+        dout = randn(*t["XQ"].shape).bfloat16()
+        ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+        out["K6_cs64_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_backward(*ins, *ck, dout, eta, K_LINEAR),
+                                    reps)
+        del t, ck, dout, ins
+    if 32 in wide:
+        t = linear(2, 2 * NC_TRAIN, 32, H)
+        out["K5_cs32_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_forward(**t, eta_scale=1.0 / 64 / 32), reps)
+        del t
+    if 64 in getattr(ttt_mlp_kernel, "KERNEL_MINI_BATCHES", (16,)):
+        t = dict(linear_inputs(gen, device, 2, NC_TRAIN, 64, H), W1=randn(H, F, 4 * F, std=0.02),
+                 b1=randn(H, 1, 4 * F, std=0.02), W2=randn(H, 4 * F, F, std=0.02), b2=randn(H, 1, F, std=0.02))
+        out["K1_cs64_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**t, eta_scale=0.1 / 64 / 64), reps)
+        del t
 
     w = randn(12288, 3072)
     k7, to = (lambda: convert.convert_f32_bf16(w)), (lambda: w.to(torch.bfloat16))

@@ -164,13 +164,13 @@ def kernel_stash(tk, one, ck, d_one, n, r, f, t, vjp) -> dict:
 
     device = one["XQ"].device
     lib = tk._lib("ttt_linear_backward")
-    step = [lib.ttt_linear_backward_stash_bytes(part) for part in (0, 1)]
+    step = [lib.ttt_linear_backward_stash_bytes(part, CS) for part in (0, 1)]
     new = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype, device=device)
     dx = [torch.empty_like(one["XQ"]) for _ in range(3)]
     grads = (new(1, 1, F, F), new(1, 1, 1, F), new(1, 1, F), new(1, 1, F))
     sh, sf = new(K * step[0] // 2, dtype=torch.bfloat16), new(K * step[1] // 4)
     tk._launch(lib, "ttt_linear_backward", (*(one[k] for k in INPUTS), *ck, d_one, *dx, new(1, 1, NC, CS), *grads,
-                                            sh, sf), (1, NC, 1, K), ETA, device)
+                                            sh, sf), (1, NC, 1, CS, K), ETA, device)
     torch.cuda.synchronize()
     ld_b, ld_z = F + 8, F + 4  # the stash's padded row pitches (csrc/ttt_linear_step.cuh)
     hs = sh[n * step[0] // 2:(n + 1) * step[0] // 2]

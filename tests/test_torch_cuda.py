@@ -44,9 +44,9 @@ def _close(got, want):
     assert bool((err <= ATOL + RTOL * want.abs()).all()), f"max_abs_err {float(err.max())}"
 
 
-def _ttt_inputs(cuda, B, H, NC, seed=0):
+def _ttt_inputs(cuda, B, H, NC, seed=0, CS=16):
     gen = torch.Generator(cuda).manual_seed(seed)
-    CS, F = 16, 64
+    F = 64
     randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=cuda) * std
     angles = torch.rand(NC, CS, F // 2, generator=gen, device=cuda) * 6.3
     return dict(
@@ -61,15 +61,19 @@ def _ttt_inputs(cuda, B, H, NC, seed=0):
 
 
 # (B, H, NC): one and two mini-batches, 17 (more than the kernel's two-stage
-# ring wraps in a step), and 3 x 48 scans, more blocks than the H100's 132 SMs.
-@pytest.mark.parametrize("B,H,NC", [(1, 3, 9), (2, 2, 1), (1, 2, 1), (2, 3, 2), (2, 2, 17), (3, 48, 3)])
-def test_ttt_kernel_matches_plain(cuda, B, H, NC):
-    args = _ttt_inputs(cuda, B, H, NC)
+# ring wraps in a step), and 3 x 48 scans, more blocks than the H100's 132 SMs;
+# at CS = 64 (K1 through the training kernel with no checkpoints) an even and
+# an odd NC and the CFG batch of 48 heads, at the eta of the TOMLs' base lr.
+@pytest.mark.parametrize("B,H,NC,CS", [(1, 3, 9, 16), (2, 2, 1, 16), (1, 2, 1, 16), (2, 3, 2, 16), (2, 2, 17, 16),
+                                       (3, 48, 3, 16), (2, 2, 8, 64), (2, 3, 9, 64), (2, 48, 3, 64)])
+def test_ttt_kernel_matches_plain(cuda, B, H, NC, CS):
+    args = _ttt_inputs(cuda, B, H, NC, CS=CS)
+    eta = 1e-4 if CS == 16 else 0.1 / 64 / CS
     before = ttt_mlp_kernel.launches
-    got = ttt_mlp_kernel.ttt_mlp_forward(**args, eta_scale=1e-4)
+    got = ttt_mlp_kernel.ttt_mlp_forward(**args, eta_scale=eta)
     torch.cuda.synchronize()
     assert ttt_mlp_kernel.launches == before + 1
-    _close(got, ttt_mlp_kernel.ttt_mlp_forward_plain(**args, eta_scale=1e-4))
+    _close(got, ttt_mlp_kernel.ttt_mlp_forward_plain(**args, eta_scale=eta))
 
 
 def _in_tolerances(a, b):
@@ -252,9 +256,9 @@ def test_attention_backward_kernel_reruns_agree(cuda, shape):
             _close(a, w)
 
 
-def _linear_inputs(cuda, B, H, NC, seed):
+def _linear_inputs(cuda, B, H, NC, seed, CS=16):
     gen = torch.Generator(cuda).manual_seed(seed)
-    CS, F = 16, 64
+    F = 64
     randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=cuda) * std
     angles = torch.rand(NC, CS, F // 2, generator=gen, device=cuda) * 6.3
     return dict(
@@ -270,18 +274,23 @@ def _linear_inputs(cuda, B, H, NC, seed):
 # The slice's eta_scale (ttt_base_lr 1.0 / 64 / 16), and 100x and 1,000x it, where the state update moves the
 # output far (the plain output then lies at least 10 tolerances from the eta = 0 output). Besides the first
 # shapes: 3 x 48 scans (more blocks than the H100's 132 SMs), NC = 1, and NC = 17 (the two-stage ring wraps
-# eight times; K = 5 leaves a last group of two).
-@pytest.mark.parametrize("B,H,NC,K,scale", [(2, 3, 9, 4, 1 / 1024), (1, 2, 5, 2, 1 / 1024), (1, 2, 3, 16, 1 / 1024),
-                                            (3, 48, 3, 2, 1 / 1024), (1, 2, 1, 1, 1 / 1024), (2, 2, 17, 5, 1 / 1024),
-                                            (1, 2, 7, 3, 0.1), (1, 2, 7, 3, 1.0)])
-def test_ttt_linear_kernels_match_plain(cuda, B, H, NC, K, scale):
+# eight times; K = 5 leaves a last group of two). At CS 32, 48 and 64 (eta 1 / 64 / CS, and 100x it at 64):
+# full and ragged groups, K past NC, and at 64 the one-stage raw ring and K6's single pass-B buffer over 17
+# mini-batches and over 3 x 48 scans.
+@pytest.mark.parametrize("B,H,NC,K,scale,CS", [
+    (2, 3, 9, 4, 1 / 1024, 16), (1, 2, 5, 2, 1 / 1024, 16), (1, 2, 3, 16, 1 / 1024, 16), (3, 48, 3, 2, 1 / 1024, 16),
+    (1, 2, 1, 1, 1 / 1024, 16), (2, 2, 17, 5, 1 / 1024, 16), (1, 2, 7, 3, 0.1, 16), (1, 2, 7, 3, 1.0, 16),
+    (2, 3, 8, 4, 1 / 2048, 32), (1, 2, 9, 4, 1 / 2048, 32), (1, 2, 7, 3, 1 / 3072, 48), (2, 2, 3, 16, 1 / 3072, 48),
+    (2, 3, 8, 4, 1 / 4096, 64), (1, 2, 9, 4, 1 / 4096, 64), (2, 2, 17, 5, 1 / 4096, 64), (3, 48, 3, 2, 1 / 4096, 64),
+    (1, 2, 7, 3, 100 / 4096, 64)])
+def test_ttt_linear_kernels_match_plain(cuda, B, H, NC, K, scale, CS):
     """K5 for sampling (output elementwise), K5 for training (output
     elementwise; fp32 checkpoints within 1e-2 relative L2 and 1e-3 of their
     scale) and K6 (every gradient within 1e-2 relative L2 and 1e-2 of its
     scale; dXQ/dXK/dXV/d_gate also elementwise) against their plain versions,
     with a ragged last checkpoint group where K does not divide NC."""
-    a, randn = _linear_inputs(cuda, B, H, NC, seed=4)
-    if scale >= 0.1:
+    a, randn = _linear_inputs(cuda, B, H, NC, seed=4, CS=CS)
+    if scale >= 0.02:
         want = ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=scale)
         assert _in_tolerances(want, ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=0.0)) >= 10
     before = (ttt_linear_kernel.launches, ttt_linear_kernel.train_launches, ttt_linear_kernel.bwd_launches)
@@ -366,6 +375,14 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     a["W1"] = torch.zeros(2, 64, 256, device=cuda)  # a TTT-MLP state
     with pytest.raises(ValueError):
         ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=1e-3)
+    # A mini-batch no kernel is built for raises, naming the ones that are.
+    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, CS=24)
+    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+        ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=1e-3)
+    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+        ttt_linear_kernel.ttt_linear_train(**a, eta_scale=1e-3, checkpoint_group=2)
+    with pytest.raises(ValueError, match=r"\(16, 64\)"):
+        ttt_mlp_kernel.ttt_mlp_forward(**_ttt_inputs(cuda, 2, 2, 3, CS=32), eta_scale=1e-3)
     w = torch.zeros(64, 32, device=cuda)
     with pytest.raises(ValueError):
         convert.convert_f32_bf16(w.t())  # not contiguous

@@ -1,6 +1,7 @@
 // Fused TTT-linear forward scan (K5), head_dim F = 64, mini-batch CS = 16,
-// for Hopper (sm_90a): sampling (no state checkpoints) and training (fp32
-// state checkpoints every K mini-batches, for csrc/ttt_linear_backward.cu).
+// 32, 48 or 64 (one instantiation each, ttt_linear_step.cuh:with_slabs), for
+// Hopper (sm_90a): sampling (no state checkpoints) and training (fp32 state
+// checkpoints every K mini-batches, for csrc/ttt_linear_backward.cu).
 //
 // Replaces: ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_linear_kernel with
 // _fused_preproc and _eta_from_gate (launched by ttt_linear_forward, reached
@@ -14,17 +15,18 @@
 // What bounds it on the H100: the scan is sequential in NC, so one block
 // owns one (batch, head) and the limit is the latency of one step inside an
 // SM: a chain of small dependent products (6 CS F^2 + 4 CS^2 F = 0.46 Mflop a
-// step) and the waits between the warps that share it. Device memory is not
-// the limit (a step reads ~6 KiB and writes 2 KiB; the whole call moves
-// ~0.9 GB at the 3 s sampling shape, 0.27 ms at 3.35 TB/s). At B = 2 the grid
-// is 96 blocks on 132 SMs, at B = 1 (training) 48.
+// step at CS 16, 2.62 at CS 64) and the waits between the warps that share
+// it. Device memory is not the limit (a step reads ~6 KiB and writes 2 KiB at
+// CS 16; the whole call moves ~0.9 GB at the 3 s sampling shape, 0.27 ms at
+// 3.35 TB/s, whatever CS is). At B = 2 the grid is 96 blocks on 132 SMs, at
+// B = 1 (training) 48.
 //
 // Design: ttt_linear_step.cuh's tensor-core step. One block of 8 warps per
 // (batch, head): 4 consumer warps keep the fp32 state W^T in mma.sync
 // accumulator registers (warp w owns rows 16 w .. 16 w + 15) and run every
 // product on the tensor cores, meeting at 3 named barriers a step; the
 // producer warpgroup prepares the next mini-batch into a two-stage ring
-// while they do. Before mini-batch n with n % K == 0 the training launch
+// while they do (its raw ring has one stage at CS 64, see the header). Before mini-batch n with n % K == 0 the training launch
 // writes the state as checkpoint n / K (W transposed back to [F][F] from the
 // registers, and b as one row, not the TPU's 8 rows x 0.125) with plain
 // stores nobody waits on; the last group may be shorter than K.
@@ -47,15 +49,18 @@ namespace {
 
 using namespace tttl;
 
+template <int NS>
 struct Smem {
-  RawStage raw[2];
-  PrepStage prep[2];
+  static constexpr int kCS = kSlab * NS;
+  RawStage<NS> raw[kRawSlots<NS>];
+  PrepStage<NS> prep[2];
   float z[kCS * kLdZ], zb[kCS * kLdZ];
   bf16 gs[kCS * kLdB];
   uint64_t full[2], empty[2];
 };
-constexpr int kSmemBytes = sizeof(Smem);
-static_assert(kSmemBytes <= 232448, "exceeds the 227 KB shared-memory opt-in");
+static_assert(sizeof(Smem<1>) <= 232448 && sizeof(Smem<2>) <= 232448 && sizeof(Smem<3>) <= 232448 &&
+                  sizeof(Smem<4>) <= 232448,
+              "exceeds the 227 KB shared-memory opt-in");
 
 struct Args {
   ScanArgs a;
@@ -65,9 +70,11 @@ struct Args {
   int K;  // 0: no checkpoints
 };
 
+template <int NS>
 __global__ void __launch_bounds__(kThreads, 1) ttt_linear_fwd_kernel(const Args A) {
+  constexpr int kCS = kSlab * NS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& S = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<NS>& S = *reinterpret_cast<Smem<NS>*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.x, b = bh / A.a.H, h = bh % A.a.H, NC = A.a.NC;
   if (threadIdx.x == 0) {
@@ -79,7 +86,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_fwd_kernel(const Args 
   }
   __syncthreads();
   if (warp >= kWarps) {
-    producer(S.raw, S.prep, S.full, S.empty, A.a, A.ln_w, A.ln_b, b, h, 0, NC, 0, warp - kWarps, lane, nullptr);
+    producer<NS>(S.raw, S.prep, S.full, S.empty, A.a, A.ln_w, A.ln_b, b, h, 0, NC, 0, warp - kWarps, lane, nullptr);
     return;
   }
   LinState st;
@@ -98,31 +105,39 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_fwd_kernel(const Args 
       save_state(st.w, st.bias, A.w_ck + g * kF * kF, A.b_ck + g * kF, warp, lane);
     }
     hopper::mbar_wait(&S.full[s], (n >> 1) & 1);
-    step<true, false>(st, S.prep[s], T, lw, lb, A.out + ((size_t)b * NC + n) * kCS * HF + (size_t)h * kF, HF,
-                      nullptr, nullptr, warp, lane);
+    step<NS, true, false>(st, S.prep[s], T, lw, lb, A.out + ((size_t)b * NC + n) * kCS * HF + (size_t)h * kF, HF,
+                          nullptr, nullptr, warp, lane);
     hopper::mbar_arrive(&S.empty[s]);
   }
 }
 
 }  // namespace
 
-extern "C" int ttt_linear_forward_smem_bytes() { return kSmemBytes; }
+// Shared memory of the instantiation for mini-batch cs (an error code for a CS it is not built for).
+extern "C" int ttt_linear_forward_smem_bytes(int cs) {
+  return with_slabs(cs, [](auto ns) { return (int)sizeof(Smem<decltype(ns)::value>); });
+}
 
 // K = 0: sampling, no checkpoints (w_ck and b_ck unused).
 extern "C" int ttt_linear_forward(const void* xq, const void* xk, const void* xv, const void* gate,
                                   const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
                                   const void* W1, const void* b1, void* out, void* w_ck, void* b_ck, int B, int NC,
-                                  int H, int K, float eta_scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(ttt_linear_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                                  int H, int CS, int K, float eta_scale, void* stream) {
   const Args A{{static_cast<const bf16*>(xq), static_cast<const bf16*>(xk), static_cast<const bf16*>(xv),
                 static_cast<const float*>(gate), static_cast<const float*>(rope_cos),
                 static_cast<const float*>(rope_sin), NC, H, eta_scale},
                static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
                static_cast<const float*>(b1), static_cast<bf16*>(out), static_cast<float*>(w_ck),
                static_cast<float*>(b_ck), K};
-  ttt_linear_fwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(A);
-  return static_cast<int>(cudaGetLastError());
+  return with_slabs(CS, [&](auto ns) {
+    constexpr int NS = decltype(ns)::value;
+    constexpr int kBytes = sizeof(Smem<NS>);
+    cudaError_t err =
+        cudaFuncSetAttribute(ttt_linear_fwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ttt_linear_fwd_kernel<NS><<<B * H, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -1,9 +1,12 @@
-// The TTT-linear step at mini-batch CS = 16, head_dim F = 64, on the tensor
-// cores, for Hopper (sm_90a). Shared by K5 (ttt_linear_forward.cu: sampling
-// with the output, training with fp32 state checkpoints) and K6's pass A
+// The TTT-linear step at head_dim F = 64 and mini-batch CS = 16 NS (NS = 1..4
+// slabs of 16 tokens: CS 16, 32, 48, 64), on the tensor cores, for Hopper
+// (sm_90a). Shared by K5 (ttt_linear_forward.cu: sampling with the output,
+// training with fp32 state checkpoints) and K6's pass A
 // (ttt_linear_backward.cu: no output, each step's operands stashed for pass
 // B), with the producer that prepares each mini-batch and the fragment
-// loaders K6's pass B uses.
+// loaders K6's pass B uses. Every piece is a template on NS; with_slabs
+// (below) instantiates the four values, and ops/ttt_linear_kernel.py's
+// KERNEL_MINI_BATCHES names the same list (a test holds the two together).
 //
 // One block owns one (batch, head) scan: 4 consumer warps run the step, a
 // producer warpgroup (4 warps) prepares the next mini-batch.
@@ -11,31 +14,45 @@
 // - The fp32 state W [F][F] lives in the consumers' registers as W^T in the
 //   mma.sync m16n8k16 accumulator layout: warp w owns rows c = 16 w ..
 //   16 w + 15 of W^T (the output columns c of XK W), 32 registers a thread
-//   (LinState). Packed to bf16 pairs (cvt.rn.bf16x2, W.astype(dt)) they are
-//   the B fragments of Z1 = XK W + b and XQ W, so each warp computes its own
-//   16 x 16 blocks with no cross-warp sum; the update W^T -= Gs^T XK
-//   accumulates into the same registers, after Z1_bar has used the old W.
-// - CS = 16 tokens are one m16 tile. attn = bf16(XQ XK^T) (16 x 16 over
-//   k = 64) is computed by the producer on the tensor cores and handed over,
-//   negated, as the A fragment of Z1_bar's attn @ Gs.
+//   (LinState), whatever CS is. Packed to bf16 pairs (cvt.rn.bf16x2,
+//   W.astype(dt)) they are the B fragments of Z1 = XK W + b and XQ W, so each
+//   warp computes its own 16-column blocks of every slab with no cross-warp
+//   sum; the update W^T -= Gs^T XK accumulates into the same registers, slab
+//   after slab, after Z1_bar has used the old W.
+// - Each 16-token slab is one m16 tile. attn = bf16(XQ XK^T) is NS x NS
+//   blocks of 16 x 16 (over k = 64), all of them: the dual form of
+//   _linear_kernel uses the whole matrix (eta is per token, not a causal
+//   mask). The producer warps compute them on the tensor cores (block i by
+//   warp i % 4) and hand them over, negated, as the A fragments of Z1_bar's
+//   attn @ Gs.
 // - The row-wise phases (the fused LN-L2 gradient and the output LN) need
-//   whole 64-wide rows: Z1 and Z1_bar go through a padded fp32 [16][68] tile,
-//   Gs through a padded bf16 [16][72] one (ldmatrix of 8 rows at one column
+//   whole 64-wide rows: Z1 and Z1_bar go through padded fp32 [CS][68] tiles,
+//   Gs through a padded bf16 [CS][72] one (ldmatrix of 8 rows at one column
 //   hits 8 banks), with named barriers among the 128 consumer threads: three
 //   a step with the output, two without. In a row phase warp w takes rows
-//   4 w .. 4 w + 3, 8 lanes a row and 8 features a lane, so a row's sums are
-//   3 shuffles and the warp's four rows go at once.
+//   16 s + 4 w .. 16 s + 4 w + 3 of every slab s (CS / 4 rows), 8 lanes a row
+//   and 8 features a lane, so a row's sums are 3 shuffles and the warp's four
+//   rows of a slab go at once.
 // - Operands are rounded to bf16 exactly where _linear_kernel calls
 //   .astype(dt): XQ and XK after preprocessing, W for Z1 and XQ W, Gs, attn.
 //   Only the fp32 summation order differs from the plain version.
 // - The producer warpgroup cp.asyncs the raw q/k/v, gate and rope rows of the
-//   mini-batch after next into a raw ring (each warp its own 4 rows), and
+//   mini-batch after next into a raw ring (each warp its own CS / 4 rows), and
 //   prepares the next one (L2-norm, rope, target LN, eta; then attn) into a
 //   two-stage ring signalled by full/empty mbarriers, so the preprocessing is
 //   off the step's critical path. (K1's producer, ttt_mlp_forward.cu, does the
 //   same work under setmaxnreg's 40-register cap: 2 features a lane, one row
 //   at a time. This one has the whole register file: 8 features a lane, a
 //   warp's four rows at once, and K6's stash writes.)
+// - Shared memory grows with CS: a raw stage is 14 KiB x NS (bf16 q/k/v and
+//   fp32 rope rows), a prepared one 8.6 KiB x NS + 0.5 KiB x NS^2, the step's
+//   tiles 10.8 KiB x NS. At CS 64 two raw stages do not fit beside the rest
+//   (K5: 240 KiB of the 227 KiB a block may have), so the raw ring has one
+//   stage there (kRawSlots): the producer issues the next mini-batch's loads
+//   as soon as it has read this one's rows, and waits for them before it
+//   prepares it; it still runs up to two prepared stages ahead of the
+//   consumers, whose step is then four times as long. K6's layout is in
+//   ttt_linear_backward.cu.
 // - 8 warps leave each thread up to 255 registers: no setmaxnreg.
 
 #pragma once
@@ -44,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "ttt_mlp_block.cuh"
@@ -57,7 +76,7 @@ using hopper::pack_bf16;
 using tttb::ScanArgs;
 
 constexpr int kF = 64;
-constexpr int kCS = 16;
+constexpr int kSlab = 16;                   // tokens of one m16 tile
 constexpr int kWarps = 4;                   // consumer warps
 constexpr int kConsumers = 32 * kWarps;     // consumer threads
 constexpr int kThreads = 2 * kConsumers;    // + the producer warpgroup
@@ -65,34 +84,70 @@ constexpr int kLdB = kF + 8;                // row pitch of the bf16 tiles (144 
 constexpr int kLdZ = kF + 4;                // row pitch of the fp32 tiles
 constexpr int kConsumerBar = 1;             // named barrier of the consumer warps
 constexpr int kProducerBar = 2;             // named barrier of the producer warpgroup
-constexpr int kRowsPerProducer = kCS / 4;   // rows a producer warp prepares
 constexpr uint32_t kSignBits = 0x80008000u;
 
-struct RawStage {  // one mini-batch as loaded, for one (batch, head); dout only in K6's pass B
-  bf16 q[kCS * kF], k[kCS * kF], v[kCS * kF], dout[kCS * kF];
+// Stages of the producer's raw ring: two, but one at CS 64 (see the top).
+template <int NS>
+constexpr int kRawSlots = NS <= 3 ? 2 : 1;
+
+// Call fn(std::integral_constant<int, NS>) for mini-batch cs = 16 NS; an error code for a CS the kernels are
+// not built for. These cases are the instantiations (ops/ttt_linear_kernel.py:KERNEL_MINI_BATCHES).
+template <typename Fn>
+inline int with_slabs(int cs, Fn&& fn) {
+  switch (cs) {
+    case 16: return fn(std::integral_constant<int, 1>{});
+    case 32: return fn(std::integral_constant<int, 2>{});
+    case 48: return fn(std::integral_constant<int, 3>{});
+    case 64: return fn(std::integral_constant<int, 4>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int NS>
+struct RawStage {  // one mini-batch as loaded, for one (batch, head)
+  static constexpr int kCS = kSlab * NS;
+  bf16 q[kCS * kF], k[kCS * kF], v[kCS * kF];
   float cos[kCS * kF], sin[kCS * kF];
   float gate[kCS];
 };
 
+template <int NS>
+struct RawStageB : RawStage<NS> {  // K6's pass B: the output cotangent rows too
+  bf16 dout[kSlab * NS * kF];
+};
+
+template <int NS>
 struct PrepStage {  // one mini-batch as the step takes it
+  static constexpr int kCS = kSlab * NS;
   bf16 xq[kCS * kLdB], xk[kCS * kLdB];  // bf16(XQ), bf16(XK)
   float tgt[kCS * kF];                  // LN-reconstruction target
   float eta[kCS];
-  uint32_t neg_attn[32 * 4];            // -bf16(XQ XK^T) as mma A fragments, lane-major
+  uint32_t neg_attn[NS * NS * 128];     // -bf16(XQ XK^T): block (s, j) (rows 16 s.., columns 16 j..) as an mma
+                                        // A fragment, lane-major, at 128 (NS s + j)
 };
 
 // One pass-A step of K6 as its pass B reads it back: the bf16 part and the
 // fp32 part (two workspaces), each a byte image of the tiles above.
+template <int NS>
 struct StashH {
+  static constexpr int kCS = kSlab * NS;
   bf16 wt[kF * kLdB];                               // bf16(W^T) [c][k] before the step
   bf16 xq[kCS * kLdB], xk[kCS * kLdB], gs[kCS * kLdB];
-  uint32_t neg_attn[32 * 4];
+  uint32_t neg_attn[NS * NS * 128];
 };
+template <int NS>
 struct StashF {
+  static constexpr int kCS = kSlab * NS;
   float z1[kCS * kLdZ], zb1[kCS * kLdZ];            // Z1 and Z1_bar (b included)
 };
-static_assert(sizeof(RawStage) % 16 == 0 && sizeof(PrepStage) % 16 == 0, "16-byte aligned stages");
-static_assert(sizeof(StashH) % 16 == 0 && sizeof(StashF) % 16 == 0, "16-byte aligned stash images");
+
+template <int NS>
+constexpr bool aligned_stages() {
+  return sizeof(RawStage<NS>) % 16 == 0 && sizeof(RawStageB<NS>) % 16 == 0 && sizeof(PrepStage<NS>) % 16 == 0 &&
+         sizeof(StashH<NS>) % 16 == 0 && sizeof(StashF<NS>) % 16 == 0;
+}
+static_assert(aligned_stages<1>() && aligned_stages<2>() && aligned_stages<3>() && aligned_stages<4>(),
+              "16-byte aligned stages and stash images");
 
 template <int kLanes>
 __device__ __forceinline__ float group_sum(float v) {  // sum over kLanes neighbouring lanes
@@ -172,7 +227,17 @@ __device__ __forceinline__ void transpose_a(uint32_t (&at)[4], const uint32_t (&
   at[3] = movmatrix_trans(a[3]);
 }
 
-// Store a warp's 16 x 16 fp32 block (n-tiles u = 0, 1 at columns c0 + 8 u) into an fp32 tile.
+// A fragment ``i`` of a lane-major array of them (the -attn blocks).
+__device__ __forceinline__ void ld_frag(uint32_t (&a)[4], const uint32_t* frags, int i, int lane) {
+  const uint4 v = *reinterpret_cast<const uint4*>(frags + i * 128 + lane * 4);
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+// Store a warp's 16 x 16 fp32 block (n-tiles u = 0, 1 at columns c0 + 8 u) into the 16 rows at ``dst`` of an
+// fp32 tile.
 __device__ __forceinline__ void store_block(float* dst, const float (&acc)[2][4], int c0, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -182,12 +247,18 @@ __device__ __forceinline__ void store_block(float* dst, const float (&acc)[2][4]
   }
 }
 
-// The sum over the 16 rows of columns c0 + 8 u + 2t, + 1 of an fp32 tile, in every lane.
+// The sum over the CS = 16 NS rows of columns c0 + 8 u + 2t, + 1 of an fp32 tile, in every lane.
+template <int NS>
 __device__ __forceinline__ float2 column_sum(const float* src, int c0, int u, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  const float2 a = *reinterpret_cast<const float2*>(src + g * kLdZ + c0 + 8 * u + 2 * t);
-  const float2 b = *reinterpret_cast<const float2*>(src + (g + 8) * kLdZ + c0 + 8 * u + 2 * t);
-  float x = a.x + b.x, y = a.y + b.y;
+  float x = 0.f, y = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const float2 a = *reinterpret_cast<const float2*>(src + (kSlab * j + g) * kLdZ + c0 + 8 * u + 2 * t);
+    const float2 b = *reinterpret_cast<const float2*>(src + (kSlab * j + g + 8) * kLdZ + c0 + 8 * u + 2 * t);
+    x += a.x + b.x;
+    y += a.y + b.y;
+  }
 #pragma unroll
   for (int off = 4; off < 32; off <<= 1) {
     x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -197,10 +268,13 @@ __device__ __forceinline__ float2 column_sum(const float* src, int c0, int u, in
 }
 
 // ---- the producer
-// cp.async rows row0 .. row0 + rows - 1 of mini-batch n (q/k/v, dout if given, rope rows, gate) into ``r``,
-// chunks of 16 bytes spread over ``nthreads`` threads (this one is ``tid``); the caller commits.
-__device__ __forceinline__ void load_rows(RawStage& r, const ScanArgs& a, const bf16* dout, int b, int h, int n,
-                                          int row0, int rows, int tid, int nthreads) {
+// cp.async rows row0 .. row0 + rows - 1 of mini-batch n (q/k/v, the rope rows, gate; with ``dout``, its rows into
+// ``dout_dst``) into ``r``, chunks of 16 bytes spread over ``nthreads`` threads (this one is ``tid``); the caller
+// commits. row0 and rows are multiples of 4.
+template <int NS>
+__device__ __forceinline__ void load_rows(RawStage<NS>& r, bf16* dout_dst, const ScanArgs& a, const bf16* dout,
+                                          int b, int h, int n, int row0, int rows, int tid, int nthreads) {
+  constexpr int kCS = kSlab * NS;
   const size_t HF = (size_t)a.H * kF;
   const size_t x0 = ((size_t)b * a.NC + n) * kCS * HF + (size_t)h * kF;
   for (int i = tid; i < rows * 8; i += nthreads) {
@@ -210,7 +284,7 @@ __device__ __forceinline__ void load_rows(RawStage& r, const ScanArgs& a, const 
     hopper::cp_async16(r.q + so, a.xq + go);
     hopper::cp_async16(r.k + so, a.xk + go);
     hopper::cp_async16(r.v + so, a.xv + go);
-    if (dout != nullptr) hopper::cp_async16(r.dout + so, dout + go);
+    if (dout != nullptr) hopper::cp_async16(dout_dst + so, dout + go);
   }
   const size_t t0 = ((size_t)n * kCS + row0) * kF;
   for (int i = tid; i < rows * kF / 4; i += nthreads) {
@@ -271,83 +345,98 @@ __device__ __forceinline__ float ln_stats(float (&xh)[N], const float (&x)[N]) {
   return sd;
 }
 
-// L2-norm, rope, target LN and eta of producer warp pw's rows: lane = row 4 pw + lane / 8, features
-// 8 (lane % 8) .. + 7.
-__device__ __forceinline__ void prepare_rows(PrepStage& p, const RawStage& r, float eta_scale, const float (&lw)[8],
-                                             const float (&lb)[8], int pw, int lane) {
-  const int row = kRowsPerProducer * pw + (lane >> 3), f = 8 * (lane & 7);
-  float q[8], k[8], v[8], c[8], s[8], xq[8], xk[8], t[8], th[8];
-  ld_bf16(q, r.q + row * kF + f);
-  ld_bf16(k, r.k + row * kF + f);
-  ld_bf16(v, r.v + row * kF + f);
-  ld_f32(c, r.cos + row * kF + f);
-  ld_f32(s, r.sin + row * kF + f);
-  l2norm_rope<8>(xq, q, c, s);
-  l2norm_rope<8>(xk, k, c, s);
+// L2-norm, rope, target LN and eta of producer warp pw's rows 4 NS pw .. 4 NS pw + 4 NS - 1, four at a time:
+// lane = row 4 NS pw + 4 i + lane / 8, features 8 (lane % 8) .. + 7. With ``stash``, the rows' bf16 XQ and XK
+// also go there.
+template <int NS>
+__device__ __forceinline__ void prepare_rows(PrepStage<NS>& p, const RawStage<NS>& r, float eta_scale,
+                                             const float (&lw)[8], const float (&lb)[8], int pw, int lane,
+                                             StashH<NS>* stash) {
+  const int f = 8 * (lane & 7);
+#pragma unroll 1
+  for (int i = 0; i < NS; ++i) {
+    const int row = 4 * NS * pw + 4 * i + (lane >> 3);
+    float q[8], k[8], v[8], c[8], s[8], xq[8], xk[8], t[8], th[8];
+    ld_bf16(q, r.q + row * kF + f);
+    ld_bf16(k, r.k + row * kF + f);
+    ld_bf16(v, r.v + row * kF + f);
+    ld_f32(c, r.cos + row * kF + f);
+    ld_f32(s, r.sin + row * kF + f);
+    l2norm_rope<8>(xq, q, c, s);
+    l2norm_rope<8>(xk, k, c, s);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) t[i] = v[i] - xk[i];
-  target_ln<8>(th, t);
+    for (int j = 0; j < 8; ++j) t[j] = v[j] - xk[j];
+    target_ln<8>(th, t);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) t[i] = lw[i] * th[i] + lb[i];
-  st_f32(p.tgt + row * kF + f, t);
-  st_bf16(p.xq + row * kLdB + f, xq);
-  st_bf16(p.xk + row * kLdB + f, xk);
-  if ((lane & 7) == 0) p.eta[row] = (1.f / (1.f + expf(-r.gate[row]))) * eta_scale;
+    for (int j = 0; j < 8; ++j) t[j] = lw[j] * th[j] + lb[j];
+    st_f32(p.tgt + row * kF + f, t);
+    st_bf16(p.xq + row * kLdB + f, xq);
+    st_bf16(p.xk + row * kLdB + f, xk);
+    if (stash != nullptr) {
+      st_bf16(stash->xq + row * kLdB + f, xq);
+      st_bf16(stash->xk + row * kLdB + f, xk);
+    }
+    if ((lane & 7) == 0) p.eta[row] = (1.f / (1.f + expf(-r.gate[row]))) * eta_scale;
+  }
 }
 
-// attn = bf16(XQ XK^T) on the tensor cores, stored negated as the A fragment of the step's attn @ Gs.
-__device__ __forceinline__ void prepare_attn(PrepStage& p, int lane) {
-  float acc[2][4] = {};
+// attn = bf16(XQ XK^T) on the tensor cores, block (s, j) = i by producer warp i % 4, stored negated as the A
+// fragment of the step's attn @ Gs (and, with ``stash``, there too).
+template <int NS>
+__device__ __forceinline__ void prepare_attn(PrepStage<NS>& p, int pw, int lane, uint32_t* stash) {
+#pragma unroll 1
+  for (int i = pw; i < NS * NS; i += 4) {
+    const int s = i / NS, j = i % NS;
+    float acc[2][4] = {};
 #pragma unroll
-  for (int kk = 0; kk < kF / 16; ++kk) {
-    uint32_t qa[4], kb[4];
-    lda(qa, p.xq, 0, kk * 16, lane);
-    ldb_nk(kb, p.xk, 0, kk * 16, lane);
-    mma_bf16_16816(acc[0], qa, kb[0], kb[1]);
-    mma_bf16_16816(acc[1], qa, kb[2], kb[3]);
+    for (int kk = 0; kk < kF / 16; ++kk) {
+      uint32_t qa[4], kb[4];
+      lda(qa, p.xq, kSlab * s, kk * 16, lane);
+      ldb_nk(kb, p.xk, kSlab * j, kk * 16, lane);
+      mma_bf16_16816(acc[0], qa, kb[0], kb[1]);
+      mma_bf16_16816(acc[1], qa, kb[2], kb[3]);
+    }
+    const uint4 na = make_uint4(pack_bf16(acc[0][0], acc[0][1]) ^ kSignBits, pack_bf16(acc[0][2], acc[0][3]) ^ kSignBits,
+                                pack_bf16(acc[1][0], acc[1][1]) ^ kSignBits, pack_bf16(acc[1][2], acc[1][3]) ^ kSignBits);
+    *reinterpret_cast<uint4*>(p.neg_attn + i * 128 + lane * 4) = na;
+    if (stash != nullptr) *reinterpret_cast<uint4*>(stash + i * 128 + lane * 4) = na;
   }
-  const uint4 na = make_uint4(pack_bf16(acc[0][0], acc[0][1]) ^ kSignBits, pack_bf16(acc[0][2], acc[0][3]) ^ kSignBits,
-                              pack_bf16(acc[1][0], acc[1][1]) ^ kSignBits, pack_bf16(acc[1][2], acc[1][3]) ^ kSignBits);
-  *reinterpret_cast<uint4*>(p.neg_attn + lane * 4) = na;
 }
 
 // Producer warp pw (of 4) prepares mini-batches n0 .. n0 + count - 1 into the ring; ``it0`` is the number of
 // mini-batches the ring has carried before (its stages and mbarrier phases continue from there). With
 // ``stash`` (K6's pass A), each prepared XQ, XK and -attn also goes to stash[i].
-__device__ void producer(RawStage* raw, PrepStage* prep, uint64_t* full, uint64_t* empty, const ScanArgs& a,
+template <int NS>
+__device__ void producer(RawStage<NS>* raw, PrepStage<NS>* prep, uint64_t* full, uint64_t* empty, const ScanArgs& a,
                          const float* ln_w, const float* ln_b, int b, int h, int n0, int count, int it0, int pw,
-                         int lane, StashH* stash) {
-  const int row = kRowsPerProducer * pw + (lane >> 3), f = 8 * (lane & 7);
+                         int lane, StashH<NS>* stash) {
+  constexpr int R = kRawSlots<NS>, kRows = 4 * NS;
+  const int f = 8 * (lane & 7);
   float lw[8], lb[8];
   ld_f32(lw, ln_w + (size_t)h * kF + f);
   ld_f32(lb, ln_b + (size_t)h * kF + f);
-  load_rows(raw[it0 & 1], a, nullptr, b, h, n0, kRowsPerProducer * pw, kRowsPerProducer, lane, 32);
+  load_rows<NS>(raw[it0 % R], nullptr, a, nullptr, b, h, n0, kRows * pw, kRows, lane, 32);
   hopper::cp_async_commit();
   for (int i = 0; i < count; ++i) {
-    const int it = it0 + i, s = it & 1;
-    __syncwarp();  // every lane is done with raw[s ^ 1] (the previous mini-batch)
-    if (i + 1 < count) {
-      load_rows(raw[s ^ 1], a, nullptr, b, h, n0 + i + 1, kRowsPerProducer * pw, kRowsPerProducer, lane, 32);
+    const int it = it0 + i, s = it & 1, rs = it % R;
+    __syncwarp();  // every lane is done with the raw stage it refills
+    if (R == 2 && i + 1 < count) {
+      load_rows<NS>(raw[rs ^ 1], nullptr, a, nullptr, b, h, n0 + i + 1, kRows * pw, kRows, lane, 32);
       hopper::cp_async_commit();
       hopper::cp_async_wait<1>();
     } else {
       hopper::cp_async_wait<0>();
     }
-    __syncwarp();  // this warp's rows of raw[s] have landed
+    __syncwarp();  // this warp's rows of raw[rs] have landed
     if (it >= 2) hopper::mbar_wait(&empty[s], ((it >> 1) - 1) & 1);
-    prepare_rows(prep[s], raw[s], a.eta_scale, lw, lb, pw, lane);
-    if (stash != nullptr) {
+    prepare_rows<NS>(prep[s], raw[rs], a.eta_scale, lw, lb, pw, lane, stash != nullptr ? stash + i : nullptr);
+    if (R == 1 && i + 1 < count) {  // one raw stage: refill it now that this warp has read its rows
       __syncwarp();
-      const int o = row * kLdB + f;
-      *reinterpret_cast<uint4*>(stash[i].xq + o) = *reinterpret_cast<const uint4*>(prep[s].xq + o);
-      *reinterpret_cast<uint4*>(stash[i].xk + o) = *reinterpret_cast<const uint4*>(prep[s].xk + o);
+      load_rows<NS>(raw[0], nullptr, a, nullptr, b, h, n0 + i + 1, kRows * pw, kRows, lane, 32);
+      hopper::cp_async_commit();
     }
     hopper::named_sync(kProducerBar, 128);
-    if (pw == 0) {
-      prepare_attn(prep[s], lane);
-      if (stash != nullptr)
-        *reinterpret_cast<uint4*>(stash[i].neg_attn + lane * 4) = *reinterpret_cast<const uint4*>(prep[s].neg_attn + lane * 4);
-    }
+    prepare_attn<NS>(prep[s], pw, lane, stash != nullptr ? stash[i].neg_attn : nullptr);
     hopper::mbar_arrive(&full[s]);
   }
 }
@@ -355,8 +444,8 @@ __device__ void producer(RawStage* raw, PrepStage* prep, uint64_t* full, uint64_
 // ---- the consumers
 // Warp w, lane = 4 g + t. w[f][..]: W^T rows c = 16 w + g (elements 0, 1) and 16 w + g + 8 (2, 3), columns
 // k = 8 f + 2t, 8 f + 2t + 1. bias[u]: b of columns 16 w + 8 u + 2t, + 1 (the same in the 8 lanes of a t).
-// Per-token products over the warp's columns (16 tokens x 16 columns, n-tile u): rows g (0, 1) and g + 8 (2, 3),
-// columns 16 w + 8 u + 2t, + 1.
+// Per-token products over the warp's columns (16 tokens of a slab x 16 columns, n-tile u): rows g (0, 1) and
+// g + 8 (2, 3), columns 16 w + 8 u + 2t, + 1.
 struct LinState {
   float w[8][4];
   float2 bias[2];
@@ -409,7 +498,8 @@ __device__ __forceinline__ void store_wt(bf16* dst, const float (&w)[8][4], int 
           pack_bf16(w[f][2 * hr], w[f][2 * hr + 1]);
 }
 
-// w[f] += A @ Y[0..15, 8 f ..]: A a 16 (rows of W^T) x 16 (tokens) fragment, Y a token-major [CS][kLdB] tile.
+// w[f] += A @ Y[0..15, 8 f ..]: A a 16 (rows of W^T) x 16 (tokens) fragment, Y the 16 rows of one slab of a
+// token-major [CS][kLdB] tile.
 __device__ __forceinline__ void update_rows(float (&w)[8][4], const uint32_t (&a)[4], const bf16* Y, int lane) {
 #pragma unroll
   for (int fp = 0; fp < kF / 16; ++fp) {
@@ -428,39 +518,51 @@ struct StepTiles {
 
 // One mini-batch step of the consumer warps on the prepared stage ``p``. kOut: out = XQ + LN(Z1_bar) into the
 // token-major rows at ``out`` (row stride HF). kStash: bf16(W^T), Gs, Z1 and Z1_bar of the step into sh / sf.
-template <bool kOut, bool kStash>
-__device__ __forceinline__ void step(LinState& st, const PrepStage& p, const StepTiles& T, const float (&lw)[8],
-                                     const float (&lb)[8], bf16* out, size_t HF, StashH* sh, StashF* sf, int warp,
-                                     int lane) {
-  const int g = lane >> 2, t = lane & 3, c0 = 16 * warp;
+template <int NS, bool kOut, bool kStash>
+__device__ __forceinline__ void step(LinState& st, const PrepStage<NS>& p, const StepTiles& T, const float (&lw)[8],
+                                     const float (&lb)[8], bf16* out, size_t HF, StashH<NS>* sh, StashF<NS>* sf,
+                                     int warp, int lane) {
+  const int c0 = 16 * warp;
   if (kStash) store_wt(sh->wt, st.w, warp, lane);
 
-  // Z1 = XK @ bf16(W) + b and XQ @ bf16(W), the warp's 16 columns.
-  float z[2][4] = {}, q[2][4] = {};
+  // Z1 = XK @ bf16(W) + b and XQ @ bf16(W), the warp's 16 columns of every slab.
+  float z[NS][2][4] = {}, q[NS][2][4] = {};
 #pragma unroll
   for (int kk = 0; kk < kF / 16; ++kk) {
-    uint32_t ak[4], aq[4];
-    lda(ak, p.xk, 0, 16 * kk, lane);
-    lda(aq, p.xq, 0, 16 * kk, lane);
+    uint32_t b0[2], b1[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const uint32_t b0 = state_b(st.w, u, 2 * kk), b1 = state_b(st.w, u, 2 * kk + 1);
-      mma_bf16_16816(z[u], ak, b0, b1);
-      mma_bf16_16816(q[u], aq, b0, b1);
+      b0[u] = state_b(st.w, u, 2 * kk);
+      b1[u] = state_b(st.w, u, 2 * kk + 1);
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      uint32_t ak[4], aq[4];
+      lda(ak, p.xk, kSlab * s, 16 * kk, lane);
+      lda(aq, p.xq, kSlab * s, 16 * kk, lane);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        mma_bf16_16816(z[s][u], ak, b0[u], b1[u]);
+        mma_bf16_16816(q[s][u], aq, b0[u], b1[u]);
+      }
     }
   }
 #pragma unroll
-  for (int u = 0; u < 2; ++u)
+  for (int s = 0; s < NS; ++s) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) z[u][e] += (e & 1) ? st.bias[u].y : st.bias[u].x;
-  store_block(T.z, z, c0, lane);
-  if (kStash) store_block(sf->z1, z, c0, lane);
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[s][u][e] += (e & 1) ? st.bias[u].y : st.bias[u].x;
+    store_block(T.z + kSlab * s * kLdZ, z[s], c0, lane);
+    if (kStash) store_block(sf->z1 + kSlab * s * kLdZ, z[s], c0, lane);
+  }
   hopper::named_sync(kConsumerBar, kConsumers);  // (1) Z1's rows
 
   // Gs = bf16(eta * ln_fused_l2_bwd(Z1, target)), eps 1e-8 on the biased variance, in the forward's form
-  // (1/F) (F gx - sum gx - xh sum(gx xh)) / sd. Rows 4 warp + lane / 8, features 8 (lane % 8) ...
-  {
-    const int row = 4 * warp + (lane >> 3), f = 8 * (lane & 7);
+  // (1/F) (F gx - sum gx - xh sum(gx xh)) / sd. Rows 16 s + 4 warp + lane / 8, features 8 (lane % 8) ...
+#pragma unroll 1
+  for (int s = 0; s < NS; ++s) {
+    const int row = kSlab * s + 4 * warp + (lane >> 3), f = 8 * (lane & 7);
     float x[8], xh[8], tg[8], gx[8];
     ld_f32(x, T.z + row * kLdZ + f);
     ld_f32(tg, p.tgt + row * kF + f);
@@ -483,17 +585,22 @@ __device__ __forceinline__ void step(LinState& st, const PrepStage& p, const Ste
   hopper::named_sync(kConsumerBar, kConsumers);  // (2) Gs
 
   // b -= colsum(Gs); Z1_bar = XQ @ bf16(W) - attn @ Gs + b; W^T -= Gs^T @ XK.
-  uint32_t gb[4];
-  ldb_kn(gb, T.gs, 0, c0, lane);  // B fragments of Gs's columns c0.. (k = token)
-  {
-    float cs[2][2] = {};
-    const int r0 = g, r1 = g + 8;
+  uint32_t gb[NS][4];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(T.gs + r0 * kLdB + c0 + 8 * u + 2 * t));
-      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(T.gs + r1 * kLdB + c0 + 8 * u + 2 * t));
-      cs[u][0] = a.x + b.x;
-      cs[u][1] = a.y + b.y;
+  for (int j = 0; j < NS; ++j) ldb_kn(gb[j], T.gs, kSlab * j, c0, lane);  // B fragments of Gs's columns c0.., slab j
+  {
+    const int g = lane >> 2, t = lane & 3;
+    float cs[2][2] = {};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int r0 = kSlab * j + g, r1 = r0 + 8;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(T.gs + r0 * kLdB + c0 + 8 * u + 2 * t));
+        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(T.gs + r1 * kLdB + c0 + 8 * u + 2 * t));
+        cs[u][0] += a.x + b.x;
+        cs[u][1] += a.y + b.y;
+      }
     }
 #pragma unroll
     for (int off = 4; off < 32; off <<= 1)
@@ -509,33 +616,43 @@ __device__ __forceinline__ void step(LinState& st, const PrepStage& p, const Ste
     }
   }
   if (kOut || kStash) {
-    const uint4 nv = *reinterpret_cast<const uint4*>(p.neg_attn + lane * 4);
-    const uint32_t na[4] = {nv.x, nv.y, nv.z, nv.w};
-    mma_bf16_16816(q[0], na, gb[0], gb[1]);
-    mma_bf16_16816(q[1], na, gb[2], gb[3]);
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
+    for (int s = 0; s < NS; ++s) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) q[u][e] += (e & 1) ? st.bias[u].y : st.bias[u].x;
-    if (kOut) store_block(T.zb, q, c0, lane);
-    if (kStash) store_block(sf->zb1, q, c0, lane);
+      for (int j = 0; j < NS; ++j) {
+        uint32_t na[4];
+        ld_frag(na, p.neg_attn, NS * s + j, lane);
+        mma_bf16_16816(q[s][0], na, gb[j][0], gb[j][1]);
+        mma_bf16_16816(q[s][1], na, gb[j][2], gb[j][3]);
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) q[s][u][e] += (e & 1) ? st.bias[u].y : st.bias[u].x;
+      if (kOut) store_block(T.zb + kSlab * s * kLdZ, q[s], c0, lane);
+      if (kStash) store_block(sf->zb1 + kSlab * s * kLdZ, q[s], c0, lane);
+    }
   }
-  {
-    uint32_t a[4] = {gb[0], gb[2], gb[1], gb[3]};  // Gs^T rows c0.. (A), negated
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    uint32_t a[4] = {gb[j][0], gb[j][2], gb[j][1], gb[j][3]};  // Gs^T rows c0.., tokens of slab j (A), negated
     negate(a);
-    update_rows(st.w, a, p.xk, lane);
+    update_rows(st.w, a, p.xk + kSlab * j * kLdB, lane);
   }
   if (kOut) {
     hopper::named_sync(kConsumerBar, kConsumers);  // (3) Z1_bar's rows
     // out = XQ + LN(Z1_bar), eps 1e-8 on the biased variance.
-    const int row = 4 * warp + (lane >> 3), f = 8 * (lane & 7);
-    float x[8], xh[8], xq[8];
-    ld_f32(x, T.zb + row * kLdZ + f);
-    ld_bf16(xq, p.xq + row * kLdB + f);
-    ln_stats<8>(xh, x);
+#pragma unroll 1
+    for (int s = 0; s < NS; ++s) {
+      const int row = kSlab * s + 4 * warp + (lane >> 3), f = 8 * (lane & 7);
+      float x[8], xh[8], xq[8];
+      ld_f32(x, T.zb + row * kLdZ + f);
+      ld_bf16(xq, p.xq + row * kLdB + f);
+      ln_stats<8>(xh, x);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = xq[i] + (lw[i] * xh[i] + lb[i]);
-    st_bf16(out + row * HF + f, x);
+      for (int i = 0; i < 8; ++i) x[i] = xq[i] + (lw[i] * xh[i] + lb[i]);
+      st_bf16(out + row * HF + f, x);
+    }
   }
 }
 

@@ -1,7 +1,9 @@
 // Fused TTT-MLP forward scan, head_dim F = 64, for Hopper (sm_90a): the
 // sampling kernel (mini-batch CS = 16, no state checkpoints) and, at the end
 // of this file, the training kernel (CS = 64, fp32 state checkpoints every K
-// mini-batches for the backward, csrc/ttt_mlp_backward.cu).
+// mini-batches for the backward, csrc/ttt_mlp_backward.cu). Sampling at
+// CS = 64 runs the training kernel with no checkpoints (K = 0): the entry
+// ttt_mlp_forward picks the kernel by CS.
 //
 // Replaces: ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_mlp_kernel with
 // _fused_preproc and _eta_from_gate (launched by ttt_mlp_forward, reached
@@ -535,31 +537,14 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_mlp_fwd_kernel(const Args a) 
 
 }  // namespace
 
-extern "C" int ttt_mlp_forward_smem_bytes() { return kSmemBytes; }
-
-extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, const void* gate,
-                               const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
-                               const void* W1, const void* b1, const void* W2, const void* b2, void* out,
-                               int B, int NC, int H, float eta_scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(ttt_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
-               static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
-               static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin),
-               static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
-               static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
-               static_cast<__nv_bfloat16*>(out), NC, H, eta_scale};
-  ttt_mlp_fwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
 // ---------------------------------------------------------------- training
 //
 // ttt_mlp_fwd_train_kernel (K1-train): the same scan at the training
 // mini-batch CS = 64. Before mini-batch n with n % K == 0 it writes the fp32
 // state (W1, b1, W2, b2; one bias row, not the TPU's 8 rows x 0.125) as
-// checkpoint n / K; the last group may be shorter than K.
+// checkpoint n / K; the last group may be shorter than K. With K = 0 it
+// writes none: that is K1 (sampling) at CS = 64, at the CFG batch B = 2
+// (96 blocks).
 //
 // What bounds it: as for the sampling kernel, the latency of one step inside
 // one SM (the scan is sequential; a step is ~20 Mflop and reads ~40 KiB), at
@@ -598,7 +583,7 @@ struct TrainArgs {
   __nv_bfloat16* out;
   float *w1_ck, *b1_ck, *w2_ck, *b2_ck;
   float* work;  // per scan, the two stages of the LN-reconstruction targets [2][CS][F]
-  int K;
+  int K;  // 0: no checkpoints (sampling)
 };
 constexpr int kTrainWorkFloats = 2 * ts::kCS * ts::kF;
 
@@ -629,7 +614,7 @@ __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(cons
   }
   hopper::reg_alloc<ts::kConsumerRegs>();
   constexpr int kState = ts::kF * ts::kF4;
-  const int NG = (NC + A.K - 1) / A.K;
+  const int NG = A.K > 0 ? (NC + A.K - 1) / A.K : 0;
   ts::State st;
   ts::load_state(st, A.W1 + (size_t)h * kState, A.b1 + (size_t)h * ts::kF4, A.W2 + (size_t)h * kState,
                  A.b2 + (size_t)h * ts::kF, S.w2s, S.b1, warp, lane);
@@ -637,7 +622,7 @@ __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(cons
   const size_t HF = (size_t)A.a.H * ts::kF;
   for (int n = 0; n < NC; ++n) {
     const int s = n & 1;
-    if (n % A.K == 0) {
+    if (A.K > 0 && n % A.K == 0) {
       const size_t g = (size_t)bh * NG + n / A.K;
       ts::save_state(st, S.b1, A.w1_ck + g * kState, A.b1_ck + g * ts::kF4, A.w2_ck + g * kState, A.b2_ck + g * ts::kF,
                      warp, lane);
@@ -657,14 +642,23 @@ extern "C" int ttt_mlp_forward_train_smem_bytes() { return kTrainSmemBytes; }
 
 extern "C" long long ttt_mlp_forward_train_workspace_floats() { return kTrainWorkFloats; }
 
+namespace {
+
+int launch_train(const TrainArgs& A, int B, int H, void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(ttt_mlp_fwd_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTrainSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ttt_mlp_fwd_train_kernel<<<B * H, ts::kThreads, kTrainSmemBytes, static_cast<cudaStream_t>(stream)>>>(A);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 extern "C" int ttt_mlp_forward_train(const void* xq, const void* xk, const void* xv, const void* gate,
                                      const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
                                      const void* W1, const void* b1, const void* W2, const void* b2, void* out,
                                      void* w1_ck, void* b1_ck, void* w2_ck, void* b2_ck, void* work, int B, int NC,
                                      int H, int K, float eta_scale, void* stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(ttt_mlp_fwd_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTrainSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const TrainArgs A{{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
                      static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
                      static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin), NC, H, eta_scale},
@@ -672,8 +666,40 @@ extern "C" int ttt_mlp_forward_train(const void* xq, const void* xk, const void*
                     static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
                     static_cast<__nv_bfloat16*>(out), static_cast<float*>(w1_ck), static_cast<float*>(b1_ck),
                     static_cast<float*>(w2_ck), static_cast<float*>(b2_ck), static_cast<float*>(work), K};
-  ttt_mlp_fwd_train_kernel<<<B * H, ts::kThreads, kTrainSmemBytes, static_cast<cudaStream_t>(stream)>>>(A);
-  return static_cast<int>(cudaGetLastError());
+  return launch_train(A, B, H, stream);
+}
+
+// Shared memory of the kernel ttt_mlp_forward launches at mini-batch cs (an error code for a CS it does not take).
+extern "C" int ttt_mlp_forward_smem_bytes(int cs) {
+  return cs == 16 ? kSmemBytes : cs == 64 ? kTrainSmemBytes : -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1, sampling (no checkpoints), by mini-batch: CS = 16 the sampling kernel, CS = 64 the training kernel with
+// K = 0 and its LN targets in ``work`` (B H ttt_mlp_forward_train_workspace_floats() floats; unused at CS = 16).
+// These cases are the sampling mini-batches (ops/ttt_mlp_kernel.py:KERNEL_MINI_BATCHES).
+extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, const void* gate,
+                               const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
+                               const void* W1, const void* b1, const void* W2, const void* b2, void* out, void* work,
+                               int B, int NC, int H, int CS, float eta_scale, void* stream) {
+  switch (CS) {
+    case 16: {
+      cudaError_t err =
+          cudaFuncSetAttribute(ttt_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const Args a{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
+                   static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
+                   static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin),
+                   static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
+                   static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
+                   static_cast<__nv_bfloat16*>(out), NC, H, eta_scale};
+      ttt_mlp_fwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
+      return static_cast<int>(cudaGetLastError());
+    }
+    case 64:
+      return ttt_mlp_forward_train(xq, xk, xv, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out, nullptr,
+                                   nullptr, nullptr, nullptr, work, B, NC, H, 0, eta_scale, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -5,7 +5,8 @@ Port of ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_linear_kernel (K5, with
 _fused_preproc and _eta_from_gate) and ops/pallas/ttt_backward.py:
 _linear_bwd_kernel (K6), in the fused-preprocessing, token-major,
 in-kernel-gate form that ttt_vjp.py:ttt_linear_fused_pre dispatches.
-Kernels (mini-batch CS = 16 for both sampling and training):
+Kernels (head_dim F = 64; mini-batch CS one of KERNEL_MINI_BATCHES, 16 to
+64, for both sampling and training; one instantiation each):
 
 - ``ttt_linear_forward``: K5 for sampling (no state checkpoints),
   ``csrc/ttt_linear_forward.cu``;
@@ -27,6 +28,7 @@ W1 [B, H, NG, F, F], b1 [B, H, NG, 1, F], NG = ceil(NC / K).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -41,19 +43,24 @@ from ttt_video_dit_torch.ops.ttt_mlp_kernel import (
     _preproc,
     _to_head_major,
     _to_token_major,
+    check_smem,
     scan_forward_plain,
 )
 from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_linear_step
 from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): K5 for
-# sampling, K5 for training, K6.
+# sampling, K5 for training, K6; and the same by mini-batch,
+# launches_by_cs[counter name, CS].
 launches = 0
 train_launches = 0
 bwd_launches = 0
+launches_by_cs = collections.Counter()
 
 KERNEL_HEAD_DIM = 64
-KERNEL_MINI_BATCH = 16
+# The mini-batch sizes K5 and K6 are built for: csrc/ttt_linear_step.cuh:with_slabs instantiates these (a test
+# holds the two lists together); the C entries take CS and refuse any other.
+KERNEL_MINI_BATCHES = (16, 32, 48, 64)
 
 
 # ------------------------------------------------------------ plain versions
@@ -189,30 +196,32 @@ def ttt_linear_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, 
 def _lib(name: str = "ttt_linear_forward"):
     lib = _build.load(name)
     if name == "ttt_linear_forward" and lib.ttt_linear_forward.argtypes is None:
-        lib.ttt_linear_forward.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+        lib.ttt_linear_forward.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                                            + [ctypes.c_float, ctypes.c_void_p])
         lib.ttt_linear_forward.restype = ctypes.c_int
     if name == "ttt_linear_backward" and lib.ttt_linear_backward.argtypes is None:
-        lib.ttt_linear_backward.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 4
+        lib.ttt_linear_backward.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 5
                                             + [ctypes.c_float, ctypes.c_void_p])
         lib.ttt_linear_backward.restype = ctypes.c_int
-        lib.ttt_linear_backward_smem_bytes.restype = ctypes.c_int
-        lib.ttt_linear_backward_stash_bytes.argtypes = [ctypes.c_int]
+        lib.ttt_linear_backward_stash_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ttt_linear_backward_stash_bytes.restype = ctypes.c_int
+    smem = getattr(lib, f"{name}_smem_bytes")
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     return lib
 
 
 def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1) -> None:
     """Raise ValueError unless the arguments are what the CUDA kernels take:
-    F = 64, CS = 16, bf16 token-major q/k/v, float32 everything else, every
-    tensor contiguous and on one CUDA device, shapes consistent (W1/b1 may be
-    None for the backward, which starts from checkpoints)."""
+    F = 64, CS in KERNEL_MINI_BATCHES, bf16 token-major q/k/v, float32
+    everything else, every tensor contiguous and on one CUDA device, shapes
+    consistent (W1/b1 may be None for the backward, which starts from
+    checkpoints)."""
     if XQ.ndim != 4:
         raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
-    if F != KERNEL_HEAD_DIM or CS != KERNEL_MINI_BATCH:
-        raise ValueError(f"the TTT-linear kernels support F={KERNEL_HEAD_DIM}, CS={KERNEL_MINI_BATCH}; "
+    if F != KERNEL_HEAD_DIM or CS not in KERNEL_MINI_BATCHES:
+        raise ValueError(f"the TTT-linear kernels support F={KERNEL_HEAD_DIM} and CS in {KERNEL_MINI_BATCHES}; "
                          f"got F={F}, CS={CS}")
     expected = {
         "XQ": (XQ, (B, NC, CS, H * F), torch.bfloat16), "XK": (XK, (B, NC, CS, H * F), torch.bfloat16),
@@ -228,14 +237,16 @@ def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1) 
 def _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, K):
     """Launch K5; K = 0 writes no checkpoints. Returns (out, W1_ck, b1_ck)."""
     check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1)
-    B, NC, _, _ = XQ.shape
+    B, NC, CS, _ = XQ.shape
     H, F = ln_w.shape
     NG = -(-NC // K) if K else 0
     out = torch.empty_like(XQ)
     new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
     ckpts = (new(B, H, NG, F, F), new(B, H, NG, 1, F))
-    _launch(_lib(), "ttt_linear_forward", (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, out, *ckpts),
-            (B, NC, H, K), eta_scale, XQ.device)
+    lib = _lib()
+    check_smem(lib, "ttt_linear_forward", CS, XQ.device)
+    _launch(lib, "ttt_linear_forward", (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, out, *ckpts),
+            (B, NC, H, CS, K), eta_scale, XQ.device)
     return out, *ckpts
 
 
@@ -249,6 +260,7 @@ def ttt_linear_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1,
         return ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale)
     out = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, 0)[0]
     launches += 1
+    launches_by_cs["launches", XQ.shape[2]] += 1
     return out
 
 
@@ -266,6 +278,7 @@ def ttt_linear_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W
     result = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
                       _group(checkpoint_group, XQ.shape[1]))
     train_launches += 1
+    launches_by_cs["train_launches", XQ.shape[2]] += 1
     return result
 
 
@@ -308,12 +321,14 @@ def ttt_linear_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck,
     grads = (new(B, H, F, F), new(B, H, 1, F), new(B, H, F), new(B, H, F))
     # K6's pass A writes each step's operands for pass B: a bf16 and a float32 workspace of K steps a scan.
     lib = _lib("ttt_linear_backward")
-    step_bytes = [lib.ttt_linear_backward_stash_bytes(part) for part in (0, 1)]
+    check_smem(lib, "ttt_linear_backward", CS, XQ.device)
+    step_bytes = [lib.ttt_linear_backward_stash_bytes(part, CS) for part in (0, 1)]
     stash = (new(B * H * K * step_bytes[0] // 2, dtype=torch.bfloat16), new(B * H * K * step_bytes[1] // 4))
     _launch(lib, "ttt_linear_backward",
             (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout, *dx, dgate, *grads, *stash),
-            (B, NC, H, K), eta_scale, XQ.device)
+            (B, NC, H, CS, K), eta_scale, XQ.device)
     bwd_launches += 1
+    launches_by_cs["bwd_launches", CS] += 1
     return (*dx, dgate, *(g.sum(dim=0) for g in grads))
 
 

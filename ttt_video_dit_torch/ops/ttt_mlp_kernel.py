@@ -6,8 +6,9 @@ _fused_preproc and _eta_from_gate) and ops/pallas/ttt_backward.py:
 _mlp_bwd_kernel (K2), in the fused-preprocessing, token-major,
 in-kernel-gate form that ttt_vjp.py:ttt_mlp_fused_pre dispatches. Kernels:
 
-- ``ttt_mlp_forward``: K1 for sampling (CS = 16, no state checkpoints),
-  ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward``;
+- ``ttt_mlp_forward``: K1 for sampling (no state checkpoints),
+  ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward``: at CS = 16 its own kernel,
+  at CS = 64 the training kernel with no checkpoints (KERNEL_MINI_BATCHES);
 - ``ttt_mlp_forward_train``: K1 for training (CS = 64), which also writes the
   fp32 state at the start of every group of K mini-batches (the last group
   may be ragged), ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward_train``;
@@ -31,6 +32,7 @@ are compact fp32: W1 [B, H, NG, F, 4F], b1 [B, H, NG, 1, 4F], W2
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -43,13 +45,17 @@ from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_mlp_step
 from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): K1 for
-# sampling, K1 for training, K2.
+# sampling, K1 for training, K2; and K1's by mini-batch,
+# launches_by_cs["launches", CS].
 launches = 0
 train_launches = 0
 bwd_launches = 0
+launches_by_cs = collections.Counter()
 
 KERNEL_HEAD_DIM = 64
-KERNEL_MINI_BATCH = 16
+# The mini-batch sizes K1 (sampling) takes: csrc/ttt_mlp_forward.cu:ttt_mlp_forward's cases (a test holds the two
+# together). K1-train and K2 take KERNEL_TRAIN_MINI_BATCH only.
+KERNEL_MINI_BATCHES = (16, 64)
 KERNEL_TRAIN_MINI_BATCH = 64
 
 
@@ -297,8 +303,10 @@ def ttt_mlp_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_
 def _lib(name: str = "ttt_mlp_forward"):
     lib = _build.load(name)
     if name == "ttt_mlp_forward" and lib.ttt_mlp_forward.argtypes is None:
-        lib.ttt_mlp_forward.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        lib.ttt_mlp_forward.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         lib.ttt_mlp_forward.restype = ctypes.c_int
+        lib.ttt_mlp_forward_smem_bytes.argtypes = [ctypes.c_int]
+        lib.ttt_mlp_forward_smem_bytes.restype = ctypes.c_int
         lib.ttt_mlp_forward_train.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
                                               + [ctypes.c_float, ctypes.c_void_p])
         lib.ttt_mlp_forward_train.restype = ctypes.c_int
@@ -312,17 +320,18 @@ def _lib(name: str = "ttt_mlp_forward"):
 
 
 def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2,
-                      mini_batch: int = KERNEL_MINI_BATCH) -> None:
+                      mini_batches: tuple = KERNEL_MINI_BATCHES) -> None:
     """Raise ValueError unless the arguments are what the CUDA kernels take:
-    F = 64, CS = ``mini_batch`` (16 for sampling, 64 for training), bf16
-    token-major q/k/v, float32 everything else, every tensor contiguous and
-    on one CUDA device, shapes consistent."""
+    F = 64, CS in ``mini_batches`` (KERNEL_MINI_BATCHES for sampling, 64 for
+    training), bf16 token-major q/k/v, float32 everything else, every tensor
+    contiguous and on one CUDA device, shapes consistent."""
     if XQ.ndim != 4:
         raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
-    if F != KERNEL_HEAD_DIM or CS != mini_batch:
-        raise ValueError(f"this TTT-MLP kernel supports F={KERNEL_HEAD_DIM}, CS={mini_batch}; got F={F}, CS={CS}")
+    if F != KERNEL_HEAD_DIM or CS not in mini_batches:
+        raise ValueError(f"this TTT-MLP kernel supports F={KERNEL_HEAD_DIM} and CS in {mini_batches}; "
+                         f"got F={F}, CS={CS}")
     expected = {
         "XQ": (XQ, (B, NC, CS, H * F), torch.bfloat16), "XK": (XK, (B, NC, CS, H * F), torch.bfloat16),
         "XV": (XV, (B, NC, CS, H * F), torch.bfloat16), "gate": (gate, (B, H, NC, CS), torch.float32),
@@ -358,6 +367,24 @@ def _check_tensors(expected, device) -> None:
         check_aligned(name, t)
 
 
+_smem_checked: set = set()
+
+
+def check_smem(lib, fn_name: str, cs: int, device) -> None:
+    """Raise RuntimeError if the kernel that C entry ``fn_name`` launches at
+    mini-batch ``cs`` needs more shared memory (``<fn_name>_smem_bytes(cs)``)
+    than ``device`` lets a block opt in to; checked at the first launch of
+    each (entry, CS, device)."""
+    key = (fn_name, cs, device)
+    if key in _smem_checked:
+        return
+    need = getattr(lib, f"{fn_name}_smem_bytes")(cs)
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if not 0 < need <= limit:
+        raise RuntimeError(f"{fn_name} at CS={cs} needs {need} bytes of shared memory a block; {device} allows {limit}")
+    _smem_checked.add(key)
+
+
 def _launch(lib, fn_name: str, tensors, ints, eta_scale: float, device) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -375,12 +402,17 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
         return ttt_mlp_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale)
     args = (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
     check_kernel_args(*args)
-    B, NC, _, _ = XQ.shape
+    B, NC, CS, _ = XQ.shape
     H = ln_w.shape[0]
+    lib = _lib()
+    check_smem(lib, "ttt_mlp_forward", CS, XQ.device)
     out = torch.empty_like(XQ)
-    _launch(_lib(), "ttt_mlp_forward", (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out),
-            (B, NC, H), eta_scale, XQ.device)
+    # At CS = 64 the training kernel's LN targets go through a workspace (the CS-16 kernel takes none).
+    floats = B * H * lib.ttt_mlp_forward_train_workspace_floats() if CS == KERNEL_TRAIN_MINI_BATCH else 4
+    work = torch.empty(floats, dtype=torch.float32, device=XQ.device)
+    _launch(lib, "ttt_mlp_forward", (*args, out, work), (B, NC, H, CS), eta_scale, XQ.device)
     launches += 1
+    launches_by_cs["launches", CS] += 1
     return out
 
 
@@ -397,7 +429,7 @@ def ttt_mlp_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, 
     models/dit/dit.py): on CUDA tensors it launches the kernel (CS = 64) or
     raises; on CPU tensors it runs the plain version."""
     global train_launches
-    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, KERNEL_TRAIN_MINI_BATCH)
+    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, (KERNEL_TRAIN_MINI_BATCH,))
     B, NC, _, _ = XQ.shape
     H, F = ln_w.shape
     K = _group(checkpoint_group, NC)
@@ -440,7 +472,7 @@ def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1
         return ttt_mlp_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck,
                                       dout, eta_scale, checkpoint_group)
     check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, None, None, None, None,
-                      KERNEL_TRAIN_MINI_BATCH)
+                      (KERNEL_TRAIN_MINI_BATCH,))
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
     K = _group(checkpoint_group, NC)

@@ -17,11 +17,15 @@ max|kernel - plain| / max|plain|:
 - folded-window attention (3 windows of a ragged 417 tokens), forward and
   backward, and the backward launched twice: dq, dk and dv must be
   bit-equal (K4 sums each element in a fixed order);
-- the sampling scans (B 2, CS 16) at an even and an odd NC (K1's ring has two
-  stages), and K7 bit for bit on a [12288, 3072] weight.
+- the sampling scans (B 2) at an even and an odd NC (K1's ring has two
+  stages), and K7 bit for bit on a [12288, 3072] weight;
+- the wider mini-batches of each kernel's instantiations: K5, K5-train and
+  K6 at CS 32 and 64 (full and ragged; an eta-gate case at 64) and K1 at
+  CS 64 (the training kernel with no checkpoints), rows ``K5@CS64`` etc.
 
 Every check's name ends with the kernel rows it drives, as PERF.md's table
-names them ([K1] ... [K7]). The training checks go through the autograd
+names them ([K1] ... [K7]; a row at another mini-batch than the kernel's
+first, [K5-train@CS64]). The training checks go through the autograd
 Functions the model trains through (``ttt_mlp_train``, ``ttt_linear_train``,
 ``attention_train``) on loss = sum(out^2) (attention: sum(out * ct)), and
 compare the loss, the input gradients dq/dk/dv, the gate's gradient and the
@@ -89,6 +93,22 @@ F = 64
 BASE_LR = {"ttt_mlp": 0.1, "ttt_linear": 1.0}  # the TOMLs' ttt_base_lr: eta = sigmoid(gate) x base / F / CS
 STATE = {"ttt_mlp": ("W1", "b1", "W2", "b2"), "ttt_linear": ("W1", "b1")}
 ROWS = {"ttt_mlp": ("K1", "K1-train", "K2"), "ttt_linear": ("K5", "K5-train", "K6")}  # sampling, forward, backward
+# The mini-batch of each row's first kernel; the same kernel at another CS is the row "<row>@CS<n>".
+ROW_CS = {"K1": 16, "K1-train": 64, "K2": 64, "K5": 16, "K5-train": 16, "K6": 16}
+
+
+def row(name: str, CS: int) -> str:
+    """The row of kernel row ``name`` (K1 ...) at mini-batch ``CS``: ``name`` itself at its first CS."""
+    return name if CS == ROW_CS[name] else f"{name}@CS{CS}"
+
+
+def launch_count(row_name: str) -> int:
+    """The launch counter of a row: COUNTERS', or for "<row>@CS<n>" its kernel's launches_by_cs at CS n."""
+    base, _, cs = row_name.partition("@CS")
+    mod, attr = COUNTERS[base]
+    return mod.launches_by_cs[attr, int(cs)] if cs else getattr(mod, attr)
+
+
 # Training cases: name, variant, heads, NC of the shared arrays, NC this case takes, checkpoint group K, CS, eta
 # as a multiple of the TOML's (the large ones: chip_smoke.py's LARGE_ETA_FACTOR, eta ~0.1 either way).
 TRAIN_CASES = (
@@ -99,13 +119,24 @@ TRAIN_CASES = (
     ("ttt_linear full", "ttt_linear", 8, 9, 8, 4, 16, 1),
     ("ttt_linear ragged", "ttt_linear", 8, 9, 9, 4, 16, 1),
     ("ttt_linear eta-gate", "ttt_linear", 8, 9, 9, 4, 16, 100),
+    ("ttt_linear cs32 full", "ttt_linear", 8, 5, 4, 2, 32, 1),
+    ("ttt_linear cs32 ragged", "ttt_linear", 8, 5, 5, 2, 32, 1),
+    ("ttt_linear cs64 full", "ttt_linear", 8, 5, 4, 2, 64, 1),
+    ("ttt_linear cs64 ragged", "ttt_linear", 8, 5, 5, 2, 64, 1),
+    ("ttt_linear cs64 eta-gate", "ttt_linear", 8, 5, 5, 2, 64, 100),
 )
-# Sampling cases: name, variant, batch, heads, NC of the shared arrays, NC this case takes (CS 16).
+# Sampling cases: name, variant, batch, heads, NC of the shared arrays, NC this case takes, CS.
 SAMPLE_CASES = (
-    ("ttt_mlp sampling full", "ttt_mlp", 2, 8, 9, 8),
-    ("ttt_mlp sampling ragged", "ttt_mlp", 2, 8, 9, 9),
-    ("ttt_linear sampling full", "ttt_linear", 2, 8, 9, 8),
-    ("ttt_linear sampling ragged", "ttt_linear", 2, 8, 9, 9),
+    ("ttt_mlp sampling full", "ttt_mlp", 2, 8, 9, 8, 16),
+    ("ttt_mlp sampling ragged", "ttt_mlp", 2, 8, 9, 9, 16),
+    ("ttt_linear sampling full", "ttt_linear", 2, 8, 9, 8, 16),
+    ("ttt_linear sampling ragged", "ttt_linear", 2, 8, 9, 9, 16),
+    ("ttt_mlp sampling cs64 full", "ttt_mlp", 2, 8, 5, 4, 64),
+    ("ttt_mlp sampling cs64 ragged", "ttt_mlp", 2, 8, 5, 5, 64),
+    ("ttt_linear sampling cs32 full", "ttt_linear", 2, 8, 5, 4, 32),
+    ("ttt_linear sampling cs32 ragged", "ttt_linear", 2, 8, 5, 5, 32),
+    ("ttt_linear sampling cs64 full", "ttt_linear", 2, 8, 5, 4, 64),
+    ("ttt_linear sampling cs64 ragged", "ttt_linear", 2, 8, 5, 5, 64),
 )
 ATTENTION_SHAPE = (3, 417, 4, 64)  # 3 windows of a ragged 417 tokens, 4 heads
 RERUN_CHECK = "splash folded-windows rerun bit-equal [K4]"  # K4's determinism: two launches, the same bits
@@ -219,7 +250,9 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
     elif set(kernels) != set(KERNELS):
         raise ValueError(f"kernels= must substitute exactly {sorted(KERNELS)}, got {sorted(kernels)}")
     t0 = time.perf_counter()
-    before = {row: getattr(mod, name) for row, (mod, name) in COUNTERS.items()}
+    rows = {row(r, case[6]) for case in TRAIN_CASES for r in ROWS[case[1]][1:]}
+    rows |= {row(ROWS[case[1]][0], case[6]) for case in SAMPLE_CASES} | {"K3", "K3-lse", "K4", "K7"}
+    before = {r: launch_count(r) for r in rows}
     checks, tolerances = {}, {}
 
     def check(name: str, err: float, tol: float) -> None:
@@ -235,12 +268,15 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        rng = np.random.default_rng(0)
+        # The rows at a kernel's other mini-batches draw from a generator of their own, so every other check's
+        # inputs are those it had before those rows were added.
+        rng, wide_rng = np.random.default_rng(0), np.random.default_rng(1)
         shared = {}
         for name, variant, H, NC, nc, K, CS, factor in TRAIN_CASES:
-            _, fwd_row, bwd_row = ROWS[variant]
+            fwd_row, bwd_row = (row(r, CS) for r in ROWS[variant][1:])
             if (variant, 1, H, NC, CS) not in shared:
-                shared[variant, 1, H, NC, CS] = ttt_arrays(rng, variant, 1, H, NC, CS)
+                shared[variant, 1, H, NC, CS] = ttt_arrays(wide_rng if "@" in fwd_row else rng, variant, 1, H, NC,
+                                                           CS)
             a, eta = take(shared[variant, 1, H, NC, CS], nc), eta_scale(variant, CS, factor)
             loss_k, grads_k = ttt_loss_and_grads(kernels[f"{variant}_train"], a, variant, K, eta, device)
             loss_p, grads_p = ttt_loss_and_grads(PLAIN[f"{variant}_train"], a, variant, K, eta, device)
@@ -249,15 +285,16 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
                 check(f"{name} {what} [{bwd_row}]", rel_err(g, w), GRAD_TOL)
             check(f"{name} dstate [{bwd_row}]", max(rel_err(g, w) for g, w in zip(grads_k[4:], grads_p[4:])),
                   STATE_GRAD_TOL)
-        for name, variant, B, H, NC, nc in SAMPLE_CASES:
-            if (variant, B, H, NC, 16) not in shared:
-                shared[variant, B, H, NC, 16] = ttt_arrays(rng, variant, B, H, NC, 16)
-            args = _tensors(take(shared[variant, B, H, NC, 16], nc), variant, device, grad=False)
-            eta = eta_scale(variant, 16)
+        for name, variant, B, H, NC, nc, CS in SAMPLE_CASES:
+            if (variant, B, H, NC, CS) not in shared:
+                draw = wide_rng if "@" in row(ROWS[variant][0], CS) else rng
+                shared[variant, B, H, NC, CS] = ttt_arrays(draw, variant, B, H, NC, CS)
+            args = _tensors(take(shared[variant, B, H, NC, CS], nc), variant, device, grad=False)
+            eta = eta_scale(variant, CS)
             with torch.no_grad():
                 got = kernels[f"{variant}_forward"](*args, eta).float()
                 want = PLAIN[f"{variant}_forward"](*args, eta).float()
-            check(f"{name} fwd [{ROWS[variant][0]}]", rel_err((got**2).sum(), (want**2).sum()), FWD_TOL)
+            check(f"{name} fwd [{row(ROWS[variant][0], CS)}]", rel_err((got**2).sum(), (want**2).sum()), FWD_TOL)
 
         a = attention_arrays(rng)
         q, k, v = (torch.from_numpy(a[n]).to(device).to(torch.bfloat16) for n in ("q", "k", "v"))
@@ -282,7 +319,7 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     if kernels is KERNELS:
-        idle = [row for row, (mod, name) in COUNTERS.items() if getattr(mod, name) == before[row]]
+        idle = sorted(r for r in rows if launch_count(r) == before[r])
         if idle:
             raise RuntimeError(f"kernel_selftest: no launch of {idle}: their wrappers took another path")
     ok = all(checks[n] <= tolerances[n] for n in checks)
