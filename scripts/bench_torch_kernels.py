@@ -15,7 +15,12 @@ eta_scale 0.1 / 64 / 64; and K5 at CS 32, [B 2, NC 564, 48 heads] (keys
 mini-batches); K7 on a [12288, 3072]
 float32 weight beside ``.to(torch.bfloat16)`` on the same tensor, the two
 timed in turns (--rounds rounds of --k7-reps launches each, after one
-untimed round). Times are means
+untimed round); then, after K7, the TTT-MLP kernels at the other
+mini-batches of the 3 s slices (chip_smoke.py's phase-20 slices, only for a
+tree whose wrappers take them): K1 at CS 32 and 48, [B 2, NC 564 and 376,
+48 heads], and K1-train and K2 at CS 16, 32 and 48, [B 1, NC 1,128, 564 and
+376], K 16, each at eta_scale 0.1 / 64 / CS (keys ``K1_cs32_ms``,
+``K1_train_cs16_ms``, ``K2_cs16_ms`` etc.). Times are means
 by CUDA events after one warm-up; K7's and ``.to``'s device times are also
 read once from torch.profiler, so the wrapper's host time is not in them.
 Prints one JSON line.
@@ -42,6 +47,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NC, CS, H, F = 1128, 16, 48, 64
 NC_TRAIN, CS_TRAIN, K_TRAIN = 282, 64, 16
 K_LINEAR = 4
+SEQ = NC * CS  # tokens of the 3 s slices: every mini-batch's NC is SEQ / CS
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -184,6 +190,30 @@ def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
     out["K7_ms"], out["K7_to_ms"] = sum(k7_ms) / rounds, sum(to_ms) / rounds
     out["K7_rounds_ms"], out["K7_to_rounds_ms"] = k7_ms, to_ms
     out["K7_device_us"], out["K7_to_device_us"] = device_us(k7, k7_reps), device_us(to, k7_reps)
+    del w
+
+    # The TTT-MLP kernels at their other mini-batches, where the tree's wrappers take them (a tree whose training
+    # wrappers take CS 64 alone names it KERNEL_TRAIN_MINI_BATCH).
+    sampling_cs = getattr(ttt_mlp_kernel, "KERNEL_MINI_BATCHES", (16,))
+    training_cs = (64,) if hasattr(ttt_mlp_kernel, "KERNEL_TRAIN_MINI_BATCH") else sampling_cs
+    mlp = lambda B, cs: dict(linear_inputs(gen, device, B, SEQ // cs, cs, H), W1=randn(H, F, 4 * F, std=0.02),
+                             b1=randn(H, 1, 4 * F, std=0.02), W2=randn(H, 4 * F, F, std=0.02),
+                             b2=randn(H, 1, F, std=0.02))
+    for cs in (32, 48):
+        if cs in sampling_cs:
+            t = mlp(2, cs)
+            out[f"K1_cs{cs}_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**t, eta_scale=0.1 / 64 / cs), reps)
+            del t
+    for cs in (16, 32, 48):
+        if cs in training_cs:
+            t, eta = mlp(1, cs), 0.1 / 64 / cs
+            fwd = lambda: ttt_mlp_kernel.ttt_mlp_forward_train(**t, eta_scale=eta, checkpoint_group=K_TRAIN)
+            out[f"K1_train_cs{cs}_ms"] = cuda_ms(fwd, reps)
+            ck = fwd()[1:]
+            dout = randn(*t["XQ"].shape).bfloat16()
+            ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+            out[f"K2_cs{cs}_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward(*ins, *ck, dout, eta, K_TRAIN), reps)
+            del t, ck, dout, ins
     return out
 
 

@@ -62,10 +62,12 @@ def _ttt_inputs(cuda, B, H, NC, seed=0, CS=16):
 
 # (B, H, NC): one and two mini-batches, 17 (more than the kernel's two-stage
 # ring wraps in a step), and 3 x 48 scans, more blocks than the H100's 132 SMs;
-# at CS = 64 (K1 through the training kernel with no checkpoints) an even and
-# an odd NC and the CFG batch of 48 heads, at the eta of the TOMLs' base lr.
+# at CS = 32, 48 and 64 (K1 through the training kernel with no checkpoints)
+# an even and an odd NC and the CFG batch of 48 heads, at the eta of the TOMLs'
+# base lr.
 @pytest.mark.parametrize("B,H,NC,CS", [(1, 3, 9, 16), (2, 2, 1, 16), (1, 2, 1, 16), (2, 3, 2, 16), (2, 2, 17, 16),
-                                       (3, 48, 3, 16), (2, 2, 8, 64), (2, 3, 9, 64), (2, 48, 3, 64)])
+                                       (3, 48, 3, 16), (2, 2, 8, 64), (2, 3, 9, 64), (2, 48, 3, 64), (2, 2, 8, 32),
+                                       (2, 48, 3, 32), (2, 3, 9, 48), (2, 48, 3, 48)])
 def test_ttt_kernel_matches_plain(cuda, B, H, NC, CS):
     args = _ttt_inputs(cuda, B, H, NC, CS=CS)
     eta = 1e-4 if CS == 16 else 0.1 / 64 / CS
@@ -173,9 +175,9 @@ def _scaled(got, want, tol, rel_l2=1e-2):
     assert err <= tol * scale, f"max_abs_err {err} > {tol} x {scale}"
 
 
-def _train_inputs(cuda, B, H, NC, seed):
+def _train_inputs(cuda, B, H, NC, seed, CS=64):
     gen = torch.Generator(cuda).manual_seed(seed)
-    CS, F = 64, 64
+    F = 64
     randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=cuda) * std
     angles = torch.rand(NC, CS, F // 2, generator=gen, device=cuda) * 6.3
     return dict(
@@ -189,16 +191,19 @@ def _train_inputs(cuda, B, H, NC, seed):
     ), randn
 
 
-# The training slice's eta_scale (ttt_base_lr 0.1 / 64 / 64), and 4,096x and 40,960x it, where the state update
-# moves the output far (the plain output then lies at least 10 tolerances from the eta = 0 output).
-@pytest.mark.parametrize("B,H,NC,K,scale", [(1, 2, 5, 2, 0.1 / 64 / 64), (2, 3, 3, 16, 0.1 / 64 / 64),
-                                            (1, 2, 5, 2, 0.1), (1, 2, 5, 2, 1.0)])
-def test_ttt_train_and_backward_kernels_match_plain(cuda, B, H, NC, K, scale):
+# The TOMLs' eta_scale (ttt_base_lr 0.1 / 64 / CS; None below), and 0.1 and 1.0 (at CS 64 4,096x and 40,960x
+# it), where the state update moves the output far (the plain output then lies at least 10 tolerances from the
+# eta = 0 output); at every mini-batch the kernels take.
+@pytest.mark.parametrize("CS", [16, 32, 48, 64])
+@pytest.mark.parametrize("B,H,NC,K,scale", [(1, 2, 5, 2, None), (2, 3, 3, 16, None), (1, 2, 5, 2, 0.1),
+                                            (1, 2, 5, 2, 1.0)])
+def test_ttt_train_and_backward_kernels_match_plain(cuda, B, H, NC, K, scale, CS):
     """K1-train (output elementwise; fp32 checkpoints within 1e-2 relative L2
     and 1e-3 of their scale) and K2 (every gradient within 1e-2 relative L2
     and 1e-2 of its scale; dXQ/dXK/dXV/d_gate also elementwise) against their
-    plain versions, at CS = 64 with a ragged last checkpoint group."""
-    a, randn = _train_inputs(cuda, B, H, NC, seed=3)
+    plain versions, with a ragged last checkpoint group."""
+    scale = scale or 0.1 / 64 / CS
+    a, randn = _train_inputs(cuda, B, H, NC, seed=3, CS=CS)
     before = (ttt_mlp_kernel.train_launches, ttt_mlp_kernel.bwd_launches)
     got = ttt_mlp_kernel.ttt_mlp_forward_train(**a, eta_scale=scale, checkpoint_group=K)
     want = ttt_mlp_kernel.ttt_mlp_forward_plain(**a, eta_scale=scale, checkpoint_group=K)
@@ -344,11 +349,18 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     lse = torch.zeros(2, 3, 64, device=cuda)
     with pytest.raises(ValueError):
         attention.attention_backward(q, q, q, q, lse[:, :2], q)
-    x = torch.zeros(1, 2, 16, 128, device=cuda, dtype=torch.bfloat16)  # CS = 16: the sampling kernel's, not training's
+    # CS = 24, a multiple of 8 the JAX kernels take: every TTT-MLP wrapper raises, naming the mini-batches it takes.
+    x = torch.zeros(1, 2, 24, 128, device=cuda, dtype=torch.bfloat16)
     z = lambda *s: torch.zeros(*s, device=cuda)
-    with pytest.raises(ValueError):
-        ttt_mlp_kernel.ttt_mlp_forward_train(x, x, x, z(1, 2, 2, 16), z(2, 16, 64), z(2, 16, 64), z(2, 64), z(2, 64),
-                                             z(2, 64, 256), z(2, 1, 256), z(2, 256, 64), z(2, 1, 64), 1e-3, 2)
+    mlp = (x, x, x, z(1, 2, 2, 24), z(2, 24, 64), z(2, 24, 64), z(2, 64), z(2, 64))
+    state = (z(2, 64, 256), z(2, 1, 256), z(2, 256, 64), z(2, 1, 64))
+    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+        ttt_mlp_kernel.ttt_mlp_forward_train(*mlp, *state, 1e-3, 2)
+    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+        ttt_mlp_kernel.ttt_mlp_forward(*mlp, *state, eta_scale=1e-3)
+    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+        ttt_mlp_kernel.ttt_mlp_backward(*mlp, z(1, 2, 1, 64, 256), z(1, 2, 1, 1, 256), z(1, 2, 1, 256, 64),
+                                        z(1, 2, 1, 1, 64), x, 1e-3, 2)
     k1 = _ttt_inputs(cuda, 1, 2, 2)
     k1["XQ"] = torch.zeros(2 * 16 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 2, 16, 128)
     with pytest.raises(ValueError):  # not 16-byte aligned
@@ -381,8 +393,6 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
         ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=1e-3)
     with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
         ttt_linear_kernel.ttt_linear_train(**a, eta_scale=1e-3, checkpoint_group=2)
-    with pytest.raises(ValueError, match=r"\(16, 64\)"):
-        ttt_mlp_kernel.ttt_mlp_forward(**_ttt_inputs(cuda, 2, 2, 3, CS=32), eta_scale=1e-3)
     w = torch.zeros(64, 32, device=cuda)
     with pytest.raises(ValueError):
         convert.convert_f32_bf16(w.t())  # not contiguous

@@ -123,14 +123,16 @@ def test_checks_name_every_kernel_row_and_every_jax_check(plain_result):
 def test_a_corrupt_ragged_group_fails_ragged_checks_and_passes_full_ones(corrupted_result):
     failed = _failed(corrupted_result)
     assert not corrupted_result["ok"]
-    for case in ("ttt_mlp ragged", "ttt_linear ragged", "ttt_mlp h12 g6", "ttt_mlp eta-gate", "ttt_linear eta-gate"):
+    for case in ("ttt_mlp ragged", "ttt_linear ragged", "ttt_mlp h12 g6", "ttt_mlp eta-gate", "ttt_linear eta-gate",
+                 "ttt_mlp cs16 ragged", "ttt_mlp cs16 eta-gate", "ttt_mlp cs32 ragged", "ttt_mlp cs48 ragged"):
         for what in ("fwd", "dq", "dk", "dv"):
             assert any(n.startswith(f"{case} {what} [") for n in failed), (case, what)
     for case in ("ttt_mlp sampling ragged", "ttt_linear sampling ragged", "ttt_mlp sampling cs64 ragged",
-                 "ttt_linear sampling cs32 ragged", "ttt_linear sampling cs64 ragged"):
+                 "ttt_linear sampling cs32 ragged", "ttt_linear sampling cs64 ragged", "ttt_mlp sampling cs32 ragged",
+                 "ttt_mlp sampling cs48 ragged"):
         assert any(n.startswith(case) for n in failed), case
     full = [n for n in corrupted_result["checks"] if " full " in n]
-    assert len(full) == 4 * 6 + 5 and not failed & set(full), failed & set(full)
+    assert len(full) == 7 * 6 + 7 and not failed & set(full), failed & set(full)
 
 
 def test_a_corrupt_last_window_fails_the_folded_window_checks(corrupted_result):

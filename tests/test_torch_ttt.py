@@ -92,17 +92,21 @@ def test_plain_scan_matches_pallas_kernel_bf16(rng):
     assert np.mean(got == want) >= 0.998
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_scan_matches_pallas_kernel_at_mini_batch_64(rng, dtype):
-    """K1's plain version at the model's default mini-batch, CS = 64 (which
-    the CUDA K1 runs through K1-train's step with no checkpoints), F = 64,
-    against the Pallas kernel (interpret mode), at the TOMLs' eta (0.1 / F /
-    CS), NC = 3 (odd). float32: 2e-5 absolute and relative (summation order).
-    bf16 q/k/v: 1e-2 absolute and relative and at least 99.5 % of outputs
-    bit-equal (99.6 % with this seed; leaving out any one of the step's nine
-    rounding points drops the share to 99.0 % or less, attn1's and attn2's
-    the least)."""
-    B, H, NC, CS, F = 2, 1, 3, 64, 64
+# CS 64 in float32 and bf16; CS 32 and 48 in bf16 (the ids of the CS-64 cases are the dtypes alone).
+@pytest.mark.parametrize("CS,dtype", [pytest.param(64, "float32", id="float32"),
+                                      pytest.param(64, "bfloat16", id="bfloat16"),
+                                      pytest.param(32, "bfloat16", id="cs32-bfloat16"),
+                                      pytest.param(48, "bfloat16", id="cs48-bfloat16")])
+def test_plain_scan_matches_pallas_kernel_at_mini_batch_64(rng, CS, dtype):
+    """K1's plain version at the model's default mini-batch, CS = 64, and at
+    CS = 32 and 48 (each of which the CUDA K1 runs through K1-train's step
+    with no checkpoints), F = 64, against the Pallas kernel (interpret mode),
+    at the TOMLs' eta (0.1 / F / CS), NC = 3 (odd). float32: 2e-5 absolute
+    and relative (summation order). bf16 q/k/v: 1e-2 absolute and relative
+    and at least 99.5 % of outputs bit-equal (99.6 % with this seed at CS
+    64; leaving out any one of the step's nine rounding points drops the
+    share to 99.0 % or less, attn1's and attn2's the least)."""
+    B, H, NC, F = 2, 1, 3, 64
     a = _ttt_args(rng, B, H, NC, CS, F)
     scale = 0.1 / F / CS
     if dtype == "float32":

@@ -149,7 +149,7 @@ def test_k1_train_plain_matches_pallas(rng, CS, NC, K):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("CS,NC,K", [(16, 5, 2), (64, 3, 2)])
+@pytest.mark.parametrize("CS,NC,K", [(16, 5, 2), (64, 3, 2), (32, 3, 2), (48, 3, 2)])
 def test_k1_train_plain_matches_pallas_bf16(rng, CS, NC, K):
     """bf16 q/k/v at the CUDA kernels' head dim (F = 64): both round at the
     same points, only float32 summation order differs. Outputs within 1e-2
@@ -186,7 +186,7 @@ def test_k2_plain_matches_pallas(rng, CS, NC, K):
         _close_scaled(g.numpy(), w, 1e-4)
 
 
-@pytest.mark.parametrize("CS,NC,K", [(16, 3, 2), (64, 2, 1)])
+@pytest.mark.parametrize("CS,NC,K", [(16, 3, 2), (64, 2, 1), (32, 3, 2), (48, 3, 2)])
 def test_k2_plain_matches_pallas_bf16(rng, CS, NC, K):
     """bf16 q/k/v/dout at F = 64: both backwards round at the same points
     (every .astype(dt) of ttt_backward.py:235-399); every gradient within

@@ -543,18 +543,21 @@ def _cases(source: str, function: str) -> tuple:
     return tuple(int(c) for c in re.findall(r"case (\d+):", body))
 
 
-@pytest.mark.parametrize("kernels", ["ttt_linear", "ttt_mlp_sampling"])
+@pytest.mark.parametrize("kernels", ["ttt_linear", "ttt_mlp_sampling", "ttt_mlp_training"])
 def test_supported_mini_batches_are_the_instantiated_ones(kernels):
     """Each wrapper's tuple of mini-batches is the list its C entry
-    dispatches on: ttt_linear_step.cuh:with_slabs (K5, K5-train, K6) and
-    ttt_mlp_forward.cu:ttt_mlp_forward (K1), so a CS the wrapper lets
-    through always has a kernel, and one that has a kernel is never refused."""
+    dispatches on: ttt_mlp_block.cuh:with_slabs (K5, K5-train and K6; K1-train,
+    K2, and K1 past CS 16) and ttt_mlp_forward.cu:ttt_mlp_forward (K1), so a
+    CS the wrapper lets through always has a kernel, and one that has a
+    kernel is never refused."""
     from ttt_video_dit_torch.ops import ttt_mlp_kernel as tm
 
     if kernels == "ttt_linear":
-        assert _cases("ttt_linear_step.cuh", "with_slabs") == tk.KERNEL_MINI_BATCHES == (16, 32, 48, 64)
+        assert _cases("ttt_mlp_block.cuh", "with_slabs") == tk.KERNEL_MINI_BATCHES == (16, 32, 48, 64)
+    elif kernels == "ttt_mlp_sampling":
+        assert _cases("ttt_mlp_forward.cu", "ttt_mlp_forward") == tm.KERNEL_MINI_BATCHES == (16, 32, 48, 64)
     else:
-        assert _cases("ttt_mlp_forward.cu", "ttt_mlp_forward") == tm.KERNEL_MINI_BATCHES == (16, 64)
+        assert _cases("ttt_mlp_block.cuh", "with_slabs") == tm.KERNEL_MINI_BATCHES == (16, 32, 48, 64)
 
 
 def _k5_args(F=64, CS=16, dtype=torch.bfloat16, device="meta", state_width=None):

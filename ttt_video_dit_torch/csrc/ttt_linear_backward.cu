@@ -1,5 +1,5 @@
 // Fused TTT-linear backward (K6), head_dim F = 64, mini-batch CS = 16, 32,
-// 48 or 64 (one instantiation each, ttt_linear_step.cuh:with_slabs), for
+// 48 or 64 (one instantiation each, ttt_mlp_block.cuh:with_slabs), for
 // Hopper (sm_90a).
 //
 // Replaces: ttt_video_dit_tpu/ops/pallas/ttt_backward.py:_linear_bwd_kernel

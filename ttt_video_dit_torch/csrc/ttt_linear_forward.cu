@@ -1,5 +1,5 @@
 // Fused TTT-linear forward scan (K5), head_dim F = 64, mini-batch CS = 16,
-// 32, 48 or 64 (one instantiation each, ttt_linear_step.cuh:with_slabs), for
+// 32, 48 or 64 (one instantiation each, ttt_mlp_block.cuh:with_slabs), for
 // Hopper (sm_90a): sampling (no state checkpoints) and training (fp32 state
 // checkpoints every K mini-batches, for csrc/ttt_linear_backward.cu).
 //

@@ -4,9 +4,10 @@
 // training with fp32 state checkpoints) and K6's pass A
 // (ttt_linear_backward.cu: no output, each step's operands stashed for pass
 // B), with the producer that prepares each mini-batch and the fragment
-// loaders K6's pass B uses. Every piece is a template on NS; with_slabs
-// (below) instantiates the four values, and ops/ttt_linear_kernel.py's
-// KERNEL_MINI_BATCHES names the same list (a test holds the two together).
+// loaders K6's pass B uses. Every piece is a template on NS;
+// ttt_mlp_block.cuh:with_slabs instantiates the four values, and
+// ops/ttt_linear_kernel.py's KERNEL_MINI_BATCHES names the same list (a test
+// holds the two together).
 //
 // One block owns one (batch, head) scan: 4 consumer warps run the step, a
 // producer warpgroup (4 warps) prepares the next mini-batch.
@@ -62,8 +63,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "hopper.cuh"
 #include "ttt_mlp_block.cuh"
 
@@ -74,6 +73,7 @@ using hopper::mma_bf16_16816;
 using hopper::movmatrix_trans;
 using hopper::pack_bf16;
 using tttb::ScanArgs;
+using tttb::with_slabs;
 
 constexpr int kF = 64;
 constexpr int kSlab = 16;                   // tokens of one m16 tile
@@ -89,19 +89,6 @@ constexpr uint32_t kSignBits = 0x80008000u;
 // Stages of the producer's raw ring: two, but one at CS 64 (see the top).
 template <int NS>
 constexpr int kRawSlots = NS <= 3 ? 2 : 1;
-
-// Call fn(std::integral_constant<int, NS>) for mini-batch cs = 16 NS; an error code for a CS the kernels are
-// not built for. These cases are the instantiations (ops/ttt_linear_kernel.py:KERNEL_MINI_BATCHES).
-template <typename Fn>
-inline int with_slabs(int cs, Fn&& fn) {
-  switch (cs) {
-    case 16: return fn(std::integral_constant<int, 1>{});
-    case 32: return fn(std::integral_constant<int, 2>{});
-    case 48: return fn(std::integral_constant<int, 3>{});
-    case 64: return fn(std::integral_constant<int, 4>{});
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 template <int NS>
 struct RawStage {  // one mini-batch as loaded, for one (batch, head)

@@ -1,8 +1,9 @@
 // Scalar helpers shared by the TTT kernels (ttt_mlp_forward.cu,
 // ttt_mlp_backward.cu; the TTT-linear kernels, through ttt_linear_step.cuh,
-// take only ScanArgs): bf16 rounding, warp sums, the tanh GELU and its first
-// two derivatives, and the per-step inputs of one scan. The TTT-MLP training step itself (CS = 64,
-// on the tensor cores) is in ttt_mlp_train_step.cuh.
+// take only ScanArgs and with_slabs): bf16 rounding, warp sums, the tanh
+// GELU and its first two derivatives, the per-step inputs of one scan, and
+// the dispatch on the mini-batch. The TTT-MLP training step itself (CS
+// 16-64, on the tensor cores) is in ttt_mlp_train_step.cuh.
 
 #pragma once
 
@@ -10,7 +11,24 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace tttb {
+
+// Call fn(std::integral_constant<int, NS>) for mini-batch cs = 16 NS; an error code for a CS the kernels are
+// not built for. These cases are the instantiations of every TTT kernel built on 16-token slabs
+// (ttt_linear_step.cuh, ttt_mlp_train_step.cuh), the lists ops/ttt_linear_kernel.py and ops/ttt_mlp_kernel.py
+// name KERNEL_MINI_BATCHES.
+template <typename Fn>
+inline int with_slabs(int cs, Fn&& fn) {
+  switch (cs) {
+    case 16: return fn(std::integral_constant<int, 1>{});
+    case 32: return fn(std::integral_constant<int, 2>{});
+    case 48: return fn(std::integral_constant<int, 3>{});
+    case 64: return fn(std::integral_constant<int, 4>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 __device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16(x)); }
 

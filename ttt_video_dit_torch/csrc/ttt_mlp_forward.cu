@@ -1,9 +1,10 @@
 // Fused TTT-MLP forward scan, head_dim F = 64, for Hopper (sm_90a): the
 // sampling kernel (mini-batch CS = 16, no state checkpoints) and, at the end
-// of this file, the training kernel (CS = 64, fp32 state checkpoints every K
-// mini-batches for the backward, csrc/ttt_mlp_backward.cu). Sampling at
-// CS = 64 runs the training kernel with no checkpoints (K = 0): the entry
-// ttt_mlp_forward picks the kernel by CS.
+// of this file, the training kernel (CS = 16, 32, 48 or 64, one instantiation
+// each; fp32 state checkpoints every K mini-batches for the backward,
+// csrc/ttt_mlp_backward.cu). Sampling at CS 32, 48 and 64 runs the training
+// kernel with no checkpoints (K = 0): the entry ttt_mlp_forward picks the
+// kernel by CS.
 //
 // Replaces: ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_mlp_kernel with
 // _fused_preproc and _eta_from_gate (launched by ttt_mlp_forward, reached
@@ -539,43 +540,44 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_mlp_fwd_kernel(const Args a) 
 
 // ---------------------------------------------------------------- training
 //
-// ttt_mlp_fwd_train_kernel (K1-train): the same scan at the training
-// mini-batch CS = 64. Before mini-batch n with n % K == 0 it writes the fp32
-// state (W1, b1, W2, b2; one bias row, not the TPU's 8 rows x 0.125) as
-// checkpoint n / K; the last group may be shorter than K. With K = 0 it
-// writes none: that is K1 (sampling) at CS = 64, at the CFG batch B = 2
-// (96 blocks).
+// ttt_mlp_fwd_train_kernel<NS> (K1-train): the same scan at mini-batch
+// CS = 16 NS, NS = 1..4 (ttt_mlp_block.cuh:with_slabs). Before
+// mini-batch n with n % K == 0 it writes the fp32 state (W1, b1, W2, b2; one
+// bias row, not the TPU's 8 rows x 0.125) as checkpoint n / K; the last group
+// may be shorter than K. With K = 0 it writes none: that is K1 (sampling) at
+// CS 32, 48 and 64, at the CFG batch B = 2 (96 blocks).
 //
 // What bounds it: as for the sampling kernel, the latency of one step inside
-// one SM (the scan is sequential; a step is ~20 Mflop and reads ~40 KiB), at
-// B = 1 on 48 of the 132 SMs.
+// one SM (the scan is sequential; a CS-64 step is ~20 Mflop and reads
+// ~40 KiB), at B = 1 on 48 of the 132 SMs.
 //
 // Design: ttt_mlp_train_step.cuh's tensor-core step with the output. One
 // block of 12 warps per (batch, head): 8 consumer warps hold the fp32 state in
-// registers and run the step; the producer warpgroup (4 warps, 16 rows each)
-// reads the raw q/k/v, gate and rope rows of the next mini-batch from device
-// memory and prepares them (L2-norm, rope, target LN, eta) into a two-stage
-// ring signalled by full/empty mbarriers: bf16 XQ/XK and eta in shared
-// memory, the fp32 targets (16 KiB a stage) in a 32 KiB workspace a scan
-// that stays in the L2. The step's tiles stay in shared memory (TrainSmem,
-// ~208 KiB).
+// registers and run the step; the producer warpgroup (4 warps, CS / 4 rows
+// each) reads the raw q/k/v, gate and rope rows of the next mini-batch from
+// device memory and prepares them (L2-norm, rope, target LN, eta) into a
+// two-stage ring signalled by full/empty mbarriers: bf16 XQ/XK and eta in
+// shared memory, the fp32 targets (CS / 4 KiB a stage) in a workspace of two
+// stages a scan that stays in the L2. The step's tiles stay in shared memory
+// (TrainSmem<NS>: ~208 KiB at CS 64, ~80 KiB at 16).
 
 namespace {
 
 namespace ts = ttts;
 
+template <int NS>
 struct TrainSmem {
-  static constexpr int kTok = ts::tile_elems<ts::kF>(ts::kCS), kWide = ts::tile_elems<ts::kF4>(ts::kCS);
+  static constexpr int kCS = ts::kSlab * NS;
+  static constexpr int kTok = ts::tile_elems<ts::kF>(kCS), kWide = ts::tile_elems<ts::kF4>(kCS);
   __nv_bfloat16 xq[2][kTok], xk[2][kTok];  // the prepared ring (the targets go through the workspace)
-  float eta[2][ts::kCS];
+  float eta[2][kCS];
   __nv_bfloat16 x2c[kWide], x2b[kWide], g1[kWide], w2s[ts::tile_elems<ts::kF>(ts::kF4)];
-  float z2[ts::kCS * ts::kLdZ];
+  float z2[kCS * ts::kLdZ];
   __nv_bfloat16 gz2[kTok], g2[kTok];
   float b1[ts::kF4];
   uint64_t full[2], empty[2];
 };
-constexpr int kTrainSmemBytes = sizeof(TrainSmem);
-static_assert(kTrainSmemBytes <= 232448, "exceeds the 227 KB shared-memory opt-in");
+static_assert(sizeof(TrainSmem<4>) <= 232448, "exceeds the 227 KB shared-memory opt-in");
 
 struct TrainArgs {
   tttb::ScanArgs a;
@@ -585,11 +587,14 @@ struct TrainArgs {
   float* work;  // per scan, the two stages of the LN-reconstruction targets [2][CS][F]
   int K;  // 0: no checkpoints (sampling)
 };
-constexpr int kTrainWorkFloats = 2 * ts::kCS * ts::kF;
+template <int NS>
+constexpr int kTrainWorkFloats = 2 * ts::kSlab * NS * ts::kF;
 
+template <int NS>
 __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(const TrainArgs A) {
+  constexpr int kCS = ts::kSlab * NS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TrainSmem& S = *reinterpret_cast<TrainSmem*>(smem_raw);
+  TrainSmem<NS>& S = *reinterpret_cast<TrainSmem<NS>*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.x, b = bh / A.a.H, h = bh % A.a.H, NC = A.a.NC;
   if (threadIdx.x == 0) {
@@ -605,9 +610,9 @@ __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(cons
     for (int n = 0; n < NC; ++n) {
       const int s = n & 1;
       if (n >= 2) hopper::mbar_wait(&S.empty[s], ((n >> 1) - 1) & 1);
-      const ts::Prep p{S.xq[s], S.xk[s], A.work + ((size_t)bh * 2 + s) * ts::kCS * ts::kF, S.eta[s], nullptr, nullptr,
+      const ts::Prep p{S.xq[s], S.xk[s], A.work + ((size_t)bh * 2 + s) * kCS * ts::kF, S.eta[s], nullptr, nullptr,
                        nullptr};
-      ts::prepare_rows<16>(p, A.a, A.ln_w, A.ln_b, b, h, n, warp - ts::kWarps, lane);
+      ts::prepare_rows<NS, kCS / 4>(p, A.a, A.ln_w, A.ln_b, b, h, n, warp - ts::kWarps, lane);
       hopper::mbar_arrive(&S.full[s]);
     }
     return;
@@ -628,27 +633,40 @@ __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(cons
                      warp, lane);
     }
     hopper::mbar_wait(&S.full[s], (n >> 1) & 1);
-    const ts::Prep p{S.xq[s], S.xk[s], A.work + ((size_t)bh * 2 + s) * ts::kCS * ts::kF, S.eta[s], nullptr, nullptr,
+    const ts::Prep p{S.xq[s], S.xk[s], A.work + ((size_t)bh * 2 + s) * kCS * ts::kF, S.eta[s], nullptr, nullptr,
                      nullptr};
-    ts::forward_step<true>(st, p, T, A.ln_w + (size_t)h * ts::kF, A.ln_b + (size_t)h * ts::kF, A.out, ((size_t)b * NC + n) * ts::kCS * HF + (size_t)h * ts::kF, HF,
-                           warp, lane);
+    ts::forward_step<NS, true>(st, p, T, A.ln_w + (size_t)h * ts::kF, A.ln_b + (size_t)h * ts::kF, A.out,
+                               ((size_t)b * NC + n) * kCS * HF + (size_t)h * ts::kF, HF, warp, lane);
     hopper::mbar_arrive(&S.empty[s]);
   }
 }
 
 }  // namespace
 
-extern "C" int ttt_mlp_forward_train_smem_bytes() { return kTrainSmemBytes; }
+// Shared memory of the training kernel's instantiation for mini-batch cs (an error code, negative, for a CS it
+// is not built for).
+extern "C" int ttt_mlp_forward_train_smem_bytes(int cs) {
+  int bytes = -static_cast<int>(cudaErrorInvalidValue);
+  ts::with_slabs(cs, [&](auto ns) { return bytes = (int)sizeof(TrainSmem<decltype(ns)::value>); });
+  return bytes;
+}
 
-extern "C" long long ttt_mlp_forward_train_workspace_floats() { return kTrainWorkFloats; }
+// Floats of the training kernel's workspace a (batch, head) at mini-batch cs (negative for a CS it does not take).
+extern "C" long long ttt_mlp_forward_train_workspace_floats(int cs) {
+  long long floats = -1;
+  ts::with_slabs(cs, [&](auto ns) { return (int)(floats = kTrainWorkFloats<decltype(ns)::value>); });
+  return floats;
+}
 
 namespace {
 
+template <int NS>
 int launch_train(const TrainArgs& A, int B, int H, void* stream) {
+  constexpr int kBytes = sizeof(TrainSmem<NS>);
   cudaError_t err =
-      cudaFuncSetAttribute(ttt_mlp_fwd_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTrainSmemBytes);
+      cudaFuncSetAttribute(ttt_mlp_fwd_train_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ttt_mlp_fwd_train_kernel<<<B * H, ts::kThreads, kTrainSmemBytes, static_cast<cudaStream_t>(stream)>>>(A);
+  ttt_mlp_fwd_train_kernel<NS><<<B * H, ts::kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -658,7 +676,7 @@ extern "C" int ttt_mlp_forward_train(const void* xq, const void* xk, const void*
                                      const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
                                      const void* W1, const void* b1, const void* W2, const void* b2, void* out,
                                      void* w1_ck, void* b1_ck, void* w2_ck, void* b2_ck, void* work, int B, int NC,
-                                     int H, int K, float eta_scale, void* stream) {
+                                     int H, int CS, int K, float eta_scale, void* stream) {
   const TrainArgs A{{static_cast<const __nv_bfloat16*>(xq), static_cast<const __nv_bfloat16*>(xk),
                      static_cast<const __nv_bfloat16*>(xv), static_cast<const float*>(gate),
                      static_cast<const float*>(rope_cos), static_cast<const float*>(rope_sin), NC, H, eta_scale},
@@ -666,17 +684,17 @@ extern "C" int ttt_mlp_forward_train(const void* xq, const void* xk, const void*
                     static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
                     static_cast<__nv_bfloat16*>(out), static_cast<float*>(w1_ck), static_cast<float*>(b1_ck),
                     static_cast<float*>(w2_ck), static_cast<float*>(b2_ck), static_cast<float*>(work), K};
-  return launch_train(A, B, H, stream);
+  return ts::with_slabs(CS, [&](auto ns) { return launch_train<decltype(ns)::value>(A, B, H, stream); });
 }
 
 // Shared memory of the kernel ttt_mlp_forward launches at mini-batch cs (an error code for a CS it does not take).
 extern "C" int ttt_mlp_forward_smem_bytes(int cs) {
-  return cs == 16 ? kSmemBytes : cs == 64 ? kTrainSmemBytes : -static_cast<int>(cudaErrorInvalidValue);
+  return cs == 16 ? kSmemBytes : ttt_mlp_forward_train_smem_bytes(cs);
 }
 
-// K1, sampling (no checkpoints), by mini-batch: CS = 16 the sampling kernel, CS = 64 the training kernel with
-// K = 0 and its LN targets in ``work`` (B H ttt_mlp_forward_train_workspace_floats() floats; unused at CS = 16).
-// These cases are the sampling mini-batches (ops/ttt_mlp_kernel.py:KERNEL_MINI_BATCHES).
+// K1, sampling (no checkpoints), by mini-batch: CS = 16 the sampling kernel, CS = 32, 48 and 64 the training
+// kernel with K = 0 and its LN targets in ``work`` (B H ttt_mlp_forward_train_workspace_floats(CS) floats; unused
+// at CS = 16). These cases are the sampling mini-batches (ops/ttt_mlp_kernel.py:KERNEL_MINI_BATCHES).
 extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, const void* gate,
                                const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
                                const void* W1, const void* b1, const void* W2, const void* b2, void* out, void* work,
@@ -695,9 +713,11 @@ extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, c
       ttt_mlp_fwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
       return static_cast<int>(cudaGetLastError());
     }
+    case 32:
+    case 48:
     case 64:
       return ttt_mlp_forward_train(xq, xk, xv, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out, nullptr,
-                                   nullptr, nullptr, nullptr, work, B, NC, H, 0, eta_scale, stream);
+                                   nullptr, nullptr, nullptr, work, B, NC, H, CS, 0, eta_scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

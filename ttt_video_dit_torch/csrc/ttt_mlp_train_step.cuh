@@ -1,8 +1,10 @@
-// The TTT-MLP training step at mini-batch CS = 64, head_dim F = 64, on the
-// tensor cores, for Hopper (sm_90a). Shared by K1-train
-// (ttt_mlp_forward.cu:ttt_mlp_fwd_train_kernel, with the output) and K2's
-// pass A (ttt_mlp_backward.cu, state advance only), and the fragment
-// loaders K2's pass B uses.
+// The TTT-MLP training step at mini-batch CS = 16 NS (NS = 1..4 slabs of 16
+// tokens), head_dim F = 64, on the tensor cores, for Hopper (sm_90a). Shared
+// by K1-train (ttt_mlp_forward.cu:ttt_mlp_fwd_train_kernel, with the output;
+// also K1 at CS 32-64) and K2's pass A (ttt_mlp_backward.cu, state advance
+// only), and the fragment loaders K2's pass B uses. Every piece that depends
+// on CS is a template on NS; ttt_mlp_block.cuh:with_slabs instantiates
+// CS 16, 32, 48 and 64.
 //
 // One block owns one (batch, head) scan: 8 consumer warps (256 threads) run
 // the step, a producer warpgroup (4 warps) prepares the next mini-batch.
@@ -13,21 +15,24 @@
 //   a thread; State below). The bf16 pairs of W1^T are the B fragments of
 //   XK W1 and XQ W1, those of W2 the B fragments of grad_z2 W2^T; the updates
 //   W1^T -= G1^T XK and W2 -= X2c^T G2 accumulate into the same registers.
-// - The 64 tokens are four 16-row slabs. Products over the warp's own units
+// - The CS tokens are NS 16-row slabs. Products over the warp's own units
 //   (Z1, grad_z2 W2^T, Z1_bar) run slab by slab with the B operand from the
 //   state. Products that sum over all 256 units (Z2, Z2_bar, attn2) read bf16
-//   tiles from shared memory: X2c and X2_barc [64][256], and a bf16 copy of
+//   tiles from shared memory: X2c and X2_barc [CS][256], and a bf16 copy of
 //   W2 [256][64] that each warp refreshes from its registers after the update;
 //   warp w computes the 16 x 32 output block (rows 16 (w / 2), columns
-//   32 (w % 2)), so no partial sums are reduced across warps. gelu'(Z1) is
+//   32 (w % 2)), so no partial sums are reduced across warps. Those are 2 NS
+//   blocks: at CS 64 every warp has one, below it warps 2 NS..7 skip the
+//   product (owns_block) and wait at the next barrier. gelu'(Z1) is
 //   recomputed with Z1 where G1 needs it (the 64 KiB it would take in shared
-//   memory do not fit beside the tiles).
+//   memory at CS 64 do not fit beside the tiles).
+// - Row passes (the LayerNorms and their VJPs) take CS / 8 rows a warp.
 // - Operands are rounded to bf16 exactly where _mlp_kernel calls
 //   .astype(dt) (XQ/XK, every W, X2c, bf16(grad_z2), G2, G1, attn1, attn2,
 //   X2_barc); only the fp32 summation order differs from the plain version.
 // - Every bf16 tile in shared memory pads its rows by 16 bytes, so ldmatrix
 //   of 8 rows at one column hits 8 different banks.
-// - G1 goes to a [64][256] tile in shared memory too (32 registers of its
+// - G1 goes to a [CS][256] tile in shared memory too (32 registers of its
 //   fragments spilled when held), read back as the B operand of attn1 G1
 //   and, transposed, as the A operand of the W1 update. attn1 and attn2 are
 //   recomputed as A fragments, 16 tokens at a time, where Z1_bar and Z2_bar
@@ -52,10 +57,11 @@ using bf16 = __nv_bfloat16;
 using hopper::mma_bf16_16816;
 using hopper::pack_bf16;
 using tttb::warp_sum;
+using tttb::with_slabs;
 
 constexpr int kF = 64;
 constexpr int kF4 = 4 * kF;
-constexpr int kCS = 64;
+constexpr int kSlab = 16;               // tokens a slab (one m16 tile)
 constexpr int kWarps = 8;                // consumer warps
 constexpr int kConsumers = 32 * kWarps;  // consumer threads
 constexpr int kThreads = kConsumers + 128;
@@ -66,6 +72,11 @@ constexpr int kConsumerRegs = 232;
 constexpr int kConsumerBar = 1;
 constexpr int kLdZ = kF + 4;  // row stride of the fp32 [CS][F] row buffers
 constexpr uint32_t kSignBits = 0x80008000u;
+
+// Whether consumer warp ``warp`` computes a 16 x 32 block of a [CS][F] result (2 NS blocks; all 8 warps at
+// CS 64, where the test is not compiled).
+template <int NS>
+__device__ __forceinline__ bool owns_block(int warp) { return NS == kWarps / 2 || warp < 2 * NS; }
 
 // bf16 tiles in shared memory hold rows of L elements padded to L + 8 (16 bytes more), so that ldmatrix of 8
 // rows at one column hits 8 different banks; every offset of a step's fragment loads is then a constant from
@@ -272,12 +283,12 @@ __device__ __forceinline__ void xyt_block(uint32_t (&a)[4], const bf16* X, const
   a[3] = pack_bf16(sg * acc[1][2], sg * acc[1][3]);
 }
 
-// acc[u] += bf16(+-X[16 s..] @ Y^T) @ Z[0..63, the warp's units], Z a padded token-major [CS][4F] tile.
-template <int LK>
+// acc[u] += bf16(+-X[16 s..] @ Y^T) @ Z[0..CS-1, the warp's units], Z a padded token-major [CS][4F] tile.
+template <int LK, int NS>
 __device__ __forceinline__ void unit_mm_xyt(float (&acc)[4][4], const bf16* X, const bf16* Y, int s, bool neg,
                                             const bf16* Z, int warp, int lane) {
 #pragma unroll 1
-  for (int kt = 0; kt < kCS / 16; ++kt) {
+  for (int kt = 0; kt < NS; ++kt) {
     uint32_t a[4];
     xyt_block<LK>(a, X, Y, s, kt, neg, lane);
 #pragma unroll
@@ -291,11 +302,11 @@ __device__ __forceinline__ void unit_mm_xyt(float (&acc)[4][4], const bf16* X, c
 }
 
 // acc (the warp's 16 x 32 block, rows 16 s.., columns c0..) += bf16(+-X[16 s..] @ Y^T) @ Z, Z a padded [CS][F] tile.
-template <int LK>
+template <int LK, int NS>
 __device__ __forceinline__ void block_mm_xyt(float (&acc)[4][4], const bf16* X, const bf16* Y, int s, bool neg,
                                              const bf16* Z, int c0, int lane) {
 #pragma unroll 1
-  for (int kt = 0; kt < kCS / 16; ++kt) {
+  for (int kt = 0; kt < NS; ++kt) {
     uint32_t a[4];
     xyt_block<LK>(a, X, Y, s, kt, neg, lane);
 #pragma unroll
@@ -310,10 +321,10 @@ __device__ __forceinline__ void block_mm_xyt(float (&acc)[4][4], const bf16* X, 
 
 // d[m][..] += (+-) X^T[the warp's units, tokens] @ Y: X a padded token-major [CS][4F] tile, Y a padded [CS][F]
 // tile (the update-shaped products: W -= X^T G, and the gradient carries).
-template <bool kNeg = false>
+template <int NS, bool kNeg = false>
 __device__ __forceinline__ void rows_update(float (&d)[2][8][4], const bf16* X, const bf16* Y, int warp, int lane) {
 #pragma unroll
-  for (int sk = 0; sk < kCS / 16; ++sk) {
+  for (int sk = 0; sk < NS; ++sk) {
     uint32_t a[2][4];
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
@@ -372,9 +383,11 @@ struct Prep {
 
 // L2-norm, rope, target LN and eta of rows kRows pw .. kRows (pw + 1) - 1 of mini-batch n (lane: features
 // 2 lane, + 1).
-template <int kRows>
+template <int NS, int kRows>
 __device__ __forceinline__ void prepare_rows(const Prep& p, const tttb::ScanArgs& a, const float* ln_w,
                                              const float* ln_b, int b, int h, int n, int pw, int lane) {
+  static_assert(kRows <= 32, "one lane a row for eta");
+  constexpr int kCS = kSlab * NS;
   const int f0 = 2 * lane;
   const size_t HF = (size_t)a.H * kF;
   const float2 lw = *reinterpret_cast<const float2*>(ln_w + (size_t)h * kF + f0);
@@ -495,14 +508,16 @@ __device__ __forceinline__ void stash_state(const State& st, bf16* W1t, bf16* W2
       }
 }
 
-// grad_z2 = ln_fused_l2_bwd(Z2 + b2, target) for rows 8 warp .. 8 warp + 7 (eps 1e-8 on the biased variance):
+// grad_z2 = ln_fused_l2_bwd(Z2 + b2, target) for the warp's 2 NS rows (eps 1e-8 on the biased variance):
 // bf16(grad_z2) into gz2, G2 = bf16(eta grad_z2) into g2.
+template <int NS>
 __device__ __forceinline__ void grad_z2_rows(const Tiles& T, const Prep& p, float2 b2, const float* ln_w,
                                              const float* ln_b, int warp, int lane) {
+  constexpr int kR = 2 * NS;  // rows a warp
   const int f0 = 2 * lane;
   const float2 lw = *reinterpret_cast<const float2*>(ln_w + f0), lb = *reinterpret_cast<const float2*>(ln_b + f0);
 #pragma unroll 2
-  for (int r = 8 * warp; r < 8 * warp + 8; ++r) {
+  for (int r = kR * warp; r < kR * warp + kR; ++r) {
     const float2 z = *reinterpret_cast<const float2*>(T.z2 + r * kLdZ + f0);
     const float x0 = z.x + b2.x, x1 = z.y + b2.y;
     const float mu = warp_sum(x0 + x1) * (1.f / kF);
@@ -524,16 +539,18 @@ __device__ __forceinline__ void grad_z2_rows(const Tiles& T, const Prep& p, floa
 
 // One dual-form step (ttt_forward.py:_mlp_kernel, l.298-322) on the state ``st``; ln_w/ln_b: the head's LN affine. With kOut it also writes
 // out = XQ + LN(Z2_bar) for mini-batch n at ``out`` (token-major, head h); without, it only advances the state.
-template <bool kOut>
+template <int NS, bool kOut>
 __device__ __forceinline__ void forward_step(State& st, const Prep& p, const Tiles& T, const float* ln_w,
                                              const float* ln_b, bf16* out, size_t out_row0, size_t out_stride,
                                              int warp, int lane) {
+  constexpr int kR = 2 * NS;  // rows a warp in the row passes
   const int g = lane >> 2, t = lane & 3, f0 = 2 * lane;
   const int r0 = 16 * (warp >> 1), c0 = 32 * (warp & 1);  // the warp's block of [CS][F] or [CS][CS] results
+  const bool blk = owns_block<NS>(warp);
 
   // Z1 = XK @ bf16(W1) + b1; X2c = bf16(gelu(Z1)), slab by slab.
 #pragma unroll 1
-  for (int s = 0; s < 4; ++s) {
+  for (int s = 0; s < NS; ++s) {
     float z[4][4] = {};
     slab_by_state(z, p.xk, s, st.w1, lane);
     uint32_t x2[4][2];
@@ -553,13 +570,13 @@ __device__ __forceinline__ void forward_step(State& st, const Prep& p, const Til
   hopper::named_sync(kConsumerBar, kConsumers);  // X2c written
 
   // Z2 = X2c @ bf16(W2) (b2 added by the row pass).
-  {
+  if (blk) {
     float z2[4][4] = {};
     block_mm<kF4, kF4, kF, false>(z2, T.x2c, r0, T.w2s, c0, lane);
     store_block(T.z2, kLdZ, z2, r0, c0, lane);
   }
   hopper::named_sync(kConsumerBar, kConsumers);  // Z2 written
-  grad_z2_rows(T, p, st.b2, ln_w, ln_b, warp, lane);
+  grad_z2_rows<NS>(T, p, st.b2, ln_w, ln_b, warp, lane);
   hopper::named_sync(kConsumerBar, kConsumers);  // bf16(grad_z2), G2 written
 
   // G1 = bf16(eta * (bf16(grad_z2) @ bf16(W2)^T * gelu'(Z1))) on the warp's units, Z1 recomputed, into the warp's
@@ -567,7 +584,7 @@ __device__ __forceinline__ void forward_step(State& st, const Prep& p, const Til
   {
     float cs[4][2] = {};
 #pragma unroll 1
-    for (int s = 0; s < 4; ++s) {
+    for (int s = 0; s < NS; ++s) {
       const float eta_lo = p.eta[16 * s + g], eta_hi = p.eta[16 * s + g + 8];
       uint32_t g1[4][2];
 #pragma unroll
@@ -612,10 +629,10 @@ __device__ __forceinline__ void forward_step(State& st, const Prep& p, const Til
 
   if (kOut) {  // Z1_bar = XQ @ bf16(W1) - attn1 @ G1 + b1 (the new b1); X2_barc = bf16(gelu(Z1_bar)).
 #pragma unroll 1
-    for (int s = 0; s < 4; ++s) {
+    for (int s = 0; s < NS; ++s) {
       float zb[4][4] = {};
       slab_by_state(zb, p.xq, s, st.w1, lane);
-      unit_mm_xyt<kF>(zb, p.xq, p.xk, s, true, T.g1, warp, lane);
+      unit_mm_xyt<kF, NS>(zb, p.xq, p.xk, s, true, T.g1, warp, lane);
       uint32_t xb[4][2];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -631,25 +648,27 @@ __device__ __forceinline__ void forward_step(State& st, const Prep& p, const Til
     }
   }
   // W1^T -= G1^T @ XK.
-  rows_update<true>(st.w1, T.g1, p.xk, warp, lane);
+  rows_update<NS, true>(st.w1, T.g1, p.xk, warp, lane);
 
   if (kOut) {
     hopper::named_sync(kConsumerBar, kConsumers);  // X2_barc written
     // Z2_bar without b2 = X2_barc @ bf16(W2) - bf16(X2_barc @ X2c^T) @ G2.
-    float zb2[4][4] = {};
-    block_mm<kF4, kF4, kF, false>(zb2, T.x2b, r0, T.w2s, c0, lane);
-    block_mm_xyt<kF4>(zb2, T.x2b, T.x2c, r0 / 16, true, T.g2, c0, lane);
-    store_block(T.z2, kLdZ, zb2, r0, c0, lane);
+    if (blk) {
+      float zb2[4][4] = {};
+      block_mm<kF4, kF4, kF, false>(zb2, T.x2b, r0, T.w2s, c0, lane);
+      block_mm_xyt<kF4, NS>(zb2, T.x2b, T.x2c, r0 / 16, true, T.g2, c0, lane);
+      store_block(T.z2, kLdZ, zb2, r0, c0, lane);
+    }
     hopper::named_sync(kConsumerBar, kConsumers);  // Z2_bar written; nobody reads bf16(W2) any more this step
   }
 
   // W2 -= X2c^T @ G2 (the warp's rows), then refresh its rows of bf16(W2); b2 -= colsum(G2).
-  rows_update<true>(st.w2, T.x2c, T.g2, warp, lane);
+  rows_update<NS, true>(st.w2, T.x2c, T.g2, warp, lane);
   store_state_rows(T.w2s, st.w2, warp, lane);
   {
     float2 cs = make_float2(0.f, 0.f);
 #pragma unroll 8
-    for (int r = 0; r < kCS; ++r) {
+    for (int r = 0; r < kSlab * NS; ++r) {
       const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(T.g2 + swz<kF>(r, f0)));
       cs.x += v.x;
       cs.y += v.y;
@@ -658,10 +677,10 @@ __device__ __forceinline__ void forward_step(State& st, const Prep& p, const Til
     st.b2.y -= cs.y;
   }
 
-  if (kOut) {  // rows 8 warp ..: out = XQ + LN(Z2_bar + b2) (eps 1e-8 on the biased variance)
+  if (kOut) {  // the warp's rows: out = XQ + LN(Z2_bar + b2) (eps 1e-8 on the biased variance)
     const float2 lw = *reinterpret_cast<const float2*>(ln_w + f0), lb = *reinterpret_cast<const float2*>(ln_b + f0);
 #pragma unroll 2
-    for (int r = 8 * warp; r < 8 * warp + 8; ++r) {
+    for (int r = kR * warp; r < kR * warp + kR; ++r) {
       const float2 z = *reinterpret_cast<const float2*>(T.z2 + r * kLdZ + f0);
       const float x0 = z.x + st.b2.x, x1 = z.y + st.b2.y;
       const float mu = warp_sum(x0 + x1) * (1.f / kF);

@@ -58,7 +58,7 @@ bwd_launches = 0
 launches_by_cs = collections.Counter()
 
 KERNEL_HEAD_DIM = 64
-# The mini-batch sizes K5 and K6 are built for: csrc/ttt_linear_step.cuh:with_slabs instantiates these (a test
+# The mini-batch sizes K5 and K6 are built for: csrc/ttt_mlp_block.cuh:with_slabs instantiates these (a test
 # holds the two lists together); the C entries take CS and refuse any other.
 KERNEL_MINI_BATCHES = (16, 32, 48, 64)
 

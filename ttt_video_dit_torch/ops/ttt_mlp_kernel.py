@@ -8,13 +8,17 @@ in-kernel-gate form that ttt_vjp.py:ttt_mlp_fused_pre dispatches. Kernels:
 
 - ``ttt_mlp_forward``: K1 for sampling (no state checkpoints),
   ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward``: at CS = 16 its own kernel,
-  at CS = 64 the training kernel with no checkpoints (KERNEL_MINI_BATCHES);
-- ``ttt_mlp_forward_train``: K1 for training (CS = 64), which also writes the
-  fp32 state at the start of every group of K mini-batches (the last group
-  may be ragged), ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward_train``;
+  at CS = 32, 48 and 64 the training kernel with no checkpoints;
+- ``ttt_mlp_forward_train``: K1 for training, which also writes the fp32
+  state at the start of every group of K mini-batches (the last group may be
+  ragged), ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward_train``;
 - ``ttt_mlp_backward``: K2, K1's VJP from those checkpoints,
   ``csrc/ttt_mlp_backward.cu``;
 - ``TTTMLPFunction``: K1-train forward, K2 backward.
+
+All three kernels take head_dim F = 64 and the mini-batches CS in
+KERNEL_MINI_BATCHES, 16, 32, 48 and 64: K1-train and K2 are one template on
+the CS / 16 slabs of ``csrc/ttt_mlp_train_step.cuh``.
 
 Inputs are the RAW token-major projections and the pre-sigmoid LR-gate
 logits; the scan applies L2-norm + rope to q/k, builds the
@@ -45,18 +49,17 @@ from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_mlp_step
 from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): K1 for
-# sampling, K1 for training, K2; and K1's by mini-batch,
-# launches_by_cs["launches", CS].
+# sampling, K1 for training, K2; and each by mini-batch,
+# launches_by_cs[counter name, CS].
 launches = 0
 train_launches = 0
 bwd_launches = 0
 launches_by_cs = collections.Counter()
 
 KERNEL_HEAD_DIM = 64
-# The mini-batch sizes K1 (sampling) takes: csrc/ttt_mlp_forward.cu:ttt_mlp_forward's cases (a test holds the two
-# together). K1-train and K2 take KERNEL_TRAIN_MINI_BATCH only.
-KERNEL_MINI_BATCHES = (16, 64)
-KERNEL_TRAIN_MINI_BATCH = 64
+# The mini-batch sizes K1, K1-train and K2 take: csrc/ttt_mlp_forward.cu:ttt_mlp_forward's cases and
+# csrc/ttt_mlp_block.cuh:with_slabs's (a test holds the three together).
+KERNEL_MINI_BATCHES = (16, 32, 48, 64)
 
 
 # ------------------------------------------------------------ plain versions
@@ -307,30 +310,34 @@ def _lib(name: str = "ttt_mlp_forward"):
         lib.ttt_mlp_forward.restype = ctypes.c_int
         lib.ttt_mlp_forward_smem_bytes.argtypes = [ctypes.c_int]
         lib.ttt_mlp_forward_smem_bytes.restype = ctypes.c_int
-        lib.ttt_mlp_forward_train.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
+        lib.ttt_mlp_forward_train.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
                                               + [ctypes.c_float, ctypes.c_void_p])
         lib.ttt_mlp_forward_train.restype = ctypes.c_int
+        lib.ttt_mlp_forward_train_smem_bytes.argtypes = [ctypes.c_int]
+        lib.ttt_mlp_forward_train_smem_bytes.restype = ctypes.c_int
+        lib.ttt_mlp_forward_train_workspace_floats.argtypes = [ctypes.c_int]
         lib.ttt_mlp_forward_train_workspace_floats.restype = ctypes.c_longlong
     if name == "ttt_mlp_backward" and lib.ttt_mlp_backward.argtypes is None:
-        lib.ttt_mlp_backward.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        lib.ttt_mlp_backward.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         lib.ttt_mlp_backward.restype = ctypes.c_int
-        lib.ttt_mlp_backward_workspace_bytes.argtypes = [ctypes.c_int]
+        lib.ttt_mlp_backward_smem_bytes.argtypes = [ctypes.c_int]
+        lib.ttt_mlp_backward_smem_bytes.restype = ctypes.c_int
+        lib.ttt_mlp_backward_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ttt_mlp_backward_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2,
-                      mini_batches: tuple = KERNEL_MINI_BATCHES) -> None:
+def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2) -> None:
     """Raise ValueError unless the arguments are what the CUDA kernels take:
-    F = 64, CS in ``mini_batches`` (KERNEL_MINI_BATCHES for sampling, 64 for
-    training), bf16 token-major q/k/v, float32 everything else, every tensor
-    contiguous and on one CUDA device, shapes consistent."""
+    F = 64, CS in KERNEL_MINI_BATCHES (16, 32, 48 or 64, for sampling and
+    training alike), bf16 token-major q/k/v, float32 everything else, every
+    tensor contiguous and on one CUDA device, shapes consistent."""
     if XQ.ndim != 4:
         raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
-    if F != KERNEL_HEAD_DIM or CS not in mini_batches:
-        raise ValueError(f"this TTT-MLP kernel supports F={KERNEL_HEAD_DIM} and CS in {mini_batches}; "
+    if F != KERNEL_HEAD_DIM or CS not in KERNEL_MINI_BATCHES:
+        raise ValueError(f"the TTT-MLP kernels support F={KERNEL_HEAD_DIM} and CS in {KERNEL_MINI_BATCHES}; "
                          f"got F={F}, CS={CS}")
     expected = {
         "XQ": (XQ, (B, NC, CS, H * F), torch.bfloat16), "XK": (XK, (B, NC, CS, H * F), torch.bfloat16),
@@ -407,8 +414,8 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
     lib = _lib()
     check_smem(lib, "ttt_mlp_forward", CS, XQ.device)
     out = torch.empty_like(XQ)
-    # At CS = 64 the training kernel's LN targets go through a workspace (the CS-16 kernel takes none).
-    floats = B * H * lib.ttt_mlp_forward_train_workspace_floats() if CS == KERNEL_TRAIN_MINI_BATCH else 4
+    # Past CS = 16 the training kernel's LN targets go through a workspace (the CS-16 kernel takes none).
+    floats = B * H * lib.ttt_mlp_forward_train_workspace_floats(CS) if CS != 16 else 4
     work = torch.empty(floats, dtype=torch.float32, device=XQ.device)
     _launch(lib, "ttt_mlp_forward", (*args, out, work), (B, NC, H, CS), eta_scale, XQ.device)
     launches += 1
@@ -426,23 +433,25 @@ def ttt_mlp_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, 
     """Fused TTT-MLP forward for training: (out, W1_ck, b1_ck, W2_ck, b2_ck),
     the fp32 state at the start of every group of ``checkpoint_group``
     mini-batches. A custom op (so a selective-checkpoint policy can name it,
-    models/dit/dit.py): on CUDA tensors it launches the kernel (CS = 64) or
-    raises; on CPU tensors it runs the plain version."""
+    models/dit/dit.py): on CUDA tensors it launches the kernel or raises; on
+    CPU tensors it runs the plain version."""
     global train_launches
-    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, (KERNEL_TRAIN_MINI_BATCH,))
-    B, NC, _, _ = XQ.shape
+    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
+    B, NC, CS, _ = XQ.shape
     H, F = ln_w.shape
     K = _group(checkpoint_group, NC)
     NG = -(-NC // K)
     lib = _lib()
+    check_smem(lib, "ttt_mlp_forward_train", CS, XQ.device)
     out = torch.empty_like(XQ)
     new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
     ckpts = (new(B, H, NG, F, 4 * F), new(B, H, NG, 1, 4 * F), new(B, H, NG, 4 * F, F), new(B, H, NG, 1, F))
-    work = new(B * H * lib.ttt_mlp_forward_train_workspace_floats())
+    work = new(B * H * lib.ttt_mlp_forward_train_workspace_floats(CS))
     _launch(lib, "ttt_mlp_forward_train",
             (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out, *ckpts, work),
-            (B, NC, H, K), eta_scale, XQ.device)
+            (B, NC, H, CS, K), eta_scale, XQ.device)
     train_launches += 1
+    launches_by_cs["train_launches", CS] += 1
     return (out, *ckpts)
 
 
@@ -464,15 +473,14 @@ def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1
     """K2, the fused TTT-MLP backward from K1-train's checkpoints and the
     output cotangent ``dout``. Returns what :func:`ttt_mlp_backward_plain`
     returns. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (CS = 64) or raise."""
+    kernel or raise."""
     global bwd_launches
     refuse_dtensors("ttt_mlp_backward", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck,
                     b2_ck, dout)
     if XQ.device.type == "cpu":
         return ttt_mlp_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck,
                                       dout, eta_scale, checkpoint_group)
-    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, None, None, None, None,
-                      (KERNEL_TRAIN_MINI_BATCH,))
+    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, None, None, None, None)
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
     K = _group(checkpoint_group, NC)
@@ -483,16 +491,18 @@ def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1
         "dout": (dout, (B, NC, CS, HF), torch.bfloat16),
     }, XQ.device)
     lib = _lib("ttt_mlp_backward")
+    check_smem(lib, "ttt_mlp_backward", CS, XQ.device)
     new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
     dx = [torch.empty_like(XQ) for _ in range(3)]
     dgate = new(B, H, NC, CS)
     grads = (new(B, H, F, 4 * F), new(B, H, 1, 4 * F), new(B, H, 4 * F, F), new(B, H, 1, F), new(B, H, F), new(B, H, F))
-    work = torch.empty(B * H * lib.ttt_mlp_backward_workspace_bytes(K), dtype=torch.uint8, device=XQ.device)
+    work = torch.empty(B * H * lib.ttt_mlp_backward_workspace_bytes(CS, K), dtype=torch.uint8, device=XQ.device)
     _launch(lib, "ttt_mlp_backward",
             (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout,
              *dx, dgate, *grads, work),
-            (B, NC, H, K), eta_scale, XQ.device)
+            (B, NC, H, CS, K), eta_scale, XQ.device)
     bwd_launches += 1
+    launches_by_cs["bwd_launches", CS] += 1
     return (*dx, dgate, *(g.sum(dim=0) for g in grads))
 
 

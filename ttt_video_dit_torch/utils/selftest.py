@@ -19,9 +19,11 @@ max|kernel - plain| / max|plain|:
   bit-equal (K4 sums each element in a fixed order);
 - the sampling scans (B 2) at an even and an odd NC (K1's ring has two
   stages), and K7 bit for bit on a [12288, 3072] weight;
-- the wider mini-batches of each kernel's instantiations: K5, K5-train and
-  K6 at CS 32 and 64 (full and ragged; an eta-gate case at 64) and K1 at
-  CS 64 (the training kernel with no checkpoints), rows ``K5@CS64`` etc.
+- the other mini-batches of each kernel's instantiations: K5, K5-train and
+  K6 at CS 32 and 64 (full and ragged; an eta-gate case at 64), K1-train
+  and K2 at CS 16, 32 and 48 (full and ragged; an eta-gate case at 16) and
+  K1 at CS 32, 48 and 64 (the training kernel with no checkpoints), rows
+  ``K5@CS64``, ``K2@CS16`` etc.
 
 Every check's name ends with the kernel rows it drives, as PERF.md's table
 names them ([K1] ... [K7]; a row at another mini-batch than the kernel's
@@ -110,7 +112,8 @@ def launch_count(row_name: str) -> int:
 
 
 # Training cases: name, variant, heads, NC of the shared arrays, NC this case takes, checkpoint group K, CS, eta
-# as a multiple of the TOML's (the large ones: chip_smoke.py's LARGE_ETA_FACTOR, eta ~0.1 either way).
+# as a multiple of the TOML's (the large ones: chip_smoke.py's LARGE_ETA_FACTOR at the TOMLs' CS, and 1,024 for
+# TTT-MLP at CS 16: eta ~0.1 every way).
 TRAIN_CASES = (
     ("ttt_mlp full", "ttt_mlp", 8, 5, 4, 4, 64, 1),
     ("ttt_mlp ragged", "ttt_mlp", 8, 5, 5, 4, 64, 1),
@@ -124,6 +127,13 @@ TRAIN_CASES = (
     ("ttt_linear cs64 full", "ttt_linear", 8, 5, 4, 2, 64, 1),
     ("ttt_linear cs64 ragged", "ttt_linear", 8, 5, 5, 2, 64, 1),
     ("ttt_linear cs64 eta-gate", "ttt_linear", 8, 5, 5, 2, 64, 100),
+    ("ttt_mlp cs16 full", "ttt_mlp", 8, 9, 8, 4, 16, 1),
+    ("ttt_mlp cs16 ragged", "ttt_mlp", 8, 9, 9, 4, 16, 1),
+    ("ttt_mlp cs16 eta-gate", "ttt_mlp", 8, 9, 9, 4, 16, 1024),
+    ("ttt_mlp cs32 full", "ttt_mlp", 8, 5, 4, 2, 32, 1),
+    ("ttt_mlp cs32 ragged", "ttt_mlp", 8, 5, 5, 2, 32, 1),
+    ("ttt_mlp cs48 full", "ttt_mlp", 8, 5, 4, 2, 48, 1),
+    ("ttt_mlp cs48 ragged", "ttt_mlp", 8, 5, 5, 2, 48, 1),
 )
 # Sampling cases: name, variant, batch, heads, NC of the shared arrays, NC this case takes, CS.
 SAMPLE_CASES = (
@@ -137,6 +147,10 @@ SAMPLE_CASES = (
     ("ttt_linear sampling cs32 ragged", "ttt_linear", 2, 8, 5, 5, 32),
     ("ttt_linear sampling cs64 full", "ttt_linear", 2, 8, 5, 4, 64),
     ("ttt_linear sampling cs64 ragged", "ttt_linear", 2, 8, 5, 5, 64),
+    ("ttt_mlp sampling cs32 full", "ttt_mlp", 2, 8, 5, 4, 32),
+    ("ttt_mlp sampling cs32 ragged", "ttt_mlp", 2, 8, 5, 5, 32),
+    ("ttt_mlp sampling cs48 full", "ttt_mlp", 2, 8, 5, 4, 48),
+    ("ttt_mlp sampling cs48 ragged", "ttt_mlp", 2, 8, 5, 5, 48),
 )
 ATTENTION_SHAPE = (3, 417, 4, 64)  # 3 windows of a ragged 417 tokens, 4 heads
 RERUN_CHECK = "splash folded-windows rerun bit-equal [K4]"  # K4's determinism: two launches, the same bits
