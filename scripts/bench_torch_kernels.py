@@ -20,7 +20,10 @@ mini-batches of the 3 s slices (chip_smoke.py's phase-20 slices, only for a
 tree whose wrappers take them): K1 at CS 32 and 48, [B 2, NC 564 and 376,
 48 heads], and K1-train and K2 at CS 16, 32 and 48, [B 1, NC 1,128, 564 and
 376], K 16, each at eta_scale 0.1 / 64 / CS (keys ``K1_cs32_ms``,
-``K1_train_cs16_ms``, ``K2_cs16_ms`` etc.). Times are means
+``K1_train_cs16_ms``, ``K2_cs16_ms`` etc.); last, every TTT kernel at the
+half slabs of CS 8 and 24 at the 3 s slices (NC 2,256 and 752: K1 and K5 at
+B 2, the training kernels at B 1; keys ``K1_cs8_ms``, ``K6_cs24_ms`` etc.,
+only for a tree that takes them). Times are means
 by CUDA events after one warm-up; K7's and ``.to``'s device times are also
 read once from torch.profiler, so the wrapper's host time is not in them.
 Prints one JSON line.
@@ -214,6 +217,32 @@ def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
             ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
             out[f"K2_cs{cs}_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward(*ins, *ck, dout, eta, K_TRAIN), reps)
             del t, ck, dout, ins
+
+    # The half slabs at the 3 s slices, CS 8 and 24, where the tree's wrappers take them: K1 and K5 (B 2), K1-train
+    # and K2 (K 16), K5-train and K6 (K 4), 48 heads.
+    for cs in (8, 24):
+        if cs not in sampling_cs:
+            continue
+        t = mlp(2, cs)
+        out[f"K1_cs{cs}_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**t, eta_scale=0.1 / 64 / cs), reps)
+        t, eta = mlp(1, cs), 0.1 / 64 / cs
+        fwd = lambda: ttt_mlp_kernel.ttt_mlp_forward_train(**t, eta_scale=eta, checkpoint_group=K_TRAIN)
+        out[f"K1_train_cs{cs}_ms"] = cuda_ms(fwd, reps)
+        ck = fwd()[1:]
+        dout = randn(*t["XQ"].shape).bfloat16()
+        ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+        out[f"K2_cs{cs}_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward(*ins, *ck, dout, eta, K_TRAIN), reps)
+        t, eta = linear(2, SEQ // cs, cs, H), 1.0 / 64 / cs
+        out[f"K5_cs{cs}_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_forward(**t, eta_scale=eta), reps)
+        t = linear(1, SEQ // cs, cs, H)
+        fwd = lambda: ttt_linear_kernel.ttt_linear_forward_train(**t, eta_scale=eta, checkpoint_group=K_LINEAR)
+        out[f"K5_train_cs{cs}_ms"] = cuda_ms(fwd, reps)
+        ck = fwd()[1:]
+        dout = randn(*t["XQ"].shape).bfloat16()
+        ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+        out[f"K6_cs{cs}_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_backward(*ins, *ck, dout, eta, K_LINEAR),
+                                       reps)
+        del t, ck, dout, ins
     return out
 
 

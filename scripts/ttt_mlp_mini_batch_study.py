@@ -1,7 +1,7 @@
 """K1-train and K2 against their plain versions at the 5B TTT-MLP training slice of one mini-batch, and where
 the elements outside chip_smoke.py's elementwise tolerance lie.
 
-    python scripts/ttt_mlp_mini_batch_study.py [--cs 16] [--seeds 27] [--runs 3]
+    python scripts/ttt_mlp_mini_batch_study.py [--cs 16] [--seeds 27] [--runs 3] [--check-only]
 
 For each seed the inputs are drawn as chip_smoke.py draws the slice of
 check_ttt_training (its ``_ttt_inputs``: B 1, 48 heads, NC = 18,048 / CS, the
@@ -24,7 +24,15 @@ prints one JSON line per seed:
   K1-train's with no checkpoints) on the same inputs against the same plain
   output;
 - ``k2``: K2 from the plain checkpoints against the plain backward, for
-  dXQ, dXK, dXV and d_gate, as above.
+  dXQ, dXK, dXV and d_gate, as above;
+- ``group_check``: chip_smoke.py's long-scan check (check_scan_by_group: each
+  checkpoint group's output elementwise against the plain scan of that group
+  from the kernel's own checkpoint, the group's end state against the
+  kernel's next checkpoint, and K2's dXQ, dXK, dXV and d_gate by each group's
+  relative L2 error, both backwards from the kernel's checkpoints): whether
+  it passes, its message if not, and its largest errors.
+
+With ``--check-only`` a seed's line holds ``group_check`` alone.
 """
 
 from __future__ import annotations
@@ -64,11 +72,22 @@ def rel_l2_quarters(got, want, quarters: int = 4) -> list[float]:
     return [float((a - b).norm() / b.norm()) for a, b in zip(g.tensor_split(quarters), w.tensor_split(quarters))]
 
 
+def group_check(chip_smoke, a, eta, dout) -> dict:
+    """chip_smoke.check_scan_by_group on a draw: passed or not (and why), its largest errors."""
+    try:
+        r = chip_smoke.check_scan_by_group("ttt_mlp", a, K, eta, dout)
+    except AssertionError as e:
+        return {"passed": False, "error": str(e)}
+    return {"passed": True, "out_max_abs_err": r["err"], "end_states": r["ck_errs"],
+            "group_rel_l2": r["group_rel_l2"], "gradients_max_abs_err": r["gerr"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cs", type=int, default=16)
     ap.add_argument("--seeds", type=int, nargs="+", default=[27])
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--check-only", action="store_true", help="run chip_smoke.py's long-scan check alone")
     args = ap.parse_args()
     os.chdir(ROOT)
     import torch
@@ -89,6 +108,13 @@ def main() -> None:
         gen = torch.Generator(device).manual_seed(seed)
         a = chip_smoke._ttt_inputs(1, H, NC, gen, device, meta, CS=CS)
         rec = {"card": card, "cs": CS, "nc": NC, "k": K, "seed": seed}
+        if args.check_only:  # the draws of chip_smoke.py's slice: the inputs, then the output gradient
+            dout = torch.randn(*a["XQ"].shape, generator=gen, device=device).bfloat16()
+            rec["group_check"] = group_check(chip_smoke, a, eta, dout)
+            print(json.dumps(rec), flush=True)
+            del a, dout
+            torch.cuda.empty_cache()
+            continue
         got = tm.ttt_mlp_forward_train(**a, eta_scale=eta, checkpoint_group=K)
         differ = [0] * 5
         for _ in range(args.runs - 1):
@@ -124,8 +150,10 @@ def main() -> None:
         gp = tm.ttt_mlp_backward_plain(*ins, *want[1:], dout, eta, K)
         rec["k2"] = {n: outside(g, w, n_axis=2 if n == "d_gate" else 1)
                      for n, g, w in zip(("dXQ", "dXK", "dXV", "d_gate"), gk, gp)}
+        del gk, gp
+        rec["group_check"] = group_check(chip_smoke, a, eta, dout)
         print(json.dumps(rec), flush=True)
-        del a, want, dout, ins, gk, gp
+        del a, want, dout, ins
         torch.cuda.empty_cache()
 
 

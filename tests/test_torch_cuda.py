@@ -64,10 +64,12 @@ def _ttt_inputs(cuda, B, H, NC, seed=0, CS=16):
 # ring wraps in a step), and 3 x 48 scans, more blocks than the H100's 132 SMs;
 # at CS = 32, 48 and 64 (K1 through the training kernel with no checkpoints)
 # an even and an odd NC and the CFG batch of 48 heads, at the eta of the TOMLs'
-# base lr.
+# base lr; at the half slabs of CS 8, 24, 40 and 56 an odd NC, the last
+# mini-batch at the end of the tensors.
 @pytest.mark.parametrize("B,H,NC,CS", [(1, 3, 9, 16), (2, 2, 1, 16), (1, 2, 1, 16), (2, 3, 2, 16), (2, 2, 17, 16),
                                        (3, 48, 3, 16), (2, 2, 8, 64), (2, 3, 9, 64), (2, 48, 3, 64), (2, 2, 8, 32),
-                                       (2, 48, 3, 32), (2, 3, 9, 48), (2, 48, 3, 48)])
+                                       (2, 48, 3, 32), (2, 3, 9, 48), (2, 48, 3, 48), (2, 3, 9, 8), (2, 48, 3, 8),
+                                       (2, 3, 9, 24), (2, 3, 9, 40), (2, 3, 9, 56)])
 def test_ttt_kernel_matches_plain(cuda, B, H, NC, CS):
     args = _ttt_inputs(cuda, B, H, NC, CS=CS)
     eta = 1e-4 if CS == 16 else 0.1 / 64 / CS
@@ -194,7 +196,7 @@ def _train_inputs(cuda, B, H, NC, seed, CS=64):
 # The TOMLs' eta_scale (ttt_base_lr 0.1 / 64 / CS; None below), and 0.1 and 1.0 (at CS 64 4,096x and 40,960x
 # it), where the state update moves the output far (the plain output then lies at least 10 tolerances from the
 # eta = 0 output); at every mini-batch the kernels take.
-@pytest.mark.parametrize("CS", [16, 32, 48, 64])
+@pytest.mark.parametrize("CS", [8, 16, 24, 32, 40, 48, 56, 64])
 @pytest.mark.parametrize("B,H,NC,K,scale", [(1, 2, 5, 2, None), (2, 3, 3, 16, None), (1, 2, 5, 2, 0.1),
                                             (1, 2, 5, 2, 1.0)])
 def test_ttt_train_and_backward_kernels_match_plain(cuda, B, H, NC, K, scale, CS):
@@ -281,13 +283,15 @@ def _linear_inputs(cuda, B, H, NC, seed, CS=16):
 # shapes: 3 x 48 scans (more blocks than the H100's 132 SMs), NC = 1, and NC = 17 (the two-stage ring wraps
 # eight times; K = 5 leaves a last group of two). At CS 32, 48 and 64 (eta 1 / 64 / CS, and 100x it at 64):
 # full and ragged groups, K past NC, and at 64 the one-stage raw ring and K6's single pass-B buffer over 17
-# mini-batches and over 3 x 48 scans.
+# mini-batches and over 3 x 48 scans. At the half slabs of CS 8, 24, 40 and 56: ragged groups with the last
+# mini-batch at the end of the tensors, 100x the eta at 8, and 17 mini-batches at 56.
 @pytest.mark.parametrize("B,H,NC,K,scale,CS", [
     (2, 3, 9, 4, 1 / 1024, 16), (1, 2, 5, 2, 1 / 1024, 16), (1, 2, 3, 16, 1 / 1024, 16), (3, 48, 3, 2, 1 / 1024, 16),
     (1, 2, 1, 1, 1 / 1024, 16), (2, 2, 17, 5, 1 / 1024, 16), (1, 2, 7, 3, 0.1, 16), (1, 2, 7, 3, 1.0, 16),
     (2, 3, 8, 4, 1 / 2048, 32), (1, 2, 9, 4, 1 / 2048, 32), (1, 2, 7, 3, 1 / 3072, 48), (2, 2, 3, 16, 1 / 3072, 48),
     (2, 3, 8, 4, 1 / 4096, 64), (1, 2, 9, 4, 1 / 4096, 64), (2, 2, 17, 5, 1 / 4096, 64), (3, 48, 3, 2, 1 / 4096, 64),
-    (1, 2, 7, 3, 100 / 4096, 64)])
+    (1, 2, 7, 3, 100 / 4096, 64), (2, 3, 9, 4, 1 / 512, 8), (1, 2, 7, 3, 100 / 512, 8), (2, 3, 9, 4, 1 / 1536, 24),
+    (2, 3, 9, 4, 1 / 2560, 40), (2, 3, 9, 4, 1 / 3584, 56), (2, 2, 17, 5, 1 / 3584, 56)])
 def test_ttt_linear_kernels_match_plain(cuda, B, H, NC, K, scale, CS):
     """K5 for sampling (output elementwise), K5 for training (output
     elementwise; fp32 checkpoints within 1e-2 relative L2 and 1e-3 of their
@@ -349,16 +353,18 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     lse = torch.zeros(2, 3, 64, device=cuda)
     with pytest.raises(ValueError):
         attention.attention_backward(q, q, q, q, lse[:, :2], q)
-    # CS = 24, a multiple of 8 the JAX kernels take: every TTT-MLP wrapper raises, naming the mini-batches it takes.
-    x = torch.zeros(1, 2, 24, 128, device=cuda, dtype=torch.bfloat16)
+    # CS = 72, a multiple of 8 the JAX kernels take (past the port's 64): every TTT-MLP wrapper raises, naming the
+    # mini-batches it takes.
+    every = r"\(8, 16, 24, 32, 40, 48, 56, 64\)"
+    x = torch.zeros(1, 2, 72, 128, device=cuda, dtype=torch.bfloat16)
     z = lambda *s: torch.zeros(*s, device=cuda)
-    mlp = (x, x, x, z(1, 2, 2, 24), z(2, 24, 64), z(2, 24, 64), z(2, 64), z(2, 64))
+    mlp = (x, x, x, z(1, 2, 2, 72), z(2, 72, 64), z(2, 72, 64), z(2, 64), z(2, 64))
     state = (z(2, 64, 256), z(2, 1, 256), z(2, 256, 64), z(2, 1, 64))
-    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+    with pytest.raises(ValueError, match=every):
         ttt_mlp_kernel.ttt_mlp_forward_train(*mlp, *state, 1e-3, 2)
-    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+    with pytest.raises(ValueError, match=every):
         ttt_mlp_kernel.ttt_mlp_forward(*mlp, *state, eta_scale=1e-3)
-    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+    with pytest.raises(ValueError, match=every):
         ttt_mlp_kernel.ttt_mlp_backward(*mlp, z(1, 2, 1, 64, 256), z(1, 2, 1, 1, 256), z(1, 2, 1, 256, 64),
                                         z(1, 2, 1, 1, 64), x, 1e-3, 2)
     k1 = _ttt_inputs(cuda, 1, 2, 2)
@@ -388,10 +394,10 @@ def test_wrappers_raise_on_cuda_tensors_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=1e-3)
     # A mini-batch no kernel is built for raises, naming the ones that are.
-    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, CS=24)
-    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, CS=72)
+    with pytest.raises(ValueError, match=every):
         ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=1e-3)
-    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)"):
+    with pytest.raises(ValueError, match=every):
         ttt_linear_kernel.ttt_linear_train(**a, eta_scale=1e-3, checkpoint_group=2)
     w = torch.zeros(64, 32, device=cuda)
     with pytest.raises(ValueError):

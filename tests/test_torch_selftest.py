@@ -124,12 +124,15 @@ def test_a_corrupt_ragged_group_fails_ragged_checks_and_passes_full_ones(corrupt
     failed = _failed(corrupted_result)
     assert not corrupted_result["ok"]
     for case in ("ttt_mlp ragged", "ttt_linear ragged", "ttt_mlp h12 g6", "ttt_mlp eta-gate", "ttt_linear eta-gate",
-                 "ttt_mlp cs16 ragged", "ttt_mlp cs16 eta-gate", "ttt_mlp cs32 ragged", "ttt_mlp cs48 ragged"):
+                 "ttt_mlp cs16 ragged", "ttt_mlp cs16 eta-gate", "ttt_mlp cs32 ragged", "ttt_mlp cs48 ragged",
+                 *(f"{v} cs{cs} ragged" for v in ("ttt_mlp", "ttt_linear") for cs in (8, 24, 40, 56)),
+                 *(f"{v} cs{cs} eta-gate" for v in ("ttt_mlp", "ttt_linear") for cs in (8, 56))):
         for what in ("fwd", "dq", "dk", "dv"):
             assert any(n.startswith(f"{case} {what} [") for n in failed), (case, what)
     for case in ("ttt_mlp sampling ragged", "ttt_linear sampling ragged", "ttt_mlp sampling cs64 ragged",
                  "ttt_linear sampling cs32 ragged", "ttt_linear sampling cs64 ragged", "ttt_mlp sampling cs32 ragged",
-                 "ttt_mlp sampling cs48 ragged"):
+                 "ttt_mlp sampling cs48 ragged", "ttt_mlp sampling cs8 ragged", "ttt_mlp sampling cs24 ragged",
+                 "ttt_linear sampling cs8 ragged", "ttt_linear sampling cs24 ragged"):
         assert any(n.startswith(case) for n in failed), case
     full = [n for n in corrupted_result["checks"] if " full " in n]
     assert len(full) == 7 * 6 + 7 and not failed & set(full), failed & set(full)
@@ -190,7 +193,9 @@ def _jax_ttt(variant, a, K, eta):
     return torch.tensor(float(value)), [torch.from_numpy(np.array(g.astype(jnp.float32))) for g in grads]
 
 
-@pytest.mark.parametrize("case", [c for c in selftest.TRAIN_CASES if c[0].endswith(("full", "ragged"))],
+# The half slabs' cases (CS 8, 24, 40, 56) are tests/test_torch_half_slab.py's.
+@pytest.mark.parametrize("case", [c for c in selftest.TRAIN_CASES
+                                  if c[0].endswith(("full", "ragged")) and not c[6] % 16],
                          ids=lambda c: c[0].replace(" ", "_"))
 def test_plain_reference_matches_the_jax_kernels_at_the_selftest_shapes(case):
     name, variant, H, NC, nc, K, CS, factor = case

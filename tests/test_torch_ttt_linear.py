@@ -549,15 +549,16 @@ def test_supported_mini_batches_are_the_instantiated_ones(kernels):
     dispatches on: ttt_mlp_block.cuh:with_slabs (K5, K5-train and K6; K1-train,
     K2, and K1 past CS 16) and ttt_mlp_forward.cu:ttt_mlp_forward (K1), so a
     CS the wrapper lets through always has a kernel, and one that has a
-    kernel is never refused."""
+    kernel is never refused: every multiple of 8 up to 64."""
     from ttt_video_dit_torch.ops import ttt_mlp_kernel as tm
 
+    every = (8, 16, 24, 32, 40, 48, 56, 64)
     if kernels == "ttt_linear":
-        assert _cases("ttt_mlp_block.cuh", "with_slabs") == tk.KERNEL_MINI_BATCHES == (16, 32, 48, 64)
+        assert _cases("ttt_mlp_block.cuh", "with_slabs") == tk.KERNEL_MINI_BATCHES == every
     elif kernels == "ttt_mlp_sampling":
-        assert _cases("ttt_mlp_forward.cu", "ttt_mlp_forward") == tm.KERNEL_MINI_BATCHES == (16, 32, 48, 64)
+        assert tuple(sorted(_cases("ttt_mlp_forward.cu", "ttt_mlp_forward"))) == tm.KERNEL_MINI_BATCHES == every
     else:
-        assert _cases("ttt_mlp_block.cuh", "with_slabs") == tm.KERNEL_MINI_BATCHES == (16, 32, 48, 64)
+        assert _cases("ttt_mlp_block.cuh", "with_slabs") == tm.KERNEL_MINI_BATCHES == every
 
 
 def _k5_args(F=64, CS=16, dtype=torch.bfloat16, device="meta", state_width=None):
@@ -568,16 +569,17 @@ def _k5_args(F=64, CS=16, dtype=torch.bfloat16, device="meta", state_width=None)
             z(B, H, NC, CS), z(NC, CS, F), z(NC, CS, F), z(H, F), z(H, F), z(H, F, S), z(H, 1, S)]
 
 
-@pytest.mark.parametrize("case", ["cpu_tensors", "head_dim_32", "mini_batch_24", "float32_inputs", "mlp_state"])
+@pytest.mark.parametrize("case", ["cpu_tensors", "head_dim_32", "mini_batch_72", "float32_inputs", "mlp_state"])
 def test_kernel_rejects_what_it_does_not_take(case):
     """check_kernel_args refuses CPU tensors, F != 64, a CS outside
-    KERNEL_MINI_BATCHES (24: a multiple of 8 the JAX kernels take), float32
-    q/k/v and a TTT-MLP-shaped state; and a tensor that is neither on the CPU
-    nor launchable (meta) makes every wrapper raise, never fall back."""
+    KERNEL_MINI_BATCHES (72: a multiple of 8 the JAX kernels take, past the
+    port's 64), float32 q/k/v and a TTT-MLP-shaped state; and a tensor that is
+    neither on the CPU nor launchable (meta) makes every wrapper raise, never
+    fall back."""
     args = {"cpu_tensors": lambda: _k5_args(device="cpu"), "head_dim_32": lambda: _k5_args(F=32),
-            "mini_batch_24": lambda: _k5_args(CS=24), "float32_inputs": lambda: _k5_args(dtype=torch.float32),
+            "mini_batch_72": lambda: _k5_args(CS=72), "float32_inputs": lambda: _k5_args(dtype=torch.float32),
             "mlp_state": lambda: _k5_args(state_width=256)}[case]()
-    with pytest.raises(ValueError, match=r"\(16, 32, 48, 64\)" if case == "mini_batch_24" else None):
+    with pytest.raises(ValueError, match=r"\(8, 16, 24, 32, 40, 48, 56, 64\)" if case == "mini_batch_72" else None):
         tk.check_kernel_args(*args)
     if case != "cpu_tensors":
         with pytest.raises(ValueError):

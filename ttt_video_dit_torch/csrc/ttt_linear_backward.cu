@@ -1,6 +1,6 @@
-// Fused TTT-linear backward (K6), head_dim F = 64, mini-batch CS = 16, 32,
-// 48 or 64 (one instantiation each, ttt_mlp_block.cuh:with_slabs), for
-// Hopper (sm_90a).
+// Fused TTT-linear backward (K6), head_dim F = 64, mini-batch CS = 8, 16,
+// ..., 64 (one instantiation each, ttt_mlp_block.cuh:with_slabs), for Hopper
+// (sm_90a).
 //
 // Replaces: ttt_video_dit_tpu/ops/pallas/ttt_backward.py:_linear_bwd_kernel
 // (launched by ttt_linear_backward, l.594, and reduced by
@@ -52,7 +52,10 @@
 // - Row passes: warp w takes rows 16 s + 2 w and 16 s + 2 w + 1 of every
 //   slab s, 16 lanes a row, 4 features a lane; what a row's P0 computes for
 //   P6 and P8 (the target, t_hat, its std, eta, the gate's sigmoid, dXV)
-//   stays in registers, NS rows' worth.
+//   stays in registers, NS rows' worth. In a half slab (CS 8, 24, 40, 56)
+//   warps 4-7 own only padding: P0 and P6 write its rows of dZb1 and dZ1 as
+//   0 (they enter sums over tokens), and nothing of it is loaded or stored;
+//   pass A's stash holds it as the step left it (XQ = XK = Gs = 0 there).
 // - Shared memory: pass A's ring and tiles and pass B's buffers are one
 //   union (the two passes never overlap), and pass B's tiles share storage
 //   by lifetime (dZb1 and dZ1, their bf16 copies, dG and dXK), so CS 64 fits:
@@ -131,9 +134,9 @@ struct BwdArgs {
 // The step VJP's row passes: row 16 s + 2 warp + lane / 16, features 4 (lane % 16) .. + 3.
 constexpr int kRowLanes = 16;
 
-template <int NS>
+template <int CS>
 __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdArgs A) {
-  constexpr int kCS = kSlab * NS, KB = kBufB<NS>;
+  constexpr int NS = slabs(CS), kCS = kSlab * NS, KB = kBufB<NS>;  // kCS: the tiles' rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<NS>& S = *reinterpret_cast<Smem<NS>*>(smem_raw);
   PassB<NS>& P = S.u.b;
@@ -169,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
   // cp.async step j's raw rows (with dout) and stash into buffer j % KB.
   auto fetch = [&](int n0, int j) {
     RawStageB<NS>& R = P.raw[j % KB];
-    load_rows<NS>(R, R.dout, A.a, A.dout, b, h, n0 + j, 0, kCS, tid, kThreads);
+    load_rows<CS>(R, R.dout, A.a, A.dout, b, h, n0 + j, 0, kCS, tid, kThreads);
     const uint4* srch = reinterpret_cast<const uint4*>(SH + j);
     uint4* dsth = reinterpret_cast<uint4*>(&P.sh[j % KB]);
     for (int i = tid; i < (int)(sizeof(StashH<NS>) / 16); i += kThreads) hopper::cp_async16(dsth + i, srch + i);
@@ -186,7 +189,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
 
     // ---------------- Pass A: the forward from checkpoint gi, stashing each step.
     if (!cwarp) {
-      producer<NS>(S.u.a.raw, S.u.a.prep, S.full, S.empty, A.a, A.ln_w, A.ln_b, b, h, n0, valid, it, warp - kWarps,
+      producer<CS>(S.u.a.raw, S.u.a.prep, S.full, S.empty, A.a, A.ln_w, A.ln_b, b, h, n0, valid, it, warp - kWarps,
                    lane, SH);
     } else {
       LinState st;
@@ -195,7 +198,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
       for (int i = 0; i < valid; ++i) {
         const int s = (it + i) & 1;
         hopper::mbar_wait(&S.full[s], ((it + i) >> 1) & 1);
-        step<NS, false, true>(st, S.u.a.prep[s], TA, lw8, lb8, nullptr, 0, SH + i, SF + i, warp, lane);
+        step<CS, false, true>(st, S.u.a.prep[s], TA, lw8, lb8, nullptr, 0, SH + i, SF + i, warp, lane);
         hopper::mbar_arrive(&S.empty[s]);
       }
     }
@@ -212,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
       const RawStageB<NS>& R = P.raw[j % KB];
       const StashH<NS>& SHj = P.sh[j % KB];
       const StashF<NS>& SFj = P.sf[j % KB];
-      const size_t xo = ((size_t)b * NC + n) * kCS * HF + (size_t)h * kF + r0 * HF + f;
+      const size_t xo = ((size_t)b * NC + n) * CS * HF + (size_t)h * kF + r0 * HF + f;
 
       // P0: preprocessing of rows r0 + 16 s, kept for the VJPs (target, t_hat, its std, eta); out = XQ + LN(Zb1):
       // dZb1 and the LN-affine cotangents.
@@ -220,6 +223,14 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
         const int r = r0 + kSlab * s;
+        if constexpr (kHalf<CS>) {
+          if (r >= CS) {  // a half slab's padding (warps 4-7): dZb1 0
+            const float zero[4] = {};
+            st_f32(P.dzb + r * kLdZ + f, zero);
+            st_bf16(P.dzbc + r * kLdB + f, zero);
+            continue;
+          }
+        }
         float k[4], v[4], c[4], sn[4], xk[4], tt[4];
         ld_bf16(k, R.k + r * kF + f);
         ld_bf16(v, R.v + r * kF + f);
@@ -353,6 +364,14 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
         const int r = r0 + kSlab * s;
+        if constexpr (kHalf<CS>) {
+          if (r >= CS) {  // the padding: dZ1 0, no dXV or d_gate
+            const float zero[4] = {};
+            st_f32(P.dzb + r * kLdZ + f, zero);
+            st_bf16(P.dzbc + r * kLdB + f, zero);
+            continue;
+          }
+        }
         float z1[4], zh[4], gx[4], g1[4], dG[4], u[4], dgx[4], dxh[4], dz[4];
         ld_f32(z1, SFj.z1 + r * kLdZ + f);
         ld_f32(dG, P.dg + r * kLdZ + f);
@@ -413,7 +432,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
         st_f32(P.dzb + r * kLdZ + f, dz);
         st_bf16(P.dzbc + r * kLdB + f, dz);
         st_bf16(A.dxv + xo + kSlab * s * HF, dv[s]);
-        if ((lane & 15) == 0) A.dgate[(((size_t)b * A.a.H + h) * NC + n) * kCS + r] = de * eta[s] * (1.f - sig[s]);
+        if ((lane & 15) == 0) A.dgate[(((size_t)b * A.a.H + h) * NC + n) * CS + r] = de * eta[s] * (1.f - sig[s]);
       }
       __syncthreads();  // (C) dZ1
 
@@ -455,6 +474,9 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
         const int r = r0 + kSlab * s;
+        if constexpr (kHalf<CS>) {
+          if (r >= CS) continue;
+        }
         float dO[4], us[2][4], xs[2][4], c[4], sn[4];
         ld_f32(us[0], P.dxq + r * kLdZ + f);
         ld_f32(us[1], P.dg + r * kLdZ + f);
@@ -531,14 +553,14 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_bwd_kernel(const BwdAr
 
 // Shared memory of the instantiation for mini-batch cs (an error code for a CS it is not built for).
 extern "C" int ttt_linear_backward_smem_bytes(int cs) {
-  return with_slabs(cs, [](auto ns) { return (int)sizeof(Smem<decltype(ns)::value>); });
+  return with_slabs(cs, [](auto c) { return (int)sizeof(Smem<slabs(decltype(c)::value)>); });
 }
 
 // Bytes a step of the pass-A stash takes in the bf16 workspace (part 0) and the float32 one (part 1) at
 // mini-batch cs.
 extern "C" int ttt_linear_backward_stash_bytes(int part, int cs) {
-  return with_slabs(cs, [&](auto ns) {
-    constexpr int NS = decltype(ns)::value;
+  return with_slabs(cs, [&](auto c) {
+    constexpr int NS = slabs(decltype(c)::value);
     return part == 0 ? (int)sizeof(StashH<NS>) : (int)sizeof(StashF<NS>);
   });
 }
@@ -556,13 +578,13 @@ extern "C" int ttt_linear_backward(const void* xq, const void* xk, const void* x
                   static_cast<bf16*>(dxk), static_cast<bf16*>(dxv), static_cast<float*>(dgate),
                   static_cast<float*>(dW), static_cast<float*>(db), static_cast<float*>(dlnw),
                   static_cast<float*>(dlnb), stash_w, stash_b, K};
-  return with_slabs(CS, [&](auto ns) {
-    constexpr int NS = decltype(ns)::value;
-    constexpr int kBytes = sizeof(Smem<NS>);
+  return with_slabs(CS, [&](auto c) {
+    constexpr int kMiniBatch = decltype(c)::value;
+    constexpr int kBytes = sizeof(Smem<slabs(kMiniBatch)>);
     cudaError_t err =
-        cudaFuncSetAttribute(ttt_linear_bwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+        cudaFuncSetAttribute(ttt_linear_bwd_kernel<kMiniBatch>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ttt_linear_bwd_kernel<NS><<<B * H, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
+    ttt_linear_bwd_kernel<kMiniBatch><<<B * H, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
     return static_cast<int>(cudaGetLastError());
   });
 }

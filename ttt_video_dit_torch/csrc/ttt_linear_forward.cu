@@ -1,5 +1,5 @@
-// Fused TTT-linear forward scan (K5), head_dim F = 64, mini-batch CS = 16,
-// 32, 48 or 64 (one instantiation each, ttt_mlp_block.cuh:with_slabs), for
+// Fused TTT-linear forward scan (K5), head_dim F = 64, mini-batch CS = 8,
+// 16, ..., 64 (one instantiation each, ttt_mlp_block.cuh:with_slabs), for
 // Hopper (sm_90a): sampling (no state checkpoints) and training (fp32 state
 // checkpoints every K mini-batches, for csrc/ttt_linear_backward.cu).
 //
@@ -70,9 +70,9 @@ struct Args {
   int K;  // 0: no checkpoints
 };
 
-template <int NS>
+template <int CS>
 __global__ void __launch_bounds__(kThreads, 1) ttt_linear_fwd_kernel(const Args A) {
-  constexpr int kCS = kSlab * NS;
+  constexpr int NS = slabs(CS);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<NS>& S = *reinterpret_cast<Smem<NS>*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_fwd_kernel(const Args 
   }
   __syncthreads();
   if (warp >= kWarps) {
-    producer<NS>(S.raw, S.prep, S.full, S.empty, A.a, A.ln_w, A.ln_b, b, h, 0, NC, 0, warp - kWarps, lane, nullptr);
+    producer<CS>(S.raw, S.prep, S.full, S.empty, A.a, A.ln_w, A.ln_b, b, h, 0, NC, 0, warp - kWarps, lane, nullptr);
     return;
   }
   LinState st;
@@ -105,7 +105,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_fwd_kernel(const Args 
       save_state(st.w, st.bias, A.w_ck + g * kF * kF, A.b_ck + g * kF, warp, lane);
     }
     hopper::mbar_wait(&S.full[s], (n >> 1) & 1);
-    step<NS, true, false>(st, S.prep[s], T, lw, lb, A.out + ((size_t)b * NC + n) * kCS * HF + (size_t)h * kF, HF,
+    step<CS, true, false>(st, S.prep[s], T, lw, lb, A.out + ((size_t)b * NC + n) * CS * HF + (size_t)h * kF, HF,
                           nullptr, nullptr, warp, lane);
     hopper::mbar_arrive(&S.empty[s]);
   }
@@ -115,7 +115,7 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_linear_fwd_kernel(const Args 
 
 // Shared memory of the instantiation for mini-batch cs (an error code for a CS it is not built for).
 extern "C" int ttt_linear_forward_smem_bytes(int cs) {
-  return with_slabs(cs, [](auto ns) { return (int)sizeof(Smem<decltype(ns)::value>); });
+  return with_slabs(cs, [](auto c) { return (int)sizeof(Smem<slabs(decltype(c)::value)>); });
 }
 
 // K = 0: sampling, no checkpoints (w_ck and b_ck unused).
@@ -129,13 +129,13 @@ extern "C" int ttt_linear_forward(const void* xq, const void* xk, const void* xv
                static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), static_cast<const float*>(W1),
                static_cast<const float*>(b1), static_cast<bf16*>(out), static_cast<float*>(w_ck),
                static_cast<float*>(b_ck), K};
-  return with_slabs(CS, [&](auto ns) {
-    constexpr int NS = decltype(ns)::value;
-    constexpr int kBytes = sizeof(Smem<NS>);
+  return with_slabs(CS, [&](auto c) {
+    constexpr int kMiniBatch = decltype(c)::value;
+    constexpr int kBytes = sizeof(Smem<slabs(kMiniBatch)>);
     cudaError_t err =
-        cudaFuncSetAttribute(ttt_linear_fwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+        cudaFuncSetAttribute(ttt_linear_fwd_kernel<kMiniBatch>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ttt_linear_fwd_kernel<NS><<<B * H, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
+    ttt_linear_fwd_kernel<kMiniBatch><<<B * H, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -1,13 +1,13 @@
-// The TTT-linear step at head_dim F = 64 and mini-batch CS = 16 NS (NS = 1..4
-// slabs of 16 tokens: CS 16, 32, 48, 64), on the tensor cores, for Hopper
-// (sm_90a). Shared by K5 (ttt_linear_forward.cu: sampling with the output,
+// The TTT-linear step at head_dim F = 64 and mini-batch CS = 8, 16, ..., 64
+// (NS = ceil(CS / 16) slabs of 16 tokens, ttt_mlp_block.cuh:slabs), on the
+// tensor cores, for Hopper (sm_90a). Shared by K5 (ttt_linear_forward.cu: sampling with the output,
 // training with fp32 state checkpoints) and K6's pass A
 // (ttt_linear_backward.cu: no output, each step's operands stashed for pass
 // B), with the producer that prepares each mini-batch and the fragment
-// loaders K6's pass B uses. Every piece is a template on NS;
-// ttt_mlp_block.cuh:with_slabs instantiates the four values, and
-// ops/ttt_linear_kernel.py's KERNEL_MINI_BATCHES names the same list (a test
-// holds the two together).
+// loaders K6's pass B uses. Every piece that reads or writes device memory is
+// a template on CS, the tiles on NS; ttt_mlp_block.cuh:with_slabs
+// instantiates the eight values, and ops/ttt_linear_kernel.py's
+// KERNEL_MINI_BATCHES names the same list (a test holds the two together).
 //
 // One block owns one (batch, head) scan: 4 consumer warps run the step, a
 // producer warpgroup (4 warps) prepares the next mini-batch.
@@ -54,6 +54,11 @@
 //   prepares it; it still runs up to two prepared stages ahead of the
 //   consumers, whose step is then four times as long. K6's layout is in
 //   ttt_linear_backward.cu.
+// - A half slab (CS 8, 24, 40, 56): the tiles keep 16 NS rows, device
+//   memory is addressed with CS. The producer loads only the CS real rows and
+//   prepares the padding as XQ = XK = 0, target 0 and eta 0, so the padding's
+//   Gs rows are 0 and it adds nothing to b, to W or to attn @ Gs; no padded
+//   row is stored. At a multiple of 16 the masking is not compiled.
 // - 8 warps leave each thread up to 255 registers: no setmaxnreg.
 
 #pragma once
@@ -73,6 +78,7 @@ using hopper::mma_bf16_16816;
 using hopper::movmatrix_trans;
 using hopper::pack_bf16;
 using tttb::ScanArgs;
+using tttb::slabs;
 using tttb::with_slabs;
 
 constexpr int kF = 64;
@@ -85,6 +91,10 @@ constexpr int kLdZ = kF + 4;                // row pitch of the fp32 tiles
 constexpr int kConsumerBar = 1;             // named barrier of the consumer warps
 constexpr int kProducerBar = 2;             // named barrier of the producer warpgroup
 constexpr uint32_t kSignBits = 0x80008000u;
+
+// Whether a mini-batch of CS tokens ends in a half slab (tile rows CS .. 16 NS - 1 are padding).
+template <int CS>
+constexpr bool kHalf = CS % kSlab != 0;
 
 // Stages of the producer's raw ring: two, but one at CS 64 (see the top).
 template <int NS>
@@ -257,13 +267,14 @@ __device__ __forceinline__ float2 column_sum(const float* src, int c0, int u, in
 // ---- the producer
 // cp.async rows row0 .. row0 + rows - 1 of mini-batch n (q/k/v, the rope rows, gate; with ``dout``, its rows into
 // ``dout_dst``) into ``r``, chunks of 16 bytes spread over ``nthreads`` threads (this one is ``tid``); the caller
-// commits. row0 and rows are multiples of 4.
-template <int NS>
-__device__ __forceinline__ void load_rows(RawStage<NS>& r, bf16* dout_dst, const ScanArgs& a, const bf16* dout,
-                                          int b, int h, int n, int row0, int rows, int tid, int nthreads) {
-  constexpr int kCS = kSlab * NS;
+// commits. Rows past the CS real ones (a half slab's padding) are not loaded. row0, rows and CS are multiples of 4.
+template <int CS>
+__device__ __forceinline__ void load_rows(RawStage<slabs(CS)>& r, bf16* dout_dst, const ScanArgs& a,
+                                          const bf16* dout, int b, int h, int n, int row0, int rows, int tid,
+                                          int nthreads) {
+  if constexpr (kHalf<CS>) rows = min(rows, CS - row0);
   const size_t HF = (size_t)a.H * kF;
-  const size_t x0 = ((size_t)b * a.NC + n) * kCS * HF + (size_t)h * kF;
+  const size_t x0 = ((size_t)b * a.NC + n) * CS * HF + (size_t)h * kF;
   for (int i = tid; i < rows * 8; i += nthreads) {
     const int row = row0 + (i >> 3), c = (i & 7) * 8;
     const size_t go = x0 + row * HF + c;
@@ -273,12 +284,12 @@ __device__ __forceinline__ void load_rows(RawStage<NS>& r, bf16* dout_dst, const
     hopper::cp_async16(r.v + so, a.xv + go);
     if (dout != nullptr) hopper::cp_async16(dout_dst + so, dout + go);
   }
-  const size_t t0 = ((size_t)n * kCS + row0) * kF;
+  const size_t t0 = ((size_t)n * CS + row0) * kF;
   for (int i = tid; i < rows * kF / 4; i += nthreads) {
     hopper::cp_async16(r.cos + row0 * kF + 4 * i, a.cos + t0 + 4 * i);
     hopper::cp_async16(r.sin + row0 * kF + 4 * i, a.sin + t0 + 4 * i);
   }
-  const size_t g0 = (((size_t)b * a.H + h) * a.NC + n) * kCS + row0;
+  const size_t g0 = (((size_t)b * a.H + h) * a.NC + n) * CS + row0;
   for (int i = tid; i < rows / 4; i += nthreads) hopper::cp_async16(r.gate + row0 + 4 * i, a.gate + g0 + 4 * i);
 }
 
@@ -334,16 +345,32 @@ __device__ __forceinline__ float ln_stats(float (&xh)[N], const float (&x)[N]) {
 
 // L2-norm, rope, target LN and eta of producer warp pw's rows 4 NS pw .. 4 NS pw + 4 NS - 1, four at a time:
 // lane = row 4 NS pw + 4 i + lane / 8, features 8 (lane % 8) .. + 7. With ``stash``, the rows' bf16 XQ and XK
-// also go there.
-template <int NS>
-__device__ __forceinline__ void prepare_rows(PrepStage<NS>& p, const RawStage<NS>& r, float eta_scale,
+// also go there. A half slab's padding (four rows at a time, as CS is a multiple of 8) gets XQ = XK = 0, target 0
+// and eta 0.
+template <int CS>
+__device__ __forceinline__ void prepare_rows(PrepStage<slabs(CS)>& p, const RawStage<slabs(CS)>& r, float eta_scale,
                                              const float (&lw)[8], const float (&lb)[8], int pw, int lane,
-                                             StashH<NS>* stash) {
+                                             StashH<slabs(CS)>* stash) {
+  constexpr int NS = slabs(CS);
   const int f = 8 * (lane & 7);
 #pragma unroll 1
   for (int i = 0; i < NS; ++i) {
     const int row = 4 * NS * pw + 4 * i + (lane >> 3);
     float q[8], k[8], v[8], c[8], s[8], xq[8], xk[8], t[8], th[8];
+    if constexpr (kHalf<CS>) {
+      if (row >= CS) {
+        const float zero[8] = {};
+        st_f32(p.tgt + row * kF + f, zero);
+        st_bf16(p.xq + row * kLdB + f, zero);
+        st_bf16(p.xk + row * kLdB + f, zero);
+        if (stash != nullptr) {
+          st_bf16(stash->xq + row * kLdB + f, zero);
+          st_bf16(stash->xk + row * kLdB + f, zero);
+        }
+        if ((lane & 7) == 0) p.eta[row] = 0.f;
+        continue;
+      }
+    }
     ld_bf16(q, r.q + row * kF + f);
     ld_bf16(k, r.k + row * kF + f);
     ld_bf16(v, r.v + row * kF + f);
@@ -393,22 +420,22 @@ __device__ __forceinline__ void prepare_attn(PrepStage<NS>& p, int pw, int lane,
 // Producer warp pw (of 4) prepares mini-batches n0 .. n0 + count - 1 into the ring; ``it0`` is the number of
 // mini-batches the ring has carried before (its stages and mbarrier phases continue from there). With
 // ``stash`` (K6's pass A), each prepared XQ, XK and -attn also goes to stash[i].
-template <int NS>
-__device__ void producer(RawStage<NS>* raw, PrepStage<NS>* prep, uint64_t* full, uint64_t* empty, const ScanArgs& a,
-                         const float* ln_w, const float* ln_b, int b, int h, int n0, int count, int it0, int pw,
-                         int lane, StashH<NS>* stash) {
-  constexpr int R = kRawSlots<NS>, kRows = 4 * NS;
+template <int CS>
+__device__ void producer(RawStage<slabs(CS)>* raw, PrepStage<slabs(CS)>* prep, uint64_t* full, uint64_t* empty,
+                         const ScanArgs& a, const float* ln_w, const float* ln_b, int b, int h, int n0, int count,
+                         int it0, int pw, int lane, StashH<slabs(CS)>* stash) {
+  constexpr int NS = slabs(CS), R = kRawSlots<NS>, kRows = 4 * NS;
   const int f = 8 * (lane & 7);
   float lw[8], lb[8];
   ld_f32(lw, ln_w + (size_t)h * kF + f);
   ld_f32(lb, ln_b + (size_t)h * kF + f);
-  load_rows<NS>(raw[it0 % R], nullptr, a, nullptr, b, h, n0, kRows * pw, kRows, lane, 32);
+  load_rows<CS>(raw[it0 % R], nullptr, a, nullptr, b, h, n0, kRows * pw, kRows, lane, 32);
   hopper::cp_async_commit();
   for (int i = 0; i < count; ++i) {
     const int it = it0 + i, s = it & 1, rs = it % R;
     __syncwarp();  // every lane is done with the raw stage it refills
     if (R == 2 && i + 1 < count) {
-      load_rows<NS>(raw[rs ^ 1], nullptr, a, nullptr, b, h, n0 + i + 1, kRows * pw, kRows, lane, 32);
+      load_rows<CS>(raw[rs ^ 1], nullptr, a, nullptr, b, h, n0 + i + 1, kRows * pw, kRows, lane, 32);
       hopper::cp_async_commit();
       hopper::cp_async_wait<1>();
     } else {
@@ -416,10 +443,10 @@ __device__ void producer(RawStage<NS>* raw, PrepStage<NS>* prep, uint64_t* full,
     }
     __syncwarp();  // this warp's rows of raw[rs] have landed
     if (it >= 2) hopper::mbar_wait(&empty[s], ((it >> 1) - 1) & 1);
-    prepare_rows<NS>(prep[s], raw[rs], a.eta_scale, lw, lb, pw, lane, stash != nullptr ? stash + i : nullptr);
+    prepare_rows<CS>(prep[s], raw[rs], a.eta_scale, lw, lb, pw, lane, stash != nullptr ? stash + i : nullptr);
     if (R == 1 && i + 1 < count) {  // one raw stage: refill it now that this warp has read its rows
       __syncwarp();
-      load_rows<NS>(raw[0], nullptr, a, nullptr, b, h, n0 + i + 1, kRows * pw, kRows, lane, 32);
+      load_rows<CS>(raw[0], nullptr, a, nullptr, b, h, n0 + i + 1, kRows * pw, kRows, lane, 32);
       hopper::cp_async_commit();
     }
     hopper::named_sync(kProducerBar, 128);
@@ -504,11 +531,13 @@ struct StepTiles {
 };
 
 // One mini-batch step of the consumer warps on the prepared stage ``p``. kOut: out = XQ + LN(Z1_bar) into the
-// token-major rows at ``out`` (row stride HF). kStash: bf16(W^T), Gs, Z1 and Z1_bar of the step into sh / sf.
-template <int NS, bool kOut, bool kStash>
-__device__ __forceinline__ void step(LinState& st, const PrepStage<NS>& p, const StepTiles& T, const float (&lw)[8],
-                                     const float (&lb)[8], bf16* out, size_t HF, StashH<NS>* sh, StashF<NS>* sf,
-                                     int warp, int lane) {
+// token-major rows at ``out`` (row stride HF; the CS real rows). kStash: bf16(W^T), Gs, Z1 and Z1_bar of the step
+// into sh / sf.
+template <int CS, bool kOut, bool kStash>
+__device__ __forceinline__ void step(LinState& st, const PrepStage<slabs(CS)>& p, const StepTiles& T,
+                                     const float (&lw)[8], const float (&lb)[8], bf16* out, size_t HF,
+                                     StashH<slabs(CS)>* sh, StashF<slabs(CS)>* sf, int warp, int lane) {
+  constexpr int NS = slabs(CS);
   const int c0 = 16 * warp;
   if (kStash) store_wt(sh->wt, st.w, warp, lane);
 
@@ -632,6 +661,9 @@ __device__ __forceinline__ void step(LinState& st, const PrepStage<NS>& p, const
 #pragma unroll 1
     for (int s = 0; s < NS; ++s) {
       const int row = kSlab * s + 4 * warp + (lane >> 3), f = 8 * (lane & 7);
+      if constexpr (kHalf<CS>) {
+        if (row >= CS) continue;  // warps 2-3 in a half slab: padding only
+      }
       float x[8], xh[8], xq[8];
       ld_f32(x, T.zb + row * kLdZ + f);
       ld_bf16(xq, p.xq + row * kLdB + f);

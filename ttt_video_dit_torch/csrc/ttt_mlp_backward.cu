@@ -1,6 +1,6 @@
-// Fused TTT-MLP backward (K2), head_dim F = 64, mini-batch CS = 16, 32, 48
-// or 64 (one instantiation each, ttt_mlp_block.cuh:with_slabs), for
-// Hopper (sm_90a).
+// Fused TTT-MLP backward (K2), head_dim F = 64, mini-batch CS = 8, 16, ...,
+// 64 (one instantiation each, ttt_mlp_block.cuh:with_slabs), for Hopper
+// (sm_90a).
 //
 // Replaces: ttt_video_dit_tpu/ops/pallas/ttt_backward.py:_mlp_bwd_kernel
 // (launched by ttt_mlp_backward, l.750, and reduced by
@@ -50,7 +50,11 @@
 //   stash is 64 KiB a step at every CS).
 // - No producer warpgroup: with 8 warps each thread may hold 255 registers,
 //   which the carries and the recomputed fragments need; the 8 warps prepare
-//   each mini-batch themselves (CS / 8 rows each) at the start of its step.
+//   each mini-batch themselves (2 NS rows each) at the start of its step.
+// - A half slab (CS 8, 24, 40, 56): the padding is prepared as XQ = XK = 0,
+//   target 0 and eta 0 (ttt_mlp_train_step.cuh), so G1, G2 and every
+//   cotangent that eta scales are 0 there; the row passes of the VJP write
+//   its rows of dZb2c and dZ2c as 0 and load and store nothing of it.
 // The ln and bias gradients come out compact ([F], [4F]) per (batch, head);
 // the wrapper sums them over the batch.
 //
@@ -140,9 +144,9 @@ struct BwdArgs {
 
 __device__ __forceinline__ void sync() { __syncthreads(); }
 
-template <int NS>
+template <int CS>
 __device__ __forceinline__ size_t x_offset(const tttb::ScanArgs& a, int b, int h, int n, int r, int f) {
-  return (((size_t)b * a.NC + n) * (ts::kSlab * NS) + r) * ((size_t)a.H * kF) + (size_t)h * kF + f;
+  return (((size_t)b * a.NC + n) * CS + r) * ((size_t)a.H * kF) + (size_t)h * kF + f;
 }
 
 // This thread's float4 of a [CS][4F] value in fragment order: warp, slab s, n-tile u.
@@ -201,11 +205,11 @@ __device__ __forceinline__ void unpark(ts::State& c, const float* src, int tid) 
 
 // One step of pass B for mini-batch n (stash entry i). gc: the carries w1 = dW1^T, w2 = dW2 (db1 and db2 live in
 // the workspace).
-template <int NS>
-__device__ __forceinline__ void backward_step(Smem<NS>& S, float* G, const BwdArgs& A, int b, int h, int n, int i,
-                                              ts::State& gc, int warp, int lane) {
+template <int CS>
+__device__ __forceinline__ void backward_step(Smem<ts::slabs(CS)>& S, float* G, const BwdArgs& A, int b, int h,
+                                              int n, int i, ts::State& gc, int warp, int lane) {
+  constexpr int NS = ts::slabs(CS), kCS = ts::kSlab * NS, kR = 2 * NS;  // kCS: the tiles' rows; kR: a warp's rows
   using W = Work<NS>;
-  constexpr int kCS = ts::kSlab * NS, kR = 2 * NS;  // kR: rows a warp in the row passes
   const int g = lane >> 2, t = lane & 3, f0 = 2 * lane, tid = threadIdx.x;
   const int sw = warp >> 1, r0 = 16 * sw, c0 = 32 * (warp & 1);
   const bool blk = ts::owns_block<NS>(warp);  // the warp computes the 16 x 32 block (r0, c0) of [CS][F] results
@@ -224,7 +228,7 @@ __device__ __forceinline__ void backward_step(Smem<NS>& S, float* G, const BwdAr
   }
   hopper::cp_async_commit();
   const ts::Prep p{S.xq, S.xk, G + W::kTGT, G + W::kETA, G + W::kTHAT, G + W::kST, G + W::kSIG};
-  ts::prepare_rows<NS, kR>(p, A.a, A.ln_w, A.ln_b, b, h, n, warp, lane);
+  ts::prepare_rows<CS, kR>(p, A.a, A.ln_w, A.ln_b, b, h, n, warp, lane);
   const float* b1_step = G + W::kB1S + (size_t)i * kF4;  // the stashed b1 of this step
   const float2 b2 = *reinterpret_cast<const float2*>(G + W::kB1S + (size_t)A.K * kF4 + (size_t)i * kF + f0);
   hopper::cp_async_wait<0>();
@@ -364,13 +368,20 @@ __device__ __forceinline__ void backward_step(Smem<NS>& S, float* G, const BwdAr
     }
 #pragma unroll 1
     for (int r = kR * warp; r < kR * warp + kR; ++r) {
+      if constexpr (ts::kHalf<CS>) {
+        if (r >= CS) {  // a half slab's padding: dZb2 0 (and its dXQ rows, which (5) adds to)
+          *reinterpret_cast<uint32_t*>(S.dzc + ts::swz<kF>(r, f0)) = 0u;
+          *reinterpret_cast<float2*>(G + W::kDXQ + r * kF + f0) = make_float2(0.f, 0.f);
+          continue;
+        }
+      }
       const float2 z = *reinterpret_cast<const float2*>(G + W::kZB2 + r * kF + f0);
       const float x0 = (z.x + b2.x) - cg.x, x1 = (z.y + b2.y) - cg.y;
       const float mu = warp_sum(x0 + x1) * (1.f / kF);
       const float sd = sqrtf(warp_sum((x0 - mu) * (x0 - mu) + (x1 - mu) * (x1 - mu)) * (1.f / kF) + 1e-8f);
       const float xh0 = (x0 - mu) / sd, xh1 = (x1 - mu) / sd;
       const float2 u =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(A.dout + x_offset<NS>(A.a, b, h, n, r, f0)));
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(A.dout + x_offset<CS>(A.a, b, h, n, r, f0)));
       const float wv0 = lw.x * u.x, wv1 = lw.y * u.y;
       const float mw = warp_sum(wv0 + wv1) * (1.f / kF);
       const float mwx = warp_sum(wv0 * xh0 + wv1 * xh1) * (1.f / kF);
@@ -534,6 +545,12 @@ __device__ __forceinline__ void backward_step(Smem<NS>& S, float* G, const BwdAr
     float2 cz = make_float2(0.f, 0.f);
 #pragma unroll 1
     for (int r = kR * warp; r < kR * warp + kR; ++r) {
+      if constexpr (ts::kHalf<CS>) {
+        if (r >= CS) {  // the padding: dZ2 0, no d_gate or dXV
+          *reinterpret_cast<uint32_t*>(S.dzc + ts::swz<kF>(r, f0)) = 0u;
+          continue;
+        }
+      }
       const float eta = G[W::kETA + r], sig = G[W::kSIG + r], sd = G[W::kSTD2 + r];
       const float2 xh = *reinterpret_cast<const float2*>(G + W::kZ2 + r * kF + f0);
       const float2 tg = *reinterpret_cast<const float2*>(G + W::kTGT + r * kF + f0);
@@ -541,7 +558,7 @@ __device__ __forceinline__ void backward_step(Smem<NS>& S, float* G, const BwdAr
       const float2 g2r = *reinterpret_cast<const float2*>(G + W::kG2R + r * kF + f0);
       const float2 dpw = *reinterpret_cast<const float2*>(G + W::kDPW + r * kF + f0);
       const float de = warp_sum(dG2.x * g2r.x + dG2.y * g2r.y + (lane < kWarps ? G[W::kPDE + lane * kCS + r] : 0.f));
-      if (lane == 0) A.dgate[(((size_t)b * A.a.H + h) * A.a.NC + n) * kCS + r] = de * eta * (1.f - sig);
+      if (lane == 0) A.dgate[(((size_t)b * A.a.H + h) * A.a.NC + n) * CS + r] = de * eta * (1.f - sig);
       const float u0 = eta * dG2.x + dpw.x, u1 = eta * dG2.y + dpw.y;
       const float y0 = lw.x * xh.x + lb.x, y1 = lw.y * xh.y + lb.y;
       const float gx0 = lw.x * (y0 - tg.x), gx1 = lw.y * (y1 - tg.y);
@@ -586,7 +603,7 @@ __device__ __forceinline__ void backward_step(Smem<NS>& S, float* G, const BwdAr
       *lnb = bb;
       float2* dxk = reinterpret_cast<float2*>(G + W::kDXK + r * kF + f0);
       *dxk = make_float2(dxk->x - v0, dxk->y - v1);
-      *reinterpret_cast<__nv_bfloat162*>(A.dxv + x_offset<NS>(A.a, b, h, n, r, f0)) = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(A.dxv + x_offset<CS>(A.a, b, h, n, r, f0)) = __floats2bfloat162_rn(v0, v1);
     }
     *reinterpret_cast<float2*>(G + W::kPZ2 + warp * kF + f0) = cz;
   }
@@ -648,8 +665,11 @@ __device__ __forceinline__ void backward_step(Smem<NS>& S, float* G, const BwdAr
   // (15) rope, then the L2 norm, back to the raw projections.
 #pragma unroll 1
   for (int r = kR * warp; r < kR * warp + kR; ++r) {
-    const size_t xo = x_offset<NS>(A.a, b, h, n, r, f0);
-    const size_t to = ((size_t)n * kCS + r) * kF + f0;
+    if constexpr (ts::kHalf<CS>) {
+      if (r >= CS) break;
+    }
+    const size_t xo = x_offset<CS>(A.a, b, h, n, r, f0);
+    const size_t to = ((size_t)n * CS + r) * kF + f0;
     const float2 c = *reinterpret_cast<const float2*>(A.a.cos + to);
     const float2 sn = *reinterpret_cast<const float2*>(A.a.sin + to);
 #pragma unroll
@@ -668,10 +688,10 @@ __device__ __forceinline__ void backward_step(Smem<NS>& S, float* G, const BwdAr
   }
 }
 
-template <int NS>
+template <int CS>
 __global__ void __launch_bounds__(kThreads, 1) ttt_mlp_bwd_kernel(const BwdArgs A) {
+  constexpr int NS = ts::slabs(CS), kCS = ts::kSlab * NS, kR = 2 * NS;  // kCS: the tiles' rows
   using W = Work<NS>;
-  constexpr int kCS = ts::kSlab * NS, kR = 2 * NS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<NS>& S = *reinterpret_cast<Smem<NS>*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tid = threadIdx.x;
@@ -721,14 +741,14 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_mlp_bwd_kernel(const BwdArgs 
         if (warp == 0) *reinterpret_cast<float2*>(B2S + (size_t)i * kF + 2 * lane) = st.b2;
         sync();  // the previous step is done with the prepared tiles
         const ts::Prep p{S.xq, S.xk, G + W::kTGT, G + W::kETA, nullptr, nullptr, nullptr};
-        ts::prepare_rows<NS, kR>(p, A.a, A.ln_w, A.ln_b, b, h, n0 + i, warp, lane);
+        ts::prepare_rows<CS, kR>(p, A.a, A.ln_w, A.ln_b, b, h, n0 + i, warp, lane);
         sync();
-        ts::forward_step<NS, false>(st, p, T, lnw_h, lnb_h, nullptr, 0, 0, warp, lane);
+        ts::forward_step<CS, false>(st, p, T, lnw_h, lnb_h, nullptr, 0, 0, warp, lane);
       }
     }
     unpark(gc, G + W::kPark, tid);
     // Pass B: the step VJP, last step first.
-    for (int i = valid - 1; i >= 0; --i) backward_step(S, G, A, b, h, n0 + i, i, gc, warp, lane);
+    for (int i = valid - 1; i >= 0; --i) backward_step<CS>(S, G, A, b, h, n0 + i, i, gc, warp, lane);
   }
 
   gc.b2 = *reinterpret_cast<const float2*>(G + W::kDB2 + 2 * lane);
@@ -753,14 +773,14 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_mlp_bwd_kernel(const BwdArgs 
 // take).
 extern "C" long long ttt_mlp_backward_workspace_bytes(int cs, int K) {
   long long bytes = -1;
-  ts::with_slabs(cs, [&](auto ns) { return (int)((bytes = workspace_bytes<decltype(ns)::value>(K)) > 0); });
+  ts::with_slabs(cs, [&](auto c) { return (int)((bytes = workspace_bytes<ts::slabs(decltype(c)::value)>(K)) > 0); });
   return bytes;
 }
 
 // Shared memory of the instantiation for mini-batch cs (an error code, negative, for a CS it is not built for).
 extern "C" int ttt_mlp_backward_smem_bytes(int cs) {
   int bytes = -static_cast<int>(cudaErrorInvalidValue);
-  ts::with_slabs(cs, [&](auto ns) { return bytes = (int)sizeof(Smem<decltype(ns)::value>); });
+  ts::with_slabs(cs, [&](auto c) { return bytes = (int)sizeof(Smem<ts::slabs(decltype(c)::value)>); });
   return bytes;
 }
 
@@ -779,13 +799,14 @@ extern "C" int ttt_mlp_backward(const void* xq, const void* xk, const void* xv, 
                   static_cast<bf16*>(dxv), static_cast<float*>(dgate), static_cast<float*>(dW1),
                   static_cast<float*>(db1), static_cast<float*>(dW2), static_cast<float*>(db2),
                   static_cast<float*>(dlnw), static_cast<float*>(dlnb), static_cast<unsigned char*>(work), 0, K};
-  return ts::with_slabs(CS, [&](auto ns) {
-    constexpr int NS = decltype(ns)::value;
+  return ts::with_slabs(CS, [&](auto c) {
+    constexpr int kMiniBatch = decltype(c)::value, NS = ts::slabs(kMiniBatch);
     constexpr int kBytes = sizeof(Smem<NS>);
-    cudaError_t err = cudaFuncSetAttribute(ttt_mlp_bwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    cudaError_t err =
+        cudaFuncSetAttribute(ttt_mlp_bwd_kernel<kMiniBatch>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     A.work_bytes = workspace_bytes<NS>(K);
-    ttt_mlp_bwd_kernel<NS><<<B * H, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
+    ttt_mlp_bwd_kernel<kMiniBatch><<<B * H, kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
     return static_cast<int>(cudaGetLastError());
   });
 }

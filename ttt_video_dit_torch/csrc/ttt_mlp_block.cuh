@@ -3,7 +3,7 @@
 // take only ScanArgs and with_slabs): bf16 rounding, warp sums, the tanh
 // GELU and its first two derivatives, the per-step inputs of one scan, and
 // the dispatch on the mini-batch. The TTT-MLP training step itself (CS
-// 16-64, on the tensor cores) is in ttt_mlp_train_step.cuh.
+// 8-64, on the tensor cores) is in ttt_mlp_train_step.cuh.
 
 #pragma once
 
@@ -15,17 +15,26 @@
 
 namespace tttb {
 
-// Call fn(std::integral_constant<int, NS>) for mini-batch cs = 16 NS; an error code for a CS the kernels are
-// not built for. These cases are the instantiations of every TTT kernel built on 16-token slabs
-// (ttt_linear_step.cuh, ttt_mlp_train_step.cuh), the lists ops/ttt_linear_kernel.py and ops/ttt_mlp_kernel.py
-// name KERNEL_MINI_BATCHES.
+// 16-token slabs (m16 tiles) of a mini-batch of cs tokens, cs a multiple of 8: the tiles of a step hold 16 NS
+// rows. At a cs that is not a multiple of 16 the last slab is a half slab: rows 8..15 of its tile are padding,
+// which the kernels never load or store and which add nothing to a sum over tokens (eta is 0 there).
+__host__ __device__ constexpr int slabs(int cs) { return (cs + 15) / 16; }
+
+// Call fn(std::integral_constant<int, CS>) for mini-batch cs; an error code for a CS the kernels are not built
+// for. These cases are the instantiations of every TTT kernel built on 16-token slabs (ttt_linear_step.cuh,
+// ttt_mlp_train_step.cuh), the lists ops/ttt_linear_kernel.py and ops/ttt_mlp_kernel.py name
+// KERNEL_MINI_BATCHES.
 template <typename Fn>
 inline int with_slabs(int cs, Fn&& fn) {
   switch (cs) {
-    case 16: return fn(std::integral_constant<int, 1>{});
-    case 32: return fn(std::integral_constant<int, 2>{});
-    case 48: return fn(std::integral_constant<int, 3>{});
-    case 64: return fn(std::integral_constant<int, 4>{});
+    case 8: return fn(std::integral_constant<int, 8>{});
+    case 16: return fn(std::integral_constant<int, 16>{});
+    case 24: return fn(std::integral_constant<int, 24>{});
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 40: return fn(std::integral_constant<int, 40>{});
+    case 48: return fn(std::integral_constant<int, 48>{});
+    case 56: return fn(std::integral_constant<int, 56>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

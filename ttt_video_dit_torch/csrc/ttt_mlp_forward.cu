@@ -1,8 +1,8 @@
 // Fused TTT-MLP forward scan, head_dim F = 64, for Hopper (sm_90a): the
 // sampling kernel (mini-batch CS = 16, no state checkpoints) and, at the end
-// of this file, the training kernel (CS = 16, 32, 48 or 64, one instantiation
+// of this file, the training kernel (CS = 8, 16, ..., 64, one instantiation
 // each; fp32 state checkpoints every K mini-batches for the backward,
-// csrc/ttt_mlp_backward.cu). Sampling at CS 32, 48 and 64 runs the training
+// csrc/ttt_mlp_backward.cu). Sampling at every other CS runs the training
 // kernel with no checkpoints (K = 0): the entry ttt_mlp_forward picks the
 // kernel by CS.
 //
@@ -540,12 +540,12 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_mlp_fwd_kernel(const Args a) 
 
 // ---------------------------------------------------------------- training
 //
-// ttt_mlp_fwd_train_kernel<NS> (K1-train): the same scan at mini-batch
-// CS = 16 NS, NS = 1..4 (ttt_mlp_block.cuh:with_slabs). Before
-// mini-batch n with n % K == 0 it writes the fp32 state (W1, b1, W2, b2; one
-// bias row, not the TPU's 8 rows x 0.125) as checkpoint n / K; the last group
-// may be shorter than K. With K = 0 it writes none: that is K1 (sampling) at
-// CS 32, 48 and 64, at the CFG batch B = 2 (96 blocks).
+// ttt_mlp_fwd_train_kernel<CS> (K1-train): the same scan at mini-batch
+// CS = 8, 16, ..., 64, in NS = ceil(CS / 16) slabs (ttt_mlp_block.cuh:
+// with_slabs). Before mini-batch n with n % K == 0 it writes the fp32 state
+// (W1, b1, W2, b2; one bias row, not the TPU's 8 rows x 0.125) as checkpoint
+// n / K; the last group may be shorter than K. With K = 0 it writes none: that
+// is K1 (sampling) at every CS but 16, at the CFG batch B = 2 (96 blocks).
 //
 // What bounds it: as for the sampling kernel, the latency of one step inside
 // one SM (the scan is sequential; a CS-64 step is ~20 Mflop and reads
@@ -557,9 +557,11 @@ __global__ void __launch_bounds__(kThreads, 1) ttt_mlp_fwd_kernel(const Args a) 
 // each) reads the raw q/k/v, gate and rope rows of the next mini-batch from
 // device memory and prepares them (L2-norm, rope, target LN, eta) into a
 // two-stage ring signalled by full/empty mbarriers: bf16 XQ/XK and eta in
-// shared memory, the fp32 targets (CS / 4 KiB a stage) in a workspace of two
+// shared memory, the fp32 targets (4 NS KiB a stage) in a workspace of two
 // stages a scan that stays in the L2. The step's tiles stay in shared memory
-// (TrainSmem<NS>: ~208 KiB at CS 64, ~80 KiB at 16).
+// (TrainSmem<NS>: ~208 KiB at CS 56 and 64, ~80 KiB at 8 and 16). A half
+// slab's padding rows are prepared as zeros and never stored
+// (ttt_mlp_train_step.cuh).
 
 namespace {
 
@@ -590,9 +592,9 @@ struct TrainArgs {
 template <int NS>
 constexpr int kTrainWorkFloats = 2 * ts::kSlab * NS * ts::kF;
 
-template <int NS>
+template <int CS>
 __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(const TrainArgs A) {
-  constexpr int kCS = ts::kSlab * NS;
+  constexpr int NS = ts::slabs(CS), kCS = ts::kSlab * NS;  // kCS: the tiles' rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TrainSmem<NS>& S = *reinterpret_cast<TrainSmem<NS>*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -612,7 +614,7 @@ __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(cons
       if (n >= 2) hopper::mbar_wait(&S.empty[s], ((n >> 1) - 1) & 1);
       const ts::Prep p{S.xq[s], S.xk[s], A.work + ((size_t)bh * 2 + s) * kCS * ts::kF, S.eta[s], nullptr, nullptr,
                        nullptr};
-      ts::prepare_rows<NS, kCS / 4>(p, A.a, A.ln_w, A.ln_b, b, h, n, warp - ts::kWarps, lane);
+      ts::prepare_rows<CS, kCS / 4>(p, A.a, A.ln_w, A.ln_b, b, h, n, warp - ts::kWarps, lane);
       hopper::mbar_arrive(&S.full[s]);
     }
     return;
@@ -635,8 +637,8 @@ __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(cons
     hopper::mbar_wait(&S.full[s], (n >> 1) & 1);
     const ts::Prep p{S.xq[s], S.xk[s], A.work + ((size_t)bh * 2 + s) * kCS * ts::kF, S.eta[s], nullptr, nullptr,
                      nullptr};
-    ts::forward_step<NS, true>(st, p, T, A.ln_w + (size_t)h * ts::kF, A.ln_b + (size_t)h * ts::kF, A.out,
-                               ((size_t)b * NC + n) * kCS * HF + (size_t)h * ts::kF, HF, warp, lane);
+    ts::forward_step<CS, true>(st, p, T, A.ln_w + (size_t)h * ts::kF, A.ln_b + (size_t)h * ts::kF, A.out,
+                               ((size_t)b * NC + n) * CS * HF + (size_t)h * ts::kF, HF, warp, lane);
     hopper::mbar_arrive(&S.empty[s]);
   }
 }
@@ -647,26 +649,26 @@ __global__ void __launch_bounds__(ts::kThreads, 1) ttt_mlp_fwd_train_kernel(cons
 // is not built for).
 extern "C" int ttt_mlp_forward_train_smem_bytes(int cs) {
   int bytes = -static_cast<int>(cudaErrorInvalidValue);
-  ts::with_slabs(cs, [&](auto ns) { return bytes = (int)sizeof(TrainSmem<decltype(ns)::value>); });
+  ts::with_slabs(cs, [&](auto c) { return bytes = (int)sizeof(TrainSmem<ts::slabs(decltype(c)::value)>); });
   return bytes;
 }
 
 // Floats of the training kernel's workspace a (batch, head) at mini-batch cs (negative for a CS it does not take).
 extern "C" long long ttt_mlp_forward_train_workspace_floats(int cs) {
   long long floats = -1;
-  ts::with_slabs(cs, [&](auto ns) { return (int)(floats = kTrainWorkFloats<decltype(ns)::value>); });
+  ts::with_slabs(cs, [&](auto c) { return (int)(floats = kTrainWorkFloats<ts::slabs(decltype(c)::value)>); });
   return floats;
 }
 
 namespace {
 
-template <int NS>
+template <int CS>
 int launch_train(const TrainArgs& A, int B, int H, void* stream) {
-  constexpr int kBytes = sizeof(TrainSmem<NS>);
+  constexpr int kBytes = sizeof(TrainSmem<ts::slabs(CS)>);
   cudaError_t err =
-      cudaFuncSetAttribute(ttt_mlp_fwd_train_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      cudaFuncSetAttribute(ttt_mlp_fwd_train_kernel<CS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ttt_mlp_fwd_train_kernel<NS><<<B * H, ts::kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
+  ttt_mlp_fwd_train_kernel<CS><<<B * H, ts::kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -684,7 +686,7 @@ extern "C" int ttt_mlp_forward_train(const void* xq, const void* xk, const void*
                     static_cast<const float*>(b1), static_cast<const float*>(W2), static_cast<const float*>(b2),
                     static_cast<__nv_bfloat16*>(out), static_cast<float*>(w1_ck), static_cast<float*>(b1_ck),
                     static_cast<float*>(w2_ck), static_cast<float*>(b2_ck), static_cast<float*>(work), K};
-  return ts::with_slabs(CS, [&](auto ns) { return launch_train<decltype(ns)::value>(A, B, H, stream); });
+  return ts::with_slabs(CS, [&](auto c) { return launch_train<decltype(c)::value>(A, B, H, stream); });
 }
 
 // Shared memory of the kernel ttt_mlp_forward launches at mini-batch cs (an error code for a CS it does not take).
@@ -692,9 +694,10 @@ extern "C" int ttt_mlp_forward_smem_bytes(int cs) {
   return cs == 16 ? kSmemBytes : ttt_mlp_forward_train_smem_bytes(cs);
 }
 
-// K1, sampling (no checkpoints), by mini-batch: CS = 16 the sampling kernel, CS = 32, 48 and 64 the training
-// kernel with K = 0 and its LN targets in ``work`` (B H ttt_mlp_forward_train_workspace_floats(CS) floats; unused
-// at CS = 16). These cases are the sampling mini-batches (ops/ttt_mlp_kernel.py:KERNEL_MINI_BATCHES).
+// K1, sampling (no checkpoints), by mini-batch: CS = 16 the sampling kernel, CS = 8, 24, 32, 40, 48, 56 and 64
+// the training kernel with K = 0 and its LN targets in ``work`` (B H ttt_mlp_forward_train_workspace_floats(CS)
+// floats; unused at CS = 16). These cases are the sampling mini-batches (ops/ttt_mlp_kernel.py:
+// KERNEL_MINI_BATCHES).
 extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, const void* gate,
                                const void* rope_cos, const void* rope_sin, const void* ln_w, const void* ln_b,
                                const void* W1, const void* b1, const void* W2, const void* b2, void* out, void* work,
@@ -713,8 +716,12 @@ extern "C" int ttt_mlp_forward(const void* xq, const void* xk, const void* xv, c
       ttt_mlp_fwd_kernel<<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
       return static_cast<int>(cudaGetLastError());
     }
+    case 8:
+    case 24:
     case 32:
+    case 40:
     case 48:
+    case 56:
     case 64:
       return ttt_mlp_forward_train(xq, xk, xv, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out, nullptr,
                                    nullptr, nullptr, nullptr, work, B, NC, H, CS, 0, eta_scale, stream);

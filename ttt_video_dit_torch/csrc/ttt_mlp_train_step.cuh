@@ -1,10 +1,11 @@
-// The TTT-MLP training step at mini-batch CS = 16 NS (NS = 1..4 slabs of 16
-// tokens), head_dim F = 64, on the tensor cores, for Hopper (sm_90a). Shared
-// by K1-train (ttt_mlp_forward.cu:ttt_mlp_fwd_train_kernel, with the output;
-// also K1 at CS 32-64) and K2's pass A (ttt_mlp_backward.cu, state advance
-// only), and the fragment loaders K2's pass B uses. Every piece that depends
-// on CS is a template on NS; ttt_mlp_block.cuh:with_slabs instantiates
-// CS 16, 32, 48 and 64.
+// The TTT-MLP training step at mini-batch CS = 8, 16, ..., 64 (NS =
+// ceil(CS / 16) slabs of 16 tokens, ttt_mlp_block.cuh:slabs), head_dim F = 64,
+// on the tensor cores, for Hopper (sm_90a). Shared by K1-train
+// (ttt_mlp_forward.cu:ttt_mlp_fwd_train_kernel, with the output; also K1 at
+// every CS but 16) and K2's pass A (ttt_mlp_backward.cu, state advance only),
+// and the fragment loaders K2's pass B uses. Every piece that reads or writes
+// device memory is a template on CS, the tile shapes on NS;
+// ttt_mlp_block.cuh:with_slabs instantiates the eight values.
 //
 // One block owns one (batch, head) scan: 8 consumer warps (256 threads) run
 // the step, a producer warpgroup (4 warps) prepares the next mini-batch.
@@ -40,6 +41,13 @@
 // - Waits among the consumers, by named barrier: with the output 5 a step
 //   (X2c written; Z2 written; grad_z2 and G2 written; X2_barc written;
 //   Z2_bar written), without it 3.
+// - A half slab (CS 8, 24, 40, 56): the tiles keep 16 NS rows, device memory
+//   is addressed with CS. The producer reads only the CS real rows and
+//   prepares the padding as XQ = XK = 0, target 0 and eta 0, so its G1 and G2
+//   rows are 0 and it adds nothing to b1, b2, W1, W2 or the attn products;
+//   the padding's Z1, X2c and grad_z2 are finite and multiplied by those
+//   zeros. No padded row is stored. At a multiple of 16 the masking is not
+//   compiled.
 
 #pragma once
 
@@ -56,6 +64,7 @@ namespace ttts {
 using bf16 = __nv_bfloat16;
 using hopper::mma_bf16_16816;
 using hopper::pack_bf16;
+using tttb::slabs;
 using tttb::warp_sum;
 using tttb::with_slabs;
 
@@ -72,6 +81,10 @@ constexpr int kConsumerRegs = 232;
 constexpr int kConsumerBar = 1;
 constexpr int kLdZ = kF + 4;  // row stride of the fp32 [CS][F] row buffers
 constexpr uint32_t kSignBits = 0x80008000u;
+
+// Whether a mini-batch of CS tokens ends in a half slab (tile rows CS .. 16 NS - 1 are padding).
+template <int CS>
+constexpr bool kHalf = CS % kSlab != 0;
 
 // Whether consumer warp ``warp`` computes a 16 x 32 block of a [CS][F] result (2 NS blocks; all 8 warps at
 // CS 64, where the test is not compiled).
@@ -382,23 +395,34 @@ struct Prep {
 };
 
 // L2-norm, rope, target LN and eta of rows kRows pw .. kRows (pw + 1) - 1 of mini-batch n (lane: features
-// 2 lane, + 1).
-template <int NS, int kRows>
+// 2 lane, + 1). A half slab's padding gets XQ = XK = 0, target 0 and eta 0 (t_hat 0, its std 1, sigmoid 0).
+template <int CS, int kRows>
 __device__ __forceinline__ void prepare_rows(const Prep& p, const tttb::ScanArgs& a, const float* ln_w,
                                              const float* ln_b, int b, int h, int n, int pw, int lane) {
   static_assert(kRows <= 32, "one lane a row for eta");
-  constexpr int kCS = kSlab * NS;
   const int f0 = 2 * lane;
   const size_t HF = (size_t)a.H * kF;
   const float2 lw = *reinterpret_cast<const float2*>(ln_w + (size_t)h * kF + f0);
   const float2 lb = *reinterpret_cast<const float2*>(ln_b + (size_t)h * kF + f0);
 #pragma unroll 1
   for (int row = kRows * pw; row < kRows * (pw + 1); ++row) {
-    const size_t xo = (((size_t)b * a.NC + n) * kCS + row) * HF + (size_t)h * kF + f0;
+    if constexpr (kHalf<CS>) {
+      if (row >= CS) {
+        *reinterpret_cast<float2*>(p.tgt + row * kF + f0) = make_float2(0.f, 0.f);
+        *reinterpret_cast<uint32_t*>(p.xq + swz<kF>(row, f0)) = 0u;
+        *reinterpret_cast<uint32_t*>(p.xk + swz<kF>(row, f0)) = 0u;
+        if (p.t_hat != nullptr) {
+          *reinterpret_cast<float2*>(p.t_hat + row * kF + f0) = make_float2(0.f, 0.f);
+          if (lane == 0) p.s_t[row] = 1.f;
+        }
+        continue;
+      }
+    }
+    const size_t xo = (((size_t)b * a.NC + n) * CS + row) * HF + (size_t)h * kF + f0;
     const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.xq + xo));
     const float2 k = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.xk + xo));
     const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.xv + xo));
-    const size_t to = ((size_t)n * kCS + row) * kF + f0;
+    const size_t to = ((size_t)n * CS + row) * kF + f0;
     const float2 c = *reinterpret_cast<const float2*>(a.cos + to);
     const float2 s = *reinterpret_cast<const float2*>(a.sin + to);
     // L2-norm: x / max(||x||, 1e-12); rope: x*cos + (x@R)*sin, (x@R) = (-x1, x0).
@@ -424,7 +448,8 @@ __device__ __forceinline__ void prepare_rows(const Prep& p, const tttb::ScanArgs
   }
   if (lane < kRows) {
     const int row = kRows * pw + lane;
-    const float sg = 1.f / (1.f + expf(-a.gate[(((size_t)b * a.H + h) * a.NC + n) * kCS + row]));
+    float sg = 0.f;
+    if (!kHalf<CS> || row < CS) sg = 1.f / (1.f + expf(-a.gate[(((size_t)b * a.H + h) * a.NC + n) * CS + row]));
     p.eta[row] = sg * a.eta_scale;
     if (p.sig != nullptr) p.sig[row] = sg;
   }
@@ -538,12 +563,13 @@ __device__ __forceinline__ void grad_z2_rows(const Tiles& T, const Prep& p, floa
 }
 
 // One dual-form step (ttt_forward.py:_mlp_kernel, l.298-322) on the state ``st``; ln_w/ln_b: the head's LN affine. With kOut it also writes
-// out = XQ + LN(Z2_bar) for mini-batch n at ``out`` (token-major, head h); without, it only advances the state.
-template <int NS, bool kOut>
+// out = XQ + LN(Z2_bar) for mini-batch n at ``out`` (token-major, head h; the CS real rows); without, it only
+// advances the state.
+template <int CS, bool kOut>
 __device__ __forceinline__ void forward_step(State& st, const Prep& p, const Tiles& T, const float* ln_w,
                                              const float* ln_b, bf16* out, size_t out_row0, size_t out_stride,
                                              int warp, int lane) {
-  constexpr int kR = 2 * NS;  // rows a warp in the row passes
+  constexpr int NS = slabs(CS), kR = 2 * NS;  // kR: rows a warp in the row passes
   const int g = lane >> 2, t = lane & 3, f0 = 2 * lane;
   const int r0 = 16 * (warp >> 1), c0 = 32 * (warp & 1);  // the warp's block of [CS][F] or [CS][CS] results
   const bool blk = owns_block<NS>(warp);
@@ -681,6 +707,9 @@ __device__ __forceinline__ void forward_step(State& st, const Prep& p, const Til
     const float2 lw = *reinterpret_cast<const float2*>(ln_w + f0), lb = *reinterpret_cast<const float2*>(ln_b + f0);
 #pragma unroll 2
     for (int r = kR * warp; r < kR * warp + kR; ++r) {
+      if constexpr (kHalf<CS>) {
+        if (r >= CS) break;  // the padding (warps 4-7 in a half slab)
+      }
       const float2 z = *reinterpret_cast<const float2*>(T.z2 + r * kLdZ + f0);
       const float x0 = z.x + st.b2.x, x1 = z.y + st.b2.y;
       const float mu = warp_sum(x0 + x1) * (1.f / kF);

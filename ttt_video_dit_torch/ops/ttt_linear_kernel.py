@@ -5,8 +5,10 @@ Port of ttt_video_dit_tpu/ops/pallas/ttt_forward.py:_linear_kernel (K5, with
 _fused_preproc and _eta_from_gate) and ops/pallas/ttt_backward.py:
 _linear_bwd_kernel (K6), in the fused-preprocessing, token-major,
 in-kernel-gate form that ttt_vjp.py:ttt_linear_fused_pre dispatches.
-Kernels (head_dim F = 64; mini-batch CS one of KERNEL_MINI_BATCHES, 16 to
-64, for both sampling and training; one instantiation each):
+Kernels (head_dim F = 64; mini-batch CS one of KERNEL_MINI_BATCHES, every
+multiple of 8 from 8 to 64, for both sampling and training; one
+instantiation each, the last 16-token slab a masked half slab when CS is
+not a multiple of 16):
 
 - ``ttt_linear_forward``: K5 for sampling (no state checkpoints),
   ``csrc/ttt_linear_forward.cu``;
@@ -60,7 +62,7 @@ launches_by_cs = collections.Counter()
 KERNEL_HEAD_DIM = 64
 # The mini-batch sizes K5 and K6 are built for: csrc/ttt_mlp_block.cuh:with_slabs instantiates these (a test
 # holds the two lists together); the C entries take CS and refuse any other.
-KERNEL_MINI_BATCHES = (16, 32, 48, 64)
+KERNEL_MINI_BATCHES = (8, 16, 24, 32, 40, 48, 56, 64)
 
 
 # ------------------------------------------------------------ plain versions

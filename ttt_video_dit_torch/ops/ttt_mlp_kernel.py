@@ -8,7 +8,7 @@ in-kernel-gate form that ttt_vjp.py:ttt_mlp_fused_pre dispatches. Kernels:
 
 - ``ttt_mlp_forward``: K1 for sampling (no state checkpoints),
   ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward``: at CS = 16 its own kernel,
-  at CS = 32, 48 and 64 the training kernel with no checkpoints;
+  at every other CS the training kernel with no checkpoints;
 - ``ttt_mlp_forward_train``: K1 for training, which also writes the fp32
   state at the start of every group of K mini-batches (the last group may be
   ragged), ``csrc/ttt_mlp_forward.cu:ttt_mlp_forward_train``;
@@ -17,8 +17,10 @@ in-kernel-gate form that ttt_vjp.py:ttt_mlp_fused_pre dispatches. Kernels:
 - ``TTTMLPFunction``: K1-train forward, K2 backward.
 
 All three kernels take head_dim F = 64 and the mini-batches CS in
-KERNEL_MINI_BATCHES, 16, 32, 48 and 64: K1-train and K2 are one template on
-the CS / 16 slabs of ``csrc/ttt_mlp_train_step.cuh``.
+KERNEL_MINI_BATCHES, every multiple of 8 from 8 to 64: K1-train and K2 are
+one template on the ceil(CS / 16) slabs of 16 tokens of
+``csrc/ttt_mlp_train_step.cuh``, the last of which is a masked half slab
+when CS is not a multiple of 16.
 
 Inputs are the RAW token-major projections and the pre-sigmoid LR-gate
 logits; the scan applies L2-norm + rope to q/k, builds the
@@ -59,7 +61,7 @@ launches_by_cs = collections.Counter()
 KERNEL_HEAD_DIM = 64
 # The mini-batch sizes K1, K1-train and K2 take: csrc/ttt_mlp_forward.cu:ttt_mlp_forward's cases and
 # csrc/ttt_mlp_block.cuh:with_slabs's (a test holds the three together).
-KERNEL_MINI_BATCHES = (16, 32, 48, 64)
+KERNEL_MINI_BATCHES = (8, 16, 24, 32, 40, 48, 56, 64)
 
 
 # ------------------------------------------------------------ plain versions
@@ -329,9 +331,10 @@ def _lib(name: str = "ttt_mlp_forward"):
 
 def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2) -> None:
     """Raise ValueError unless the arguments are what the CUDA kernels take:
-    F = 64, CS in KERNEL_MINI_BATCHES (16, 32, 48 or 64, for sampling and
-    training alike), bf16 token-major q/k/v, float32 everything else, every
-    tensor contiguous and on one CUDA device, shapes consistent."""
+    F = 64, CS in KERNEL_MINI_BATCHES (a multiple of 8 up to 64, for
+    sampling and training alike), bf16 token-major q/k/v, float32
+    everything else, every tensor contiguous and on one CUDA device, shapes
+    consistent."""
     if XQ.ndim != 4:
         raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
     B, NC, CS, HF = XQ.shape

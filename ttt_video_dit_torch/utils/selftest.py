@@ -23,7 +23,11 @@ max|kernel - plain| / max|plain|:
   K6 at CS 32 and 64 (full and ragged; an eta-gate case at 64), K1-train
   and K2 at CS 16, 32 and 48 (full and ragged; an eta-gate case at 16) and
   K1 at CS 32, 48 and 64 (the training kernel with no checkpoints), rows
-  ``K5@CS64``, ``K2@CS16`` etc.
+  ``K5@CS64``, ``K2@CS16`` etc.;
+- the half slabs: every training kernel at CS 8, 24, 40 and 56 (ragged; an
+  eta-gate case at 8 and 56) and K1 and K5 at CS 8 and 24 (an odd NC), so
+  a last mini-batch whose last 16-token slab holds 8 tokens ends every
+  scan.
 
 Every check's name ends with the kernel rows it drives, as PERF.md's table
 names them ([K1] ... [K7]; a row at another mini-batch than the kernel's
@@ -112,8 +116,8 @@ def launch_count(row_name: str) -> int:
 
 
 # Training cases: name, variant, heads, NC of the shared arrays, NC this case takes, checkpoint group K, CS, eta
-# as a multiple of the TOML's (the large ones: chip_smoke.py's LARGE_ETA_FACTOR at the TOMLs' CS, and 1,024 for
-# TTT-MLP at CS 16: eta ~0.1 every way).
+# as a multiple of the TOML's (the large ones: chip_smoke.py's LARGE_ETA_FACTOR at the TOMLs' CS, and for TTT-MLP
+# 1,024 at CS 16, 512 at 8 and 3,584 at 56, for TTT-linear 50 at 8 and 350 at 56: eta ~0.1 every way).
 TRAIN_CASES = (
     ("ttt_mlp full", "ttt_mlp", 8, 5, 4, 4, 64, 1),
     ("ttt_mlp ragged", "ttt_mlp", 8, 5, 5, 4, 64, 1),
@@ -134,6 +138,18 @@ TRAIN_CASES = (
     ("ttt_mlp cs32 ragged", "ttt_mlp", 8, 5, 5, 2, 32, 1),
     ("ttt_mlp cs48 full", "ttt_mlp", 8, 5, 4, 2, 48, 1),
     ("ttt_mlp cs48 ragged", "ttt_mlp", 8, 5, 5, 2, 48, 1),
+    ("ttt_mlp cs8 ragged", "ttt_mlp", 8, 5, 5, 2, 8, 1),
+    ("ttt_mlp cs24 ragged", "ttt_mlp", 8, 5, 5, 2, 24, 1),
+    ("ttt_mlp cs40 ragged", "ttt_mlp", 8, 5, 5, 2, 40, 1),
+    ("ttt_mlp cs56 ragged", "ttt_mlp", 8, 5, 5, 2, 56, 1),
+    ("ttt_mlp cs8 eta-gate", "ttt_mlp", 8, 5, 5, 2, 8, 512),
+    ("ttt_mlp cs56 eta-gate", "ttt_mlp", 8, 5, 5, 2, 56, 3584),
+    ("ttt_linear cs8 ragged", "ttt_linear", 8, 5, 5, 2, 8, 1),
+    ("ttt_linear cs24 ragged", "ttt_linear", 8, 5, 5, 2, 24, 1),
+    ("ttt_linear cs40 ragged", "ttt_linear", 8, 5, 5, 2, 40, 1),
+    ("ttt_linear cs56 ragged", "ttt_linear", 8, 5, 5, 2, 56, 1),
+    ("ttt_linear cs8 eta-gate", "ttt_linear", 8, 5, 5, 2, 8, 50),
+    ("ttt_linear cs56 eta-gate", "ttt_linear", 8, 5, 5, 2, 56, 350),
 )
 # Sampling cases: name, variant, batch, heads, NC of the shared arrays, NC this case takes, CS.
 SAMPLE_CASES = (
@@ -151,6 +167,10 @@ SAMPLE_CASES = (
     ("ttt_mlp sampling cs32 ragged", "ttt_mlp", 2, 8, 5, 5, 32),
     ("ttt_mlp sampling cs48 full", "ttt_mlp", 2, 8, 5, 4, 48),
     ("ttt_mlp sampling cs48 ragged", "ttt_mlp", 2, 8, 5, 5, 48),
+    ("ttt_mlp sampling cs8 ragged", "ttt_mlp", 2, 8, 5, 5, 8),
+    ("ttt_mlp sampling cs24 ragged", "ttt_mlp", 2, 8, 5, 5, 24),
+    ("ttt_linear sampling cs8 ragged", "ttt_linear", 2, 8, 5, 5, 8),
+    ("ttt_linear sampling cs24 ragged", "ttt_linear", 2, 8, 5, 5, 24),
 )
 ATTENTION_SHAPE = (3, 417, 4, 64)  # 3 windows of a ragged 417 tokens, 4 heads
 RERUN_CHECK = "splash folded-windows rerun bit-equal [K4]"  # K4's determinism: two launches, the same bits
@@ -282,15 +302,15 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        # The rows at a kernel's other mini-batches draw from a generator of their own, so every other check's
-        # inputs are those it had before those rows were added.
-        rng, wide_rng = np.random.default_rng(0), np.random.default_rng(1)
+        # The rows at a kernel's other mini-batches draw from generators of their own (the half slabs from a
+        # third), so every other check's inputs are those it had before those rows were added.
+        rng, wide_rng, half_rng = np.random.default_rng(0), np.random.default_rng(1), np.random.default_rng(2)
+        draw = lambda r, CS: half_rng if CS % 16 else wide_rng if "@" in row(r, CS) else rng
         shared = {}
         for name, variant, H, NC, nc, K, CS, factor in TRAIN_CASES:
             fwd_row, bwd_row = (row(r, CS) for r in ROWS[variant][1:])
             if (variant, 1, H, NC, CS) not in shared:
-                shared[variant, 1, H, NC, CS] = ttt_arrays(wide_rng if "@" in fwd_row else rng, variant, 1, H, NC,
-                                                           CS)
+                shared[variant, 1, H, NC, CS] = ttt_arrays(draw(ROWS[variant][1], CS), variant, 1, H, NC, CS)
             a, eta = take(shared[variant, 1, H, NC, CS], nc), eta_scale(variant, CS, factor)
             loss_k, grads_k = ttt_loss_and_grads(kernels[f"{variant}_train"], a, variant, K, eta, device)
             loss_p, grads_p = ttt_loss_and_grads(PLAIN[f"{variant}_train"], a, variant, K, eta, device)
@@ -301,8 +321,7 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
                   STATE_GRAD_TOL)
         for name, variant, B, H, NC, nc, CS in SAMPLE_CASES:
             if (variant, B, H, NC, CS) not in shared:
-                draw = wide_rng if "@" in row(ROWS[variant][0], CS) else rng
-                shared[variant, B, H, NC, CS] = ttt_arrays(draw, variant, B, H, NC, CS)
+                shared[variant, B, H, NC, CS] = ttt_arrays(draw(ROWS[variant][0], CS), variant, B, H, NC, CS)
             args = _tensors(take(shared[variant, B, H, NC, CS], nc), variant, device, grad=False)
             eta = eta_scale(variant, CS)
             with torch.no_grad():
