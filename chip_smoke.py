@@ -46,12 +46,17 @@ non-zero, and no result line is printed):
    its last two checkpoint groups) and both pairs at the debug train TOML's at
    CS 56. A TOML's training slice (a long scan) is held checkpoint group by
    checkpoint group (check_scan_by_group), so that no input draw leaves the
-   tolerance through float32 drift alone.
+   tolerance through float32 drift alone. Last the float32 kernels
+   (check_float32_kernels; rows "<kernel>@f32"): K1 and K5 at the 3 s eval
+   TOMLs' sampling slices and at a large eta, K1-train/K2 and K5-train/K6 at
+   the 3 s train TOMLs' slices (by checkpoint group) and on a small ragged
+   scan, all on float32 q/k/v at a tenth of the bf16 tolerances, their bound
+   at F32_FLOPS.
 Then, for each model variant the repo ships (ttt_mlp, then ttt_linear), on
 its own 3 s TOMLs:
 3. one DiffusionTransformer forward at full width (d3072, 48 heads) and
    1 layer, kernel path against the plain functions, same weights.
-4. the sampling entry (ttt_video_dit_torch.sample.main) at 42 layers, 3
+4. the sampling entry (ttt_video_dit_torch.sample.main) at 42 layers, 2
    denoise steps; kernel launch counts from exactly that run; finite latents
    of the expected shape.
 5. one training loss + backward of a full-width 1-layer DiT (the 3 s train
@@ -75,40 +80,52 @@ its own 3 s TOMLs:
    the TOMLs set scan_layers) from exactly that run; seconds per step, peak
    memory, MFU.
 19. the TTT kernels at the model's default mini-batch, CS 64, through the
-    entries (phase_wide_mini_batch): the 2-layer full-width DiT of each
+    entries (phase_wide_mini_batch): the 1-layer full-width DiT of each
     variant at CS 64 kernel vs plain (DIT_REL_L2_TOL); both debug TOMLs as
     written (configs/train/debug.toml: d512 x 8 heads x 6 layers,
     TTT-linear, CS 64, K 16, 2 steps; configs/eval/debug.toml: 4 denoise
     steps from inputs/example.json, L 18,048; both TOMLs' output folders,
     /tmp/ttt_debug, moved under output/); the 5B TTT-linear 3 s train
-    TOML at --model.mini_batch_size 64 (NC 282, K 4) at 4 layers, 3 steps,
+    TOML at --model.mini_batch_size 64 (NC 282, K 4) at 2 layers, 2 steps,
     save_seq; the 5B TTT-MLP 3 s eval TOML at --model.mini_batch_size 64 at
-    42 layers, 2 denoise steps. Finite losses, grad norms and latents, every
+    4 layers, 2 denoise steps. Finite losses, grad norms and latents, every
     trained tensor moved, launch counts (rows "<kernel>@CS64").
 20. the TTT-MLP kernels at the other mini-batches they take, CS 16, 32 and
-    48, through the entries (phase_mlp_mini_batches): the 2-layer TTT-MLP
-    DiT kernel vs plain, its training gradients at CS 16 on the debug train
-    TOML (d512 x 8 heads, L 1,344, save_seq; GRAD_REL_L2_TOL) and its forward
-    at full width at CS 32 and 48 (DIT_REL_L2_TOL); the
-    5B TTT-MLP 3 s train TOML at --model.mini_batch_size 16 (NC 1,128, K 16:
-    71 groups, the last of 8) at 4 layers, 3 steps under its save_seq, and at
-    CS 32 and 48 at 2 layers, 2 steps; the 5B TTT-MLP 3 s eval TOML at
-    --model.mini_batch_size 32 at 42 layers and at 48 at 14 layers, 2
+    48, through the entries (phase_mlp_mini_batches): the TTT-MLP DiT kernel
+    vs plain, its 1-layer training gradients at CS 16 on the debug train
+    TOML (d512 x 8 heads, L 1,344, save_seq; GRAD_REL_L2_TOL) and its 1-layer
+    forward at full width at CS 32 and 48 (DIT_REL_L2_TOL); the 5B TTT-MLP 3 s train
+    TOML at --model.mini_batch_size 16 (NC 1,128, K 16: 71 groups, the last
+    of 8), 32 and 48 at 2 layers, 2 steps under its save_seq; the 5B TTT-MLP
+    3 s eval TOML at --model.mini_batch_size 32 and 48 at 4 layers, 2
     denoise steps each. Finite losses, grad norms and latents, every trained
     tensor moved, launch counts (rows "<kernel>@CS16" etc.).
 21. every TTT kernel at the mini-batches whose last 16-token slab is a half
     slab, CS 8, 24, 40 and 56, through the entries (phase_half_slabs): the
-    2-layer full-width DiT of each variant kernel vs plain at CS 8 and 24
+    1-layer full-width DiT of each variant kernel vs plain at CS 8 and 24
     (DIT_REL_L2_TOL) and its training gradients at CS 8 on the debug train
-    TOML (save_seq; GRAD_REL_L2_TOL); the 5B TTT-MLP 3 s train TOML at
-    --model.mini_batch_size 8 (NC 2,256, K 16: 141 groups) at 4 layers, 3
-    steps under its save_seq, at CS 24 and the 5B TTT-linear 3 s train TOML
-    at CS 8 and 24 at 2 layers, 2 steps; both 3 s eval TOMLs at CS 8 (42
-    layers) and 24 (14 layers), 2 denoise steps; the 30 s TTT-MLP train TOML
-    on one card at CS 40 (NC 4,209) at 1 layer, 2 steps; the debug train TOML
-    at CS 56 as written (TTT-linear) and with --model.ssm_layer ttt_mlp, 2
-    steps each. Finite losses, grad norms and latents, every trained tensor
-    moved, launch counts (rows "<kernel>@CS8" etc.).
+    TOML (save_seq; GRAD_REL_L2_TOL); both 5B 3 s train TOMLs at
+    --model.mini_batch_size 8 (NC 2,256; TTT-MLP K 16: 141 groups) and 24 at
+    2 layers, 2 steps under their save_seq; both 3 s eval TOMLs at CS 8 and
+    24 at 4 layers, 2 denoise steps; the 30 s TTT-MLP train TOML on one card
+    at CS 40 (NC 4,209) at 1 layer, 2 steps; the debug train TOML at CS 56 as
+    written (TTT-linear) and with --model.ssm_layer ttt_mlp, 2 steps each.
+    Finite losses, grad norms and latents, every trained tensor moved, launch
+    counts (rows "<kernel>@CS8" etc.).
+22. a float32 run (phase_float32): --parallelism.fsdp_unsharded_dtype
+    float32, as a user gives it, at full width. The 1-layer DiT of each
+    variant kernel vs plain, its forward and its training gradients under
+    save_seq (a tenth of the bf16 tolerances); both 3 s train TOMLs at 2
+    layers (cut from 4 for the time limit), 2 steps, and both 3 s eval TOMLs
+    at 4 layers (cut from 14), 2 denoise steps: the TTT layers on the float32
+    kernels, attention on the plain versions
+    (the route the JAX package takes to XLA, counted in the ops modules'
+    plain_routes), no K7; from exactly those runs every float32 TTT kernel
+    launched and no bf16 kernel; then the debug train TOML at
+    --model.mini_batch_size 12 at 2 of its 6 layers, 2 steps: its TTT scans
+    on the plain route,
+    no TTT kernel launched. Every other phase's launch check also holds the
+    plain routes at 0.
 Then the serving path (ttt_mlp, its 3 s eval TOML, full width; every
 weight file fabricated from a seed under output/chip_smoke_serve/, removed
 at the end):
@@ -145,7 +162,7 @@ Then the real training path (phase_resume; the files under
 output/chip_smoke_data/, removed at the end):
 9. the training entry on 4 fabricated precomputed samples (posteriors
    [13, 32, 60, 90], text [498, 4096], .npy and torch.save'd .pt files,
-   seeded), ttt_mlp 3 s TOML at full width cut to 2 layers: run A takes 3
+   seeded), ttt_mlp 3 s TOML at full width cut to 1 layer: run A takes 3
    steps saving at steps 2 and 3, run B resumes from step 2 and takes step
    3. B's step-3 batch, loss, grad norm and parameters equal A's bit for
    bit, the sampler states are equal; the loader's seconds a batch against
@@ -181,17 +198,17 @@ Then the long-context shapes (9 s and 63 s):
     times, the kernel times and bounds printed.
 11. for each variant on its 9 s TOMLs (3 scenes, 37 frames, L = 51,456):
     the 1-layer full-width DiT kernel vs plain (DIT_REL_L2_TOL); the
-    sampling entry at 21 layers, 2 denoise steps, from a 3-scene storyboard's
+    sampling entry at 2 layers, 2 denoise steps, from a 3-scene storyboard's
     text (phase 7's tokenizer and XXL weights; the XXL's loader draws them
-    from phase 7's seed instead of reading a 9.5 GB file), ttt_mlp also
-    decoding with phase 8's VAE (37 latent frames to [145, 480, 720, 3]
-    uint8); the training entry at 4 layers, 3 steps, the TOML's qkvo and
-    policy none (as phase 6).
-12. the sampling entry on configs/eval/ttt-mlp/63s.toml at 14 of its 42
+    from phase 7's seed instead of reading a 9.5 GB file), no VAE decode
+    (phase 8 decodes through the entry; scripts/profile_torch_vae.py
+    --frames 145 times the 9 s decode); the training entry at 1 layer, 2
+    steps, the TOML's qkvo and policy none (as phase 6).
+12. the sampling entry on configs/eval/ttt-mlp/63s.toml at 2 of its 42
     layers, 2 denoise steps, random DiT weights, from phase 7's 21-scene
     storyboard: the [parallelism] warning (the TOML asks for tp_sharding 2;
     the port samples on one card), finite [253, 16, 60, 90] latents, s/eval,
-    each stage's peak, 28 K1 and 14 K3 launches an eval. No VAE decode
+    each stage's peak, 4 K1 and 2 K3 launches an eval. No VAE decode
     (scripts/profile_torch_vae.py --frames 253 times the 63 s decode).
 Then the multi-GPU path at world size 1 (the card's machine has one card,
 and NCCL takes one rank a device):
@@ -206,7 +223,7 @@ and NCCL takes one rank a device):
     them in layer order), the
     launch counts of K1-train, K2, K3-lse, K4 and K7 those of phase 6, s/step
     and peak beside phase 6's; the sampling entry on the 3 s eval TOML at 42
-    layers, 3 denoise steps (phase 4's run): latents against phase 4's (the
+    layers, 2 denoise steps (phase 4's run): latents against phase 4's (the
     largest difference printed, within DIST_LATENT_TOL), K1 and K3 counted,
     s/eval and peak beside phase 4's.
 Then the offline data path (files under output/chip_smoke_offline/, removed at
@@ -219,14 +236,14 @@ the end):
     CPU on a [49, 64, 96] crop within VAE_REL_L2_TOL / VAE_MAX_TOL; a rerun
     that skips through validate_existing. precompute_text.main with T5-XXL
     (phase 7's tokenizer and seeded weights) on 8 annotations at
-    --max-length 493: 32 files, ms a batch; 2 of its "both"-mode embeddings
-    against the same weights on the CPU within T5_REL_L2_TOL; phase 8's
+    --max-length 493: 32 files, ms a batch; the first of its "both"-mode
+    embeddings against the same weights on the CPU within T5_REL_L2_TOL; phase 8's
     2-layer T5 on 2 annotations at 498 tokens (the length the 3 s train
     TOML's CS 64 tiles). A JSONL of the 3 s posterior with those
     embeddings: 3 batches through the DataModule with the native pool and
     in Python (the reader switched off), bit-equal, seconds a batch each;
     one training step of the
-    3 s TOML at 2 layers on them (native reader in use, finite loss, launch
+    3 s TOML at 1 layer on them (native reader in use, finite loss, launch
     counts). The VAE with group= an NCCL group of one: bit-equal to the
     one-device encode (a no-op check: a group of one runs the one-device
     code, and parallel/spatial.py's split runs only at two ranks or more,
@@ -234,7 +251,7 @@ the end):
 Then the longest training stage one card holds:
 15. the training entry on the ttt_mlp 30 s train TOML (L = 168,640: 10
     scenes of 529 synthetic text tokens and 121 frames; NC 2,635 at CS 64,
-    K 16; remat policy none, scan_layers) at 2 layers, 2 steps: the TOML's
+    K 16; remat policy none, scan_layers) at 1 layer, 2 steps: the TOML's
     shard_transformer_inputs and tp_sharding 2 ask for two tensor ranks, so
     it runs train_toml's one-card copy (both off, every other line the
     TOML's). Finite losses, every trained tensor moved, launch counts,
@@ -245,7 +262,8 @@ Then the longest training stage one card holds:
     cards.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 19, 20, 21, 8, 9, 17, 11, 12, 13, 14 and 15); the last line is
+the main-path runs of phases 4, 6 (both policies), 19, 20, 21, 22, 8, 9, 17, 11, 12, 13, 14 and 15); the last
+line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
 itself).
@@ -272,7 +290,7 @@ VARIANTS = ("ttt_mlp", "ttt_linear")
 
 def sample_args(variant: str) -> list[str]:
     return ["--job.config_file", f"configs/eval/{variant.replace('_', '-')}/3s.toml", "--eval.input_file",
-            "inputs/example.json", "--eval.num_denoising_steps", "3", "--guider.num_steps", "3"]
+            "inputs/example.json", "--eval.num_denoising_steps", "2", "--guider.num_steps", "2"]
 
 
 def long_sample_args(variant: str, length: str) -> list[str]:
@@ -312,7 +330,8 @@ def train_args(variant: str, length: str = "3s", layers: int = 4, steps: int = 3
 
 
 KERNELS = ("attention_forward", "attention_backward", "ttt_mlp_forward", "ttt_mlp_backward", "ttt_linear_forward",
-           "ttt_linear_backward", "convert")
+           "ttt_linear_backward", "convert", "ttt_mlp_forward_f32", "ttt_mlp_backward_f32", "ttt_linear_forward_f32",
+           "ttt_linear_backward_f32")
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise, on bf16 outputs. The
 # kernels round at the plain versions' points; what remains is float32
 # summation order (and, for attention, P and dS rounded to bf16 as operands),
@@ -321,6 +340,13 @@ KERNEL_TOL = {"ttt_mlp_forward": (2e-2, 2e-2), "attention_forward": (2e-2, 2e-2)
               "attention_forward_lse": (2e-2, 2e-2), "attention_backward": (2e-2, 2e-2),
               "ttt_mlp_backward": (2e-2, 2e-2), "ttt_linear_forward": (2e-2, 2e-2),
               "ttt_linear_forward_train": (2e-2, 2e-2), "ttt_linear_backward": (2e-2, 2e-2)}
+# The float32 kernels (rows "<kernel>@f32"): a tenth of the bf16 tolerances throughout (KERNEL_TOL, SCALED_TOL,
+# REL_L2_TOL and GROUP_REL_L2_TOL). Neither side rounds to bf16; what remains is float32 summation order, carried
+# along the scan (a training slice is held checkpoint group by checkpoint group, as in bf16).
+F32 = "@f32"
+KERNEL_TOL.update({f"{n}{F32}": (2e-3, 2e-3) for n in ("ttt_mlp_forward", "ttt_mlp_forward_train", "ttt_mlp_backward",
+                                                         "ttt_linear_forward", "ttt_linear_forward_train",
+                                                         "ttt_linear_backward")})
 # The float32 outputs of the training kernels (K1-train's and K5-train's
 # state checkpoints, K2's and K6's gradients), each held by its relative L2
 # error, ||kernel - plain|| / ||plain|| <= REL_L2_TOL, and by its largest
@@ -343,6 +369,9 @@ REL_L2_TOL = 1e-2
 GROUP_REL_L2_TOL = 1e-2
 SCALED_TOL = {"ttt_mlp_forward_train": 1e-3, "ttt_mlp_backward": 1e-2, "ttt_linear_forward_train": 1e-3,
               "ttt_linear_backward": 1e-2}
+SCALED_TOL.update({f"{n}{F32}": t / 10 for n, t in SCALED_TOL.items()})
+F32_REL_L2_TOL = REL_L2_TOL / 10
+F32_GROUP_REL_L2_TOL = GROUP_REL_L2_TOL / 10
 ELEMENTWISE_GRADS = ("dXQ", "dXK", "dXV", "d_gate")
 # The TTT layer's parameters whose gradients K2 (ttt_mlp: all six) or K6
 # (ttt_linear: W1, b1 and the TTT norm) writes: a training step must move
@@ -366,9 +395,17 @@ DIT_REL_L2_TOL = 2e-2
 # gradient, kernel path vs plain path: the forward's 3e-3 (phase 3) carried
 # back through two layers of bf16 backward.
 GRAD_REL_L2_TOL = {"loss": 1e-2, "grad": 5e-2}
+# The same at fsdp_unsharded_dtype float32 (phase 22), a tenth of each: the stream and the TTT kernels round
+# nothing to bf16, and attention takes the plain versions on both paths.
+F32_DIT_REL_L2_TOL = DIT_REL_L2_TOL / 10
+F32_GRAD_REL_L2_TOL = {k: v / 10 for k, v in GRAD_REL_L2_TOL.items()}
+# The flag of a float32 run, as a user gives it.
+F32_FLAG = ("--parallelism.fsdp_unsharded_dtype", "float32")
 # H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s and dense bf16 FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# Exact float32 products on the tensor cores: three TF32 passes (hi x hi, hi x lo, lo x hi) at 495 TFLOP/s.
+F32_FLOPS = 495e12 / 3
 # T5-v1.1-XXL's published widths (its config.json), and the 2 scene tokens' rows.
 T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64,
               relative_attention_num_buckets=32, relative_attention_max_distance=128, feed_forward_proj="gated-gelu")
@@ -394,6 +431,7 @@ SERVE_DIR = "output/chip_smoke_serve"
 TRAIN_DIR = "output/chip_smoke_train"  # phase 6's logs
 DATA_DIR = "output/chip_smoke_data"  # phase 9's fabricated dataset, logs and checkpoints
 CARD = ""  # the card's name and power limit, as nvidia-smi prints them; set by main()
+START = time.perf_counter()  # reset by main(): the clock lines print the seconds since
 
 
 def log(msg: str) -> None:
@@ -402,10 +440,12 @@ def log(msg: str) -> None:
 
 def log_clocks(when: str) -> None:
     """The card's SM clock (and its maximum), power draw and temperature, so
-    that times from different calls can be read against the clocks they ran at."""
+    that times from different calls can be read against the clocks they ran at,
+    and the seconds since main() began, so that each stretch's share of the
+    time limit can be read off."""
     query = "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
     out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader"], capture_output=True, text=True)
-    log(f"  clocks {when}: {(out.stdout or out.stderr).strip()}")
+    log(f"  clocks {when}: {(out.stdout or out.stderr).strip()}; {time.perf_counter() - START:.1f} s since the start")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -449,22 +489,23 @@ def compare_scaled(name: str, what: str, got, want) -> tuple[float, float]:
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name} {what}: kernel output has non-finite values")
     err, scale = float((got - want).abs().max()), float(want.abs().max())
-    rel = float((got - want).norm() / want.norm())
-    if not rel <= REL_L2_TOL:
-        raise AssertionError(f"{name} {what}: relative L2 error {rel:.4g} > {REL_L2_TOL}")
+    rel, rel_tol = float((got - want).norm() / want.norm()), F32_REL_L2_TOL if name.endswith(F32) else REL_L2_TOL
+    if not rel <= rel_tol:
+        raise AssertionError(f"{name} {what}: relative L2 error {rel:.4g} > {rel_tol}")
     if err > SCALED_TOL[name] * scale:
         raise AssertionError(f"{name} {what}: max_abs_err {err:.4g} > {SCALED_TOL[name]} x max|plain| {scale:.4g}")
     return err, rel
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least milliseconds the card could take: max(bytes / HBM rate, flops / bf16 peak)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    """The least milliseconds the card could take: max(bytes / HBM rate, flops / the peak of their type: bf16's,
+    or F32_FLOPS for exact float32 products)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def record(name, source, replaces, err, ms, plain_ms, nbytes, flops, library_ms=None) -> dict:
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS if name.endswith(F32) else BF16_FLOPS)
     library = "n/a" if library_ms is None else f"{library_ms:.3f} ms (kernel / library {ms / library_ms:.2f}x)"
     log(f"  {name} slice: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
         f"library {library}, max_abs_err {err:.4g}")
@@ -480,7 +521,8 @@ def phase_build():
         list(pool.map(_build.load, KERNELS))
     for lib in (ttt_mlp_kernel._lib(), ttt_mlp_kernel._lib("ttt_mlp_backward"), attention._lib(),
                 attention._lib("attention_backward"), ttt_linear_kernel._lib(),
-                ttt_linear_kernel._lib("ttt_linear_backward"), convert._lib()):
+                ttt_linear_kernel._lib("ttt_linear_backward"), convert._lib(),
+                *(mod._lib(n) for mod in (ttt_mlp_kernel, ttt_linear_kernel) for n in mod.F32_LIBS)):
         assert lib is not None
     for name, info in _build.build_info.items():
         usage = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
@@ -494,6 +536,8 @@ def phase_build():
     for cs in ttt_linear_kernel.KERNEL_MINI_BATCHES:
         smem[f"ttt_linear_forward CS {cs}"] = lin.ttt_linear_forward_smem_bytes(cs)
         smem[f"ttt_linear_backward CS {cs}"] = lin_bwd.ttt_linear_backward_smem_bytes(cs)
+    for mod in (ttt_mlp_kernel, ttt_linear_kernel):  # the float32 kernels: the same at every CS
+        smem.update({f"{n} every CS": getattr(mod._lib(n), f"{n}_smem_bytes")(64) for n in mod.F32_LIBS})
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: "
         + ", ".join(f"{k} {v} bytes" for k, v in smem.items()) + ")")
 
@@ -525,12 +569,12 @@ def phase_selftest(device) -> None:
         + f"; {result['seconds']:.2f} s (first run, after the build), {warm['seconds']:.2f} s (second) ({CARD})")
 
 
-def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16, variant="ttt_mlp"):
+def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16, variant="ttt_mlp", dtype=torch.bfloat16):
     from ttt_video_dit_torch.models.ttt.layer import scan_rope_tables
 
     F = 64
     randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=device) * std
-    x = lambda: randn(B, NC, CS, H * F).to(torch.bfloat16)
+    x = lambda: randn(B, NC, CS, H * F).to(dtype)
     if meta is None:
         angles = torch.rand(NC, CS, F // 2, generator=gen, device=device) * 6.3
         cos, sin = (t.repeat_interleave(2, dim=-1).contiguous() for t in (torch.cos(angles), torch.sin(angles)))
@@ -556,12 +600,14 @@ TPU = "ttt_video_dit_tpu/"
 SEQ = 18048  # tokens of the 3 s shape: 498 text + 13 frames x 30 x 45
 
 
-def _ttt_bytes(variant, B, H, NC, CS, F=64, bf16_tensors=4):
-    """Bytes a TTT scan must move once: ``bf16_tensors`` token-major bf16
-    tensors (q/k/v and the output), f32 gate, rope tables, LN affine and the
-    variant's initial state."""
+def _ttt_bytes(variant, B, H, NC, CS, F=64, bf16_tensors=4, qkv_bytes=2):
+    """Bytes a TTT scan must move once: ``bf16_tensors`` token-major tensors
+    (q/k/v and the output) of ``qkv_bytes`` an element (bf16, or 4 for the
+    float32 kernels), f32 gate, rope tables, LN affine and the variant's
+    initial state."""
     L = NC * CS
-    return bf16_tensors * B * L * H * F * 2 + B * H * L * 4 + 2 * L * F * 4 + 2 * H * F * 4 + H * TTT[variant][1](F) * 4
+    return (bf16_tensors * B * L * H * F * qkv_bytes + B * H * L * 4 + 2 * L * F * 4 + 2 * H * F * 4
+            + H * TTT[variant][1](F) * 4)
 
 
 def _ttt_flops_per_step(variant, CS, F=64):
@@ -667,9 +713,11 @@ def check_scan_by_group(variant, a, K, eta, dout, kernels=None) -> dict:
     largest output and gradient errors, the checkpoints' (max_abs_err, rel L2) and the plain versions' times (the
     forward summed over its per-group runs)."""
     mod = _ttt_module(variant)
-    fwd, bwd = f"{variant}_forward_train", f"{variant}_backward"
-    fwd_k, bwd_k = kernels or (getattr(mod, fwd), getattr(mod, bwd))
+    fwd_k, bwd_k = kernels or (getattr(mod, f"{variant}_forward_train"), getattr(mod, f"{variant}_backward"))
     fwd_p, bwd_p = getattr(mod, f"{variant}_forward_plain"), getattr(mod, f"{variant}_backward_plain")
+    # The tolerances' names: float32 q/k/v take the float32 kernels' (a tenth of the bf16 ones).
+    tag, group_tol = (F32, F32_GROUP_REL_L2_TOL) if a["XQ"].dtype == torch.float32 else ("", GROUP_REL_L2_TOL)
+    fwd, bwd = f"{variant}_forward_train{tag}", f"{variant}_backward{tag}"
     state = TTT[variant][0]
     B, NC = a["XQ"].shape[:2]
     H = a["ln_w"].shape[0]
@@ -699,8 +747,8 @@ def check_scan_by_group(variant, a, K, eta, dout, kernels=None) -> dict:
             n0, n1 = gi * K, min(NC, (gi + 1) * K)
             d, p = g.narrow(axis, n0, n1 - n0).float(), w.narrow(axis, n0, n1 - n0).float()
             rel = float((d - p).norm() / p.norm())
-            if not rel <= GROUP_REL_L2_TOL:
-                raise AssertionError(f"{bwd} {n} group {gi}: relative L2 error {rel:.4g} > {GROUP_REL_L2_TOL}")
+            if not rel <= group_tol:
+                raise AssertionError(f"{bwd} {n} group {gi}: relative L2 error {rel:.4g} > {group_tol}")
             worst[n] = max(worst.get(n, 0.0), rel)
     gnames = ELEMENTWISE_GRADS + tuple(f"d{n}" for n in state) + ("dln_w", "dln_b")
     gerr = max(compare_scaled(bwd, n, g, w)[0] for n, g, w in zip(gnames, gk, gp))
@@ -709,7 +757,8 @@ def check_scan_by_group(variant, a, K, eta, dout, kernels=None) -> dict:
         + ", ".join(f"{n}_ck {e:.4g} / {r:.3g}" for n, (e, r) in ck_errs.items())
         + f"; {bwd} from the kernel's checkpoints, each group's rel L2 at worst "
         + ", ".join(f"{n} {r:.3g}" for n, r in worst.items())
-        + f" (tol {GROUP_REL_L2_TOL}), every gradient over the scan max_abs_err {gerr:.4g} (rel L2 {REL_L2_TOL})")
+        + f" (tol {group_tol}), every gradient over the scan max_abs_err {gerr:.4g} (rel L2 "
+        + f"{F32_REL_L2_TOL if tag else REL_L2_TOL})")
     return dict(ck=ck, err=out_err, gerr=gerr, ck_errs=ck_errs, group_rel_l2=worst, fwd_plain_ms=fwd_plain_ms,
                 bwd_plain_ms=bwd_plain_ms)
 
@@ -764,13 +813,14 @@ def _check_training_case(variant, B, H, NC, K, meta, eta, eta_scale, CS, gen, de
 TRAIN_INPUTS = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")  # the backward's leading arguments
 
 
-def _training_cost(variant, NC, K, CS, H=48) -> tuple[float, float, float, float]:
+def _training_cost(variant, NC, K, CS, H=48, qkv_bytes=2) -> tuple[float, float, float, float]:
     """(forward bytes, forward operations, backward bytes, backward operations) of the training scans of one
-    ``H``-head batch row. Backward bytes: q/k/v and dout in, dXQ/dXK/dXV out (bf16), the gate in and d_gate out, the
-    tables, LN affine, checkpoints and initial-state-sized gradients."""
+    ``H``-head batch row. Backward bytes: q/k/v and dout in, dXQ/dXK/dXV out (bf16, or float32 at ``qkv_bytes``
+    4), the gate in and d_gate out, the tables, LN affine, checkpoints and initial-state-sized gradients."""
     ck_bytes = -(-NC // K) * H * TTT[variant][1](64) * 4
-    return (_ttt_bytes(variant, 1, H, NC, CS) + ck_bytes, H * NC * _ttt_flops_per_step(variant, CS),
-            _ttt_bytes(variant, 1, H, NC, CS, bf16_tensors=7) + ck_bytes + NC * CS * H * 4,
+    return (_ttt_bytes(variant, 1, H, NC, CS, qkv_bytes=qkv_bytes) + ck_bytes,
+            H * NC * _ttt_flops_per_step(variant, CS),
+            _ttt_bytes(variant, 1, H, NC, CS, bf16_tensors=7, qkv_bytes=qkv_bytes) + ck_bytes + NC * CS * H * 4,
             H * NC * _ttt_bwd_flops_per_step(variant, CS))
 
 
@@ -1040,6 +1090,7 @@ def phase_kernels(device) -> list[dict]:
     torch.cuda.empty_cache()
     records += check_wide_mini_batch(device)
     records += check_half_slabs(device)
+    records += check_float32_kernels(device)
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
     return records
 
@@ -1127,11 +1178,62 @@ def check_half_slabs(device) -> list[dict]:
     return records
 
 
+def check_float32_kernels(device) -> list[dict]:
+    """The float32 kernels (float32 q/k/v; rows "<kernel>@f32") against their plain versions at the 3 s slices
+    phase 22's entries give them at --parallelism.fsdp_unsharded_dtype float32, with generators of their own: K1
+    and K5 at the 3 s eval TOMLs' sampling slices (B 2, 48 heads, NC 1,128 at CS 16) and on a small scan at 1,000x
+    the slice's eta; K1-train/K2 and K5-train/K6 at the 3 s train TOMLs' slices (B 1, 48 heads; TTT-MLP NC 282 at
+    CS 64, K 16; TTT-linear NC 1,128 at CS 16, K 4), held by checkpoint group (check_scan_by_group), and on a
+    small ragged scan (NC 7, K 3) at ~0.1 eta. Tolerances a tenth of the bf16 ones (F32 rows of KERNEL_TOL,
+    SCALED_TOL). Times, the bound at F32_FLOPS, plain times."""
+    gen = lambda seed: torch.Generator(device).manual_seed(seed)
+    f32 = dict(device=device, dtype=torch.float32)
+    records = []
+    for i, variant in enumerate(VARIANTS):
+        mod, replaces, src = _ttt_module(variant), TTT[variant][2], f"{variant}_forward_f32.cu"
+        kernel, plain = getattr(mod, f"{variant}_forward"), getattr(mod, f"{variant}_forward_plain")
+        cfg, meta = _sampling_meta(sample_args(variant) + list(F32_FLAG))
+        CS, H, NC = cfg.mini_batch_size, cfg.num_heads, SEQ // cfg.mini_batch_size
+        eta, name = cfg.ttt_base_lr / 64 / CS, f"{variant}_forward{F32}"
+        for B, HH, nc, m, e in ((2, H, NC, meta, eta), (1, 2, 17, None, 1000 * eta)):
+            a = _ttt_inputs(B, HH, nc, gen(60 + 4 * i), meta=m, CS=CS, variant=variant, **f32)
+            want, plain_ms = timed(lambda: plain(**a, eta_scale=e))
+            err = compare(name, kernel(**a, eta_scale=e), want)
+            log(f"  {name} B={B} H={HH} NC={nc} CS={CS} eta_scale={e:.4g}: max_abs_err {err:.4g} "
+                f"(tol {KERNEL_TOL[name]})")
+            if m is not None:
+                ms = cuda_ms(lambda: kernel(**a, eta_scale=e), 3)
+                records.append(record(name, src, TPU + replaces[0], err, ms, plain_ms,
+                                      _ttt_bytes(variant, B, H, NC, CS, qkv_bytes=4),
+                                      B * H * NC * _ttt_flops_per_step(variant, CS)))
+        del a, want
+        fwd_k, bwd_k = getattr(mod, f"{variant}_forward_train"), getattr(mod, f"{variant}_backward")
+        cfg, meta = _training_meta(variant, extra=F32_FLAG)
+        K, CS, H = cfg.scan_checkpoint_group_size, cfg.mini_batch_size, cfg.num_heads
+        NC, eta = SEQ // CS, cfg.ttt_base_lr / 64 / CS
+        for HH, nc, KK, m, e in ((2, 7, 3, None, LARGE_ETA_FACTOR[variant] * eta), (H, NC, K, meta, eta)):
+            g = gen(61 + 4 * i + (m is None))
+            a = _ttt_inputs(1, HH, nc, g, meta=m, CS=CS, variant=variant, **f32)
+            dout = torch.randn(*a["XQ"].shape, generator=g, device=device)
+            r = check_scan_by_group(variant, a, KK, e, dout)
+        ins = [a[n] for n in TRAIN_INPUTS]
+        fwd_ms = cuda_ms(lambda: fwd_k(**a, eta_scale=eta, checkpoint_group=K), 2)
+        bwd_ms = cuda_ms(lambda: bwd_k(*ins, *r["ck"], dout, eta, K), 2)
+        fb, ff, bb, bf = _training_cost(variant, NC, K, CS, H, qkv_bytes=4)
+        records += [record(f"{variant}_forward_train{F32}", src, TPU + replaces[0], r["err"], fwd_ms,
+                           r["fwd_plain_ms"], fb, ff),
+                    record(f"{variant}_backward{F32}", f"{variant}_backward_f32.cu", TPU + replaces[1], r["gerr"],
+                           bwd_ms, r["bwd_plain_ms"], bb, bf)]
+        del a, dout, ins, r
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_dit(device, variant, length: str = "3s", extra: tuple = (), phase: int | None = None,
               layers: int = 2) -> None:
     """One full-width DiT forward of ``layers`` layers at the geometry of the variant's eval TOML of ``length``
-    (with the flags ``extra``), kernel path against the plain path (phase 3 and at 9 s, phase 11, at 1 layer; at
-    CS 64, 32 and 48 and at the half slabs, phases 19-21, at 2)."""
+    (with the flags ``extra``), kernel path against the plain path (phases 3, 11, 19-22 at 1 layer)."""
+    from ttt_video_dit_torch.models.dit.dit import compute_dtype
     from ttt_video_dit_torch.sample import build_model, model_config, parse_args
 
     t0 = time.perf_counter()
@@ -1148,17 +1250,17 @@ def phase_dit(device, variant, length: str = "3s", extra: tuple = (), phase: int
     with torch.inference_mode():
         for use_kernel in (False, True):
             cfg.use_kernel = use_kernel
-            outs[use_kernel] = model.dit(video.to(torch.bfloat16), text, timesteps).float()
+            outs[use_kernel] = model.dit(video.to(compute_dtype(cfg)), text, timesteps).float()
     ref, got = outs[False], outs[True]
     if not torch.isfinite(got).all():
         raise AssertionError(f"{variant} DiT kernel-path output has non-finite values")
-    rel = float((got - ref).norm() / ref.norm())
-    if rel > DIT_REL_L2_TOL:
-        raise AssertionError(f"{variant} DiT kernel path vs plain path: relative L2 error {rel:.4g} > {DIT_REL_L2_TOL}")
+    rel, tol = float((got - ref).norm() / ref.norm()), F32_DIT_REL_L2_TOL if cfg.dtype == "float32" else DIT_REL_L2_TOL
+    if rel > tol:
+        raise AssertionError(f"{variant} DiT kernel path vs plain path: relative L2 error {rel:.4g} > {tol}")
     log(f"phase {phase or (3 if length == '3s' else 11)} {variant} {length} DiT d{cfg.model_dim} x {cfg.num_heads} "
-        f"heads x {cfg.num_layers} layers, CS {cfg.mini_batch_size}, video {list(video.shape[1:])}, text "
+        f"heads x {cfg.num_layers} layers, {cfg.dtype}, CS {cfg.mini_batch_size}, video {list(video.shape[1:])}, text "
         f"{list(text.shape[1:3])}, kernel vs plain: "
-        f"rel L2 {rel:.4g} (tol {DIT_REL_L2_TOL}), max_abs_err {float((got - ref).abs().max()):.4g}: "
+        f"rel L2 {rel:.4g} (tol {tol}), max_abs_err {float((got - ref).abs().max()):.4g}: "
         f"{time.perf_counter() - t0:.1f} s")
     del model
 
@@ -1166,11 +1268,11 @@ def phase_dit(device, variant, length: str = "3s", extra: tuple = (), phase: int
 def reset_counts() -> None:
     from ttt_video_dit_torch.ops import attention, convert, ttt_linear_kernel, ttt_mlp_kernel
 
-    ttt_mlp_kernel.launches = ttt_mlp_kernel.train_launches = ttt_mlp_kernel.bwd_launches = 0
-    ttt_linear_kernel.launches = ttt_linear_kernel.train_launches = ttt_linear_kernel.bwd_launches = 0
-    ttt_mlp_kernel.launches_by_cs.clear()
-    ttt_linear_kernel.launches_by_cs.clear()
-    attention.launches = attention.lse_launches = attention.bwd_launches = 0
+    for mod in (ttt_mlp_kernel, ttt_linear_kernel):
+        mod.launches = mod.train_launches = mod.bwd_launches = mod.plain_routes = 0
+        mod.launches_by_cs.clear()
+        mod.f32_launches_by_cs.clear()
+    attention.launches = attention.lse_launches = attention.bwd_launches = attention.plain_routes = 0
     convert.launches = 0
 
 
@@ -1182,20 +1284,50 @@ BY_CS = {"ttt_mlp_forward": ("ttt_mlp", "launches", 16), "ttt_mlp_forward_train"
          "ttt_linear_backward": ("ttt_linear", "bwd_launches", 16)}
 
 
-def row_name(name: str, CS: int) -> str:
-    return f"{name}@CS{CS}" if name in BY_CS and CS != BY_CS[name][2] else name
+def row_name(name: str, CS: int, f32: bool = False) -> str:
+    """A kernel's row at mini-batch CS: ``name`` at its first CS, else ``name@CS<n>``; a float32 kernel's
+    ``name@f32`` (``name@f32@CS<n>``)."""
+    name += F32 if f32 else ""
+    return f"{name}@CS{CS}" if name.removesuffix(F32) in BY_CS and CS != BY_CS[name.removesuffix(F32)][2] else name
 
 
 def read_counts() -> dict[str, int]:
+    """Every kernel's launches by row (rows "<kernel>@f32" for the float32 kernels), and the calls on the card
+    that the model's route sent to the plain versions ("plain_routes:attention", ":ttt_mlp", ":ttt_linear")."""
     from ttt_video_dit_torch.ops import attention, convert
 
     counts = {"attention_forward": attention.launches, "attention_forward_lse": attention.lse_launches,
-              "attention_backward": attention.bwd_launches, "convert_f32_bf16": convert.launches}
+              "attention_backward": attention.bwd_launches, "convert_f32_bf16": convert.launches,
+              "plain_routes:attention": attention.plain_routes}
     for name, (variant, attr, first) in BY_CS.items():
-        by_cs = _ttt_module(variant).launches_by_cs
-        counts[name] = by_cs[attr, first]
-        counts.update({row_name(name, cs): n for (a, cs), n in by_cs.items() if a == attr and cs != first and n})
+        mod = _ttt_module(variant)
+        for f32, by_cs in ((False, mod.launches_by_cs), (True, mod.f32_launches_by_cs)):
+            counts[row_name(name, first, f32)] = by_cs[attr, first]
+            counts.update({row_name(name, cs, f32): n for (a, cs), n in by_cs.items() if a == attr and cs != first and n})
+    for variant in VARIANTS:
+        counts[f"plain_routes:{variant}"] = _ttt_module(variant).plain_routes
     return counts
+
+
+def check_routes(counts: dict, cfg, variant: str, what: str) -> dict:
+    """The run's plain routes where its config predicts them (attention at a dtype other than bf16, the variant's
+    scans at a CS that is not a multiple of 8) and nowhere else; returns its kernel launches alone."""
+    from ttt_video_dit_torch.ops import attention, ttt_mlp_kernel
+
+    routed = {"attention": attention.routes_to_plain(torch.float32 if cfg.dtype == "float32" else torch.bfloat16)}
+    for v in VARIANTS:
+        routed[v] = v == variant and ttt_mlp_kernel.routes_to_plain(cfg.mini_batch_size, cfg.head_dim)
+    wrong = {k: counts[f"plain_routes:{k}"] for k, want in routed.items() if (counts[f"plain_routes:{k}"] > 0) != want}
+    if wrong:
+        raise AssertionError(f"{what}: plain routes {wrong} where {routed} was expected")
+    return {k: v for k, v in counts.items() if not k.startswith("plain_routes:")}
+
+
+def ttt_mlp_routes_to_plain(cfg) -> bool:
+    """Whether the config's TTT scans take the plain route (ops/ttt_mlp_kernel.py:routes_to_plain)."""
+    from ttt_video_dit_torch.ops import ttt_mlp_kernel
+
+    return ttt_mlp_kernel.routes_to_plain(cfg.mini_batch_size, cfg.head_dim)
 
 
 def phase_sample(device, variant, keep: dict | None = None, args: list[str] | None = None,
@@ -1217,10 +1349,13 @@ def phase_sample(device, variant, keep: dict | None = None, args: list[str] | No
     evals = len(summary["eval_seconds"])
     if summary["device"].split(":")[0] != "cuda":
         raise AssertionError(f"sampling ran on {summary['device']}, not the card")
-    # Per eval and layer: the TTT scan once per direction, attention once.
-    expect = {row_name(f"{variant}_forward", cfg.mini_batch_size): 2 * cfg.num_layers * evals,
-              "attention_forward": cfg.num_layers * evals}
-    if counts != {**dict.fromkeys(counts, 0), **expect}:
+    # Per eval and layer: the TTT scan once per direction, attention once (each where the route takes a kernel: the
+    # float32 TTT kernels at float32, no attention kernel).
+    f32, launched = cfg.dtype == "float32", check_routes(counts, cfg, variant, "sampling")
+    expect = {} if f32 else {"attention_forward": cfg.num_layers * evals}
+    if not ttt_mlp_routes_to_plain(cfg):
+        expect[row_name(f"{variant}_forward", cfg.mini_batch_size, f32)] = 2 * cfg.num_layers * evals
+    if launched != {**dict.fromkeys(launched, 0), **expect}:
         raise AssertionError(f"kernel launches {counts} do not match {cfg.num_layers} layers x {evals} evals")
     latents = np.load(summary["latents"][0])
     if latents.shape != (13, 16, 60, 90) or not np.isfinite(latents).all():
@@ -1230,7 +1365,7 @@ def phase_sample(device, variant, keep: dict | None = None, args: list[str] | No
         f"{cfg.num_layers} layers, CS {cfg.mini_batch_size}, {evals} evals: "
         f"{sum(steady) / len(steady):.3f} s/eval after the first ({summary['eval_seconds'][0]:.3f} s first), "
         f"peak {summary['peak_memory_bytes']['dit'] / 2**30:.2f} GiB, launches "
-        f"{ {k: v for k, v in counts.items() if v} }, latents finite, std {float(latents.std()):.4f}: "
+        f"{ {k: v for k, v in counts.items() if v} }, latents finite, std {float(latents.std()):.4f} ({CARD}): "
         f"{time.perf_counter() - t0:.1f} s")
     if keep is not None:
         keep.update(latents=latents, eval_seconds=sum(steady) / len(steady), peak=summary["peak_memory_bytes"]["dit"])
@@ -1241,9 +1376,9 @@ def phase_grad(device, variant, extra: tuple = (), phase: int = 5, args: list[st
                layers: int = 2) -> None:
     """Loss + backward of a DiT of ``layers`` layers (the 3 s train config at
     full width, or the train TOML flags ``args``, with the flags ``extra``),
-    kernel path against the plain path, same weights, batch and draws (phase
-    5 at 1 layer; on the debug TOML at CS 16, phase 20, and at CS 8, phase
-    21)."""
+    kernel path against the plain path, same weights, batch and draws (every
+    caller at 1 layer: phases 5 and 22; on the debug TOML at CS 16, phase 20,
+    and at CS 8, phase 21)."""
     from ttt_video_dit_torch import train
 
     t0 = time.perf_counter()
@@ -1270,6 +1405,8 @@ def phase_grad(device, variant, extra: tuple = (), phase: int = 5, args: list[st
         torch.cuda.synchronize()
     cfg.remat_policy = policy
 
+    tols = F32_GRAD_REL_L2_TOL if cfg.dtype == "float32" else GRAD_REL_L2_TOL
+
     def held(what, got, want):
         (loss_k, grads_k), (loss_p, grads_p) = got, want
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -1280,16 +1417,16 @@ def phase_grad(device, variant, extra: tuple = (), phase: int = 5, args: list[st
                 raise AssertionError(f"gradient of {n} has non-finite values ({what})")
             rels[n] = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
         worst = sorted(rels.items(), key=lambda kv: -kv[1])[:4]
-        log(f"  {what}: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3g}, tol {GRAD_REL_L2_TOL['loss']}); "
+        log(f"  {what}: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3g}, tol {tols['loss']}); "
             f"gradient rel L2 over {len(rels)} parameters: median {sorted(rels.values())[len(rels) // 2]:.3g}, worst "
-            + ", ".join(f"{n} {r:.3g}" for n, r in worst) + f" (tol {GRAD_REL_L2_TOL['grad']})")
-        if loss_rel > GRAD_REL_L2_TOL["loss"] or worst[0][1] > GRAD_REL_L2_TOL["grad"]:
+            + ", ".join(f"{n} {r:.3g}" for n, r in worst) + f" (tol {tols['grad']})")
+        if loss_rel > tols["loss"] or worst[0][1] > tols["grad"]:
             raise AssertionError(f"training gradients, {what}: loss rel {loss_rel:.4g}, worst {worst[0]}")
 
     held(f"kernel vs plain path under {policy}", results[True, policy], results[False, policy])
     held(f"kernel path, {policy} vs none", results[True, policy], results[True, "none"])
     log(f"phase {phase} {variant} training gradients ({job.job.config_file}) d{cfg.model_dim} x {cfg.num_heads} heads "
-        f"x {cfg.num_layers} layers, L {vid.shape[1] * cfg.tokens_per_frame + text.shape[1] * text.shape[2]}, CS "
+        f"x {cfg.num_layers} layers, {cfg.dtype}, L {vid.shape[1] * cfg.tokens_per_frame + text.shape[1] * text.shape[2]}, CS "
         f"{cfg.mini_batch_size}: {time.perf_counter() - t0:.1f} s")
     del model, results
     torch.cuda.empty_cache()
@@ -1416,14 +1553,18 @@ def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: di
     # with the log-sum-exp once (twice under "none"), K4 once; with scan_layers, K7 once per 2-D layer
     # weight and forward, twice over (the recompute casts again): adaLN x 2, attention q/k/v/o, MLP x 2
     # and the TTT wq/wk/wv/wo, shared by both directions = 12.
+    # At float32 the float32 TTT kernels, no attention kernel (the plain route) and no K7 (no cast); at a CS that
+    # is not a multiple of 8 no TTT kernel (the plain route).
     L, CS = cfg.num_layers, cfg.mini_batch_size
     runs = 1 if cfg.remat_policy == "save_seq" else 2
-    expect = {row_name(f"{variant}_forward_train", CS): 2 * runs * L * steps,
-              row_name(f"{variant}_backward", CS): 2 * L * steps,
-              "attention_forward_lse": runs * L * steps, "attention_backward": L * steps}
-    if cfg.scan_layers:
+    f32, launched = cfg.dtype == "float32", check_routes(counts, cfg, variant, "training")
+    expect = {} if f32 else {"attention_forward_lse": runs * L * steps, "attention_backward": L * steps}
+    if not ttt_mlp_routes_to_plain(cfg):
+        expect.update({row_name(f"{variant}_forward_train", CS, f32): 2 * runs * L * steps,
+                       row_name(f"{variant}_backward", CS, f32): 2 * L * steps})
+    if cfg.scan_layers and not f32:
         expect["convert_f32_bf16"] = 2 * 12 * L * steps
-    if counts != {**dict.fromkeys(counts, 0), **expect}:
+    if launched != {**dict.fromkeys(launched, 0), **expect}:
         raise AssertionError(f"kernel launches {counts} do not match {L} layers x {steps} steps: {expect}")
     fresh = train.build_model(cfg, torch.device(device), job.job.seed)
     trained, idle = check_trained(summary["model"], fresh, summary["optimizer"], steps)
@@ -1457,20 +1598,21 @@ def phase_wide_mini_batch(device) -> dict[str, int]:
     x 6 layers, TTT-linear, CS 64, K 16, 2 steps; configs/eval/debug.toml: its 4 denoise steps from
     inputs/example.json, L 18,048, its latents written under output/); the 5B TTT-linear 3 s train TOML at
     --model.mini_batch_size 64 (NC 282,
-    K 4: 71 groups, the last of 2) at 4 layers, 3 steps under its save_seq; the 5B TTT-MLP 3 s eval TOML at
-    --model.mini_batch_size 64 at 42 layers, 2 denoise steps (K1 through the training kernel with no
-    checkpoints). Before them, the 2-layer full-width DiT of each variant at CS 64, kernel path against the
+    K 4: 71 groups, the last of 2) at 2 layers, 2 steps under its save_seq; the 5B TTT-MLP 3 s eval TOML at
+    --model.mini_batch_size 64 at 4 layers, 2 denoise steps (K1 through the training kernel with no
+    checkpoints). Before them, the 1-layer full-width DiT of each variant at CS 64, kernel path against the
     plain path (DIT_REL_L2_TOL). Each run checks its finite losses, grad norms or latents and its launch
     counts (phase_train, phase_sample)."""
     t0 = time.perf_counter()
     for variant in VARIANTS:
-        phase_dit(device, variant, extra=mini_batch(64), phase=19)
+        phase_dit(device, variant, extra=mini_batch(64), phase=19, layers=1)
     counts = Counter()
     counts.update(phase_train(device, "ttt_linear", args=DEBUG_TRAIN, phase=19))
     counts.update(phase_sample(device, "ttt_linear", args=DEBUG_SAMPLE, phase=19))
-    counts.update(phase_train(device, "ttt_linear", args=train_args("ttt_linear") + list(mini_batch(64)), phase=19))
+    counts.update(phase_train(device, "ttt_linear", args=train_args("ttt_linear", layers=2, steps=2) + list(mini_batch(64)),
+                              phase=19))
     counts.update(phase_sample(device, "ttt_mlp", args=sample_args("ttt_mlp") + list(mini_batch(64)) + [
-        "--eval.num_denoising_steps", "2", "--guider.num_steps", "2"], phase=19))
+        "--eval.num_denoising_steps", "2", "--guider.num_steps", "2", "--model.num_layers", "4"], phase=19))
     shutil.rmtree("output/chip_smoke_debug", ignore_errors=True)
     log(f"phase 19 the TTT kernels at CS 64 through the entries: {time.perf_counter() - t0:.1f} s")
     return counts
@@ -1478,27 +1620,28 @@ def phase_wide_mini_batch(device) -> dict[str, int]:
 
 def phase_mlp_mini_batches(device) -> dict[str, int]:
     """Phase 20: the TTT-MLP kernels at the mini-batches besides 64 and the sampling 16, through the entries a
-    user calls. First the 2-layer TTT-MLP DiT, kernel path against the plain path: its training loss and every
+    user calls. First the 1-layer TTT-MLP DiT, kernel path against the plain path: its training loss and every
     gradient at CS 16 on the debug train TOML with --model.ssm_layer ttt_mlp and the 3 s TOMLs' save_seq (d512 x 8
     heads, L 1,344, NC 84: phase_grad, GRAD_REL_L2_TOL, and save_seq against none; the plain path's scans follow
     NC, and the 5B 3 s TOML's 1,128 mini-batches took 90 s), its forward at full width at CS 32 and 48 (phase_dit:
     DIT_REL_L2_TOL). Then the 5B TTT-MLP 3 s train TOML at --model.mini_batch_size 16 (NC
-    1,128, K 16: 71 groups, the last of 8) at 4 layers, 3 steps under its save_seq, and at CS 32 (NC 564, 36
+    1,128, K 16: 71 groups, the last of 8) at 2 layers, 2 steps under its save_seq, and at CS 32 (NC 564, 36
     groups, the last of 4) and 48 (NC 376, 24 groups, the last of 8) at 2 layers, 2 steps; the 5B TTT-MLP 3 s
-    eval TOML at --model.mini_batch_size 32 at 42 layers and at 48 at 14 layers, 2 denoise steps
+    eval TOML at --model.mini_batch_size 32 and 48 at 4 layers, 2 denoise steps
     each. Each run checks its finite losses, grad norms or latents, every trained tensor moved, and its launch
     counts (phase_train, phase_sample: rows "<kernel>@CS<n>")."""
     t0 = time.perf_counter()
-    phase_grad(device, "ttt_mlp", extra=mini_batch(16) + DEBUG_MLP + SAVE_SEQ, phase=20, args=DEBUG_TRAIN)
+    phase_grad(device, "ttt_mlp", extra=mini_batch(16) + DEBUG_MLP + SAVE_SEQ, phase=20, args=DEBUG_TRAIN, layers=1)
     for cs in (32, 48):
-        phase_dit(device, "ttt_mlp", extra=mini_batch(cs), phase=20)
+        phase_dit(device, "ttt_mlp", extra=mini_batch(cs), phase=20, layers=1)
     counts = Counter()
-    counts.update(phase_train(device, "ttt_mlp", args=train_args("ttt_mlp") + list(mini_batch(16)), phase=20))
+    counts.update(phase_train(device, "ttt_mlp", args=train_args("ttt_mlp", layers=2, steps=2) + list(mini_batch(16)),
+                              phase=20))
     for cs in (32, 48):
         args = train_args("ttt_mlp", layers=2, steps=2) + list(mini_batch(cs))
         counts.update(phase_train(device, "ttt_mlp", args=args, phase=20))
     two_steps = ["--eval.num_denoising_steps", "2", "--guider.num_steps", "2"]
-    for cs, layers in ((32, 42), (48, 14)):  # at CS 48 the depth cut to a third
+    for cs, layers in ((32, 4), (48, 4)):  # the depth cut to 4 of 42
         args = sample_args("ttt_mlp") + list(mini_batch(cs)) + two_steps + ["--model.num_layers", str(layers)]
         counts.update(phase_sample(device, "ttt_mlp", args=args, phase=20))
     log(f"phase 20 the TTT-MLP kernels at CS 16, 32 and 48 through the entries: {time.perf_counter() - t0:.1f} s "
@@ -1508,13 +1651,13 @@ def phase_mlp_mini_batches(device) -> dict[str, int]:
 
 def phase_half_slabs(device) -> dict[str, int]:
     """Phase 21: every TTT kernel at the mini-batches whose last 16-token slab is a half slab, CS 8, 24, 40 and
-    56, through the entries a user calls. First the 2-layer DiT of each variant, kernel path against the plain
+    56, through the entries a user calls. First the 1-layer DiT of each variant, kernel path against the plain
     path: its forward at full width at CS 8 and 24 (phase_dit: DIT_REL_L2_TOL), its training loss and every
     gradient at CS 8 on the debug train TOML under save_seq (d512 x 8 heads, L 1,336, NC 167; ttt_mlp with
     --model.ssm_layer ttt_mlp: phase_grad, GRAD_REL_L2_TOL). Then the 5B TTT-MLP 3 s train TOML at --model.mini_batch_size 8 (NC
-    2,256, K 16: 141 groups) at 4 layers, 3 steps under its save_seq; the same at CS 24 (NC 752, 47 groups) and
+    2,256, K 16: 141 groups) at 2 layers, 2 steps under its save_seq; the same at CS 24 (NC 752, 47 groups) and
     the 5B TTT-linear 3 s train TOML at CS 8 and 24 (K 4: 564 and 188 groups) at 2 layers, 2 steps; both 3 s eval
-    TOMLs at CS 8 at 42 layers and at CS 24 at 14 layers, 2 denoise steps; the 30 s TTT-MLP train TOML on one card
+    TOMLs at CS 8 and 24 at 4 layers, 2 denoise steps; the 30 s TTT-MLP train TOML on one card
     (train_toml) at CS 40 (L 168,360, NC 4,209, 264 groups, the last of 1) at 1 layer, 2 steps; the debug train
     TOML at CS 56 as written (TTT-linear, d512 x 8 heads x 6 layers, NC 24, K 16: 2 groups, the last of 8) and
     with --model.ssm_layer ttt_mlp, 2 steps each. Each run checks its finite losses, grad norms or latents, every
@@ -1522,17 +1665,18 @@ def phase_half_slabs(device) -> dict[str, int]:
     t0 = time.perf_counter()
     for cs in (8, 24):
         for variant in VARIANTS:
-            phase_dit(device, variant, extra=mini_batch(cs), phase=21)
+            phase_dit(device, variant, extra=mini_batch(cs), phase=21, layers=1)
     for variant in VARIANTS:
         debug = DEBUG_MLP if variant == "ttt_mlp" else ()
-        phase_grad(device, variant, extra=mini_batch(8) + debug + SAVE_SEQ, phase=21, args=DEBUG_TRAIN)
+        phase_grad(device, variant, extra=mini_batch(8) + debug + SAVE_SEQ, phase=21, args=DEBUG_TRAIN, layers=1)
     counts = Counter()
-    counts.update(phase_train(device, "ttt_mlp", args=train_args("ttt_mlp") + list(mini_batch(8)), phase=21))
+    counts.update(phase_train(device, "ttt_mlp", args=train_args("ttt_mlp", layers=2, steps=2) + list(mini_batch(8)),
+                              phase=21))
     for variant, cs in (("ttt_mlp", 24), ("ttt_linear", 8), ("ttt_linear", 24)):
         args = train_args(variant, layers=2, steps=2) + list(mini_batch(cs))
         counts.update(phase_train(device, variant, args=args, phase=21))
     two_steps = ["--eval.num_denoising_steps", "2", "--guider.num_steps", "2"]
-    for cs, layers in ((8, 42), (24, 14)):  # at CS 24 the depth cut to a third
+    for cs, layers in ((8, 4), (24, 4)):  # the depth cut to 4 of 42
         for variant in VARIANTS:
             args = sample_args(variant) + list(mini_batch(cs)) + two_steps + ["--model.num_layers", str(layers)]
             counts.update(phase_sample(device, variant, args=args, phase=21))
@@ -1543,6 +1687,42 @@ def phase_half_slabs(device) -> dict[str, int]:
         counts.update(phase_train(device, variant, args=args, phase=21))
     log(f"phase 21 every TTT kernel at the half slabs of CS 8, 24, 40 and 56 through the entries: "
         f"{time.perf_counter() - t0:.1f} s ({CARD})")
+    return counts
+
+
+def phase_float32(device) -> dict[str, int]:
+    """Phase 22: a float32 run, --parallelism.fsdp_unsharded_dtype float32 as a user gives it, at full width
+    (d3072, 48 heads), through the entries. First the 1-layer DiT of each variant, kernel path against the plain
+    path: its forward (phase_dit) and its training loss and every gradient under save_seq (phase_grad), at a tenth
+    of the bf16 tolerances (F32_DIT_REL_L2_TOL, F32_GRAD_REL_L2_TOL). Then both 3 s train TOMLs at 2 layers (4 would
+    add ~20 s to the time limit's run), 2 steps under their save_seq, and both 3 s eval TOMLs at 4 layers (14
+    would add ~36 s), 2 denoise steps: the TTT layers on the float32 kernels, attention on the plain versions (the model's route, counted), no K7 (no cast at float32); finite
+    losses, grad norms and latents, every trained tensor moved, s/step, s/eval, peak. From exactly those runs the
+    float32 TTT kernels launched, the bf16 TTT kernels, K3, K4 and K7 not, attention's plain routes above 0. Last
+    the debug train TOML at --model.mini_batch_size 12 (L 1,344 = 112 x 12; bf16) at 2 of its 6 layers, 2 steps:
+    its TTT scans on the plain route (a CS the JAX package gives to its ttt_scan oracle), no TTT kernel launched."""
+    t0 = time.perf_counter()
+    for variant in VARIANTS:
+        phase_dit(device, variant, extra=F32_FLAG, phase=22, layers=1)
+        phase_grad(device, variant, extra=F32_FLAG, phase=22, layers=1)
+    counts = Counter()
+    for variant in VARIANTS:
+        counts.update(phase_train(device, variant, args=train_args(variant, layers=2, steps=2) + list(F32_FLAG),
+                                  phase=22))
+    two_steps = ["--eval.num_denoising_steps", "2", "--guider.num_steps", "2", "--model.num_layers", "4"]
+    for variant in VARIANTS:
+        counts.update(phase_sample(device, variant, args=sample_args(variant) + list(F32_FLAG) + two_steps, phase=22))
+    f32_rows = [row_name(n, BY_CS[n][2], True) for n in BY_CS]
+    bf16_rows = [k for k in counts if not k.startswith("plain_routes:") and F32 not in k]
+    if not all(counts[r] for r in f32_rows) or any(counts[r] for r in bf16_rows) or not counts["plain_routes:attention"]:
+        raise AssertionError(f"float32 runs: launches and routes {dict(counts)}: every float32 TTT kernel, no bf16 "
+                             "kernel and attention's plain route expected")
+    debug = phase_train(device, "ttt_linear", args=DEBUG_TRAIN + list(mini_batch(12)) + ["--model.num_layers", "2"],
+                        phase=22)
+    log(f"phase 22 the float32 run: float32 TTT kernels {[(r, counts[r]) for r in f32_rows]}, attention's plain "
+        f"routes {counts['plain_routes:attention']}, bf16 kernels 0; the debug TOML at CS 12: TTT plain routes "
+        f"{debug['plain_routes:ttt_linear']}, TTT launches 0: {time.perf_counter() - t0:.1f} s ({CARD})")
+    counts.update(debug)
     return counts
 
 
@@ -1940,9 +2120,9 @@ def _fabricated_dataset(path: str, samples: int, seed: int) -> str:
 
 
 def data_train_flags(meta: str, interval: int, dump: str) -> list[str]:
-    """The training entry on phase 9's fabricated samples: ttt_mlp 3 s TOML at 2 layers, 3 steps, a checkpoint
+    """The training entry on phase 9's fabricated samples: ttt_mlp 3 s TOML at 1 layer, 3 steps, a checkpoint
     every ``interval`` steps under ``dump``."""
-    return ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "2", "--training.steps", "3",
+    return ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "1", "--training.steps", "3",
             "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
             "--training.dataset_path", os.path.join(DATA_DIR, "data"), "--training.jsonl_paths", meta,
             "--checkpoint.interval", str(interval), "--job.dump_folder", dump]
@@ -1964,7 +2144,7 @@ def recording_batches(seen: list):
 
 def phase_resume(device) -> dict[str, int]:
     """The training entry on fabricated precomputed latents (ttt_mlp 3 s TOML,
-    full width, 2 layers), saving and resuming: run A takes 3 steps with
+    full width, 1 layer), saving and resuming: run A takes 3 steps with
     --checkpoint.interval 2 (saves at steps 2 and 3); run B resumes from step
     2 and takes step 3. B's step-3 batch, loss, grad norm and every parameter
     after step 3 equal A's bit for bit (the restore is exact and every kernel
@@ -2054,7 +2234,7 @@ def phase_requeue(device) -> dict[str, int]:
     submitit on the card's machine) in a fabricated one-task Slurm
     environment (SLURM_NTASKS 1, SLURM_PROCID 0, SLURM_LOCALID 0, this host's
     name as the node list), on phase 9's fabricated samples (ttt_mlp 3 s TOML,
-    full width, 2 layers, a checkpoint every step). Run R takes 3 steps
+    full width, 1 layer, a checkpoint every step). Run R takes 3 steps
     uninterrupted: the reference. Run A, independent of R, saves steps 1 and
     2, computes step 3 and is preempted while saving it; the Trainer that A's
     checkpoint() hands to submitit (a stand-in DelayedSubmission, as submitit
@@ -2596,7 +2776,7 @@ def phase_offline(device) -> dict[str, int]:
     torch.cuda.empty_cache()
 
     # T5-XXL over 8 annotations in the four token modes (phase 7's tokenizer and seeded weights), then the same
-    # weights (the scene tokens' rows included) on the CPU on 2 of them in the "both" mode, card against CPU.
+    # weights (the scene tokens' rows included) on the CPU on the first in the "both" mode, card against CPU.
     # Then phase 8's 2-layer T5 on 2 annotations at 498 tokens, the length the 3 s train TOML's CS 64 tiles
     # (493 + 13 x 1,350 is not a multiple of 64), for the training step's files.
     rng = random.Random(21)
@@ -2632,19 +2812,19 @@ def phase_offline(device) -> dict[str, int]:
         f"{sum(batch_ms[1:]) / 3:.1f} ms a batch of 8 after it, {xxl_seconds:.1f} s with the load, peak "
         f"{xxl_peak / 2**30:.2f} GiB ({CARD})")
     t = time.perf_counter()
-    got = np.stack([np.load(os.path.join(xxl["dirs"][1], f"scene{i}_txt_emb.npy")) for i in range(2)])
+    got = np.load(os.path.join(xxl["dirs"][1], "scene0_txt_emb.npy"))[None]
     enc = held.pop("enc").cpu()
     torch.cuda.empty_cache()
-    ids = t5._load_tokenizer(xxl_dir)([precompute_text.apply_token_mode(a["text"], "both") for a in scenes[:2]], 493)
+    ids = t5._load_tokenizer(xxl_dir)([precompute_text.apply_token_mode(scenes[0]["text"], "both")], 493)
     with torch.inference_mode():
         want = enc(torch.from_numpy(ids).long()).numpy()
     del enc
     rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
-    if (got.shape != (2, 493, 4096) or want.shape != got.shape or got.dtype != np.float32
+    if (got.shape != (1, 493, 4096) or want.shape != got.shape or got.dtype != np.float32
             or not np.isfinite(got).all() or not rel <= T5_REL_L2_TOL):
         raise AssertionError(f"precompute_text, T5-XXL, card {got.shape} {got.dtype} vs CPU {want.shape}: relative "
                              f"L2 {rel:.4g} (tol {T5_REL_L2_TOL})")
-    log(f"  precompute_text's T5-XXL embeddings of 2 annotations ({xxl['dirs'][1]}, [2, 493, 4096] float32) vs the "
+    log(f"  precompute_text's T5-XXL embeddings of 1 annotation ({xxl['dirs'][1]}, [1, 493, 4096] float32) vs the "
         f"same weights on the CPU, float32: relative L2 {rel:.4g} (tol {T5_REL_L2_TOL}), max_abs_err "
         f"{float(np.abs(got - want).max()):.4g}: {time.perf_counter() - t:.1f} s")
     card = precompute_text.main(["--t5-dir", os.path.join(SERVE_DIR, "t5"), "--input-jsonl",
@@ -2676,8 +2856,8 @@ def phase_offline(device) -> dict[str, int]:
     log(f"  loader: 3 batches {shapes} through the native pool and in Python bit-equal; {loader_s[True]:.4f} s a "
         f"batch native, {loader_s[False]:.4f} s in Python (worker seconds: reads and the posterior draw)")
 
-    # One training step of the 3 s TOML at 2 layers on the precomputed files, through the training entry.
-    flags = ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "2", "--training.steps", "1",
+    # One training step of the 3 s TOML at 1 layer on the precomputed files, through the training entry.
+    flags = ["--job.config_file", "configs/train/ttt-mlp/3s.toml", "--model.num_layers", "1", "--training.steps", "1",
              "--training.global_batch_size", "1", "--parallelism.dp_replicate", "1", "--parallelism.dp_sharding", "1",
              "--training.dataset_path", data_dir, "--training.jsonl_paths", meta, "--checkpoint.interval", "0",
              "--job.dump_folder", os.path.join(OFFLINE_DIR, "run")]
@@ -2692,7 +2872,7 @@ def phase_offline(device) -> dict[str, int]:
     if not summary["native_reader"] or summary["text_length"] != 498 or not np.isfinite(summary["losses"]).all():
         raise AssertionError(f"training step: native reader {summary['native_reader']}, text length "
                              f"{summary['text_length']}, losses {summary['losses']}")
-    log(f"  training step, ttt_mlp 3 s TOML at 2 layers on the precomputed files (native reader in use, text length "
+    log(f"  training step, ttt_mlp 3 s TOML at {L} layer{'s' if L > 1 else ''} on the precomputed files (native reader in use, text length "
         f"498): loss {summary['losses'][0]:.4f}, grad norm {summary['grad_norms'][0]:.4f}, launches "
         f"{ {k: v for k, v in counts.items() if v} }")
     del summary
@@ -2723,6 +2903,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    global START
+    START = start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -2732,7 +2914,12 @@ def main() -> int:
     CARD = smi
     log(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x {torch.cuda.device_count()}; tf32 off")
+    log(f"float32 products: torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32} (PyTorch's "
+        f"default, which the port leaves alone), float32 matmul precision {torch.get_float32_matmul_precision()!r}, "
+        f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}: the plain versions are exact float32 references, and "
+        "the float32 TTT kernels round nothing to TF32 or bf16")
     phase_build()
+    log_clocks("after the build")
     phase_selftest(device)
     log_clocks("before the kernels")
     records = phase_kernels(device)
@@ -2755,13 +2942,18 @@ def main() -> int:
     log_clocks("after the TTT-MLP CS 16-48 paths")
     counts.update(phase_half_slabs(device))
     log_clocks("after the half-slab paths")
+    counts.update(phase_float32(device))
+    log_clocks("after the float32 run")
     try:
         phase_t5(device)
+        log_clocks("after T5")
         counts.update(phase_serve(device))
         log_clocks("after serving")
         try:
             counts.update(phase_resume(device))
+            log_clocks("after the resumed run")
             counts.update(phase_requeue(device))
+            log_clocks("after the requeued run")
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
         phase_long_kernels(device)
@@ -2770,12 +2962,11 @@ def main() -> int:
         fabricated_storyboard(board_9s, scenes=3, seed=18)
         for variant in VARIANTS:
             phase_dit(device, variant, "9s", layers=1)
-            vae = os.path.join(SERVE_DIR, "vae.pt") if variant == "ttt_mlp" else None
-            counts.update(phase_long_sample(device, variant, "9s", board_9s, vae, layers=21))
-            counts.update(phase_train(device, variant, length="9s"))
+            counts.update(phase_long_sample(device, variant, "9s", board_9s, layers=2))
+            counts.update(phase_train(device, variant, length="9s", layers=1, steps=2))
             log_clocks(f"after {variant} 9 s")
         counts.update(phase_long_sample(device, "ttt_mlp", "63s", os.path.join(SERVE_DIR, "storyboard_63s.json"),
-                                        layers=14))
+                                        layers=2))
         log_clocks("after 63 s sampling")
         counts.update(phase_distributed(device, trained, sampled))
         log_clocks("after the torchrun branch")
@@ -2783,9 +2974,10 @@ def main() -> int:
             t0 = time.perf_counter()
             counts.update(phase_offline(device))
             log(f"phase 14 offline data path: {time.perf_counter() - t0:.1f} s")
+            log_clocks("after the offline data path")
         finally:
             shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
-        counts.update(phase_train(device, "ttt_mlp", length="30s", layers=2, steps=2, phase=15))
+        counts.update(phase_train(device, "ttt_mlp", length="30s", layers=1, steps=2, phase=15))
         log_clocks("after 30 s training")
     finally:
         shutil.rmtree(SERVE_DIR, ignore_errors=True)
@@ -2793,6 +2985,7 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
         if not r["launches"]:
             raise AssertionError(f"kernel {r['name']} was not launched on the main path")
+    log(f"chip_smoke.py: every phase passed in {time.perf_counter() - start:.1f} s, the build included")
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,11 @@ tree whose wrappers take them): K1 at CS 32 and 48, [B 2, NC 564 and 376,
 ``K1_train_cs16_ms``, ``K2_cs16_ms`` etc.); last, every TTT kernel at the
 half slabs of CS 8 and 24 at the 3 s slices (NC 2,256 and 752: K1 and K5 at
 B 2, the training kernels at B 1; keys ``K1_cs8_ms``, ``K6_cs24_ms`` etc.,
-only for a tree that takes them). Times are means
+only for a tree that takes them); and the float32 kernels (float32 q/k/v)
+at the 3 s slices: K1 at [B 2, NC 1,128, CS 16], K1-train and K2 at [B 1,
+NC 282, CS 64], K 16, K5 at [B 2, NC 1,128, CS 16], K5-train and K6 at
+[B 1, NC 1,128, CS 16], K 4 (keys ``K1_f32_ms``, ``K2_f32_ms`` etc., only
+for a tree whose wrappers take float32). Times are means
 by CUDA events after one warm-up; K7's and ``.to``'s device times are also
 read once from torch.profiler, so the wrapper's host time is not in them.
 Prints one JSON line.
@@ -243,6 +247,31 @@ def measure(tree: str, reps: int, k7_reps: int, rounds: int) -> dict:
         out[f"K6_cs{cs}_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_backward(*ins, *ck, dout, eta, K_LINEAR),
                                        reps)
         del t, ck, dout, ins
+
+    # The float32 kernels at the 3 s slices, where the tree's wrappers take float32 q/k/v.
+    if torch.float32 not in getattr(ttt_mlp_kernel, "KERNEL_DTYPES", ()):
+        return out
+    f32 = lambda d: {k: v.float() if k in ("XQ", "XK", "XV") else v for k, v in d.items()}
+    t = f32(mlp(2, CS))
+    out["K1_f32_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_forward(**t, eta_scale=0.1 / 64 / CS), reps)
+    t, eta = f32(mlp(1, CS_TRAIN)), 0.1 / 64 / CS_TRAIN
+    fwd = lambda: ttt_mlp_kernel.ttt_mlp_forward_train(**t, eta_scale=eta, checkpoint_group=K_TRAIN)
+    out["K1_train_f32_ms"] = cuda_ms(fwd, reps)
+    ck = fwd()[1:]
+    dout = randn(*t["XQ"].shape)
+    ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    out["K2_f32_ms"] = cuda_ms(lambda: ttt_mlp_kernel.ttt_mlp_backward(*ins, *ck, dout, eta, K_TRAIN), reps)
+    del t, ck, dout, ins
+    eta = 1.0 / 64 / CS
+    t = f32(linear(2, NC, CS, H))
+    out["K5_f32_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_forward(**t, eta_scale=eta), reps)
+    t = f32(linear(1, NC, CS, H))
+    fwd = lambda: ttt_linear_kernel.ttt_linear_forward_train(**t, eta_scale=eta, checkpoint_group=K_LINEAR)
+    out["K5_train_f32_ms"] = cuda_ms(fwd, reps)
+    ck = fwd()[1:]
+    dout = randn(*t["XQ"].shape)
+    ins = [t[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    out["K6_f32_ms"] = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_backward(*ins, *ck, dout, eta, K_LINEAR), reps)
     return out
 
 

@@ -456,6 +456,73 @@ def test_vae_decode_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert float((got - want).abs().max()) <= VAE_MAX * float(want.abs().max())
 
 
+# The float32 kernels (float32 q/k/v), each against its plain version at a tenth of the bf16 tolerances
+# (utils/selftest.py's F32_*): the outputs within 2e-5 of their largest value, the gradients within 2e-3 (the input
+# gradients) and 1e-3 (the initial state's and the LN affine's). Nothing is rounded to bf16 on either side.
+F32_FWD, F32_GRAD, F32_STATE = 2e-5, 2e-3, 1e-3
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("variant", ["ttt_mlp", "ttt_linear"])
+@pytest.mark.parametrize("CS", [8, 16, 40, 64])
+def test_float32_kernels_match_plain(cuda, variant, CS):
+    """K1/K1-train/K2 or K5/K5-train/K6 on float32 q/k/v: the sampling output, the training output and
+    checkpoints (a ragged last group: NC 5, K 2) and every gradient of the backward against their plain versions,
+    launched once each and counted as float32 launches, the bf16 counters unmoved."""
+    mod = ttt_mlp_kernel if variant == "ttt_mlp" else ttt_linear_kernel
+    a, randn = (_train_inputs(cuda, 2, 3, 5, seed=7, CS=CS) if variant == "ttt_mlp"
+                else _linear_inputs(cuda, 2, 3, 5, seed=7, CS=CS))
+    for k in ("XQ", "XK", "XV"):
+        a[k] = a[k].float()
+    scale, K = (0.1 if variant == "ttt_mlp" else 1.0) / 64 / CS, 2
+    bf16 = (mod.launches, mod.train_launches, mod.bwd_launches)
+    f32 = lambda: tuple(mod.f32_launches_by_cs[n, CS] for n in ("launches", "train_launches", "bwd_launches"))
+    before = f32()
+    fwd, fwd_train, bwd = (getattr(mod, f"{variant}_{n}") for n in ("forward", "forward_train", "backward"))
+    fwd_plain, bwd_plain = getattr(mod, f"{variant}_forward_plain"), getattr(mod, f"{variant}_backward_plain")
+    got = fwd(**a, eta_scale=scale)
+    assert got.dtype == torch.float32 and _rel(got, fwd_plain(**a, eta_scale=scale)) <= F32_FWD
+    got = fwd_train(**a, eta_scale=scale, checkpoint_group=K)
+    want = fwd_plain(**a, eta_scale=scale, checkpoint_group=K)
+    assert _rel(got[0], want[0]) <= F32_FWD
+    for g, w in zip(got[1:], want[1:]):
+        assert _rel(g, w) <= F32_FWD
+    dout = randn(*a["XQ"].shape)
+    ins = [a[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    grads = bwd(*ins, *want[1:], dout, scale, K)
+    torch.cuda.synchronize()
+    assert f32() == tuple(n + 1 for n in before) and (mod.launches, mod.train_launches, mod.bwd_launches) == bf16
+    for i, (g, w) in enumerate(zip(grads, bwd_plain(*ins, *want[1:], dout, scale, K))):
+        assert g.dtype == w.dtype and _rel(g, w) <= (F32_GRAD if i < 4 else F32_STATE), i
+
+
+def test_float32_routes_and_refusals_on_the_card(cuda):
+    """Float32 attention goes to the plain versions by the model's route (counted), bf16 to the kernels; a TTT
+    scan at CS 12 goes plain, at CS 16 to the kernels; the TTT wrappers refuse float16 and mixed q/k/v, and a CS of
+    72 in float32 too, naming the mini-batches the kernels take."""
+    routes = attention.plain_routes
+    assert attention.use_plain(True, torch.float32, cuda) and not attention.use_plain(True, torch.bfloat16, cuda)
+    assert attention.plain_routes == routes + 1
+    routes = ttt_mlp_kernel.plain_routes
+    assert ttt_mlp_kernel.use_plain(True, 12, 64, cuda) and not ttt_mlp_kernel.use_plain(True, 16, 64, cuda)
+    assert ttt_mlp_kernel.plain_routes == routes + 1
+    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6)
+    for dtypes in ((torch.float16,) * 3, (torch.float32, torch.bfloat16, torch.float32)):
+        b = dict(a, **{k: a[k].to(dt) for k, dt in zip(("XQ", "XK", "XV"), dtypes)})
+        with pytest.raises(ValueError, match="all bfloat16 or all float32"):
+            ttt_linear_kernel.ttt_linear_forward(**b, eta_scale=1e-3)
+    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, CS=72)
+    for k in ("XQ", "XK", "XV"):
+        a[k] = a[k].float()
+    with pytest.raises(ValueError, match=r"\(8, 16, 24, 32, 40, 48, 56, 64\)"):
+        ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=1e-3)
+
+
 def test_kernel_selftest_holds_every_kernel_on_the_card(cuda):
     """utils/selftest.py:kernel_selftest, the benchmark's check before it times anything: every check within
     its tolerance, every kernel launched."""

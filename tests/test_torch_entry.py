@@ -184,7 +184,7 @@ def test_ttt_kernel_rejects_what_it_does_not_take(case):
         args = _k1_args(F=32, device="meta")
     elif case == "mini_batch_72":  # a multiple of 8 past the kernels' 64
         args = _k1_args(CS=72, device="meta")
-    elif case == "float32_inputs":
+    elif case == "float32_inputs":  # taken on a CUDA device (the float32 kernels); meta tensors are refused
         args = _k1_args(dtype=torch.float32, device="meta")
     else:
         args = _k1_args(device="meta")

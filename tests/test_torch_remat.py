@@ -80,20 +80,27 @@ def _port_grads(cfg, seed=0):
 def test_save_seq_grads_equal_none_and_halve_the_forwards(monkeypatch, variant):
     """Two layers, per-layer recompute: under "none" each layer runs its two
     scans and its attention twice (forward and recompute), under save_seq
-    once; loss and every gradient are bit-equal."""
+    once; loss and every gradient are bit-equal. In the config's float32 and
+    in bf16: at float32 attention takes its plain versions by the model's
+    route (ops/attention.py:use_plain, the JAX package's XLA route), which is
+    no custom op, so save_seq keeps nothing of it and the recompute runs it
+    again under either policy; the scans' custom ops are kept at both."""
     calls = _counting(monkeypatch, variant)
-    results = {}
-    for policy in ("none", "save_seq"):
-        calls.update(scan=0, attention=0)
-        results[policy] = _port_grads(dataclasses.replace(CFG, ssm_layer=variant, remat_policy=policy))
-        L = CFG.num_layers
-        runs = 2 if policy == "none" else 1
-        assert calls == {"scan": 2 * runs * L, "attention": runs * L}, (policy, calls)
-    (loss_n, grads_n), (loss_s, grads_s) = results["none"], results["save_seq"]
-    assert torch.equal(loss_n, loss_s)
-    assert grads_n.keys() == grads_s.keys()
-    for name in grads_n:
-        assert torch.equal(grads_n[name], grads_s[name]), name
+    for dtype in ("float32", "bfloat16"):
+        results = {}
+        for policy in ("none", "save_seq"):
+            calls.update(scan=0, attention=0)
+            cfg = dataclasses.replace(CFG, ssm_layer=variant, remat_policy=policy, dtype=dtype)
+            results[policy] = _port_grads(cfg)
+            L = CFG.num_layers
+            runs = 2 if policy == "none" else 1
+            expect = {"scan": 2 * runs * L, "attention": (2 if dtype == "float32" else runs) * L}
+            assert calls == expect, (dtype, policy, calls)
+        (loss_n, grads_n), (loss_s, grads_s) = results["none"], results["save_seq"]
+        assert torch.equal(loss_n, loss_s), dtype
+        assert grads_n.keys() == grads_s.keys()
+        for name in grads_n:
+            assert torch.equal(grads_n[name], grads_s[name]), (dtype, name)
 
 
 def test_unknown_remat_policy_raises():

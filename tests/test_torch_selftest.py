@@ -134,8 +134,18 @@ def test_a_corrupt_ragged_group_fails_ragged_checks_and_passes_full_ones(corrupt
                  "ttt_mlp sampling cs48 ragged", "ttt_mlp sampling cs8 ragged", "ttt_mlp sampling cs24 ragged",
                  "ttt_linear sampling cs8 ragged", "ttt_linear sampling cs24 ragged"):
         assert any(n.startswith(case) for n in failed), case
+    # The float32 cases (their own rows, every CS): each ragged one fails, each full one passes.
+    for name, *_ in selftest.F32_TRAIN_CASES:
+        if name.endswith("ragged"):
+            for what in ("fwd", "dq", "dk", "dv"):
+                assert any(n.startswith(f"{name} {what} [") for n in failed), (name, what)
+    for name, *_ in selftest.F32_SAMPLE_CASES:
+        assert any(n.startswith(name) for n in failed) == name.endswith("ragged"), name
+    f32_full = [c for c in selftest.F32_TRAIN_CASES if c[0].endswith(" full")]
+    f32_sampling_full = [c for c in selftest.F32_SAMPLE_CASES if c[0].endswith(" full")]
     full = [n for n in corrupted_result["checks"] if " full " in n]
-    assert len(full) == 7 * 6 + 7 and not failed & set(full), failed & set(full)
+    assert len(full) == 7 * 6 + 7 + 6 * len(f32_full) + len(f32_sampling_full) and not failed & set(full), \
+        failed & set(full)
 
 
 def test_a_corrupt_last_window_fails_the_folded_window_checks(corrupted_result):

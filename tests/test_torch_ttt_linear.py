@@ -573,9 +573,10 @@ def _k5_args(F=64, CS=16, dtype=torch.bfloat16, device="meta", state_width=None)
 def test_kernel_rejects_what_it_does_not_take(case):
     """check_kernel_args refuses CPU tensors, F != 64, a CS outside
     KERNEL_MINI_BATCHES (72: a multiple of 8 the JAX kernels take, past the
-    port's 64), float32 q/k/v and a TTT-MLP-shaped state; and a tensor that is
-    neither on the CPU nor launchable (meta) makes every wrapper raise, never
-    fall back."""
+    port's 64), float32 q/k/v that are not on a CUDA device (the float32
+    kernels take them there; tests/test_torch_float32_route.py) and a
+    TTT-MLP-shaped state; and a tensor that is neither on the CPU nor
+    launchable (meta) makes every wrapper raise, never fall back."""
     args = {"cpu_tensors": lambda: _k5_args(device="cpu"), "head_dim_32": lambda: _k5_args(F=32),
             "mini_batch_72": lambda: _k5_args(CS=72), "float32_inputs": lambda: _k5_args(dtype=torch.float32),
             "mlp_state": lambda: _k5_args(state_width=256)}[case]()

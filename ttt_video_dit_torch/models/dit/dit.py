@@ -317,10 +317,13 @@ class SegmentLocalAttention(nn.Module):
         k = in_chunks(norm_rope(self.k_norm), k, 12 * S * H * F, dim=0)
 
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        if torch.is_grad_enabled():  # K3 with the log-sum-exp and K4, or their plain versions
-            attn = attention_ops.attention_train(q, k, v, plain=not cfg.use_kernel)
+        # K3 (with the log-sum-exp) and K4, or their plain versions: with use_kernel off, and where the JAX
+        # package sends attention to XLA (any dtype but bf16; ops/attention.py:use_plain counts those).
+        plain = attention_ops.use_plain(cfg.use_kernel, q.dtype, q.device)
+        if torch.is_grad_enabled():
+            attn = attention_ops.attention_train(q, k, v, plain=plain)
         else:
-            attn = (attention_ops.attention if cfg.use_kernel else attention_ops.attention_plain)(q, k, v)
+            attn = (attention_ops.attention_plain if plain else attention_ops.attention)(q, k, v)
         del q, k, v
         out = self.o(attn.reshape(B * C, S, H * F)).reshape(B, C, S, D)
         del attn

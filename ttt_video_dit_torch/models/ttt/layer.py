@@ -9,9 +9,10 @@ projections to the fused TTT scan (ops/ttt_linear_kernel.py for
 ``ttt_linear``, ops/ttt_mlp_kernel.py for ``ttt_mlp``), which does the
 L2-norm, rope, LN-reconstruction target and the sigmoid gate itself. With
 autograd on (training), the scan is the training kernels' autograd Function
-(K5-train/K6, K1-train/K2; with ``use_kernel = False``, the same Function
-over their plain versions); under no_grad/inference_mode (sampling), the
-forward-only K5 or K1, or its plain version.
+(K5-train/K6, K1-train/K2; with ``use_kernel = False``, or at a CS or F
+that is not a multiple of 8, the same Function over their plain versions);
+under no_grad/inference_mode (sampling), the forward-only K5 or K1, or its
+plain version. The kernels run on bf16 or float32 q/k/v alike.
 Under head tensor parallelism (parallel/sharding.py) the layer runs on
 its rank's H / tp heads of the whole stream, which the caller gathered
 (models/dit/dit.py:SeqModelingBlock): wq/wk/wv are column-parallel, the scan
@@ -174,24 +175,25 @@ class TTTLayer(nn.Module):
         rope_cos, rope_sin = scan_rope_tables(meta, F, cfg.rope_theta, CS, hidden_states.device)
 
         if cfg.ssm_layer == "ttt_linear":  # K5-train / K6, K5
-            train, forward, plain = (ttt_linear_kernel.ttt_linear_train, ttt_linear_kernel.ttt_linear_forward,
-                                     ttt_linear_kernel.ttt_linear_forward_plain)
+            mod = ttt_linear_kernel
+            train, forward, forward_plain = mod.ttt_linear_train, mod.ttt_linear_forward, mod.ttt_linear_forward_plain
             state = (local(self.W1), local(self.b1))
         else:  # K1-train / K2, K1
-            train, forward, plain = (ttt_mlp_kernel.ttt_mlp_train, ttt_mlp_kernel.ttt_mlp_forward,
-                                     ttt_mlp_kernel.ttt_mlp_forward_plain)
+            mod = ttt_mlp_kernel
+            train, forward, forward_plain = mod.ttt_mlp_train, mod.ttt_mlp_forward, mod.ttt_mlp_forward_plain
             state = (local(self.W1), local(self.b1), local(self.W2), local(self.b2))
         args = (XQ, XK, XV, gate, rope_cos, rope_sin, local(self.ttt_norm_weight), local(self.ttt_norm_bias), *state,
                 self.eta_scale)
-        if torch.is_grad_enabled():  # the training kernels, or with use_kernel=False their plain versions
+        # The plain versions with use_kernel off, and at a CS or F that is not a multiple of 8, where the JAX
+        # layer runs the ttt_scan oracle (the ops module's use_plain counts those).
+        plain = mod.use_plain(cfg.use_kernel, CS, F, XQ.device)
+        if torch.is_grad_enabled():  # the training kernels, or their plain versions
             # The scan's output and state checkpoints are the outputs of one custom op (K1-train / K5-train),
             # which the save_seq policy keeps across the layer's recompute (models/dit/dit.py:_ckpt_policy),
             # as JAX names them "ttt_out" and "ttt_residuals".
-            XQW = train(*args, cfg.scan_checkpoint_group_size, plain=not cfg.use_kernel)
-        elif cfg.use_kernel:
-            XQW = forward(*args)
+            XQW = train(*args, cfg.scan_checkpoint_group_size, plain=plain)
         else:
-            XQW = plain(*args)
+            XQW = (forward_plain if plain else forward)(*args)
         del XQ, XK, XV, args  # before the post-norm's and wo's outputs are allocated
         # Every head: the post-norm runs over all of D. Its gradient reaches this rank's features only, so the
         # gathered features' gradient is a partial sum (reduce-scattered) and post_norm's is partial too.

@@ -12,6 +12,14 @@ sum in registers in a fixed order, so the same inputs give the same gradient
 bits on every launch. Attention windows ride as batch: q/k/v
 [B * windows, S, H, F]; the log-sum-exp is [B * windows, H, S] float32, the
 natural log of the row sums of exp(q k^T / sqrt(F)).
+
+The kernels take bf16; the JAX package gives its splash kernel bf16 only and
+sends every other dtype to XLA (ttt_video_dit_tpu/ops/attention.py:433-440:
+_direct up to 4,096 tokens, _chunked above). ``routes_to_plain`` is that
+dtype test, and ``use_plain`` the model's route, counting in
+``plain_routes`` the calls on the card it sends to the plain versions (the
+kernels still take bf16 windows of any length, which the JAX package sends
+to _direct up to 4,096 tokens: the same function).
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 launches = 0
 lse_launches = 0
 bwd_launches = 0
+# Calls on a CUDA device that use_plain sent to the plain versions (a dtype other than bf16).
+plain_routes = 0
 
 KERNEL_HEAD_DIM = 64
 _BLOCK_Q = 256
@@ -80,6 +90,28 @@ def attention_backward_plain(q, k, v, out, lse, dout, block_q: int = _BLOCK_Q):
         dk += ds.transpose(-1, -2) @ qb * scale
     back = lambda x: x.permute(0, 2, 1, 3).to(q.dtype)
     return dq, back(dk), back(dv)
+
+
+def routes_to_plain(dtype: torch.dtype) -> bool:
+    """Whether attention at ``dtype`` goes to the plain versions rather than
+    the kernels: every dtype but bf16, as the JAX package sends only bf16 to
+    its splash kernel."""
+    return dtype != torch.bfloat16
+
+
+def use_plain(use_kernel: bool, dtype: torch.dtype, device: torch.device) -> bool:
+    """The model's route for one attention call: the plain versions with
+    ``use_kernel`` off or where :func:`routes_to_plain` holds, else the
+    kernels. A call on a CUDA device sent to the plain versions by the route
+    (not by ``use_kernel``) counts in ``plain_routes``."""
+    global plain_routes
+    if not use_kernel:
+        return True
+    if not routes_to_plain(dtype):
+        return False
+    if device.type == "cuda":
+        plain_routes += 1
+    return True
 
 
 def _lib(name: str = "attention_forward"):

@@ -19,6 +19,14 @@ not a multiple of 16):
   ``csrc/ttt_linear_backward.cu``;
 - ``TTTLinearFunction``: K5-train forward, K6 backward.
 
+q/k/v may be bf16 or float32 (ttt_mlp_kernel.KERNEL_DTYPES): float32 launches
+the float32 counterparts, which round nothing to bf16
+(``csrc/ttt_linear_forward_f32.cu`` for K5 and K5-train, K = 0 for sampling,
+``csrc/ttt_linear_backward_f32.cu`` for K6; counted in
+``f32_launches_by_cs``). ``use_plain`` is the layer's route, as in
+ops/ttt_mlp_kernel.py (``routes_to_plain``: the JAX package's shape test),
+counting in ``plain_routes``.
+
 Inputs are the RAW token-major projections and the pre-sigmoid LR-gate
 logits, as for the TTT-MLP kernels (ops/ttt_mlp_kernel.py). Shapes:
 XQ/XK/XV [B, NC, CS, H*F]; gate [B, H, NC, CS]; rope_cos/rope_sin
@@ -40,24 +48,31 @@ from ttt_video_dit_torch.ops import ln as ln_ops
 from ttt_video_dit_torch.ops.ttt_mlp_kernel import (
     _acc_dtype,
     _check_tensors,
+    _f32_argtypes,
     _group,
     _launch,
     _preproc,
     _to_head_major,
     _to_token_major,
     check_smem,
+    qkv_dtype,
+    routes_to_plain,
     scan_forward_plain,
 )
 from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_linear_step
 from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): K5 for
-# sampling, K5 for training, K6; and the same by mini-batch,
-# launches_by_cs[counter name, CS].
+# sampling, K5 for training, K6 on bf16 q/k/v; and the same by mini-batch,
+# launches_by_cs[counter name, CS]; the float32 kernels' by the same keys in
+# f32_launches_by_cs. plain_routes: the scans on a CUDA device that use_plain
+# sent to the plain versions.
 launches = 0
 train_launches = 0
 bwd_launches = 0
 launches_by_cs = collections.Counter()
+f32_launches_by_cs = collections.Counter()
+plain_routes = 0
 
 KERNEL_HEAD_DIM = 64
 # The mini-batch sizes K5 and K6 are built for: csrc/ttt_mlp_block.cuh:with_slabs instantiates these (a test
@@ -192,6 +207,24 @@ def ttt_linear_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, 
             sum_b(dW1), sum_b(db1), sum_b(dlnw)[:, 0], sum_b(dlnb)[:, 0])
 
 
+# ------------------------------------------------------------ the route
+
+
+def use_plain(use_kernel: bool, CS: int, F: int, device: torch.device) -> bool:
+    """The model's route for a scan, as ttt_mlp_kernel.use_plain: the plain
+    versions with ``use_kernel`` off or where ``routes_to_plain(CS, F)``
+    holds; a scan on a CUDA device sent there by the route counts in
+    ``plain_routes``."""
+    global plain_routes
+    if not use_kernel:
+        return True
+    if not routes_to_plain(CS, F):
+        return False
+    if device.type == "cuda":
+        plain_routes += 1
+    return True
+
+
 # ------------------------------------------------------------ CUDA kernels
 
 
@@ -207,17 +240,23 @@ def _lib(name: str = "ttt_linear_forward"):
         lib.ttt_linear_backward.restype = ctypes.c_int
         lib.ttt_linear_backward_stash_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ttt_linear_backward_stash_bytes.restype = ctypes.c_int
+    if name in F32_LIBS and getattr(lib, name).argtypes is None:
+        _f32_argtypes(lib, name, *F32_LIBS[name])
     smem = getattr(lib, f"{name}_smem_bytes")
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     return lib
 
 
+# The float32 libraries: pointer arguments of the C entry, and the arguments of its workspace size (CS, or CS and K).
+F32_LIBS = {"ttt_linear_forward_f32": (14, 1), "ttt_linear_backward_f32": (20, 2)}
+
+
 def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1) -> None:
     """Raise ValueError unless the arguments are what the CUDA kernels take:
-    F = 64, CS in KERNEL_MINI_BATCHES, bf16 token-major q/k/v, float32
-    everything else, every tensor contiguous and on one CUDA device, shapes
-    consistent (W1/b1 may be None for the backward, which starts from
-    checkpoints)."""
+    F = 64, CS in KERNEL_MINI_BATCHES, token-major q/k/v all bf16 or all
+    float32, float32 everything else, every tensor contiguous and on one CUDA
+    device, shapes consistent (W1/b1 may be None for the backward, which
+    starts from checkpoints)."""
     if XQ.ndim != 4:
         raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
     B, NC, CS, HF = XQ.shape
@@ -225,9 +264,10 @@ def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1) 
     if F != KERNEL_HEAD_DIM or CS not in KERNEL_MINI_BATCHES:
         raise ValueError(f"the TTT-linear kernels support F={KERNEL_HEAD_DIM} and CS in {KERNEL_MINI_BATCHES}; "
                          f"got F={F}, CS={CS}")
+    dt = qkv_dtype(XQ, XK, XV)
     expected = {
-        "XQ": (XQ, (B, NC, CS, H * F), torch.bfloat16), "XK": (XK, (B, NC, CS, H * F), torch.bfloat16),
-        "XV": (XV, (B, NC, CS, H * F), torch.bfloat16), "gate": (gate, (B, H, NC, CS), torch.float32),
+        "XQ": (XQ, (B, NC, CS, H * F), dt), "XK": (XK, (B, NC, CS, H * F), dt),
+        "XV": (XV, (B, NC, CS, H * F), dt), "gate": (gate, (B, H, NC, CS), torch.float32),
         "rope_cos": (rope_cos, (NC, CS, F), torch.float32), "rope_sin": (rope_sin, (NC, CS, F), torch.float32),
         "ln_w": (ln_w, (H, F), torch.float32), "ln_b": (ln_b, (H, F), torch.float32),
     }
@@ -237,7 +277,9 @@ def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1) 
 
 
 def _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, K):
-    """Launch K5; K = 0 writes no checkpoints. Returns (out, W1_ck, b1_ck)."""
+    """Launch K5 of q/k/v's dtype (the float32 one counts itself in
+    f32_launches_by_cs); K = 0 writes no checkpoints. Returns (out, W1_ck,
+    b1_ck)."""
     check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1)
     B, NC, CS, _ = XQ.shape
     H, F = ln_w.shape
@@ -245,10 +287,17 @@ def _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale
     out = torch.empty_like(XQ)
     new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
     ckpts = (new(B, H, NG, F, F), new(B, H, NG, 1, F))
+    args = (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, out, *ckpts)
+    if XQ.dtype == torch.float32:
+        lib = _lib("ttt_linear_forward_f32")
+        check_smem(lib, "ttt_linear_forward_f32", CS, XQ.device)
+        work = new(B * H * lib.ttt_linear_forward_f32_workspace_floats(CS))
+        _launch(lib, "ttt_linear_forward_f32", (*args, work), (B, NC, H, CS, K), eta_scale, XQ.device)
+        f32_launches_by_cs["train_launches" if K else "launches", CS] += 1
+        return out, *ckpts
     lib = _lib()
     check_smem(lib, "ttt_linear_forward", CS, XQ.device)
-    _launch(lib, "ttt_linear_forward", (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, out, *ckpts),
-            (B, NC, H, CS, K), eta_scale, XQ.device)
+    _launch(lib, "ttt_linear_forward", args, (B, NC, H, CS, K), eta_scale, XQ.device)
     return out, *ckpts
 
 
@@ -261,8 +310,9 @@ def ttt_linear_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1,
     if XQ.device.type == "cpu":
         return ttt_linear_forward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale)
     out = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, 0)[0]
-    launches += 1
-    launches_by_cs["launches", XQ.shape[2]] += 1
+    if XQ.dtype != torch.float32:
+        launches += 1
+        launches_by_cs["launches", XQ.shape[2]] += 1
     return out
 
 
@@ -279,8 +329,9 @@ def ttt_linear_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W
     global train_launches
     result = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
                       _group(checkpoint_group, XQ.shape[1]))
-    train_launches += 1
-    launches_by_cs["train_launches", XQ.shape[2]] += 1
+    if XQ.dtype != torch.float32:
+        train_launches += 1
+        launches_by_cs["train_launches", XQ.shape[2]] += 1
     return result
 
 
@@ -300,9 +351,9 @@ def _(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale, check
 def ttt_linear_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout, eta_scale: float,
                         checkpoint_group: int):
     """K6, the fused TTT-linear backward from K5-train's checkpoints and the
-    output cotangent ``dout``. Returns what :func:`ttt_linear_backward_plain`
-    returns. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    output cotangent ``dout`` (in q/k/v's dtype). Returns what
+    :func:`ttt_linear_backward_plain` returns. CPU tensors take the plain
+    version; CUDA tensors launch the kernel of their q/k/v dtype or raise."""
     global bwd_launches
     refuse_dtensors("ttt_linear_backward", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout)
     if XQ.device.type == "cpu":
@@ -315,20 +366,26 @@ def ttt_linear_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck,
     NG = -(-NC // K)
     _check_tensors({
         "W1_ck": (W1_ck, (B, H, NG, F, F), torch.float32), "b1_ck": (b1_ck, (B, H, NG, 1, F), torch.float32),
-        "dout": (dout, (B, NC, CS, HF), torch.bfloat16),
+        "dout": (dout, (B, NC, CS, HF), XQ.dtype),
     }, XQ.device)
     new = lambda *s, dtype=torch.float32: torch.empty(*s, dtype=dtype, device=XQ.device)
     dx = [torch.empty_like(XQ) for _ in range(3)]
     dgate = new(B, H, NC, CS)
     grads = (new(B, H, F, F), new(B, H, 1, F), new(B, H, F), new(B, H, F))
+    ins = (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout, *dx, dgate, *grads)
+    if XQ.dtype == torch.float32:
+        lib = _lib("ttt_linear_backward_f32")
+        check_smem(lib, "ttt_linear_backward_f32", CS, XQ.device)
+        work = new(B * H * lib.ttt_linear_backward_f32_workspace_floats(CS, K))
+        _launch(lib, "ttt_linear_backward_f32", (*ins, work), (B, NC, H, CS, K), eta_scale, XQ.device)
+        f32_launches_by_cs["bwd_launches", CS] += 1
+        return (*dx, dgate, *(g.sum(dim=0) for g in grads))
     # K6's pass A writes each step's operands for pass B: a bf16 and a float32 workspace of K steps a scan.
     lib = _lib("ttt_linear_backward")
     check_smem(lib, "ttt_linear_backward", CS, XQ.device)
     step_bytes = [lib.ttt_linear_backward_stash_bytes(part, CS) for part in (0, 1)]
     stash = (new(B * H * K * step_bytes[0] // 2, dtype=torch.bfloat16), new(B * H * K * step_bytes[1] // 4))
-    _launch(lib, "ttt_linear_backward",
-            (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, dout, *dx, dgate, *grads, *stash),
-            (B, NC, H, CS, K), eta_scale, XQ.device)
+    _launch(lib, "ttt_linear_backward", (*ins, *stash), (B, NC, H, CS, K), eta_scale, XQ.device)
     bwd_launches += 1
     launches_by_cs["bwd_launches", CS] += 1
     return (*dx, dgate, *(g.sum(dim=0) for g in grads))

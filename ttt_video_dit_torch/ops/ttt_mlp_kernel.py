@@ -22,6 +22,18 @@ one template on the ceil(CS / 16) slabs of 16 tokens of
 ``csrc/ttt_mlp_train_step.cuh``, the last of which is a masked half slab
 when CS is not a multiple of 16.
 
+q/k/v may be bf16 or float32 (KERNEL_DTYPES), as the JAX kernels take any
+float dtype and compute in it: bf16 launches the kernels above, float32
+their float32 counterparts, which round nothing to bf16
+(``csrc/ttt_mlp_forward_f32.cu`` for K1 and K1-train, one kernel with K = 0
+for sampling, and ``csrc/ttt_mlp_backward_f32.cu`` for K2; counted in
+``f32_launches_by_cs``).
+
+Which scans the model sends to the kernels: ``routes_to_plain`` holds the
+JAX package's shape test (``is_supported``: CS and F multiples of 8), and
+``use_plain`` is the layer's route, counting in ``plain_routes`` the scans
+on the card that the route sends to the plain versions.
+
 Inputs are the RAW token-major projections and the pre-sigmoid LR-gate
 logits; the scan applies L2-norm + rope to q/k, builds the
 LN-reconstruction target from v - k, and scales eta = sigmoid(gate) *
@@ -51,14 +63,20 @@ from ttt_video_dit_torch.ops.ttt_scan import scan_mini_batches, ttt_mlp_step
 from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): K1 for
-# sampling, K1 for training, K2; and each by mini-batch,
-# launches_by_cs[counter name, CS].
+# sampling, K1 for training, K2 on bf16 q/k/v; and each by mini-batch,
+# launches_by_cs[counter name, CS]. The float32 kernels' launches by the same
+# keys: f32_launches_by_cs["launches" | "train_launches" | "bwd_launches", CS].
+# plain_routes: the scans on a CUDA device that use_plain sent to the plain
+# versions (a CS or F the JAX package does not give its kernel).
 launches = 0
 train_launches = 0
 bwd_launches = 0
 launches_by_cs = collections.Counter()
+f32_launches_by_cs = collections.Counter()
+plain_routes = 0
 
 KERNEL_HEAD_DIM = 64
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # q/k/v: the bf16 kernels, or the float32 ones
 # The mini-batch sizes K1, K1-train and K2 take: csrc/ttt_mlp_forward.cu:ttt_mlp_forward's cases and
 # csrc/ttt_mlp_block.cuh:with_slabs's (a test holds the three together).
 KERNEL_MINI_BATCHES = (8, 16, 24, 32, 40, 48, 56, 64)
@@ -302,6 +320,36 @@ def ttt_mlp_backward_plain(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_
             sum_b(dW1), sum_b(db1), sum_b(dW2), sum_b(db2), sum_b(dlnw)[:, 0], sum_b(dlnb)[:, 0])
 
 
+# ------------------------------------------------------------ the route
+
+
+def routes_to_plain(CS: int, F: int) -> bool:
+    """Whether a scan of mini-batch CS and head dim F goes to the plain
+    versions rather than the kernels: where the JAX package's shape test
+    fails (ttt_video_dit_tpu/ops/pallas/ttt_mlp_kernel.py:is_supported, and
+    ttt_linear_kernel.py's: CS % 8 == 0 and F % 8 == 0) and its layer runs
+    the ttt_scan oracle instead (models/ttt/layer.py:_ttt_mlp, _ttt_linear).
+    A shape that passes it but that the port's kernels do not take yet (F not
+    64, CS above 64) still goes to the kernels, which raise naming the
+    shapes they take."""
+    return CS % 8 != 0 or F % 8 != 0
+
+
+def use_plain(use_kernel: bool, CS: int, F: int, device: torch.device) -> bool:
+    """The model's route for a scan: the plain versions with ``use_kernel``
+    off or where :func:`routes_to_plain` holds, else the kernels. A scan on a
+    CUDA device sent to the plain versions by the route (not by
+    ``use_kernel``) counts in ``plain_routes``."""
+    global plain_routes
+    if not use_kernel:
+        return True
+    if not routes_to_plain(CS, F):
+        return False
+    if device.type == "cuda":
+        plain_routes += 1
+    return True
+
+
 # ------------------------------------------------------------ CUDA kernels
 
 
@@ -326,15 +374,33 @@ def _lib(name: str = "ttt_mlp_forward"):
         lib.ttt_mlp_backward_smem_bytes.restype = ctypes.c_int
         lib.ttt_mlp_backward_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ttt_mlp_backward_workspace_bytes.restype = ctypes.c_longlong
+    if name in F32_LIBS and getattr(lib, name).argtypes is None:
+        _f32_argtypes(lib, name, *F32_LIBS[name])
     return lib
+
+
+# The float32 libraries: pointer arguments of the C entry, and the arguments of its workspace size (CS, or CS and K).
+F32_LIBS = {"ttt_mlp_forward_f32": (18, 1), "ttt_mlp_backward_f32": (24, 2)}
+
+
+def _f32_argtypes(lib, name: str, pointers: int, work_args: int) -> None:
+    """ctypes signatures of a float32 library: ``name``(pointers, B, NC, H, CS, K, eta_scale, stream),
+    ``name``_smem_bytes(CS) and ``name``_workspace_floats(CS[, K])."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    smem = getattr(lib, f"{name}_smem_bytes")
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    work = getattr(lib, f"{name}_workspace_floats")
+    work.argtypes, work.restype = [ctypes.c_int] * work_args, ctypes.c_longlong
 
 
 def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2) -> None:
     """Raise ValueError unless the arguments are what the CUDA kernels take:
     F = 64, CS in KERNEL_MINI_BATCHES (a multiple of 8 up to 64, for
-    sampling and training alike), bf16 token-major q/k/v, float32
-    everything else, every tensor contiguous and on one CUDA device, shapes
-    consistent."""
+    sampling and training alike), token-major q/k/v all bf16 or all float32
+    (KERNEL_DTYPES), float32 everything else, every tensor contiguous and on
+    one CUDA device, shapes consistent."""
     if XQ.ndim != 4:
         raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
     B, NC, CS, HF = XQ.shape
@@ -342,9 +408,10 @@ def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, 
     if F != KERNEL_HEAD_DIM or CS not in KERNEL_MINI_BATCHES:
         raise ValueError(f"the TTT-MLP kernels support F={KERNEL_HEAD_DIM} and CS in {KERNEL_MINI_BATCHES}; "
                          f"got F={F}, CS={CS}")
+    dt = qkv_dtype(XQ, XK, XV)
     expected = {
-        "XQ": (XQ, (B, NC, CS, H * F), torch.bfloat16), "XK": (XK, (B, NC, CS, H * F), torch.bfloat16),
-        "XV": (XV, (B, NC, CS, H * F), torch.bfloat16), "gate": (gate, (B, H, NC, CS), torch.float32),
+        "XQ": (XQ, (B, NC, CS, H * F), dt), "XK": (XK, (B, NC, CS, H * F), dt),
+        "XV": (XV, (B, NC, CS, H * F), dt), "gate": (gate, (B, H, NC, CS), torch.float32),
         "rope_cos": (rope_cos, (NC, CS, F), torch.float32), "rope_sin": (rope_sin, (NC, CS, F), torch.float32),
         "ln_w": (ln_w, (H, F), torch.float32), "ln_b": (ln_b, (H, F), torch.float32),
     }
@@ -354,6 +421,14 @@ def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, 
             "W2": (W2, (H, 4 * F, F), torch.float32), "b2": (b2, (H, 1, F), torch.float32),
         })
     _check_tensors(expected, XQ.device)
+
+
+def qkv_dtype(XQ, XK, XV) -> torch.dtype:
+    """The dtype of q/k/v, one of KERNEL_DTYPES for all three; raise ValueError otherwise."""
+    if XQ.dtype not in KERNEL_DTYPES or XK.dtype != XQ.dtype or XV.dtype != XQ.dtype:
+        raise ValueError(f"XQ, XK, XV: the kernels take all bfloat16 or all float32, got {XQ.dtype}, {XK.dtype}, "
+                         f"{XV.dtype}")
+    return XQ.dtype
 
 
 ALIGNMENT = 16  # bytes: the TTT kernels copy 16-byte chunks (cp.async) and read 8-byte vectors
@@ -404,8 +479,8 @@ def _launch(lib, fn_name: str, tensors, ints, eta_scale: float, device) -> None:
 
 def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale: float):
     """Fused TTT-MLP forward for sampling (no checkpoints). CPU tensors take
-    the plain version; CUDA tensors launch the kernel (or raise on arguments
-    it does not take)."""
+    the plain version; CUDA tensors launch the kernel of their q/k/v dtype
+    (or raise on arguments it does not take)."""
     global launches
     refuse_dtensors("ttt_mlp_forward", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
     if XQ.device.type == "cpu":
@@ -413,6 +488,8 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
     args = (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
     check_kernel_args(*args)
     B, NC, CS, _ = XQ.shape
+    if XQ.dtype == torch.float32:
+        return _forward_f32(*args, eta_scale, 0)[0]
     H = ln_w.shape[0]
     lib = _lib()
     check_smem(lib, "ttt_mlp_forward", CS, XQ.device)
@@ -426,6 +503,25 @@ def ttt_mlp_forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2
     return out
 
 
+def _forward_f32(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale, K):
+    """Launch the float32 K1 (K = 0: sampling, no checkpoints) or K1-train on checked arguments; counts the
+    launch. Returns (out, W1_ck, b1_ck, W2_ck, b2_ck)."""
+    B, NC, CS, _ = XQ.shape
+    H, F = ln_w.shape
+    NG = -(-NC // K) if K else 0
+    lib = _lib("ttt_mlp_forward_f32")
+    check_smem(lib, "ttt_mlp_forward_f32", CS, XQ.device)
+    out = torch.empty_like(XQ)
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
+    ckpts = (new(B, H, NG, F, 4 * F), new(B, H, NG, 1, 4 * F), new(B, H, NG, 4 * F, F), new(B, H, NG, 1, F))
+    work = new(B * H * lib.ttt_mlp_forward_f32_workspace_floats(CS))
+    _launch(lib, "ttt_mlp_forward_f32",
+            (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, out, *ckpts, work),
+            (B, NC, H, CS, K), eta_scale, XQ.device)
+    f32_launches_by_cs["train_launches" if K else "launches", CS] += 1
+    return (out, *ckpts)
+
+
 @torch.library.custom_op(
     "ttt_video_dit_torch::ttt_mlp_forward_train", mutates_args=(),
     schema="(Tensor XQ, Tensor XK, Tensor XV, Tensor gate, Tensor rope_cos, Tensor rope_sin, Tensor ln_w, "
@@ -436,13 +532,16 @@ def ttt_mlp_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, 
     """Fused TTT-MLP forward for training: (out, W1_ck, b1_ck, W2_ck, b2_ck),
     the fp32 state at the start of every group of ``checkpoint_group``
     mini-batches. A custom op (so a selective-checkpoint policy can name it,
-    models/dit/dit.py): on CUDA tensors it launches the kernel or raises; on
-    CPU tensors it runs the plain version."""
+    models/dit/dit.py), whatever the dtype: on CUDA tensors it launches the
+    kernel of the q/k/v dtype or raises; on CPU tensors it runs the plain
+    version."""
     global train_launches
     check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2)
     B, NC, CS, _ = XQ.shape
     H, F = ln_w.shape
     K = _group(checkpoint_group, NC)
+    if XQ.dtype == torch.float32:
+        return _forward_f32(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scale, K)
     NG = -(-NC // K)
     lib = _lib()
     check_smem(lib, "ttt_mlp_forward_train", CS, XQ.device)
@@ -474,9 +573,9 @@ def _(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, W2, b2, eta_scal
 def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout,
                      eta_scale: float, checkpoint_group: int):
     """K2, the fused TTT-MLP backward from K1-train's checkpoints and the
-    output cotangent ``dout``. Returns what :func:`ttt_mlp_backward_plain`
-    returns. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    output cotangent ``dout`` (in q/k/v's dtype). Returns what
+    :func:`ttt_mlp_backward_plain` returns. CPU tensors take the plain
+    version; CUDA tensors launch the kernel of their q/k/v dtype or raise."""
     global bwd_launches
     refuse_dtensors("ttt_mlp_backward", XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck,
                     b2_ck, dout)
@@ -491,8 +590,11 @@ def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1
     _check_tensors({
         "W1_ck": (W1_ck, (B, H, NG, F, 4 * F), torch.float32), "b1_ck": (b1_ck, (B, H, NG, 1, 4 * F), torch.float32),
         "W2_ck": (W2_ck, (B, H, NG, 4 * F, F), torch.float32), "b2_ck": (b2_ck, (B, H, NG, 1, F), torch.float32),
-        "dout": (dout, (B, NC, CS, HF), torch.bfloat16),
+        "dout": (dout, (B, NC, CS, HF), XQ.dtype),
     }, XQ.device)
+    if XQ.dtype == torch.float32:
+        return _backward_f32(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout,
+                             eta_scale, K)
     lib = _lib("ttt_mlp_backward")
     check_smem(lib, "ttt_mlp_backward", CS, XQ.device)
     new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
@@ -506,6 +608,25 @@ def ttt_mlp_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1
             (B, NC, H, CS, K), eta_scale, XQ.device)
     bwd_launches += 1
     launches_by_cs["bwd_launches", CS] += 1
+    return (*dx, dgate, *(g.sum(dim=0) for g in grads))
+
+
+def _backward_f32(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout, eta_scale,
+                  K):
+    """Launch the float32 K2 on checked arguments; counts the launch. Returns what ttt_mlp_backward returns."""
+    B, NC, CS, HF = XQ.shape
+    H, F = ln_w.shape
+    lib = _lib("ttt_mlp_backward_f32")
+    check_smem(lib, "ttt_mlp_backward_f32", CS, XQ.device)
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
+    dx = [torch.empty_like(XQ) for _ in range(3)]
+    dgate = new(B, H, NC, CS)
+    grads = (new(B, H, F, 4 * F), new(B, H, 1, 4 * F), new(B, H, 4 * F, F), new(B, H, 1, F), new(B, H, F), new(B, H, F))
+    work = new(B * H * lib.ttt_mlp_backward_f32_workspace_floats(CS, K))
+    _launch(lib, "ttt_mlp_backward_f32",
+            (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck, b1_ck, W2_ck, b2_ck, dout, *dx, dgate, *grads,
+             work), (B, NC, H, CS, K), eta_scale, XQ.device)
+    f32_launches_by_cs["bwd_launches", CS] += 1
     return (*dx, dgate, *(g.sum(dim=0) for g in grads))
 
 

@@ -27,7 +27,12 @@ max|kernel - plain| / max|plain|:
 - the half slabs: every training kernel at CS 8, 24, 40 and 56 (ragged; an
   eta-gate case at 8 and 56) and K1 and K5 at CS 8 and 24 (an odd NC), so
   a last mini-batch whose last 16-token slab holds 8 tokens ends every
-  scan.
+  scan;
+- the float32 kernels (float32 q/k/v): every TTT kernel at every CS of
+  KERNEL_MINI_BATCHES, full and ragged (F32_TRAIN_CASES, F32_SAMPLE_CASES;
+  an eta-gate case per variant), rows ``K1@f32``, ``K2@f32`` etc., at a
+  tenth of the bf16 tolerances and on the output itself: nothing is rounded
+  to bf16 on either side, so only float32 summation order separates them.
 
 Every check's name ends with the kernel rows it drives, as PERF.md's table
 names them ([K1] ... [K7]; a row at another mini-batch than the kernel's
@@ -66,6 +71,12 @@ GRAD_TOL = 2e-2
 STATE_GRAD_TOL = 1e-2
 ATTENTION_FWD_TOL = 2e-2
 ATTENTION_GRAD_TOL = 3e-2
+# The float32 kernels' (F32_*): a tenth of the bf16 ones each, the forward held on its output itself. Neither side
+# rounds to bf16; float32 summation order over these short scans moves them by ~1e-6. One TF32 pass (~3 decimal
+# digits) would not meet them.
+F32_FWD_TOL = 2e-5
+F32_GRAD_TOL = 2e-3
+F32_STATE_GRAD_TOL = 1e-3
 
 # The substitutes ``kernels=`` takes, each with the signature of the wrapper it stands in for, and the
 # wrappers themselves (the kernel side by default).
@@ -103,13 +114,23 @@ ROWS = {"ttt_mlp": ("K1", "K1-train", "K2"), "ttt_linear": ("K5", "K5-train", "K
 ROW_CS = {"K1": 16, "K1-train": 64, "K2": 64, "K5": 16, "K5-train": 16, "K6": 16}
 
 
-def row(name: str, CS: int) -> str:
-    """The row of kernel row ``name`` (K1 ...) at mini-batch ``CS``: ``name`` itself at its first CS."""
+F32 = "@f32"  # the row of a float32 kernel: "<row>@f32", at every CS
+
+
+def row(name: str, CS: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The row of kernel row ``name`` (K1 ...) at mini-batch ``CS``: ``name`` itself at its first CS; a float32
+    kernel's is ``name`` + F32 at every CS."""
+    if dtype == torch.float32:
+        return name + F32
     return name if CS == ROW_CS[name] else f"{name}@CS{CS}"
 
 
 def launch_count(row_name: str) -> int:
-    """The launch counter of a row: COUNTERS', or for "<row>@CS<n>" its kernel's launches_by_cs at CS n."""
+    """The launch counter of a row: COUNTERS', for "<row>@CS<n>" its kernel's launches_by_cs at CS n, for
+    "<row>@f32" its float32 kernel's f32_launches_by_cs over every CS."""
+    if row_name.endswith(F32):
+        mod, attr = COUNTERS[row_name[: -len(F32)]]
+        return sum(n for (a, _), n in mod.f32_launches_by_cs.items() if a == attr)
     base, _, cs = row_name.partition("@CS")
     mod, attr = COUNTERS[base]
     return mod.launches_by_cs[attr, int(cs)] if cs else getattr(mod, attr)
@@ -172,6 +193,17 @@ SAMPLE_CASES = (
     ("ttt_linear sampling cs8 ragged", "ttt_linear", 2, 8, 5, 5, 8),
     ("ttt_linear sampling cs24 ragged", "ttt_linear", 2, 8, 5, 5, 24),
 )
+# The float32 cases: each variant's training and sampling kernels at every CS of KERNEL_MINI_BATCHES, full and
+# ragged (the shapes of the bf16 cases at CS 32-64: 8 heads, NC 5 of which the full case takes 4, K 2), and an
+# eta-gate case per variant at the large eta of the bf16 ones; fields as TRAIN_CASES' and SAMPLE_CASES'.
+F32_TRAIN_CASES = tuple(
+    (f"{v} f32 cs{cs} {kind}", v, 8, 5, nc, 2, cs, 1) for v in ("ttt_mlp", "ttt_linear")
+    for cs in ttt_mlp_kernel.KERNEL_MINI_BATCHES for kind, nc in (("full", 4), ("ragged", 5))) + (
+    ("ttt_mlp f32 eta-gate", "ttt_mlp", 8, 5, 5, 4, 64, 4096),
+    ("ttt_linear f32 eta-gate", "ttt_linear", 8, 9, 9, 4, 16, 100))
+F32_SAMPLE_CASES = tuple(
+    (f"{v} sampling f32 cs{cs} {kind}", v, 2, 8, 5, nc, cs) for v in ("ttt_mlp", "ttt_linear")
+    for cs in ttt_mlp_kernel.KERNEL_MINI_BATCHES for kind, nc in (("full", 4), ("ragged", 5)))
 ATTENTION_SHAPE = (3, 417, 4, 64)  # 3 windows of a ragged 417 tokens, 4 heads
 RERUN_CHECK = "splash folded-windows rerun bit-equal [K4]"  # K4's determinism: two launches, the same bits
 CONVERT_SHAPE = (12288, 3072)  # the MLP's layer2 weight, [out, in]
@@ -222,26 +254,29 @@ def eta_scale(variant: str, CS: int, factor: float = 1) -> float:
     return factor * BASE_LR[variant] / F / CS
 
 
-def _tensors(a: dict, variant: str, device, grad: bool) -> list:
-    """The wrapper's leading arguments on ``device`` (q/k/v in bf16), leaves that take gradients with ``grad``."""
+def _tensors(a: dict, variant: str, device, grad: bool, dtype: torch.dtype = torch.bfloat16) -> list:
+    """The wrapper's leading arguments on ``device`` (q/k/v in ``dtype``), leaves that take gradients with
+    ``grad``."""
     names = ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b") + STATE[variant]
     out = []
     for n in names:
         t = torch.from_numpy(np.ascontiguousarray(a[n])).to(device)
         if n in ("XQ", "XK", "XV"):
-            t = t.to(torch.bfloat16)
+            t = t.to(dtype)
         out.append(t.requires_grad_(grad and not n.startswith("rope")))
     return out
 
 
-def ttt_loss_and_grads(fn, a: dict, variant: str, K: int, eta: float, device):
-    """loss = sum(fn(...)^2) in float32 through a training scan ``fn`` (the wrapper's signature), and the
-    gradients of q, k, v, the gate, ln_w, ln_b and the initial state, in that order."""
-    args = _tensors(a, variant, device, grad=True)
+def ttt_loss_and_grads(fn, a: dict, variant: str, K: int, eta: float, device, dtype: torch.dtype = torch.bfloat16,
+                       with_out: bool = False):
+    """loss = sum(fn(...)^2) in float32 through a training scan ``fn`` (the wrapper's signature) on q/k/v in
+    ``dtype``, and the gradients of q, k, v, the gate, ln_w, ln_b and the initial state, in that order; with
+    ``with_out``, the output in place of the loss."""
+    args = _tensors(a, variant, device, grad=True, dtype=dtype)
     out = fn(*args, eta, K)
     loss = (out.float() ** 2).sum()
     leaves = [t for t in args if t.requires_grad]
-    return loss.detach(), torch.autograd.grad(loss, leaves)
+    return (out if with_out else loss).detach(), torch.autograd.grad(loss, leaves)
 
 
 def attention_arrays(rng) -> dict:
@@ -286,6 +321,7 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
     t0 = time.perf_counter()
     rows = {row(r, case[6]) for case in TRAIN_CASES for r in ROWS[case[1]][1:]}
     rows |= {row(ROWS[case[1]][0], case[6]) for case in SAMPLE_CASES} | {"K3", "K3-lse", "K4", "K7"}
+    rows |= {row(r, 0, torch.float32) for rows_ in ROWS.values() for r in rows_}
     before = {r: launch_count(r) for r in rows}
     checks, tolerances = {}, {}
 
@@ -305,6 +341,7 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
         # The rows at a kernel's other mini-batches draw from generators of their own (the half slabs from a
         # third), so every other check's inputs are those it had before those rows were added.
         rng, wide_rng, half_rng = np.random.default_rng(0), np.random.default_rng(1), np.random.default_rng(2)
+        f32_rng = np.random.default_rng(3)
         draw = lambda r, CS: half_rng if CS % 16 else wide_rng if "@" in row(r, CS) else rng
         shared = {}
         for name, variant, H, NC, nc, K, CS, factor in TRAIN_CASES:
@@ -328,6 +365,29 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
                 got = kernels[f"{variant}_forward"](*args, eta).float()
                 want = PLAIN[f"{variant}_forward"](*args, eta).float()
             check(f"{name} fwd [{row(ROWS[variant][0], CS)}]", rel_err((got**2).sum(), (want**2).sum()), FWD_TOL)
+        # The float32 kernels, on draws of a generator of their own (every other check's inputs as before).
+        for name, variant, H, NC, nc, K, CS, factor in F32_TRAIN_CASES:
+            fwd_row, bwd_row = (row(r, CS, torch.float32) for r in ROWS[variant][1:])
+            if ("f32", variant, 1, H, NC, CS) not in shared:
+                shared["f32", variant, 1, H, NC, CS] = ttt_arrays(f32_rng, variant, 1, H, NC, CS)
+            a, eta = take(shared["f32", variant, 1, H, NC, CS], nc), eta_scale(variant, CS, factor)
+            f32 = dict(device=device, dtype=torch.float32, with_out=True)
+            out_k, grads_k = ttt_loss_and_grads(kernels[f"{variant}_train"], a, variant, K, eta, **f32)
+            out_p, grads_p = ttt_loss_and_grads(PLAIN[f"{variant}_train"], a, variant, K, eta, **f32)
+            check(f"{name} fwd [{fwd_row}]", rel_err(out_k, out_p), F32_FWD_TOL)
+            for g, w, what in zip(grads_k, grads_p, ("dq", "dk", "dv", "dgate")):
+                check(f"{name} {what} [{bwd_row}]", rel_err(g, w), F32_GRAD_TOL)
+            check(f"{name} dstate [{bwd_row}]", max(rel_err(g, w) for g, w in zip(grads_k[4:], grads_p[4:])),
+                  F32_STATE_GRAD_TOL)
+        for name, variant, B, H, NC, nc, CS in F32_SAMPLE_CASES:
+            if ("f32", variant, B, H, NC, CS) not in shared:
+                shared["f32", variant, B, H, NC, CS] = ttt_arrays(f32_rng, variant, B, H, NC, CS)
+            args = _tensors(take(shared["f32", variant, B, H, NC, CS], nc), variant, device, grad=False,
+                            dtype=torch.float32)
+            eta = eta_scale(variant, CS)
+            with torch.no_grad():
+                got, want = kernels[f"{variant}_forward"](*args, eta), PLAIN[f"{variant}_forward"](*args, eta)
+            check(f"{name} fwd [{row(ROWS[variant][0], CS, torch.float32)}]", rel_err(got, want), F32_FWD_TOL)
 
         a = attention_arrays(rng)
         q, k, v = (torch.from_numpy(a[n]).to(device).to(torch.bfloat16) for n in ("q", "k", "v"))
