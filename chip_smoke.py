@@ -126,6 +126,19 @@ its own 3 s TOMLs:
     on the plain route,
     no TTT kernel launched. Every other phase's launch check also holds the
     plain routes at 0.
+23. head dim 128 (phase_head_dim_128): the 3 s TTT-linear eval at d3072 with
+    --model.num_heads 24, as a user gives it. The two sampling kernels at that
+    width against their plain versions (rows "<kernel>@F128" of the kernels
+    line): K3 at [2, 18,048, 24, 128] and at 3 ragged windows of 417 tokens,
+    beside one scaled_dot_product_attention call; K5 at B 2, 24 heads, NC
+    1,128, CS 16, held in 4 groups of 282 mini-batches (each group from the
+    plain scan's state at its start), and on small scans, ragged and at a
+    large eta that must move the output. Then the 1-layer full-width DiT at 24
+    heads kernel vs plain (DIT_REL_L2_TOL), and the sampling entry on
+    configs/eval/ttt-linear/3s.toml at 24 heads, 4 layers, 2 denoise steps:
+    finite latents, and from exactly that run K3@F128 once and K5@F128 twice a
+    layer and eval, no other kernel, no plain route. Training and TTT-MLP at
+    head dim 128 raise (not ported yet).
 Then the serving path (ttt_mlp, its 3 s eval TOML, full width; every
 weight file fabricated from a seed under output/chip_smoke_serve/, removed
 at the end):
@@ -262,7 +275,7 @@ Then the longest training stage one card holds:
     cards.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 19, 20, 21, 22, 8, 9, 17, 11, 12, 13, 14 and 15); the last
+the main-path runs of phases 4, 6 (both policies), 19, 20, 21, 22, 23, 8, 9, 17, 11, 12, 13, 14 and 15); the last
 line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
@@ -331,7 +344,7 @@ def train_args(variant: str, length: str = "3s", layers: int = 4, steps: int = 3
 
 KERNELS = ("attention_forward", "attention_backward", "ttt_mlp_forward", "ttt_mlp_backward", "ttt_linear_forward",
            "ttt_linear_backward", "convert", "ttt_mlp_forward_f32", "ttt_mlp_backward_f32", "ttt_linear_forward_f32",
-           "ttt_linear_backward_f32")
+           "ttt_linear_backward_f32", "attention_forward_f128", "ttt_linear_forward_f128")
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise, on bf16 outputs. The
 # kernels round at the plain versions' points; what remains is float32
 # summation order (and, for attention, P and dS rounded to bf16 as operands),
@@ -370,6 +383,12 @@ GROUP_REL_L2_TOL = 1e-2
 SCALED_TOL = {"ttt_mlp_forward_train": 1e-3, "ttt_mlp_backward": 1e-2, "ttt_linear_forward_train": 1e-3,
               "ttt_linear_backward": 1e-2}
 SCALED_TOL.update({f"{n}{F32}": t / 10 for n, t in SCALED_TOL.items()})
+# The head-dim-128 sampling kernels (rows "<kernel>@F128", phase 23): the bf16 tolerances of their head-dim-64
+# kernels (the same rounding points, longer float32 sums).
+F128 = "@F128"
+KERNEL_TOL.update({f"{n}{F128}": KERNEL_TOL[n] for n in ("attention_forward", "ttt_linear_forward")})
+# The flag that gives the 5B width d3072 head dim 128, as a user gives it.
+HEAD_DIM_128 = ("--model.num_heads", "24")
 F32_REL_L2_TOL = REL_L2_TOL / 10
 F32_GROUP_REL_L2_TOL = GROUP_REL_L2_TOL / 10
 ELEMENTWISE_GRADS = ("dXQ", "dXK", "dXV", "d_gate")
@@ -522,6 +541,7 @@ def phase_build():
     for lib in (ttt_mlp_kernel._lib(), ttt_mlp_kernel._lib("ttt_mlp_backward"), attention._lib(),
                 attention._lib("attention_backward"), ttt_linear_kernel._lib(),
                 ttt_linear_kernel._lib("ttt_linear_backward"), convert._lib(),
+                attention._lib("attention_forward_f128"), ttt_linear_kernel._lib("ttt_linear_forward_f128"),
                 *(mod._lib(n) for mod in (ttt_mlp_kernel, ttt_linear_kernel) for n in mod.F32_LIBS)):
         assert lib is not None
     for name, info in _build.build_info.items():
@@ -538,6 +558,10 @@ def phase_build():
         smem[f"ttt_linear_backward CS {cs}"] = lin_bwd.ttt_linear_backward_smem_bytes(cs)
     for mod in (ttt_mlp_kernel, ttt_linear_kernel):  # the float32 kernels: the same at every CS
         smem.update({f"{n} every CS": getattr(mod._lib(n), f"{n}_smem_bytes")(64) for n in mod.F32_LIBS})
+    smem["attention_forward_f128"] = attention._lib("attention_forward_f128").attention_forward_f128_smem_bytes()
+    for cs in ttt_linear_kernel.F128_MINI_BATCHES:
+        smem[f"ttt_linear_forward_f128 CS {cs}"] = ttt_linear_kernel._lib(
+            "ttt_linear_forward_f128").ttt_linear_forward_f128_smem_bytes(cs)
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: "
         + ", ".join(f"{k} {v} bytes" for k, v in smem.items()) + ")")
 
@@ -569,10 +593,9 @@ def phase_selftest(device) -> None:
         + f"; {result['seconds']:.2f} s (first run, after the build), {warm['seconds']:.2f} s (second) ({CARD})")
 
 
-def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16, variant="ttt_mlp", dtype=torch.bfloat16):
+def _ttt_inputs(B, H, NC, gen, device, meta=None, CS=16, variant="ttt_mlp", dtype=torch.bfloat16, F=64):
     from ttt_video_dit_torch.models.ttt.layer import scan_rope_tables
 
-    F = 64
     randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=device) * std
     x = lambda: randn(B, NC, CS, H * F).to(dtype)
     if meta is None:
@@ -1272,7 +1295,9 @@ def reset_counts() -> None:
         mod.launches = mod.train_launches = mod.bwd_launches = mod.plain_routes = 0
         mod.launches_by_cs.clear()
         mod.f32_launches_by_cs.clear()
+    ttt_linear_kernel.f128_launches_by_cs.clear()
     attention.launches = attention.lse_launches = attention.bwd_launches = attention.plain_routes = 0
+    attention.f128_launches = 0
     convert.launches = 0
 
 
@@ -1284,21 +1309,25 @@ BY_CS = {"ttt_mlp_forward": ("ttt_mlp", "launches", 16), "ttt_mlp_forward_train"
          "ttt_linear_backward": ("ttt_linear", "bwd_launches", 16)}
 
 
-def row_name(name: str, CS: int, f32: bool = False) -> str:
+def row_name(name: str, CS: int, f32: bool = False, f128: bool = False) -> str:
     """A kernel's row at mini-batch CS: ``name`` at its first CS, else ``name@CS<n>``; a float32 kernel's
-    ``name@f32`` (``name@f32@CS<n>``)."""
-    name += F32 if f32 else ""
-    return f"{name}@CS{CS}" if name.removesuffix(F32) in BY_CS and CS != BY_CS[name.removesuffix(F32)][2] else name
+    ``name@f32`` (``name@f32@CS<n>``), a head-dim-128 kernel's ``name@F128`` (``name@F128@CS<n>``)."""
+    row = name + (F32 if f32 else "") + (F128 if f128 else "")
+    return f"{row}@CS{CS}" if name in BY_CS and CS != BY_CS[name][2] else row
 
 
 def read_counts() -> dict[str, int]:
-    """Every kernel's launches by row (rows "<kernel>@f32" for the float32 kernels), and the calls on the card
-    that the model's route sent to the plain versions ("plain_routes:attention", ":ttt_mlp", ":ttt_linear")."""
-    from ttt_video_dit_torch.ops import attention, convert
+    """Every kernel's launches by row (rows "<kernel>@f32" for the float32 kernels, "<kernel>@F128" for the
+    head-dim-128 ones), and the calls on the card that the model's route sent to the plain versions
+    ("plain_routes:attention", ":ttt_mlp", ":ttt_linear")."""
+    from ttt_video_dit_torch.ops import attention, convert, ttt_linear_kernel
 
     counts = {"attention_forward": attention.launches, "attention_forward_lse": attention.lse_launches,
               "attention_backward": attention.bwd_launches, "convert_f32_bf16": convert.launches,
-              "plain_routes:attention": attention.plain_routes}
+              "attention_forward" + F128: attention.f128_launches, "plain_routes:attention": attention.plain_routes}
+    by_cs = ttt_linear_kernel.f128_launches_by_cs
+    counts.update({row_name("ttt_linear_forward", cs, f128=True): by_cs["launches", cs]
+                   for cs in ttt_linear_kernel.F128_MINI_BATCHES})
     for name, (variant, attr, first) in BY_CS.items():
         mod = _ttt_module(variant)
         for f32, by_cs in ((False, mod.launches_by_cs), (True, mod.f32_launches_by_cs)):
@@ -1350,11 +1379,12 @@ def phase_sample(device, variant, keep: dict | None = None, args: list[str] | No
     if summary["device"].split(":")[0] != "cuda":
         raise AssertionError(f"sampling ran on {summary['device']}, not the card")
     # Per eval and layer: the TTT scan once per direction, attention once (each where the route takes a kernel: the
-    # float32 TTT kernels at float32, no attention kernel).
+    # float32 TTT kernels at float32, no attention kernel; the head-dim-128 kernels at head dim 128).
     f32, launched = cfg.dtype == "float32", check_routes(counts, cfg, variant, "sampling")
-    expect = {} if f32 else {"attention_forward": cfg.num_layers * evals}
+    f128 = cfg.head_dim == 128
+    expect = {} if f32 else {"attention_forward" + (F128 if f128 else ""): cfg.num_layers * evals}
     if not ttt_mlp_routes_to_plain(cfg):
-        expect[row_name(f"{variant}_forward", cfg.mini_batch_size, f32)] = 2 * cfg.num_layers * evals
+        expect[row_name(f"{variant}_forward", cfg.mini_batch_size, f32, f128)] = 2 * cfg.num_layers * evals
     if launched != {**dict.fromkeys(launched, 0), **expect}:
         raise AssertionError(f"kernel launches {counts} do not match {cfg.num_layers} layers x {evals} evals")
     latents = np.load(summary["latents"][0])
@@ -1724,6 +1754,104 @@ def phase_float32(device) -> dict[str, int]:
         f"{debug['plain_routes:ttt_linear']}, TTT launches 0: {time.perf_counter() - t0:.1f} s ({CARD})")
     counts.update(debug)
     return counts
+
+
+# K5@F128's slice is held in groups of this many mini-batches (NC 1,128: 4 groups).
+SAMPLE_GROUP = 282
+
+
+def check_head_dim_128_kernels(device) -> list[dict]:
+    """The head-dim-128 sampling kernels (rows "<kernel>@F128") against their plain versions at the slices the 3 s
+    TTT-linear eval TOML gives them at --model.num_heads 24 (d3072 / 24 = 128), with generators of their own. K3
+    at [2, 18,048, 24, 128] (one 3 s window per CFG sample) and at 3 ragged windows of 417 tokens, beside one
+    scaled_dot_product_attention call on the slice. K5 at B 2, 24 heads, NC 1,128, CS 16 and the 3 s rope
+    tables, held group by group (the plain scan's state every SAMPLE_GROUP mini-batches: each group of the
+    kernel's output from that state against the plain output of that group; the first from the initial state,
+    in the kernel's launch over the whole slice), and on small scans, ragged and at 1,000x the slice's eta, where
+    the plain output must move at least MOVED_TOLS tolerances from the eta = 0 output. Times, bounds, plain
+    times."""
+    import torch.nn.functional as Fn
+
+    from ttt_video_dit_torch.ops import attention, ttt_linear_kernel
+
+    records = []
+    gen = torch.Generator(device).manual_seed(80)
+    name = "attention_forward" + F128
+    for shape in ((2, SEQ, 24, 128), (3, 417, 4, 128)):
+        q, k, v = (torch.randn(*shape, generator=gen, device=device).mul(2.0).to(torch.bfloat16) for _ in range(3))
+        want, plain_ms = timed(lambda: attention.attention_plain(q, k, v))
+        err = compare(name, attention.attention(q, k, v), want)
+        log(f"  {name} {list(shape)}: max_abs_err {err:.4g} (tol {KERNEL_TOL[name]})")
+        if shape[1] == SEQ:
+            k3 = dict(qkv=(q, k, v), err=err, plain_ms=plain_ms)
+    BC, S, H, F = 2, SEQ, 24, 128
+    ms = cuda_ms(lambda: attention.attention(*k3["qkv"]), 5)
+    sdpa = lambda q, k, v: Fn.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    lib_ms = cuda_ms(lambda: sdpa(*k3["qkv"]), 5)
+    records.append(record(name, "attention_forward_f128.cu", TPU + "ops/attention.py:265", k3["err"], ms,
+                          k3["plain_ms"], 4 * BC * S * H * F * 2, 4 * BC * H * S * S * F, lib_ms))
+    del k3, q, k, v, want
+
+    name = "ttt_linear_forward" + F128
+    kernel, plain = ttt_linear_kernel.ttt_linear_forward, ttt_linear_kernel.ttt_linear_forward_plain
+    cfg, meta = _sampling_meta(sample_args("ttt_linear") + list(HEAD_DIM_128))
+    CS, H, F, NC = cfg.mini_batch_size, cfg.num_heads, cfg.head_dim, SEQ // cfg.mini_batch_size
+    eta = cfg.ttt_base_lr / F / CS
+    for B, HH, nc, e in ((1, 2, 7, eta), (2, 3, 17, eta), (1, 2, 17, 1000 * eta)):
+        a = _ttt_inputs(B, HH, nc, gen, device, CS=CS, variant="ttt_linear", F=F)
+        want = plain(**a, eta_scale=e)
+        err = compare(name, kernel(**a, eta_scale=e), want)
+        moved = ""
+        if e != eta:
+            tols = in_tolerances(name, want, plain(**a, eta_scale=0.0))
+            if tols < MOVED_TOLS:
+                raise AssertionError(f"{name} eta_scale={e:.4g}: the plain output moved only {tols:.3g} tolerances "
+                                     f"from the eta = 0 output (at least {MOVED_TOLS} needed)")
+            moved = f"; the plain output {tols:.1f} tolerances from eta = 0's"
+        log(f"  {name} B={B} H={HH} NC={nc} CS={CS} eta_scale={e:.4g}: max_abs_err {err:.4g} "
+            f"(tol {KERNEL_TOL[name]}){moved}")
+    a = _ttt_inputs(2, H, NC, gen, device, meta, CS=CS, variant="ttt_linear", F=F)
+    got = kernel(**a, eta_scale=eta)
+    (want, W_ck, b_ck), plain_ms = timed(lambda: plain(**a, eta_scale=eta, checkpoint_group=SAMPLE_GROUP))
+    groups = range(0, NC, SAMPLE_GROUP)
+    errs = [compare(name, got[:, :SAMPLE_GROUP], want[:, :SAMPLE_GROUP], "group 0")]
+    for g, n0 in enumerate(groups[1:], start=1):
+        mbs = slice(n0, n0 + SAMPLE_GROUP)
+        for b in range(2):  # a batch element at a time: the kernel's initial state is shared by the batch
+            part = dict(a, XQ=a["XQ"][b : b + 1, mbs].contiguous(), XK=a["XK"][b : b + 1, mbs].contiguous(),
+                        XV=a["XV"][b : b + 1, mbs].contiguous(), gate=a["gate"][b : b + 1, :, mbs].contiguous(),
+                        rope_cos=a["rope_cos"][mbs].contiguous(), rope_sin=a["rope_sin"][mbs].contiguous(),
+                        W1=W_ck[b, :, g].contiguous(), b1=b_ck[b, :, g].contiguous())
+            errs.append(compare(name, kernel(**part, eta_scale=eta), want[b : b + 1, mbs], f"group {g} batch {b}"))
+    err = max(errs)
+    log(f"  {name} B=2 H={H} NC={NC} CS={CS} eta_scale={eta:.4g}, held by {len(groups)} groups of {SAMPLE_GROUP} "
+        f"mini-batches: max_abs_err {err:.4g} (tol {KERNEL_TOL[name]}); the whole scan's last group, against the "
+        f"plain scan's, {float((got[:, -SAMPLE_GROUP:].float() - want[:, -SAMPLE_GROUP:].float()).abs().max()):.4g}")
+    ms = cuda_ms(lambda: kernel(**a, eta_scale=eta), 5)
+    records.append(record(name, "ttt_linear_forward_f128.cu", TPU + TTT["ttt_linear"][2][0], err, ms, plain_ms,
+                          _ttt_bytes("ttt_linear", 2, H, NC, CS, F=F),
+                          2 * H * NC * _ttt_flops_per_step("ttt_linear", CS, F=F)))
+    del a, got, want, W_ck, b_ck
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_head_dim_128(device) -> tuple[list[dict], dict[str, int]]:
+    """Phase 23: head dim 128, the 3 s TTT-linear eval at d3072 with 24 heads (--model.num_heads 24, as a user
+    gives it). The two sampling kernels at that width against their plain versions (check_head_dim_128_kernels:
+    rows "attention_forward@F128", "ttt_linear_forward@F128"); the 1-layer full-width DiT at 24 heads, kernel path
+    against the plain path (DIT_REL_L2_TOL); the sampling entry on configs/eval/ttt-linear/3s.toml at 24 heads, 4
+    layers, 2 denoise steps: finite latents, and from exactly that run K3@F128 once and K5@F128 twice a layer and
+    eval, no other kernel, no plain route (phase_sample). Returns the kernels' records and the run's counts."""
+    t0 = time.perf_counter()
+    records = check_head_dim_128_kernels(device)
+    log(f"  head-dim-128 kernels vs plain: {time.perf_counter() - t0:.1f} s")
+    phase_dit(device, "ttt_linear", extra=HEAD_DIM_128, phase=23, layers=1)
+    two_steps = ["--eval.num_denoising_steps", "2", "--guider.num_steps", "2", "--model.num_layers", "4"]
+    counts = phase_sample(device, "ttt_linear", args=sample_args("ttt_linear") + list(HEAD_DIM_128) + two_steps,
+                          phase=23)
+    log(f"phase 23 head dim 128 (d3072 x 24 heads): {time.perf_counter() - t0:.1f} s ({CARD})")
+    return records, counts
 
 
 def _varint(n: int) -> bytes:
@@ -2944,6 +3072,10 @@ def main() -> int:
     log_clocks("after the half-slab paths")
     counts.update(phase_float32(device))
     log_clocks("after the float32 run")
+    f128_records, f128_counts = phase_head_dim_128(device)
+    records += f128_records
+    counts.update(f128_counts)
+    log_clocks("after head dim 128")
     try:
         phase_t5(device)
         log_clocks("after T5")

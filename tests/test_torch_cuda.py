@@ -263,9 +263,8 @@ def test_attention_backward_kernel_reruns_agree(cuda, shape):
             _close(a, w)
 
 
-def _linear_inputs(cuda, B, H, NC, seed, CS=16):
+def _linear_inputs(cuda, B, H, NC, seed, CS=16, F=64):
     gen = torch.Generator(cuda).manual_seed(seed)
-    F = 64
     randn = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=cuda) * std
     angles = torch.rand(NC, CS, F // 2, generator=gen, device=cuda) * 6.3
     return dict(
@@ -521,6 +520,70 @@ def test_float32_routes_and_refusals_on_the_card(cuda):
         a[k] = a[k].float()
     with pytest.raises(ValueError, match=r"\(8, 16, 24, 32, 40, 48, 56, 64\)"):
         ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=1e-3)
+
+
+# Head dim 128 (d3072 at 24 heads): the sampling kernels alone. K3 at windows around its tiles (128 q rows a
+# block, 128 kv rows a step) and at the 3 s slice's [2, 18,048, 24, 128]; K5 at CS 16 at one and two
+# mini-batches, 17 (the ring wraps), 3 x 48 scans and at 1,000x the 3 s slice's eta (1 / 128 / 16), where the
+# plain output lies at least 10 tolerances from the eta = 0 output. The elementwise tolerance of the top.
+F128_ATTENTION_SHAPES = [(3, 417, 4, 128), (1, 100, 1, 128), (2, 127, 2, 128), (2, 128, 2, 128), (3, 129, 2, 128),
+                         (2, 1000, 3, 128), (2, 18048, 24, 128)]
+
+
+@pytest.mark.parametrize("shape", F128_ATTENTION_SHAPES)
+def test_attention_kernel_at_head_dim_128_matches_plain(cuda, shape):
+    gen = torch.Generator(cuda).manual_seed(3)
+    q, k, v = (torch.randn(*shape, generator=gen, device=cuda).mul(2).bfloat16() for _ in range(3))
+    before, before_64 = attention.f128_launches, attention.launches
+    got = attention.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.f128_launches == before + 1 and attention.launches == before_64
+    _close(got, attention.attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("B,H,NC,factor", [(1, 1, 1, 1), (1, 2, 2, 1), (2, 3, 17, 1), (3, 48, 4, 1),
+                                           (1, 2, 17, 1000)])
+def test_ttt_linear_kernel_at_head_dim_128_matches_plain(cuda, B, H, NC, factor):
+    a, _ = _linear_inputs(cuda, B, H, NC, seed=7, F=128)
+    eta_scale = factor / 128 / 16
+    before, before_64 = dict(ttt_linear_kernel.f128_launches_by_cs), ttt_linear_kernel.launches
+    got = ttt_linear_kernel.ttt_linear_forward(**a, eta_scale=eta_scale)
+    torch.cuda.synchronize()
+    assert ttt_linear_kernel.f128_launches_by_cs["launches", 16] == before.get(("launches", 16), 0) + 1
+    assert ttt_linear_kernel.launches == before_64
+    want = ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=eta_scale)
+    _close(got, want)
+    if factor > 1:
+        assert _in_tolerances(want, ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=0.0)) >= 10
+
+
+def test_head_dim_128_training_and_ttt_mlp_raise_on_the_card(cuda):
+    """At head dim 128 only the sampling kernels exist: K3-lse, K4, K5-train, K6 and every TTT-MLP kernel raise
+    ValueError naming what they take, and so do K5 at another CS and on float32 q/k/v."""
+    q = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"F in \(64,\)"):
+        attention.attention_with_lse(q, q, q)
+    with pytest.raises(ValueError, match=r"F in \(64,\)"):
+        attention.attention_backward(q, q, q, q, torch.zeros(1, 2, 64, device=cuda), q)
+    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, F=128)
+    takes = r"\{64: \(8, 16, 24, 32, 40, 48, 56, 64\)"
+    with pytest.raises(ValueError, match=takes + r"\}.*got F=128"):
+        ttt_linear_kernel.ttt_linear_forward_train(**a, eta_scale=1e-3, checkpoint_group=2)
+    ins = [a[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    ck = (torch.zeros(1, 2, 2, 128, 128, device=cuda), torch.zeros(1, 2, 2, 1, 128, device=cuda))
+    with pytest.raises(ValueError, match=takes + r"\}.*got F=128"):
+        ttt_linear_kernel.ttt_linear_backward(*ins, *ck, a["XQ"], 1e-3, 2)
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        ttt_linear_kernel.ttt_linear_forward(**dict(a, **{k: a[k].float() for k in ("XQ", "XK", "XV")}),
+                                             eta_scale=1e-3)
+    b, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, CS=32, F=128)
+    with pytest.raises(ValueError, match=takes + r", 128: \(16,\)\}.*got F=128, CS=32"):
+        ttt_linear_kernel.ttt_linear_forward(**b, eta_scale=1e-3)
+    H, F = 2, 128
+    z = lambda *s: torch.zeros(*s, device=cuda)
+    mlp = ins + [z(H, F, 4 * F), z(H, 1, 4 * F), z(H, 4 * F, F), z(H, 1, F)]
+    with pytest.raises(ValueError, match=r"F=64 and CS in \(8, 16, 24, 32, 40, 48, 56, 64\); got F=128"):
+        ttt_mlp_kernel.ttt_mlp_forward(*mlp, eta_scale=1e-3)
 
 
 def test_kernel_selftest_holds_every_kernel_on_the_card(cuda):

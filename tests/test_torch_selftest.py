@@ -39,7 +39,7 @@ from ttt_video_dit_tpu.ops.pallas import ttt_vjp  # noqa: E402
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
-ROWS = ("K1", "K1-train", "K2", "K3", "K3-lse", "K4", "K5", "K5-train", "K6", "K7")
+ROWS = ("K1", "K1-train", "K2", "K3", "K3-lse", "K4", "K5", "K5-train", "K6", "K7", "K3@F128", "K5@F128")
 # The checks of ttt_video_dit_tpu/utils/selftest.py:kernel_selftest (its splash ones run on a TPU only).
 JAX_CHECKS = ([f"{v} {c} {w}" for v in ("ttt_linear", "ttt_mlp") for c in ("full", "ragged")
                for w in ("fwd", "dq", "dk", "dv")]
@@ -132,7 +132,8 @@ def test_a_corrupt_ragged_group_fails_ragged_checks_and_passes_full_ones(corrupt
     for case in ("ttt_mlp sampling ragged", "ttt_linear sampling ragged", "ttt_mlp sampling cs64 ragged",
                  "ttt_linear sampling cs32 ragged", "ttt_linear sampling cs64 ragged", "ttt_mlp sampling cs32 ragged",
                  "ttt_mlp sampling cs48 ragged", "ttt_mlp sampling cs8 ragged", "ttt_mlp sampling cs24 ragged",
-                 "ttt_linear sampling cs8 ragged", "ttt_linear sampling cs24 ragged"):
+                 "ttt_linear sampling cs8 ragged", "ttt_linear sampling cs24 ragged",
+                 "ttt_linear sampling f128 ragged", "ttt_linear sampling f128 eta-gate"):
         assert any(n.startswith(case) for n in failed), case
     # The float32 cases (their own rows, every CS): each ragged one fails, each full one passes.
     for name, *_ in selftest.F32_TRAIN_CASES:
@@ -143,16 +144,18 @@ def test_a_corrupt_ragged_group_fails_ragged_checks_and_passes_full_ones(corrupt
         assert any(n.startswith(name) for n in failed) == name.endswith("ragged"), name
     f32_full = [c for c in selftest.F32_TRAIN_CASES if c[0].endswith(" full")]
     f32_sampling_full = [c for c in selftest.F32_SAMPLE_CASES if c[0].endswith(" full")]
+    f128_full = [c for c in selftest.F128_SAMPLE_CASES if c[0].endswith(" full")]
     full = [n for n in corrupted_result["checks"] if " full " in n]
-    assert len(full) == 7 * 6 + 7 + 6 * len(f32_full) + len(f32_sampling_full) and not failed & set(full), \
+    assert len(full) == 7 * 6 + 7 + 6 * len(f32_full) + len(f32_sampling_full) + len(f128_full) \
+        and not failed & set(full), \
         failed & set(full)
 
 
 def test_a_corrupt_last_window_fails_the_folded_window_checks(corrupted_result):
-    """Every value check of the folded windows fails; the rerun check (K4's determinism) passes, as the
-    corruption is the same on both launches."""
+    """Every value check of the folded windows (head dim 64 and 128) fails; the rerun check (K4's determinism)
+    passes, as the corruption is the same on both launches."""
     splash = {n for n in corrupted_result["checks"] if n.startswith("splash folded-windows")}
-    assert len(splash) == 6 and splash - _failed(corrupted_result) == {selftest.RERUN_CHECK}
+    assert len(splash) == 7 and splash - _failed(corrupted_result) == {selftest.RERUN_CHECK}
 
 
 def _drifting(fn):

@@ -543,18 +543,24 @@ def _cases(source: str, function: str) -> tuple:
     return tuple(int(c) for c in re.findall(r"case (\d+):", body))
 
 
-@pytest.mark.parametrize("kernels", ["ttt_linear", "ttt_mlp_sampling", "ttt_mlp_training"])
+@pytest.mark.parametrize("kernels", ["ttt_linear", "ttt_mlp_sampling", "ttt_mlp_training", "ttt_linear_f128"])
 def test_supported_mini_batches_are_the_instantiated_ones(kernels):
     """Each wrapper's tuple of mini-batches is the list its C entry
     dispatches on: ttt_mlp_block.cuh:with_slabs (K5, K5-train and K6; K1-train,
     K2, and K1 past CS 16) and ttt_mlp_forward.cu:ttt_mlp_forward (K1), so a
     CS the wrapper lets through always has a kernel, and one that has a
-    kernel is never refused: every multiple of 8 up to 64."""
+    kernel is never refused: every multiple of 8 up to 64. At head dim 128,
+    K5's takes-list is ttt_linear_forward_f128.cu:with_mini_batch's: CS 16,
+    the training kernels take none."""
     from ttt_video_dit_torch.ops import ttt_mlp_kernel as tm
 
     every = (8, 16, 24, 32, 40, 48, 56, 64)
     if kernels == "ttt_linear":
         assert _cases("ttt_mlp_block.cuh", "with_slabs") == tk.KERNEL_MINI_BATCHES == every
+    elif kernels == "ttt_linear_f128":
+        assert _cases("ttt_linear_forward_f128.cu", "with_mini_batch") == tk.F128_MINI_BATCHES == (16,)
+        assert tk.kernel_shapes(sampling=True) == {64: every, 128: (16,)}
+        assert tk.kernel_shapes(sampling=False) == {64: every}
     elif kernels == "ttt_mlp_sampling":
         assert tuple(sorted(_cases("ttt_mlp_forward.cu", "ttt_mlp_forward"))) == tm.KERNEL_MINI_BATCHES == every
     else:

@@ -4,7 +4,10 @@ autograd Function that trains through them.
 Port of ttt_video_dit_tpu/ops/attention.py:attention (the splash-attention
 forward K3 and its custom-VJP backward K4, reached through _splash_padded /
 _splash_kernel). The kernels are ``csrc/attention_forward.cu`` (forward,
-optionally writing the log-sum-exp) and ``csrc/attention_backward.cu``; they
+optionally writing the log-sum-exp) and ``csrc/attention_backward.cu``, at
+head dim 64; and, at head dim 128 (d3072 at 24 heads), the sampling forward
+alone, ``csrc/attention_forward_f128.cu`` (the log-sum-exp forward and the
+backward raise there: training at head dim 128 is not ported yet). They
 mask the ragged KV edge themselves, so the splash padding and block tuning
 have no counterpart here. The backward is the splash backward's non-fused
 form: dk and dv in one kernel, dq in one of its own, each output element one
@@ -32,14 +35,20 @@ from ttt_video_dit_torch.ops import _build
 from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): the forward
-# for sampling, the forward that writes the log-sum-exp, the backward.
+# for sampling, the forward that writes the log-sum-exp, the backward, at head
+# dim 64; the sampling forward at head dim 128.
 launches = 0
 lse_launches = 0
 bwd_launches = 0
+f128_launches = 0
 # Calls on a CUDA device that use_plain sent to the plain versions (a dtype other than bf16).
 plain_routes = 0
 
 KERNEL_HEAD_DIM = 64
+# The head dims each kernel takes: the sampling forward (K3) 64 and 128; the log-sum-exp forward and the
+# backward (K3-lse, K4: training) 64.
+SAMPLING_HEAD_DIMS = (64, 128)
+TRAINING_HEAD_DIMS = (64,)
 _BLOCK_Q = 256
 
 
@@ -119,6 +128,11 @@ def _lib(name: str = "attention_forward"):
     if name == "attention_forward" and lib.attention_forward.argtypes is None:
         lib.attention_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
         lib.attention_forward.restype = ctypes.c_int
+    if name == "attention_forward_f128" and lib.attention_forward_f128.argtypes is None:
+        lib.attention_forward_f128.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                                                           ctypes.c_void_p]
+        lib.attention_forward_f128.restype = ctypes.c_int
+        lib.attention_forward_f128_smem_bytes.restype = ctypes.c_int
     if name == "attention_backward" and lib.attention_backward.argtypes is None:
         lib.attention_backward.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                                            + [ctypes.c_float, ctypes.c_void_p])
@@ -126,14 +140,17 @@ def _lib(name: str = "attention_forward"):
     return lib
 
 
-def check_kernel_args(q, k, v) -> None:
-    """Raise ValueError unless q/k/v are what the CUDA kernel takes: equal
-    [BC, S, H, 64] bf16 shapes, contiguous, 16-byte aligned, on one CUDA
-    device, with BC and H within a grid dimension (65,535). The kernels read
-    them by TMA, which needs a 16-byte-aligned base and strides that are
-    multiples of 16 bytes: contiguous [..., H, 64] bf16 has 128 and H x 128."""
-    if q.ndim != 4 or q.shape[-1] != KERNEL_HEAD_DIM:
-        raise ValueError(f"the attention kernel takes [BC, S, H, {KERNEL_HEAD_DIM}], got {tuple(q.shape)}")
+def check_kernel_args(q, k, v, head_dims: tuple = TRAINING_HEAD_DIMS) -> None:
+    """Raise ValueError unless q/k/v are what the CUDA kernels take: equal
+    [BC, S, H, F] bf16 shapes with F in ``head_dims`` (the training kernels'
+    by default, SAMPLING_HEAD_DIMS for the sampling forward), contiguous,
+    16-byte aligned, on one CUDA device, with BC and H within a grid
+    dimension (65,535). The kernels read them by TMA, which needs a
+    16-byte-aligned base and strides that are multiples of 16 bytes:
+    contiguous [..., H, F] bf16 has 2 F and H x 2 F."""
+    if q.ndim != 4 or q.shape[-1] not in head_dims:
+        raise ValueError(f"the attention kernel takes [BC, S, H, F] with F in {head_dims} (the sampling forward: "
+                         f"{SAMPLING_HEAD_DIMS}, the training kernels: {TRAINING_HEAD_DIMS}), got {tuple(q.shape)}")
     if q.shape[0] > 65535 or q.shape[2] > 65535:
         raise ValueError(f"the attention kernel takes at most 65,535 windows and heads, got {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -145,30 +162,56 @@ def check_kernel_args(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+_smem_checked: set = set()
+
+
+def check_smem(lib, device) -> None:
+    """Raise RuntimeError if the head-dim-128 forward needs more shared
+    memory a block than ``device`` lets a block opt in to; checked at its
+    first launch on each device."""
+    if device in _smem_checked:
+        return
+    need = lib.attention_forward_f128_smem_bytes()
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if not 0 < need <= limit:
+        raise RuntimeError(f"attention_forward_f128 needs {need} bytes of shared memory a block; {device} allows "
+                           f"{limit}")
+    _smem_checked.add(device)
+
+
 def _forward(q, k, v, with_lse: bool):
-    check_kernel_args(q, k, v)
+    """Launch K3 of q's head dim (64, or 128 without the log-sum-exp)."""
+    check_kernel_args(q, k, v, TRAINING_HEAD_DIMS if with_lse else SAMPLING_HEAD_DIMS)
     BC, S, H, F = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(BC, H, S, dtype=torch.float32, device=q.device) if with_lse else None
-    lib = _lib()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if F == KERNEL_HEAD_DIM:
+        name, lib = "attention_forward", _lib()
+        ptrs += (lse.data_ptr() if with_lse else None,)
+    else:
+        name, lib = "attention_forward_f128", _lib("attention_forward_f128")
+        check_smem(lib, q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    lse.data_ptr() if with_lse else None, BC, S, H, 1.0 / (F**0.5), stream)
-    _build.check(lib, err, "attention_forward launch")
+        err = getattr(lib, name)(*ptrs, BC, S, H, 1.0 / (F**0.5), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, f"{name} launch")
     return out, lse
 
 
 def attention(q, k, v):
     """Non-causal attention per window: q/k/v [BC, S, H, F] -> [BC, S, H, F].
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise on arguments it does not take). Writes no log-sum-exp."""
-    global launches
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    their head dim, 64 or 128 (or raise on arguments it does not take).
+    Writes no log-sum-exp."""
+    global launches, f128_launches
     refuse_dtensors("attention", q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     out, _ = _forward(q, k, v, with_lse=False)
-    launches += 1
+    if q.shape[-1] == KERNEL_HEAD_DIM:
+        launches += 1
+    else:
+        f128_launches += 1
     return out
 
 

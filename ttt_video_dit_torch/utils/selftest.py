@@ -32,7 +32,11 @@ max|kernel - plain| / max|plain|:
   KERNEL_MINI_BATCHES, full and ragged (F32_TRAIN_CASES, F32_SAMPLE_CASES;
   an eta-gate case per variant), rows ``K1@f32``, ``K2@f32`` etc., at a
   tenth of the bf16 tolerances and on the output itself: nothing is rounded
-  to bf16 on either side, so only float32 summation order separates them.
+  to bf16 on either side, so only float32 summation order separates them;
+- head dim 128 (d3072 at 24 heads), where only the sampling kernels are
+  ported: K5 at CS 16 at an even and an odd NC and at a large eta
+  (F128_SAMPLE_CASES) and K3 on three ragged windows of 417 tokens, rows
+  ``K5@F128`` and ``K3@F128``, at the tolerances of the head-dim-64 checks.
 
 Every check's name ends with the kernel rows it drives, as PERF.md's table
 names them ([K1] ... [K7]; a row at another mini-batch than the kernel's
@@ -107,6 +111,10 @@ COUNTERS = {
     "K7": (convert, "launches"),
 }
 F = 64
+F128 = "@F128"  # the row of a head-dim-128 kernel: "<row>@F128"
+# The launch counters of the head-dim-128 rows.
+F128_COUNTERS = {"K3": lambda: attention.f128_launches,
+                 "K5": lambda: sum(ttt_linear_kernel.f128_launches_by_cs.values())}
 BASE_LR = {"ttt_mlp": 0.1, "ttt_linear": 1.0}  # the TOMLs' ttt_base_lr: eta = sigmoid(gate) x base / F / CS
 STATE = {"ttt_mlp": ("W1", "b1", "W2", "b2"), "ttt_linear": ("W1", "b1")}
 ROWS = {"ttt_mlp": ("K1", "K1-train", "K2"), "ttt_linear": ("K5", "K5-train", "K6")}  # sampling, forward, backward
@@ -127,7 +135,10 @@ def row(name: str, CS: int, dtype: torch.dtype = torch.bfloat16) -> str:
 
 def launch_count(row_name: str) -> int:
     """The launch counter of a row: COUNTERS', for "<row>@CS<n>" its kernel's launches_by_cs at CS n, for
-    "<row>@f32" its float32 kernel's f32_launches_by_cs over every CS."""
+    "<row>@f32" its float32 kernel's f32_launches_by_cs over every CS, for "<row>@F128" its head-dim-128
+    kernel's (F128_COUNTERS)."""
+    if row_name.endswith(F128):
+        return F128_COUNTERS[row_name[: -len(F128)]]()
     if row_name.endswith(F32):
         mod, attr = COUNTERS[row_name[: -len(F32)]]
         return sum(n for (a, _), n in mod.f32_launches_by_cs.items() if a == attr)
@@ -204,6 +215,15 @@ F32_TRAIN_CASES = tuple(
 F32_SAMPLE_CASES = tuple(
     (f"{v} sampling f32 cs{cs} {kind}", v, 2, 8, 5, nc, cs) for v in ("ttt_mlp", "ttt_linear")
     for cs in ttt_mlp_kernel.KERNEL_MINI_BATCHES for kind, nc in (("full", 4), ("ragged", 5)))
+# Head dim 128: K5 (its sampling kernel, the one ported at that width) at CS 16, B 2, 4 heads, NC 8 and 9 of one
+# draw and 9 at 1,000x the TOMLs' eta (eta ~0.49, where the state update moves the output); fields name, batch,
+# heads, NC of the shared arrays, NC this case takes, eta factor. K3 on 3 ragged windows of 417 tokens, 2 heads.
+F128_SAMPLE_CASES = (
+    ("ttt_linear sampling f128 full", 2, 4, 9, 8, 1),
+    ("ttt_linear sampling f128 ragged", 2, 4, 9, 9, 1),
+    ("ttt_linear sampling f128 eta-gate", 2, 4, 9, 9, 1000),
+)
+F128_ATTENTION_SHAPE = (3, 417, 2, 128)
 ATTENTION_SHAPE = (3, 417, 4, 64)  # 3 windows of a ragged 417 tokens, 4 heads
 RERUN_CHECK = "splash folded-windows rerun bit-equal [K4]"  # K4's determinism: two launches, the same bits
 CONVERT_SHAPE = (12288, 3072)  # the MLP's layer2 weight, [out, in]
@@ -223,10 +243,11 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / ((b.abs().max()) + 1e-8))
 
 
-def ttt_arrays(rng, variant: str, B: int, H: int, NC: int, CS: int) -> dict:
+def ttt_arrays(rng, variant: str, B: int, H: int, NC: int, CS: int, F: int = F) -> dict:
     """Seeded inputs of a TTT scan (numpy float32): raw token-major q/k/v [B, NC, CS, H*F], gate logits
     [B, H, NC, CS], the rope tables [NC, CS, F] of an 8 x 8 grid after one text mini-batch (identity rows), the LN
-    affine [H, F] and the variant's initial state, drawn as the JAX self-test draws them."""
+    affine [H, F] and the variant's initial state, drawn as the JAX self-test draws them (head dim ``F``: 64, or
+    128 for the F128 cases)."""
     f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
     a = dict(XQ=f(B, NC, CS, H * F), XK=f(B, NC, CS, H * F), XV=f(B, NC, CS, H * F), gate=f(B, H, NC, CS))
     cos, sin = precompute_rope_3d(F, 8, 8, (NC * CS - CS) // 64 + 1)
@@ -250,7 +271,7 @@ def take(a: dict, nc: int) -> dict:
     return out
 
 
-def eta_scale(variant: str, CS: int, factor: float = 1) -> float:
+def eta_scale(variant: str, CS: int, factor: float = 1, F: int = F) -> float:
     return factor * BASE_LR[variant] / F / CS
 
 
@@ -321,7 +342,7 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
     t0 = time.perf_counter()
     rows = {row(r, case[6]) for case in TRAIN_CASES for r in ROWS[case[1]][1:]}
     rows |= {row(ROWS[case[1]][0], case[6]) for case in SAMPLE_CASES} | {"K3", "K3-lse", "K4", "K7"}
-    rows |= {row(r, 0, torch.float32) for rows_ in ROWS.values() for r in rows_}
+    rows |= {row(r, 0, torch.float32) for rows_ in ROWS.values() for r in rows_} | {"K3" + F128, "K5" + F128}
     before = {r: launch_count(r) for r in rows}
     checks, tolerances = {}, {}
 
@@ -388,6 +409,23 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
             with torch.no_grad():
                 got, want = kernels[f"{variant}_forward"](*args, eta), PLAIN[f"{variant}_forward"](*args, eta)
             check(f"{name} fwd [{row(ROWS[variant][0], CS, torch.float32)}]", rel_err(got, want), F32_FWD_TOL)
+
+        # Head dim 128, on draws of a generator of its own (every other check's inputs as before).
+        f128_rng = np.random.default_rng(4)
+        for name, B, H, NC, nc, factor in F128_SAMPLE_CASES:
+            if ("f128", B, H, NC) not in shared:
+                shared["f128", B, H, NC] = ttt_arrays(f128_rng, "ttt_linear", B, H, NC, 16, F=128)
+            args = _tensors(take(shared["f128", B, H, NC], nc), "ttt_linear", device, grad=False)
+            eta = eta_scale("ttt_linear", 16, factor, F=128)
+            with torch.no_grad():
+                got = kernels["ttt_linear_forward"](*args, eta).float()
+                want = PLAIN["ttt_linear_forward"](*args, eta).float()
+            check(f"{name} fwd [K5{F128}]", rel_err((got**2).sum(), (want**2).sum()), FWD_TOL)
+        q, k, v = (torch.from_numpy(f128_rng.standard_normal(F128_ATTENTION_SHAPE).astype(np.float32)).to(device)
+                   .to(torch.bfloat16) for _ in range(3))
+        with torch.no_grad():
+            err = rel_err(kernels["attention"](q, k, v), PLAIN["attention"](q, k, v))
+        check(f"splash folded-windows f128 fwd [K3{F128}]", err, ATTENTION_FWD_TOL)
 
         a = attention_arrays(rng)
         q, k, v = (torch.from_numpy(a[n]).to(device).to(torch.bfloat16) for n in ("q", "k", "v"))
