@@ -137,8 +137,19 @@ its own 3 s TOMLs:
     heads kernel vs plain (DIT_REL_L2_TOL), and the sampling entry on
     configs/eval/ttt-linear/3s.toml at 24 heads, 4 layers, 2 denoise steps:
     finite latents, and from exactly that run K3@F128 once and K5@F128 twice a
-    layer and eval, no other kernel, no plain route. Training and TTT-MLP at
-    head dim 128 raise (not ported yet).
+    layer and eval, no other kernel, no plain route.
+24. head dim 128 for training (phase_head_dim_128_training): the 3 s TTT-linear
+    train TOML at --model.num_heads 24. The four training kernels at that
+    width against their plain versions: K3-lse and K4 at [1, 18,048, 24, 128]
+    and at 3 ragged windows of 417 tokens, beside one
+    scaled_dot_product_attention forward and backward call; K5-train and K6 at
+    B 1, 24 heads, NC 1,128, CS 16, K 4, held checkpoint group by checkpoint
+    group. Then the 1-layer full-width DiT's loss and gradients under
+    save_seq, kernel vs plain (GRAD_REL_L2_TOL), and the training entry at 24
+    heads, 2 layers x 2 steps: finite losses and grad norms, every trained
+    tensor moved, and from exactly that run K3-lse@F128 and K4@F128 once a
+    layer and step, K5-train@F128 and K6@F128 twice, K7 24 times, no other
+    kernel, no plain route. TTT-MLP at head dim 128 raises (not ported yet).
 Then the serving path (ttt_mlp, its 3 s eval TOML, full width; every
 weight file fabricated from a seed under output/chip_smoke_serve/, removed
 at the end):
@@ -275,7 +286,7 @@ Then the longest training stage one card holds:
     cards.
 
 The second-to-last line is the kernels' JSON record (launches: the sum over
-the main-path runs of phases 4, 6 (both policies), 19, 20, 21, 22, 23, 8, 9, 17, 11, 12, 13, 14 and 15); the last
+the main-path runs of phases 4, 6 (both policies), 19, 20, 21, 22, 23, 24, 8, 9, 17, 11, 12, 13, 14 and 15); the last
 line is
 {"ok": true, "device": {...}}. Float32 matmuls run without TF32 here so the
 plain versions are exact float32 references (the VAE turns cuDNN's TF32 off
@@ -344,7 +355,8 @@ def train_args(variant: str, length: str = "3s", layers: int = 4, steps: int = 3
 
 KERNELS = ("attention_forward", "attention_backward", "ttt_mlp_forward", "ttt_mlp_backward", "ttt_linear_forward",
            "ttt_linear_backward", "convert", "ttt_mlp_forward_f32", "ttt_mlp_backward_f32", "ttt_linear_forward_f32",
-           "ttt_linear_backward_f32", "attention_forward_f128", "ttt_linear_forward_f128")
+           "ttt_linear_backward_f32", "attention_forward_f128", "ttt_linear_forward_f128", "attention_backward_f128",
+           "ttt_linear_backward_f128")
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise, on bf16 outputs. The
 # kernels round at the plain versions' points; what remains is float32
 # summation order (and, for attention, P and dS rounded to bf16 as operands),
@@ -383,10 +395,13 @@ GROUP_REL_L2_TOL = 1e-2
 SCALED_TOL = {"ttt_mlp_forward_train": 1e-3, "ttt_mlp_backward": 1e-2, "ttt_linear_forward_train": 1e-3,
               "ttt_linear_backward": 1e-2}
 SCALED_TOL.update({f"{n}{F32}": t / 10 for n, t in SCALED_TOL.items()})
-# The head-dim-128 sampling kernels (rows "<kernel>@F128", phase 23): the bf16 tolerances of their head-dim-64
-# kernels (the same rounding points, longer float32 sums).
+# The head-dim-128 kernels (rows "<kernel>@F128": sampling in phase 23, training in phase 24): the bf16 tolerances
+# of their head-dim-64 kernels (the same rounding points, longer float32 sums).
 F128 = "@F128"
-KERNEL_TOL.update({f"{n}{F128}": KERNEL_TOL[n] for n in ("attention_forward", "ttt_linear_forward")})
+KERNEL_TOL.update({f"{n}{F128}": KERNEL_TOL[n] for n in ("attention_forward", "ttt_linear_forward",
+                                                          "attention_forward_lse", "attention_backward",
+                                                          "ttt_linear_forward_train", "ttt_linear_backward")})
+SCALED_TOL.update({f"{n}{F128}": SCALED_TOL[n] for n in ("ttt_linear_forward_train", "ttt_linear_backward")})
 # The flag that gives the 5B width d3072 head dim 128, as a user gives it.
 HEAD_DIM_128 = ("--model.num_heads", "24")
 F32_REL_L2_TOL = REL_L2_TOL / 10
@@ -542,6 +557,7 @@ def phase_build():
                 attention._lib("attention_backward"), ttt_linear_kernel._lib(),
                 ttt_linear_kernel._lib("ttt_linear_backward"), convert._lib(),
                 attention._lib("attention_forward_f128"), ttt_linear_kernel._lib("ttt_linear_forward_f128"),
+                attention._lib("attention_backward_f128"), ttt_linear_kernel._lib("ttt_linear_backward_f128"),
                 *(mod._lib(n) for mod in (ttt_mlp_kernel, ttt_linear_kernel) for n in mod.F32_LIBS)):
         assert lib is not None
     for name, info in _build.build_info.items():
@@ -558,10 +574,11 @@ def phase_build():
         smem[f"ttt_linear_backward CS {cs}"] = lin_bwd.ttt_linear_backward_smem_bytes(cs)
     for mod in (ttt_mlp_kernel, ttt_linear_kernel):  # the float32 kernels: the same at every CS
         smem.update({f"{n} every CS": getattr(mod._lib(n), f"{n}_smem_bytes")(64) for n in mod.F32_LIBS})
-    smem["attention_forward_f128"] = attention._lib("attention_forward_f128").attention_forward_f128_smem_bytes()
+    for name in ("attention_forward_f128", "attention_backward_f128"):
+        smem[name] = getattr(attention._lib(name), f"{name}_smem_bytes")()
     for cs in ttt_linear_kernel.F128_MINI_BATCHES:
-        smem[f"ttt_linear_forward_f128 CS {cs}"] = ttt_linear_kernel._lib(
-            "ttt_linear_forward_f128").ttt_linear_forward_f128_smem_bytes(cs)
+        for name in ("ttt_linear_forward_f128", "ttt_linear_backward_f128"):
+            smem[f"{name} CS {cs}"] = getattr(ttt_linear_kernel._lib(name), f"{name}_smem_bytes")(cs)
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s (dynamic shared memory: "
         + ", ".join(f"{k} {v} bytes" for k, v in smem.items()) + ")")
 
@@ -738,8 +755,11 @@ def check_scan_by_group(variant, a, K, eta, dout, kernels=None) -> dict:
     mod = _ttt_module(variant)
     fwd_k, bwd_k = kernels or (getattr(mod, f"{variant}_forward_train"), getattr(mod, f"{variant}_backward"))
     fwd_p, bwd_p = getattr(mod, f"{variant}_forward_plain"), getattr(mod, f"{variant}_backward_plain")
-    # The tolerances' names: float32 q/k/v take the float32 kernels' (a tenth of the bf16 ones).
+    # The tolerances' names: float32 q/k/v take the float32 kernels' (a tenth of the bf16 ones), head dim 128 the
+    # F128 rows' (the bf16 ones).
     tag, group_tol = (F32, F32_GROUP_REL_L2_TOL) if a["XQ"].dtype == torch.float32 else ("", GROUP_REL_L2_TOL)
+    if a["ln_w"].shape[1] == 128:
+        tag = F128
     fwd, bwd = f"{variant}_forward_train{tag}", f"{variant}_backward{tag}"
     state = TTT[variant][0]
     B, NC = a["XQ"].shape[:2]
@@ -1013,22 +1033,24 @@ def check_63s_attention(gen, device, windows=(0, 20), heads=slice(0, 2)) -> None
     del q, k, v, do, out, lse
 
 
-def check_lse_backward(shape, gen, device) -> dict:
-    """K3 with the log-sum-exp and K4 against their plain versions on unit-variance inputs of ``shape``."""
+def check_lse_backward(shape, gen, device, tag: str = "") -> dict:
+    """K3 with the log-sum-exp and K4 against their plain versions on unit-variance inputs of ``shape`` (the
+    rows' names end in ``tag``: F128 at head dim 128)."""
     from ttt_video_dit_torch.ops import attention
 
+    fwd, bwd = f"attention_forward_lse{tag}", f"attention_backward{tag}"
     q, k, v, do = (torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
     out, lse = attention.attention_with_lse(q, k, v)
     (want_out, want_lse), fwd_plain_ms = timed(lambda: attention.attention_plain(q, k, v, return_lse=True))
-    err3 = compare("attention_forward_lse", out, want_out)
+    err3 = compare(fwd, out, want_out)
     lse_err = float((lse - want_lse).abs().max())
     if not lse_err <= LSE_ATOL:
-        raise AssertionError(f"attention_forward_lse {list(shape)}: lse max_abs_err {lse_err:.4g} > {LSE_ATOL}")
+        raise AssertionError(f"{fwd} {list(shape)}: lse max_abs_err {lse_err:.4g} > {LSE_ATOL}")
     got = attention.attention_backward(q, k, v, out, lse, do)
     want, bwd_plain_ms = timed(lambda: attention.attention_backward_plain(q, k, v, out, lse, do))
-    err4 = max(compare("attention_backward", g, w) for g, w in zip(got, want))
-    log(f"  attention_forward_lse {list(shape)}: max_abs_err out {err3:.4g}, lse {lse_err:.4g}; "
-        f"attention_backward: max_abs_err {err4:.4g} (tol {KERNEL_TOL['attention_backward']})")
+    err4 = max(compare(bwd, g, w) for g, w in zip(got, want))
+    log(f"  {fwd} {list(shape)}: max_abs_err out {err3:.4g}, lse {lse_err:.4g}; "
+        f"{bwd}: max_abs_err {err4:.4g} (tol {KERNEL_TOL[bwd]})")
     return dict(args=(q, k, v, out, lse, do), err3=err3, err4=err4, fwd_plain_ms=fwd_plain_ms,
                 bwd_plain_ms=bwd_plain_ms)
 
@@ -1297,7 +1319,7 @@ def reset_counts() -> None:
         mod.f32_launches_by_cs.clear()
     ttt_linear_kernel.f128_launches_by_cs.clear()
     attention.launches = attention.lse_launches = attention.bwd_launches = attention.plain_routes = 0
-    attention.f128_launches = 0
+    attention.f128_launches = attention.f128_lse_launches = attention.f128_bwd_launches = 0
     convert.launches = 0
 
 
@@ -1324,10 +1346,13 @@ def read_counts() -> dict[str, int]:
 
     counts = {"attention_forward": attention.launches, "attention_forward_lse": attention.lse_launches,
               "attention_backward": attention.bwd_launches, "convert_f32_bf16": convert.launches,
-              "attention_forward" + F128: attention.f128_launches, "plain_routes:attention": attention.plain_routes}
+              "attention_forward" + F128: attention.f128_launches,
+              "attention_forward_lse" + F128: attention.f128_lse_launches,
+              "attention_backward" + F128: attention.f128_bwd_launches, "plain_routes:attention": attention.plain_routes}
     by_cs = ttt_linear_kernel.f128_launches_by_cs
-    counts.update({row_name("ttt_linear_forward", cs, f128=True): by_cs["launches", cs]
-                   for cs in ttt_linear_kernel.F128_MINI_BATCHES})
+    for name in ("ttt_linear_forward", "ttt_linear_forward_train", "ttt_linear_backward"):
+        counts.update({row_name(name, cs, f128=True): by_cs[BY_CS[name][1], cs]
+                       for cs in ttt_linear_kernel.F128_MINI_BATCHES})
     for name, (variant, attr, first) in BY_CS.items():
         mod = _ttt_module(variant)
         for f32, by_cs in ((False, mod.launches_by_cs), (True, mod.f32_launches_by_cs)):
@@ -1585,13 +1610,16 @@ def phase_train(device, variant, remat_policy=None, length: str = "3s", keep: di
     # and the TTT wq/wk/wv/wo, shared by both directions = 12.
     # At float32 the float32 TTT kernels, no attention kernel (the plain route) and no K7 (no cast); at a CS that
     # is not a multiple of 8 no TTT kernel (the plain route).
+    # At head dim 128 the F128 rows of the same kernels.
     L, CS = cfg.num_layers, cfg.mini_batch_size
     runs = 1 if cfg.remat_policy == "save_seq" else 2
     f32, launched = cfg.dtype == "float32", check_routes(counts, cfg, variant, "training")
-    expect = {} if f32 else {"attention_forward_lse": runs * L * steps, "attention_backward": L * steps}
+    f128 = cfg.head_dim == 128
+    sfx = F128 if f128 else ""
+    expect = {} if f32 else {"attention_forward_lse" + sfx: runs * L * steps, "attention_backward" + sfx: L * steps}
     if not ttt_mlp_routes_to_plain(cfg):
-        expect.update({row_name(f"{variant}_forward_train", CS, f32): 2 * runs * L * steps,
-                       row_name(f"{variant}_backward", CS, f32): 2 * L * steps})
+        expect.update({row_name(f"{variant}_forward_train", CS, f32, f128): 2 * runs * L * steps,
+                       row_name(f"{variant}_backward", CS, f32, f128): 2 * L * steps})
     if cfg.scan_layers and not f32:
         expect["convert_f32_bf16"] = 2 * 12 * L * steps
     if launched != {**dict.fromkeys(launched, 0), **expect}:
@@ -1851,6 +1879,87 @@ def phase_head_dim_128(device) -> tuple[list[dict], dict[str, int]]:
     counts = phase_sample(device, "ttt_linear", args=sample_args("ttt_linear") + list(HEAD_DIM_128) + two_steps,
                           phase=23)
     log(f"phase 23 head dim 128 (d3072 x 24 heads): {time.perf_counter() - t0:.1f} s ({CARD})")
+    return records, counts
+
+
+def check_head_dim_128_training(device) -> list[dict]:
+    """The head-dim-128 training kernels (rows "<kernel>@F128") against their plain versions at the slices the 3 s
+    TTT-linear train TOML gives them at --model.num_heads 24, with generators of their own. K3-lse and K4 at
+    [1, 18,048, 24, 128] and at 3 ragged windows of 417 tokens (check_lse_backward), beside one
+    scaled_dot_product_attention forward and backward call on the slice; K5-train and K6 at B 1, 24 heads, NC
+    1,128, CS 16, K 4 and the 3 s training tables, held checkpoint group by checkpoint group (check_scan_by_group).
+    Times, bounds, plain times."""
+    import torch.nn.functional as Fn
+
+    from ttt_video_dit_torch.ops import attention, ttt_linear_kernel
+
+    records = []
+    gen = torch.Generator(device).manual_seed(90)
+    for shape in ((1, SEQ, 24, 128), (3, 417, 4, 128)):
+        r = check_lse_backward(shape, gen, device, F128)
+        if shape[1] == SEQ:
+            k4 = r
+    q, k, v, out, lse, do = k4["args"]
+    BC, S, H, F = q.shape
+    ms = cuda_ms(lambda: attention.attention_with_lse(q, k, v), 5)
+    sdpa = lambda q, k, v: Fn.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v), 5)
+    records.append(record("attention_forward_lse" + F128, "attention_forward_f128.cu", TPU + "ops/attention.py:265",
+                          k4["err3"], ms, k4["fwd_plain_ms"], 4 * BC * S * H * F * 2 + BC * H * S * 4,
+                          4 * BC * H * S * S * F, lib_ms))
+    ms = cuda_ms(lambda: attention.attention_backward(q, k, v, out, lse, do), 3)
+    ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+    lib_out = Fn.scaled_dot_product_attention(ql, kl, vl)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do.transpose(1, 2), retain_graph=True), 3)
+    # The function needs 5 S x S x F products per window and head (Q K^T, dO V^T, P^T dO, dS^T Q, dS K).
+    records.append(record("attention_backward" + F128, "attention_backward_f128.cu", TPU + "ops/attention.py:326",
+                          k4["err4"], ms, k4["bwd_plain_ms"],
+                          5 * BC * S * H * F * 2 + BC * H * S * 4 + 3 * BC * S * H * F * 2,
+                          5 * 2 * BC * H * S * S * F, lib_ms))
+    del k4, q, k, v, out, lse, do, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
+
+    cfg, meta = _training_meta("ttt_linear", extra=HEAD_DIM_128)
+    K, CS, H, F = cfg.scan_checkpoint_group_size, cfg.mini_batch_size, cfg.num_heads, cfg.head_dim
+    NC = (meta.seq_text_length + meta.num_video_tokens) // CS
+    eta = cfg.ttt_base_lr / F / CS
+    a = _ttt_inputs(1, H, NC, gen, device, meta, CS=CS, variant="ttt_linear", F=F)
+    dout = torch.randn(*a["XQ"].shape, generator=gen, device=device).bfloat16()
+    r = check_scan_by_group("ttt_linear", a, K, eta, dout)
+    ins = [a[n] for n in TRAIN_INPUTS]
+    fwd_ms = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_forward_train(**a, eta_scale=eta, checkpoint_group=K), 3)
+    bwd_ms = cuda_ms(lambda: ttt_linear_kernel.ttt_linear_backward(*ins, *r["ck"], dout, eta, K), 3)
+    # Bytes: q/k/v and the output (the backward: q/k/v, dout and dXQ/dXK/dXV) bf16, the gate (and d_gate), tables,
+    # LN affine, initial state (and its gradients) and the fp32 checkpoints, each once.
+    ck_bytes = -(-NC // K) * H * TTT["ttt_linear"][1](F) * 4
+    fb = _ttt_bytes("ttt_linear", 1, H, NC, CS, F=F) + ck_bytes
+    bb = _ttt_bytes("ttt_linear", 1, H, NC, CS, F=F, bf16_tensors=7) + ck_bytes + NC * CS * H * 4
+    records += [record("ttt_linear_forward_train" + F128, "ttt_linear_forward_f128.cu", TPU + TTT["ttt_linear"][2][0],
+                       r["err"], fwd_ms, r["fwd_plain_ms"], fb, H * NC * _ttt_flops_per_step("ttt_linear", CS, F)),
+                record("ttt_linear_backward" + F128, "ttt_linear_backward_f128.cu", TPU + TTT["ttt_linear"][2][1],
+                       r["gerr"], bwd_ms, r["bwd_plain_ms"], bb, H * NC * _ttt_bwd_flops_per_step("ttt_linear", CS, F))]
+    del a, dout, r, ins
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_head_dim_128_training(device) -> tuple[list[dict], dict[str, int]]:
+    """Phase 24: head dim 128 for training, the 3 s TTT-linear train TOML at d3072 with 24 heads
+    (--model.num_heads 24, as a user gives it). The four training kernels at that width against their plain
+    versions (check_head_dim_128_training: rows "attention_forward_lse@F128", "attention_backward@F128",
+    "ttt_linear_forward_train@F128", "ttt_linear_backward@F128"); the 1-layer full-width DiT's loss and every
+    gradient under the TOML's save_seq, kernel path against the plain path (GRAD_REL_L2_TOL), and save_seq
+    against none on the kernel path (phase_grad); the training entry on configs/train/ttt-linear/3s.toml at 24
+    heads, 2 layers x 2 steps: finite losses and grad norms, every trained tensor moved, and from exactly that run
+    K3-lse@F128 and K4@F128 once a layer and step, K5-train@F128 and K6@F128 twice, K7 24 times, no other kernel,
+    no plain route (phase_train). Returns the kernels' records and the run's counts."""
+    t0 = time.perf_counter()
+    records = check_head_dim_128_training(device)
+    log(f"  head-dim-128 training kernels vs plain: {time.perf_counter() - t0:.1f} s")
+    phase_grad(device, "ttt_linear", extra=HEAD_DIM_128, phase=24, layers=1)
+    counts = phase_train(device, "ttt_linear", args=train_args("ttt_linear", layers=2, steps=2) + list(HEAD_DIM_128),
+                         phase=24)
+    log(f"phase 24 head dim 128 training (d3072 x 24 heads): {time.perf_counter() - t0:.1f} s ({CARD})")
     return records, counts
 
 
@@ -2506,7 +2615,8 @@ def _long_meta(variant):
 
 def _scan_slice(a: dict, b: int, heads: slice, mbs: slice) -> dict:
     """The inputs of batch row ``b``, ``heads`` and mini-batches ``mbs`` of a TTT scan, contiguous."""
-    cols = slice(heads.start * 64, heads.stop * 64)
+    F = a["ln_w"].shape[1]
+    cols = slice(heads.start * F, heads.stop * F)
     out = {n: a[n][b : b + 1, mbs, :, cols].contiguous() for n in ("XQ", "XK", "XV")}
     out["gate"] = a["gate"][b : b + 1, heads, mbs].contiguous()
     out.update({n: a[n][mbs].contiguous() for n in ("rope_cos", "rope_sin")})
@@ -3076,6 +3186,10 @@ def main() -> int:
     records += f128_records
     counts.update(f128_counts)
     log_clocks("after head dim 128")
+    f128_records, f128_counts = phase_head_dim_128_training(device)
+    records += f128_records
+    counts.update(f128_counts)
+    log_clocks("after head dim 128 training")
     try:
         phase_t5(device)
         log_clocks("after T5")

@@ -557,28 +557,94 @@ def test_ttt_linear_kernel_at_head_dim_128_matches_plain(cuda, B, H, NC, factor)
         assert _in_tolerances(want, ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=0.0)) >= 10
 
 
-def test_head_dim_128_training_and_ttt_mlp_raise_on_the_card(cuda):
-    """At head dim 128 only the sampling kernels exist: K3-lse, K4, K5-train, K6 and every TTT-MLP kernel raise
-    ValueError naming what they take, and so do K5 at another CS and on float32 q/k/v."""
-    q = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"F in \(64,\)"):
-        attention.attention_with_lse(q, q, q)
-    with pytest.raises(ValueError, match=r"F in \(64,\)"):
-        attention.attention_backward(q, q, q, q, torch.zeros(1, 2, 64, device=cuda), q)
-    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, F=128)
-    takes = r"\{64: \(8, 16, 24, 32, 40, 48, 56, 64\)"
-    with pytest.raises(ValueError, match=takes + r"\}.*got F=128"):
-        ttt_linear_kernel.ttt_linear_forward_train(**a, eta_scale=1e-3, checkpoint_group=2)
+# Head dim 128, training: K3-lse and K4 at the attention shapes above (K4's dk/dv tiles of 128 kv rows, its q
+# ring of 64-row tiles, its dq tiles of 128 q rows), unit-variance inputs; K4 rerun bit-equal at a ragged shape and
+# at the 3 s training slice [1, 18,048, 24, 128]. K5-train and K6 at CS 16: ragged groups, K past NC, one
+# mini-batch, 17 (the ring wraps), 3 x 48 scans and 200x the 3 s slice's eta (1 / 128 / 16), where the plain output
+# lies at least 10 tolerances from the eta = 0 output.
+@pytest.mark.parametrize("shape", F128_ATTENTION_SHAPES[:-1] + [(1, 18048, 24, 128)])
+def test_attention_lse_and_backward_kernels_at_head_dim_128_match_plain(cuda, shape):
+    """K3-lse@F128 (lse within 1e-4) and K4@F128 (dq/dk/dv elementwise), counted in their own counters."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    q, k, v, dout = (torch.randn(*shape, generator=gen, device=cuda).bfloat16() for _ in range(4))
+    before = (attention.f128_lse_launches, attention.f128_bwd_launches, attention.lse_launches, attention.bwd_launches)
+    out, lse = attention.attention_with_lse(q, k, v)
+    got = attention.attention_backward(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    after = (attention.f128_lse_launches, attention.f128_bwd_launches, attention.lse_launches, attention.bwd_launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2], before[3])
+    want_out, want_lse = attention.attention_plain(q, k, v, return_lse=True)
+    _close(out, want_out)
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    for g, w in zip(got, attention.attention_backward_plain(q, k, v, out, lse, dout)):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("shape", [(3, 129, 2, 128), (1, 18048, 24, 128)])
+def test_attention_backward_kernel_at_head_dim_128_reruns_agree(cuda, shape):
+    """K4@F128 six times on the same inputs: dq, dk and dv bit-identical on every rerun."""
+    gen = torch.Generator(cuda).manual_seed(7)
+    q, k, v, dout = (torch.randn(*shape, generator=gen, device=cuda).bfloat16() for _ in range(4))
+    out, lse = attention.attention_with_lse(q, k, v)
+    first = attention.attention_backward(q, k, v, out, lse, dout)
+    for _ in range(5):
+        again = attention.attention_backward(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,H,NC,K,factor", [(2, 3, 9, 4, 1), (1, 2, 5, 2, 1), (1, 2, 3, 16, 1), (1, 2, 1, 1, 1),
+                                             (2, 2, 17, 5, 1), (3, 48, 3, 2, 1), (1, 2, 7, 3, 200)])
+def test_ttt_linear_training_kernels_at_head_dim_128_match_plain(cuda, B, H, NC, K, factor):
+    """K5-train@F128 (output elementwise; fp32 checkpoints within 1e-2 relative L2 and 1e-3 of their scale) and
+    K6@F128 (every gradient within 1e-2 relative L2 and 1e-2 of its scale; dXQ/dXK/dXV/d_gate also elementwise),
+    counted in f128_launches_by_cs, the head-dim-64 counters unmoved."""
+    a, randn = _linear_inputs(cuda, B, H, NC, seed=4, F=128)
+    scale = factor / 128 / 16
+    if factor > 1:
+        want = ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=scale)
+        assert _in_tolerances(want, ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=0.0)) >= 10
+    by_cs = lambda: tuple(ttt_linear_kernel.f128_launches_by_cs[n, 16] for n in ("train_launches", "bwd_launches"))
+    before, before_64 = by_cs(), (ttt_linear_kernel.train_launches, ttt_linear_kernel.bwd_launches)
+    got = ttt_linear_kernel.ttt_linear_forward_train(**a, eta_scale=scale, checkpoint_group=K)
+    want = ttt_linear_kernel.ttt_linear_forward_plain(**a, eta_scale=scale, checkpoint_group=K)
+    _close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        _scaled(g, w, 1e-3)
+    dout = randn(*a["XQ"].shape).bfloat16()
     ins = [a[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
-    ck = (torch.zeros(1, 2, 2, 128, 128, device=cuda), torch.zeros(1, 2, 2, 1, 128, device=cuda))
-    with pytest.raises(ValueError, match=takes + r"\}.*got F=128"):
-        ttt_linear_kernel.ttt_linear_backward(*ins, *ck, a["XQ"], 1e-3, 2)
+    grads = ttt_linear_kernel.ttt_linear_backward(*ins, *want[1:], dout, scale, K)
+    torch.cuda.synchronize()
+    assert by_cs() == (before[0] + 1, before[1] + 1)
+    assert (ttt_linear_kernel.train_launches, ttt_linear_kernel.bwd_launches) == before_64
+    plain = ttt_linear_kernel.ttt_linear_backward_plain(*ins, *want[1:], dout, scale, K)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        _scaled(g, w, 1e-2)
+        if i < 4:  # dXQ, dXK, dXV, d_gate
+            _close(g, w)
+
+
+def test_head_dim_128_training_and_ttt_mlp_raise_on_the_card(cuda):
+    """At head dim 128 the TTT-linear kernels take CS 16 in bf16 and TTT-MLP has no kernel: K5, K5-train and K6
+    at another CS or on float32 q/k/v, and every TTT-MLP kernel, raise ValueError naming what they take."""
+    a, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, F=128)
+    takes = r"\{64: \(8, 16, 24, 32, 40, 48, 56, 64\), 128: \(16,\)\}"
+    ins = [a[k] for k in ("XQ", "XK", "XV", "gate", "rope_cos", "rope_sin", "ln_w", "ln_b")]
+    f32 = dict(a, **{k: a[k].float() for k in ("XQ", "XK", "XV")})
     with pytest.raises(ValueError, match="takes bfloat16"):
-        ttt_linear_kernel.ttt_linear_forward(**dict(a, **{k: a[k].float() for k in ("XQ", "XK", "XV")}),
-                                             eta_scale=1e-3)
+        ttt_linear_kernel.ttt_linear_forward(**f32, eta_scale=1e-3)
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        ttt_linear_kernel.ttt_linear_forward_train(**f32, eta_scale=1e-3, checkpoint_group=2)
+    ck = (torch.zeros(1, 2, 2, 128, 128, device=cuda), torch.zeros(1, 2, 2, 1, 128, device=cuda))
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        ttt_linear_kernel.ttt_linear_backward(*[f32[k] for k in ("XQ", "XK", "XV")], *ins[3:], *ck,
+                                              f32["XQ"], 1e-3, 2)
     b, _ = _linear_inputs(cuda, 1, 2, 3, seed=6, CS=32, F=128)
-    with pytest.raises(ValueError, match=takes + r", 128: \(16,\)\}.*got F=128, CS=32"):
+    with pytest.raises(ValueError, match=takes + r"; got F=128, CS=32"):
         ttt_linear_kernel.ttt_linear_forward(**b, eta_scale=1e-3)
+    with pytest.raises(ValueError, match=takes + r"; got F=128, CS=32"):
+        ttt_linear_kernel.ttt_linear_forward_train(**b, eta_scale=1e-3, checkpoint_group=2)
     H, F = 2, 128
     z = lambda *s: torch.zeros(*s, device=cuda)
     mlp = ins + [z(H, F, 4 * F), z(H, 1, 4 * F), z(H, 4 * F, F), z(H, 1, F)]

@@ -20,12 +20,11 @@ wrappers' argument checks, against the JAX package on the CPU.
   package's parameters carried by convert.flax_to_state_dict, against the
   flax model's on the same numpy latents and text, float32: |d| <= 1e-5
   max|flax| + 1e-5 |flax|, as tests/test_torch_linear_model.py holds d128.
-- On CPU tensors the wrappers' shape checks take F = 128 at CS 16 where the
-  sampling kernels do (attention, ttt_linear_forward: only the device check
-  is left to fail) and raise ValueError naming what the kernels take for
-  training at F = 128 (attention_with_lse, ttt_linear_forward_train,
-  ttt_linear_backward), for TTT-MLP at F = 128, for another CS at F = 128
-  and for float32 at F = 128.
+- On CPU tensors the wrappers' shape checks take F = 128 at CS 16 for
+  every attention and TTT-linear kernel, sampling and training (only the
+  device check is left to fail), and raise ValueError naming what the
+  kernels take for TTT-MLP at F = 128, for another CS at F = 128 and for
+  float32 at F = 128, sampling and training.
 """
 
 import dataclasses
@@ -189,46 +188,53 @@ def _k5(F_=F, CS=16, dtype=torch.bfloat16):
 
 
 ON_CPU = "expected a tensor on cpu"  # the device check: what is left to fail on CPU tensors once the shape passes
-TAKES = r"\{64: \(8, 16, 24, 32, 40, 48, 56, 64\)"
+TAKES = r"\{64: \(8, 16, 24, 32, 40, 48, 56, 64\), 128: \(16,\)\}"
 
 
 @pytest.mark.parametrize("case", ["attention", "attention_with_lse", "attention_backward", "ttt_linear_forward",
                                   "ttt_linear_forward_train", "ttt_linear_backward", "ttt_linear_cs32",
-                                  "ttt_linear_float32", "ttt_mlp"])
+                                  "ttt_linear_float32", "ttt_mlp", "ttt_linear_cs32_train",
+                                  "ttt_linear_float32_train", "ttt_mlp_train"])
 def test_head_dim_128_argument_checks(case):
-    """The launch paths' checks, run on CPU tensors (where the wrappers themselves take the plain versions)."""
+    """The launch paths' checks, run on CPU (or meta) tensors, where the wrappers themselves take the plain
+    versions: every TTT-linear and attention kernel takes F = 128 (at CS 16, bf16), so only the device check is
+    left to fail; another CS, float32 and TTT-MLP raise ValueError naming what the kernels take."""
     q = torch.zeros(2, 33, 3, F, dtype=torch.bfloat16)
+    mlp_takes = r"F=64 and CS in \(8, 16, 24, 32, 40, 48, 56, 64\); got F=128"
     if case == "attention":  # attention() on the card: K3@F128
         with pytest.raises(ValueError, match="CUDA"):
             attention._forward(q, q, q, with_lse=False)
-    elif case == "attention_with_lse":
-        with pytest.raises(ValueError, match=r"F in \(64,\).*the sampling forward: \(64, 128\)"):
+    elif case == "attention_with_lse":  # K3-lse@F128
+        with pytest.raises(ValueError, match="CUDA"):
             attention._forward(q, q, q, with_lse=True)
-    elif case == "attention_backward":
-        with pytest.raises(ValueError, match=r"F in \(64,\)"):
-            attention.attention_backward(q.to("meta"), q.to("meta"), q.to("meta"), q.to("meta"),
-                                         torch.zeros(2, 3, 33, device="meta"), q.to("meta"))
+    elif case == "attention_backward":  # K4@F128
+        m = q.to("meta")
+        with pytest.raises(ValueError, match="expected a tensor on meta \\(CUDA\\)"):
+            attention.attention_backward(m, m, m, m, torch.zeros(2, 3, 33, device="meta"), m)
     elif case == "ttt_linear_forward":  # ttt_linear_forward on the card: K5@F128
         with pytest.raises(ValueError, match=ON_CPU):
             tk._forward(*_k5(), 1e-3, 0)
-    elif case == "ttt_linear_forward_train":
-        with pytest.raises(ValueError, match=r"training kernels take .*" + TAKES + r"\}.*got F=128, CS=16"):
+    elif case == "ttt_linear_forward_train":  # K5-train@F128
+        with pytest.raises(ValueError, match=ON_CPU):
             tk._forward(*_k5(), 1e-3, 2)
-    elif case == "ttt_linear_backward":
-        with pytest.raises(ValueError, match=r"training kernels take .*got F=128, CS=16"):
+    elif case == "ttt_linear_backward":  # K6@F128's checks (the backward passes W1/b1 as None)
+        with pytest.raises(ValueError, match=ON_CPU):
             tk.check_kernel_args(*_k5()[:8], None, None)
-    elif case == "ttt_linear_cs32":
-        with pytest.raises(ValueError, match=TAKES + r", 128: \(16,\)\}.*got F=128, CS=32"):
-            tk._forward(*_k5(CS=32), 1e-3, 0)
-    elif case == "ttt_linear_float32":
+    elif case in ("ttt_linear_cs32", "ttt_linear_cs32_train"):
+        with pytest.raises(ValueError, match=TAKES + r"; got F=128, CS=32"):
+            tk._forward(*_k5(CS=32), 1e-3, 2 if case.endswith("train") else 0)
+    elif case in ("ttt_linear_float32", "ttt_linear_float32_train"):
         with pytest.raises(ValueError, match="takes bfloat16"):
-            tk._forward(*_k5(dtype=torch.float32), 1e-3, 0)
+            tk._forward(*_k5(dtype=torch.float32), 1e-3, 2 if case.endswith("train") else 0)
     else:
         a = _k5()
         H = a[6].shape[0]
         mlp = a[:8] + [torch.zeros(H, F, 4 * F), torch.zeros(H, 1, 4 * F), torch.zeros(H, 4 * F, F),
                        torch.zeros(H, 1, F)]
-        with pytest.raises(ValueError, match=r"F=64 and CS in \(8, 16, 24, 32, 40, 48, 56, 64\); got F=128"):
+        with pytest.raises(ValueError, match=mlp_takes):
             ttt_mlp_kernel.check_kernel_args(*mlp)
+        if case == "ttt_mlp_train":  # K2's checks (from checkpoints: no initial state)
+            with pytest.raises(ValueError, match=mlp_takes):
+                ttt_mlp_kernel.check_kernel_args(*mlp[:8], None, None, None, None)
     # The model's route sends a scan at F = 128 to the kernels (the JAX package's shape test passes it).
     assert not tk.use_plain(True, 16, F, torch.device("cpu")) and not attention.routes_to_plain(torch.bfloat16)

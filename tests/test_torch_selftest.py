@@ -10,7 +10,8 @@ mode (tests/test_pallas_kernels.py::test_kernel_selftest_harness).
   scan (and the last mini-batch of an odd-NC sampling scan), only the last
   attention window, and one low bit of K7's output fail exactly the checks
   that should see them; the full cases pass. An attention whose gradients
-  change between two launches fails K4's rerun check alone.
+  change between two launches fails K4's rerun checks (head dim 64 and 128)
+  alone.
 - The plain references agree with the JAX package's own path at the
   self-test's full and ragged shapes, on the same numpy inputs: the Pallas
   TTT kernels in interpret mode in their fused-preproc, token-major,
@@ -39,7 +40,8 @@ from ttt_video_dit_tpu.ops.pallas import ttt_vjp  # noqa: E402
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
-ROWS = ("K1", "K1-train", "K2", "K3", "K3-lse", "K4", "K5", "K5-train", "K6", "K7", "K3@F128", "K5@F128")
+ROWS = ("K1", "K1-train", "K2", "K3", "K3-lse", "K4", "K5", "K5-train", "K6", "K7", "K3@F128", "K3-lse@F128",
+        "K4@F128", "K5@F128", "K5-train@F128", "K6@F128")
 # The checks of ttt_video_dit_tpu/utils/selftest.py:kernel_selftest (its splash ones run on a TPU only).
 JAX_CHECKS = ([f"{v} {c} {w}" for v in ("ttt_linear", "ttt_mlp") for c in ("full", "ragged")
                for w in ("fwd", "dq", "dk", "dv")]
@@ -77,6 +79,14 @@ def _corrupt_last_window(fn):
     return corrupted
 
 
+def _corrupt_last_window_lse(fn):
+    def corrupted(q, k, v):
+        out, lse = fn(q, k, v)
+        return torch.cat([out[:-1], out[-1:] * CORRUPTION]), torch.cat([lse[:-1], lse[-1:] * CORRUPTION])
+
+    return corrupted
+
+
 def _flip_low_bit(x):
     y = selftest.PLAIN["convert_f32_bf16"](x).clone()
     y.view(-1)[100:101].view(torch.int16).bitwise_xor_(1)
@@ -95,6 +105,7 @@ def corrupted_result():
         "ttt_linear_forward": _corrupt_last_group(plain["ttt_linear_forward"], lambda a: 2),
         "attention": _corrupt_last_window(plain["attention"]),
         "attention_train": _corrupt_last_window(plain["attention_train"]),
+        "attention_with_lse": _corrupt_last_window_lse(plain["attention_with_lse"]),
         "convert_f32_bf16": _flip_low_bit,
     }
     return selftest.kernel_selftest(CPU, kernels=kernels)
@@ -126,7 +137,8 @@ def test_a_corrupt_ragged_group_fails_ragged_checks_and_passes_full_ones(corrupt
     for case in ("ttt_mlp ragged", "ttt_linear ragged", "ttt_mlp h12 g6", "ttt_mlp eta-gate", "ttt_linear eta-gate",
                  "ttt_mlp cs16 ragged", "ttt_mlp cs16 eta-gate", "ttt_mlp cs32 ragged", "ttt_mlp cs48 ragged",
                  *(f"{v} cs{cs} ragged" for v in ("ttt_mlp", "ttt_linear") for cs in (8, 24, 40, 56)),
-                 *(f"{v} cs{cs} eta-gate" for v in ("ttt_mlp", "ttt_linear") for cs in (8, 56))):
+                 *(f"{v} cs{cs} eta-gate" for v in ("ttt_mlp", "ttt_linear") for cs in (8, 56)),
+                 "ttt_linear f128 ragged", "ttt_linear f128 eta-gate"):
         for what in ("fwd", "dq", "dk", "dv"):
             assert any(n.startswith(f"{case} {what} [") for n in failed), (case, what)
     for case in ("ttt_mlp sampling ragged", "ttt_linear sampling ragged", "ttt_mlp sampling cs64 ragged",
@@ -145,37 +157,41 @@ def test_a_corrupt_ragged_group_fails_ragged_checks_and_passes_full_ones(corrupt
     f32_full = [c for c in selftest.F32_TRAIN_CASES if c[0].endswith(" full")]
     f32_sampling_full = [c for c in selftest.F32_SAMPLE_CASES if c[0].endswith(" full")]
     f128_full = [c for c in selftest.F128_SAMPLE_CASES if c[0].endswith(" full")]
+    f128_train_full = [c for c in selftest.F128_TRAIN_CASES if c[0].endswith(" full")]
     full = [n for n in corrupted_result["checks"] if " full " in n]
     assert len(full) == 7 * 6 + 7 + 6 * len(f32_full) + len(f32_sampling_full) + len(f128_full) \
+        + 6 * len(f128_train_full) \
         and not failed & set(full), \
         failed & set(full)
 
 
 def test_a_corrupt_last_window_fails_the_folded_window_checks(corrupted_result):
-    """Every value check of the folded windows (head dim 64 and 128) fails; the rerun check (K4's determinism)
-    passes, as the corruption is the same on both launches."""
+    """Every value check of the folded windows (head dim 64 and 128, the log-sum-exp too) fails; the rerun checks
+    (K4's determinism) pass, as the corruption is the same on both launches."""
     splash = {n for n in corrupted_result["checks"] if n.startswith("splash folded-windows")}
-    assert len(splash) == 7 and splash - _failed(corrupted_result) == {selftest.RERUN_CHECK}
+    reruns = {selftest.RERUN_CHECK, selftest.F128_RERUN_CHECK}
+    assert len(splash) == 13 and splash - _failed(corrupted_result) == reruns
 
 
 def _drifting(fn):
-    """``fn`` with its output scaled by 1 + n / 64 on its n-th call from 0: the first launch is exact, a second
-    one on the same inputs gives other gradient bits."""
-    calls = []
+    """``fn`` with its output scaled by 1 + n / 64 on its n-th call from 0 on inputs of one shape: the first
+    launch is exact, a second one on the same inputs gives other gradient bits."""
+    calls = {}
 
     def drifting(q, k, v):
-        calls.append(None)
-        return fn(q, k, v) * (1 + (len(calls) - 1) / 64)
+        n = calls[q.shape] = calls.get(q.shape, -1) + 1
+        return fn(q, k, v) * (1 + n / 64)
 
     return drifting
 
 
 def test_a_backward_that_changes_between_launches_fails_only_the_rerun_check():
-    """K4's determinism check: an attention whose gradients differ between two launches on the same inputs
-    (within every value tolerance) fails it, and nothing else."""
+    """K4's determinism checks: an attention whose gradients differ between two launches on the same inputs
+    (within every value tolerance) fails them, at head dim 64 and 128, and nothing else."""
     kernels = {**selftest.PLAIN, "attention_train": _drifting(selftest.PLAIN["attention_train"])}
     result = selftest.kernel_selftest(CPU, kernels=kernels)
-    assert _failed(result) == {selftest.RERUN_CHECK} and result["checks"][selftest.RERUN_CHECK] > 0.5
+    reruns = {selftest.RERUN_CHECK, selftest.F128_RERUN_CHECK}
+    assert _failed(result) == reruns and all(result["checks"][n] > 0.5 for n in reruns)
 
 
 def test_a_flipped_low_bit_fails_k7(corrupted_result):

@@ -550,17 +550,16 @@ def test_supported_mini_batches_are_the_instantiated_ones(kernels):
     K2, and K1 past CS 16) and ttt_mlp_forward.cu:ttt_mlp_forward (K1), so a
     CS the wrapper lets through always has a kernel, and one that has a
     kernel is never refused: every multiple of 8 up to 64. At head dim 128,
-    K5's takes-list is ttt_linear_forward_f128.cu:with_mini_batch's: CS 16,
-    the training kernels take none."""
+    K5's, K5-train's and K6's takes-list is ttt_linear_f128.cuh:
+    with_mini_batch's: CS 16."""
     from ttt_video_dit_torch.ops import ttt_mlp_kernel as tm
 
     every = (8, 16, 24, 32, 40, 48, 56, 64)
     if kernels == "ttt_linear":
         assert _cases("ttt_mlp_block.cuh", "with_slabs") == tk.KERNEL_MINI_BATCHES == every
     elif kernels == "ttt_linear_f128":
-        assert _cases("ttt_linear_forward_f128.cu", "with_mini_batch") == tk.F128_MINI_BATCHES == (16,)
-        assert tk.kernel_shapes(sampling=True) == {64: every, 128: (16,)}
-        assert tk.kernel_shapes(sampling=False) == {64: every}
+        assert _cases("ttt_linear_f128.cuh", "with_mini_batch") == tk.F128_MINI_BATCHES == (16,)
+        assert tk.KERNEL_SHAPES == {64: every, 128: (16,)}
     elif kernels == "ttt_mlp_sampling":
         assert tuple(sorted(_cases("ttt_mlp_forward.cu", "ttt_mlp_forward"))) == tm.KERNEL_MINI_BATCHES == every
     else:

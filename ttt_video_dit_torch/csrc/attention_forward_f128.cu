@@ -1,5 +1,5 @@
-// Window attention forward, head_dim 128, for sampling (no log-sum-exp), for
-// Hopper (sm_90a).
+// Window attention forward, head_dim 128, for Hopper (sm_90a): for sampling
+// (K3@F128) and, writing the log-sum-exp, for training (K3-lse@F128).
 //
 // Replaces: ttt_video_dit_tpu/ops/attention.py:_splash_kernel at head dim 128
 // (the splash flash-attention forward, reached through _splash_padded /
@@ -44,6 +44,12 @@
 // barriers, dynamic. The kernel sets the scores of kv columns >= S to -inf
 // and does not store q rows >= S, so the caller pads nothing.
 //
+// The training launch (lse not null) also writes lse [BC, H, S] float32 =
+// ln(sum exp(q k^T / sqrt(128))) per row, for csrc/attention_backward_f128.cu,
+// from the row maxima and sums the consumers already hold. It is a template
+// instantiation of its own (kLse), so the sampling kernel compiles as
+// without it.
+//
 // Layout: q/k/v/o [BC, S, H, 128] bf16, contiguous (the JAX package's layout).
 
 #include <cuda.h>
@@ -52,14 +58,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_f128.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
 
-constexpr int kF = 128;
-constexpr int kHalf = 64;                   // bf16 columns of one 128-byte swizzle atom (one TMA box)
+using attn128::kF;
+using attn128::kHalf;
+using attn128::load_tile;
 constexpr int kConsumers = 2;               // consumer warpgroups, 64 q rows each
 constexpr int kBlockQ = 64 * kConsumers;    // q rows per block
 constexpr int kBlockKV = 128;               // kv rows per ring stage
@@ -70,32 +78,8 @@ constexpr int kTileBytes = 2 * kHalfBytes;        // one K or V stage
 constexpr int kQHalfBytes = kBlockQ * kHalf * 2;
 constexpr int kQBytes = 2 * kQHalfBytes;
 constexpr int kSmemBytes = 1024 + kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 2 * kStages);
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kSmemBytes <= 232448, "exceeds the 227 KB shared-memory opt-in");
-
-// A map of a [BC, S, H, 128] bf16 tensor (contiguous) whose box is ``rows``
-// tokens of one head and window by 64 features (one half of a row), 128-byte
-// swizzled; the half is chosen by the load's first coordinate (0 or 64).
-// Reads past S are filled with zeros. Returns 0 or an error code.
-int encode_half_rows_map(CUtensorMap* map, const void* base, int BC, int S, int H, int rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return kNoEncoder;
-  const cuuint64_t row_bytes = kF * 2;
-  const cuuint64_t dims[4] = {kF, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)BC};
-  const cuuint64_t strides[3] = {row_bytes, (cuuint64_t)H * row_bytes, (cuuint64_t)S * H * row_bytes};
-  const cuuint32_t box[4] = {kHalf, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(res);
-}
-
-// Both halves of a 128-wide tile of ``rows`` rows at token ``row0`` into ``dst`` (half 1 right after half 0).
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int h, int row0,
-                                          int bc, int half_bytes) {
-  tma_load_4d(dst, map, bar, 0, h, row0, bc);
-  tma_load_4d(dst + half_bytes, map, bar, kHalf, h, row0, bc);
-}
 
 // s = Q K^T for one kv step: the warpgroup's 64 q rows against the stage's
 // 128 K rows, features 0-63 from the first halves and 64-127 from the second
@@ -190,10 +174,11 @@ __device__ __forceinline__ void store_half(__nv_bfloat16* ob, const float (&o)[3
   }
 }
 
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_fwd_f128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S, int H,
-                          float scale_log2) {
+                          const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int S, int H, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* Qs = smem;            // half 0 (features 0-63), then half 1
@@ -295,26 +280,42 @@ attention_fwd_f128_kernel(const __grid_constant__ CUtensorMap tq, const __grid_c
   __nv_bfloat16* ob = o + (size_t)bc * S * rs + (size_t)h * kF;
   store_half(ob, acc0, r0, r1, S, rs, 0, t4, inv0, inv1);
   store_half(ob, acc1, r0, r1, S, rs, kHalf, t4, inv0, inv1);
+  if constexpr (kLse) {
+    if (t4 == 0) {
+      float* lb = lse + ((size_t)bc * H + h) * S;
+      if (r0 < S) lb[r0] = (m0 * scale_log2 + log2f(l0)) * kLn2;
+      if (r1 < S) lb[r1] = (m1 * scale_log2 + log2f(l1)) * kLn2;
+    }
+  }
+}
+
+template <bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int BC, int S, int H, float scale,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = attn128::encode_half_rows_map(&tq, q, BC, S, H, kBlockQ);
+  if (err == 0) err = attn128::encode_half_rows_map(&tk, k, BC, S, H, kBlockKV);
+  if (err == 0) err = attn128::encode_half_rows_map(&tv, v, BC, S, H, kBlockKV);
+  if (err != 0) return err;
+  cudaError_t cerr =
+      cudaFuncSetAttribute(attention_fwd_f128_kernel<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, BC);
+  attention_fwd_f128_kernel<kLse><<<grid, kThreads, kSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, H, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int attention_forward_f128_smem_bytes() { return kSmemBytes; }
 
-extern "C" int attention_forward_f128(const void* q, const void* k, const void* v, void* o, int BC, int S, int H,
-                                      float scale, void* stream) {
-  CUtensorMap tq, tk, tv;
-  int err = encode_half_rows_map(&tq, q, BC, S, H, kBlockQ);
-  if (err == 0) err = encode_half_rows_map(&tk, k, BC, S, H, kBlockKV);
-  if (err == 0) err = encode_half_rows_map(&tv, v, BC, S, H, kBlockKV);
-  if (err != 0) return err;
-  cudaError_t cerr =
-      cudaFuncSetAttribute(attention_fwd_f128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, BC);
-  attention_fwd_f128_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+// lse null: the sampling kernel (no log-sum-exp); else the training one, writing lse [BC, H, S] float32.
+extern "C" int attention_forward_f128(const void* q, const void* k, const void* v, void* o, void* lse, int BC, int S,
+                                      int H, float scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return lse == nullptr ? launch<false>(q, k, v, o, lse, BC, S, H, scale, st)
+                        : launch<true>(q, k, v, o, lse, BC, S, H, scale, st);
 }
 
 extern "C" const char* error_string(int err) { return hopper::error_string(err); }

@@ -5,9 +5,9 @@ Port of ttt_video_dit_tpu/ops/attention.py:attention (the splash-attention
 forward K3 and its custom-VJP backward K4, reached through _splash_padded /
 _splash_kernel). The kernels are ``csrc/attention_forward.cu`` (forward,
 optionally writing the log-sum-exp) and ``csrc/attention_backward.cu``, at
-head dim 64; and, at head dim 128 (d3072 at 24 heads), the sampling forward
-alone, ``csrc/attention_forward_f128.cu`` (the log-sum-exp forward and the
-backward raise there: training at head dim 128 is not ported yet). They
+head dim 64; and, at head dim 128 (d3072 at 24 heads),
+``csrc/attention_forward_f128.cu`` (the forward, optionally writing the
+log-sum-exp) and ``csrc/attention_backward_f128.cu``. They
 mask the ragged KV edge themselves, so the splash padding and block tuning
 have no counterpart here. The backward is the splash backward's non-fused
 form: dk and dv in one kernel, dq in one of its own, each output element one
@@ -36,19 +36,20 @@ from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): the forward
 # for sampling, the forward that writes the log-sum-exp, the backward, at head
-# dim 64; the sampling forward at head dim 128.
+# dim 64; the same three at head dim 128.
 launches = 0
 lse_launches = 0
 bwd_launches = 0
 f128_launches = 0
+f128_lse_launches = 0
+f128_bwd_launches = 0
 # Calls on a CUDA device that use_plain sent to the plain versions (a dtype other than bf16).
 plain_routes = 0
 
 KERNEL_HEAD_DIM = 64
-# The head dims each kernel takes: the sampling forward (K3) 64 and 128; the log-sum-exp forward and the
-# backward (K3-lse, K4: training) 64.
-SAMPLING_HEAD_DIMS = (64, 128)
-TRAINING_HEAD_DIMS = (64,)
+# The head dims the kernels take: the sampling forward (K3) and the training kernels (the log-sum-exp forward
+# K3-lse, the backward K4) alike.
+HEAD_DIMS = (64, 128)
 _BLOCK_Q = 256
 
 
@@ -129,28 +130,28 @@ def _lib(name: str = "attention_forward"):
         lib.attention_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
         lib.attention_forward.restype = ctypes.c_int
     if name == "attention_forward_f128" and lib.attention_forward_f128.argtypes is None:
-        lib.attention_forward_f128.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float,
+        lib.attention_forward_f128.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
                                                                                            ctypes.c_void_p]
         lib.attention_forward_f128.restype = ctypes.c_int
         lib.attention_forward_f128_smem_bytes.restype = ctypes.c_int
-    if name == "attention_backward" and lib.attention_backward.argtypes is None:
-        lib.attention_backward.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
-                                           + [ctypes.c_float, ctypes.c_void_p])
-        lib.attention_backward.restype = ctypes.c_int
+    for bwd in ("attention_backward", "attention_backward_f128"):
+        if name == bwd and getattr(lib, bwd).argtypes is None:
+            getattr(lib, bwd).argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+            getattr(lib, bwd).restype = ctypes.c_int
+    if name == "attention_backward_f128":
+        lib.attention_backward_f128_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def check_kernel_args(q, k, v, head_dims: tuple = TRAINING_HEAD_DIMS) -> None:
+def check_kernel_args(q, k, v) -> None:
     """Raise ValueError unless q/k/v are what the CUDA kernels take: equal
-    [BC, S, H, F] bf16 shapes with F in ``head_dims`` (the training kernels'
-    by default, SAMPLING_HEAD_DIMS for the sampling forward), contiguous,
+    [BC, S, H, F] bf16 shapes with F in HEAD_DIMS, contiguous,
     16-byte aligned, on one CUDA device, with BC and H within a grid
     dimension (65,535). The kernels read them by TMA, which needs a
     16-byte-aligned base and strides that are multiples of 16 bytes:
     contiguous [..., H, F] bf16 has 2 F and H x 2 F."""
-    if q.ndim != 4 or q.shape[-1] not in head_dims:
-        raise ValueError(f"the attention kernel takes [BC, S, H, F] with F in {head_dims} (the sampling forward: "
-                         f"{SAMPLING_HEAD_DIMS}, the training kernels: {TRAINING_HEAD_DIMS}), got {tuple(q.shape)}")
+    if q.ndim != 4 or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the attention kernels take [BC, S, H, F] with F in {HEAD_DIMS}, got {tuple(q.shape)}")
     if q.shape[0] > 65535 or q.shape[2] > 65535:
         raise ValueError(f"the attention kernel takes at most 65,535 windows and heads, got {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -165,33 +166,32 @@ def check_kernel_args(q, k, v, head_dims: tuple = TRAINING_HEAD_DIMS) -> None:
 _smem_checked: set = set()
 
 
-def check_smem(lib, device) -> None:
-    """Raise RuntimeError if the head-dim-128 forward needs more shared
-    memory a block than ``device`` lets a block opt in to; checked at its
-    first launch on each device."""
-    if device in _smem_checked:
+def check_smem(lib, name: str, device) -> None:
+    """Raise RuntimeError if the head-dim-128 kernels of library ``name``
+    (the forward; the backward's dk/dv and dq kernels, the larger of the
+    two) need more shared memory a block than ``device`` lets a block opt in
+    to; checked at the first launch of each on each device."""
+    if (name, device) in _smem_checked:
         return
-    need = lib.attention_forward_f128_smem_bytes()
+    need = getattr(lib, f"{name}_smem_bytes")()
     limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
     if not 0 < need <= limit:
-        raise RuntimeError(f"attention_forward_f128 needs {need} bytes of shared memory a block; {device} allows "
-                           f"{limit}")
-    _smem_checked.add(device)
+        raise RuntimeError(f"{name} needs {need} bytes of shared memory a block; {device} allows {limit}")
+    _smem_checked.add((name, device))
 
 
 def _forward(q, k, v, with_lse: bool):
-    """Launch K3 of q's head dim (64, or 128 without the log-sum-exp)."""
-    check_kernel_args(q, k, v, TRAINING_HEAD_DIMS if with_lse else SAMPLING_HEAD_DIMS)
+    """Launch K3 of q's head dim, 64 or 128, writing the log-sum-exp with ``with_lse``."""
+    check_kernel_args(q, k, v)
     BC, S, H, F = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(BC, H, S, dtype=torch.float32, device=q.device) if with_lse else None
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if with_lse else None)
     if F == KERNEL_HEAD_DIM:
         name, lib = "attention_forward", _lib()
-        ptrs += (lse.data_ptr() if with_lse else None,)
     else:
         name, lib = "attention_forward_f128", _lib("attention_forward_f128")
-        check_smem(lib, q.device)
+        check_smem(lib, name, q.device)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(*ptrs, BC, S, H, 1.0 / (F**0.5), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, f"{name} launch")
@@ -222,9 +222,12 @@ def attention_with_lse(q, k, v):
     backward. A custom op (so a selective-checkpoint policy can name it,
     models/dit/dit.py): on CUDA tensors it launches the kernel or raises; on
     CPU tensors it runs the plain version."""
-    global lse_launches
+    global lse_launches, f128_lse_launches
     out, lse = _forward(q, k, v, with_lse=True)
-    lse_launches += 1
+    if q.shape[-1] == KERNEL_HEAD_DIM:
+        lse_launches += 1
+    else:
+        f128_lse_launches += 1
     return out, lse
 
 
@@ -243,10 +246,11 @@ def _(q, k, v):
 def attention_backward(q, k, v, out, lse, dout):
     """K4: (dq, dk, dv) of attention from the forward's output and
     log-sum-exp. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (or raise on arguments it does not take). Each output element is
-    one sum in a fixed order (dk and dv in one kernel, dq in another), so the
-    same inputs give the same bits on every launch."""
-    global bwd_launches
+    kernel of their head dim, 64 or 128 (or raise on arguments it does not
+    take). Each output element is one sum in a fixed order (dk and dv in one
+    kernel, dq in another), so the same inputs give the same bits on every
+    launch."""
+    global bwd_launches, f128_bwd_launches
     refuse_dtensors("attention_backward", q, k, v, out, lse, dout)
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, out, lse, dout)
@@ -258,13 +262,19 @@ def attention_backward(q, k, v, out, lse, dout):
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty(BC, H, S, dtype=torch.float32, device=q.device)  # D = rowsum(dout * out)
-    lib = _lib("attention_backward")
+    name = "attention_backward" if F == KERNEL_HEAD_DIM else "attention_backward_f128"
+    lib = _lib(name)
+    if F != KERNEL_HEAD_DIM:
+        check_smem(lib, name, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.attention_backward(*(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta)),
-                                     BC, S, H, 1.0 / (F**0.5), stream)
-    _build.check(lib, err, "attention_backward launch")
-    bwd_launches += 1
+        err = getattr(lib, name)(*(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv, delta)),
+                                 BC, S, H, 1.0 / (F**0.5), stream)
+    _build.check(lib, err, f"{name} launch")
+    if F == KERNEL_HEAD_DIM:
+        bwd_launches += 1
+    else:
+        f128_bwd_launches += 1
     return dq, dk, dv
 
 

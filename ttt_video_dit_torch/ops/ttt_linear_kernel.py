@@ -19,10 +19,11 @@ not a multiple of 16):
   ``csrc/ttt_linear_backward.cu``;
 - ``TTTLinearFunction``: K5-train forward, K6 backward.
 
-At head dim F = 128 (d3072 at 24 heads) the sampling K5 alone, at the
-mini-batches F128_MINI_BATCHES and on bf16 q/k/v:
-``csrc/ttt_linear_forward_f128.cu``, counted in ``f128_launches_by_cs``;
-K5-train and K6 raise there (training at F = 128 is not ported yet).
+At head dim F = 128 (d3072 at 24 heads) all three, at the mini-batches
+F128_MINI_BATCHES and on bf16 q/k/v: K5 and K5-train in
+``csrc/ttt_linear_forward_f128.cu``, K6 in
+``csrc/ttt_linear_backward_f128.cu``, counted in ``f128_launches_by_cs``
+under the same names as the head-dim-64 counters.
 
 q/k/v may be bf16 or float32 (ttt_mlp_kernel.KERNEL_DTYPES): float32 launches
 the float32 counterparts, which round nothing to bf16
@@ -69,9 +70,9 @@ from ttt_video_dit_torch.parallel.sharded import refuse_dtensors
 
 # Launches of each CUDA kernel (the plain versions do not count): K5 for
 # sampling, K5 for training, K6 on bf16 q/k/v; and the same by mini-batch,
-# launches_by_cs[counter name, CS]; the float32 kernels' by the same keys in
-# f32_launches_by_cs, the head-dim-128 sampling kernel's in f128_launches_by_cs
-# ["launches", CS]. plain_routes: the scans on a CUDA device that use_plain
+# launches_by_cs[counter name, CS] (all head dim 64); the float32 kernels' by the
+# same keys in f32_launches_by_cs, the head-dim-128 kernels' in
+# f128_launches_by_cs. plain_routes: the scans on a CUDA device that use_plain
 # sent to the plain versions.
 launches = 0
 train_launches = 0
@@ -85,8 +86,8 @@ KERNEL_HEAD_DIM = 64
 # The mini-batch sizes K5 and K6 are built for: csrc/ttt_mlp_block.cuh:with_slabs instantiates these (a test
 # holds the two lists together); the C entries take CS and refuse any other.
 KERNEL_MINI_BATCHES = (8, 16, 24, 32, 40, 48, 56, 64)
-# Head dim 128: the sampling kernel alone, bf16, at these mini-batches (the cases of
-# csrc/ttt_linear_forward_f128.cu:with_mini_batch; a test holds the two together).
+# Head dim 128: K5, K5-train and K6, bf16, at these mini-batches (the cases of
+# csrc/ttt_linear_f128.cuh:with_mini_batch; a test holds the two together).
 F128_HEAD_DIM = 128
 F128_MINI_BATCHES = (16,)
 
@@ -252,9 +253,15 @@ def _lib(name: str = "ttt_linear_forward"):
         lib.ttt_linear_backward_stash_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ttt_linear_backward_stash_bytes.restype = ctypes.c_int
     if name == "ttt_linear_forward_f128" and lib.ttt_linear_forward_f128.argtypes is None:
-        lib.ttt_linear_forward_f128.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+        lib.ttt_linear_forward_f128.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                                                 + [ctypes.c_float, ctypes.c_void_p])
         lib.ttt_linear_forward_f128.restype = ctypes.c_int
+    if name == "ttt_linear_backward_f128" and lib.ttt_linear_backward_f128.argtypes is None:
+        lib.ttt_linear_backward_f128.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 5
+                                                 + [ctypes.c_float, ctypes.c_void_p])
+        lib.ttt_linear_backward_f128.restype = ctypes.c_int
+        lib.ttt_linear_backward_f128_stash_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ttt_linear_backward_f128_stash_bytes.restype = ctypes.c_int
     if name in F32_LIBS and getattr(lib, name).argtypes is None:
         _f32_argtypes(lib, name, *F32_LIBS[name])
     smem = getattr(lib, f"{name}_smem_bytes")
@@ -266,19 +273,14 @@ def _lib(name: str = "ttt_linear_forward"):
 F32_LIBS = {"ttt_linear_forward_f32": (14, 1), "ttt_linear_backward_f32": (20, 2)}
 
 
-def kernel_shapes(sampling: bool) -> dict:
-    """The head dims and mini-batches the kernels take, {F: (CS, ...)}: the
-    sampling K5 also at F = 128, the training kernels (K5-train, K6) at 64."""
-    shapes = {KERNEL_HEAD_DIM: KERNEL_MINI_BATCHES}
-    if sampling:
-        shapes[F128_HEAD_DIM] = F128_MINI_BATCHES
-    return shapes
+# The head dims and mini-batches the kernels take, {F: (CS, ...)}: the sampling K5 and the training kernels
+# (K5-train, K6) alike.
+KERNEL_SHAPES = {KERNEL_HEAD_DIM: KERNEL_MINI_BATCHES, F128_HEAD_DIM: F128_MINI_BATCHES}
 
 
-def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, sampling: bool = False) -> None:
+def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1) -> None:
     """Raise ValueError unless the arguments are what the CUDA kernels take:
-    F and CS in :func:`kernel_shapes` (the sampling kernel's with
-    ``sampling``, else the training kernels'), token-major q/k/v all bf16 or
+    F and CS in KERNEL_SHAPES, token-major q/k/v all bf16 or
     all float32 (bf16 at F = 128), float32 everything else, every tensor
     contiguous and on one CUDA device, shapes consistent (W1/b1 may be None
     for the backward, which starts from checkpoints)."""
@@ -286,11 +288,9 @@ def check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, 
         raise ValueError(f"XQ must be token-major [B, NC, CS, H*F], got {tuple(XQ.shape)}")
     B, NC, CS, HF = XQ.shape
     H, F = ln_w.shape
-    shapes = kernel_shapes(sampling)
-    if CS not in shapes.get(F, ()):
-        what = "sampling kernel takes" if sampling else "training kernels take"
-        raise ValueError(f"the TTT-linear {what} head dim F: mini-batches CS {shapes} (the sampling kernel: "
-                         f"{kernel_shapes(True)}, the training kernels: {kernel_shapes(False)}); got F={F}, CS={CS}")
+    if CS not in KERNEL_SHAPES.get(F, ()):
+        raise ValueError(f"the TTT-linear kernels take head dim F: mini-batches CS {KERNEL_SHAPES}; got F={F}, "
+                         f"CS={CS}")
     dt = qkv_dtype(XQ, XK, XV)
     if F == F128_HEAD_DIM and dt != torch.bfloat16:
         raise ValueError(f"the TTT-linear kernel at F={F} takes bfloat16 q/k/v, got {dt}")
@@ -309,21 +309,20 @@ def _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale
     """Launch K5 of q/k/v's dtype and head dim (the float32 one counts itself
     in f32_launches_by_cs, the head-dim-128 one in f128_launches_by_cs);
     K = 0 writes no checkpoints. Returns (out, W1_ck, b1_ck)."""
-    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, sampling=K == 0)
+    check_kernel_args(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1)
     B, NC, CS, _ = XQ.shape
     H, F = ln_w.shape
     NG = -(-NC // K) if K else 0
     out = torch.empty_like(XQ)
-    if F == F128_HEAD_DIM:
-        lib = _lib("ttt_linear_forward_f128")
-        check_smem(lib, "ttt_linear_forward_f128", CS, XQ.device)
-        _launch(lib, "ttt_linear_forward_f128", (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, out),
-                (B, NC, H, CS), eta_scale, XQ.device)
-        f128_launches_by_cs["launches", CS] += 1
-        return out, None, None
     new = lambda *s: torch.empty(*s, dtype=torch.float32, device=XQ.device)
     ckpts = (new(B, H, NG, F, F), new(B, H, NG, 1, F))
     args = (XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, out, *ckpts)
+    if F == F128_HEAD_DIM:
+        lib = _lib("ttt_linear_forward_f128")
+        check_smem(lib, "ttt_linear_forward_f128", CS, XQ.device)
+        _launch(lib, "ttt_linear_forward_f128", args, (B, NC, H, CS, K), eta_scale, XQ.device)
+        f128_launches_by_cs["train_launches" if K else "launches", CS] += 1
+        return out, *ckpts
     if XQ.dtype == torch.float32:
         lib = _lib("ttt_linear_forward_f32")
         check_smem(lib, "ttt_linear_forward_f32", CS, XQ.device)
@@ -365,7 +364,7 @@ def ttt_linear_forward_train(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W
     global train_launches
     result = _forward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1, b1, eta_scale,
                       _group(checkpoint_group, XQ.shape[1]))
-    if XQ.dtype != torch.float32:
+    if XQ.dtype != torch.float32 and ln_w.shape[1] == KERNEL_HEAD_DIM:
         train_launches += 1
         launches_by_cs["train_launches", XQ.shape[2]] += 1
     return result
@@ -417,13 +416,17 @@ def ttt_linear_backward(XQ, XK, XV, gate, rope_cos, rope_sin, ln_w, ln_b, W1_ck,
         f32_launches_by_cs["bwd_launches", CS] += 1
         return (*dx, dgate, *(g.sum(dim=0) for g in grads))
     # K6's pass A writes each step's operands for pass B: a bf16 and a float32 workspace of K steps a scan.
-    lib = _lib("ttt_linear_backward")
-    check_smem(lib, "ttt_linear_backward", CS, XQ.device)
-    step_bytes = [lib.ttt_linear_backward_stash_bytes(part, CS) for part in (0, 1)]
+    name = "ttt_linear_backward" if F == KERNEL_HEAD_DIM else "ttt_linear_backward_f128"
+    lib = _lib(name)
+    check_smem(lib, name, CS, XQ.device)
+    step_bytes = [getattr(lib, f"{name}_stash_bytes")(part, CS) for part in (0, 1)]
     stash = (new(B * H * K * step_bytes[0] // 2, dtype=torch.bfloat16), new(B * H * K * step_bytes[1] // 4))
-    _launch(lib, "ttt_linear_backward", (*ins, *stash), (B, NC, H, CS, K), eta_scale, XQ.device)
-    bwd_launches += 1
-    launches_by_cs["bwd_launches", CS] += 1
+    _launch(lib, name, (*ins, *stash), (B, NC, H, CS, K), eta_scale, XQ.device)
+    if F == KERNEL_HEAD_DIM:
+        bwd_launches += 1
+        launches_by_cs["bwd_launches", CS] += 1
+    else:
+        f128_launches_by_cs["bwd_launches", CS] += 1
     return (*dx, dgate, *(g.sum(dim=0) for g in grads))
 
 

@@ -33,10 +33,12 @@ max|kernel - plain| / max|plain|:
   an eta-gate case per variant), rows ``K1@f32``, ``K2@f32`` etc., at a
   tenth of the bf16 tolerances and on the output itself: nothing is rounded
   to bf16 on either side, so only float32 summation order separates them;
-- head dim 128 (d3072 at 24 heads), where only the sampling kernels are
-  ported: K5 at CS 16 at an even and an odd NC and at a large eta
-  (F128_SAMPLE_CASES) and K3 on three ragged windows of 417 tokens, rows
-  ``K5@F128`` and ``K3@F128``, at the tolerances of the head-dim-64 checks.
+- head dim 128 (d3072 at 24 heads): K5 at CS 16 at an even and an odd NC
+  and at a large eta (F128_SAMPLE_CASES), K5-train and K6 full, ragged and
+  at a large eta (F128_TRAIN_CASES), K3, K3-lse (its output and its
+  log-sum-exp, LSE_TOL) and K4 on three ragged windows of 417 tokens, and
+  K4 launched twice (bit-equal, F128_RERUN_CHECK), rows ``K5@F128``,
+  ``K3-lse@F128`` etc., at the tolerances of the head-dim-64 checks.
 
 Every check's name ends with the kernel rows it drives, as PERF.md's table
 names them ([K1] ... [K7]; a row at another mini-batch than the kernel's
@@ -75,6 +77,9 @@ GRAD_TOL = 2e-2
 STATE_GRAD_TOL = 1e-2
 ATTENTION_FWD_TOL = 2e-2
 ATTENTION_GRAD_TOL = 3e-2
+# The log-sum-exp (float32 of values up to ~10 from bf16 q and k on both sides; only the summation order and the
+# kernel's exp2 approximation differ, ~1e-6 of its size).
+LSE_TOL = 1e-5
 # The float32 kernels' (F32_*): a tenth of the bf16 ones each, the forward held on its output itself. Neither side
 # rounds to bf16; float32 summation order over these short scans moves them by ~1e-6. One TF32 pass (~3 decimal
 # digits) would not meet them.
@@ -91,6 +96,7 @@ KERNELS = {
     "ttt_linear_train": ttt_linear_kernel.ttt_linear_train,  # K5-train, K6
     "attention": attention.attention,  # K3
     "attention_train": attention.attention_train,  # K3-lse, K4
+    "attention_with_lse": attention.attention_with_lse,  # K3-lse: its log-sum-exp
     "convert_f32_bf16": convert.convert_f32_bf16,  # K7
 }
 PLAIN = {
@@ -100,6 +106,7 @@ PLAIN = {
     "ttt_linear_train": lambda *a: ttt_linear_kernel.ttt_linear_train(*a, plain=True),
     "attention": attention.attention_plain,
     "attention_train": lambda q, k, v: attention.attention_train(q, k, v, plain=True),
+    "attention_with_lse": lambda q, k, v: attention.attention_plain(q, k, v, return_lse=True),
     "convert_f32_bf16": convert.convert_f32_bf16_plain,
 }
 # The launch counters of each row (module, attribute): each must move in a self-test of the kernels.
@@ -113,8 +120,12 @@ COUNTERS = {
 F = 64
 F128 = "@F128"  # the row of a head-dim-128 kernel: "<row>@F128"
 # The launch counters of the head-dim-128 rows.
-F128_COUNTERS = {"K3": lambda: attention.f128_launches,
-                 "K5": lambda: sum(ttt_linear_kernel.f128_launches_by_cs.values())}
+F128_COUNTERS = {
+    "K3": lambda: attention.f128_launches, "K3-lse": lambda: attention.f128_lse_launches,
+    "K4": lambda: attention.f128_bwd_launches,
+    **{r: lambda a=a: sum(n for (name, _), n in ttt_linear_kernel.f128_launches_by_cs.items() if name == a)
+       for r, a in (("K5", "launches"), ("K5-train", "train_launches"), ("K6", "bwd_launches"))},
+}
 BASE_LR = {"ttt_mlp": 0.1, "ttt_linear": 1.0}  # the TOMLs' ttt_base_lr: eta = sigmoid(gate) x base / F / CS
 STATE = {"ttt_mlp": ("W1", "b1", "W2", "b2"), "ttt_linear": ("W1", "b1")}
 ROWS = {"ttt_mlp": ("K1", "K1-train", "K2"), "ttt_linear": ("K5", "K5-train", "K6")}  # sampling, forward, backward
@@ -223,9 +234,17 @@ F128_SAMPLE_CASES = (
     ("ttt_linear sampling f128 ragged", 2, 4, 9, 9, 1),
     ("ttt_linear sampling f128 eta-gate", 2, 4, 9, 9, 1000),
 )
+# K5-train and K6 at CS 16, B 1, 4 heads, NC 8 and 9 of one draw (K 4: the ragged case's last group is one
+# mini-batch) and 9 at 200x the TOMLs' eta (eta ~0.1, as the head-dim-64 eta-gate case); fields as TRAIN_CASES'.
+F128_TRAIN_CASES = (
+    ("ttt_linear f128 full", "ttt_linear", 4, 9, 8, 4, 16, 1),
+    ("ttt_linear f128 ragged", "ttt_linear", 4, 9, 9, 4, 16, 1),
+    ("ttt_linear f128 eta-gate", "ttt_linear", 4, 9, 9, 4, 16, 200),
+)
 F128_ATTENTION_SHAPE = (3, 417, 2, 128)
 ATTENTION_SHAPE = (3, 417, 4, 64)  # 3 windows of a ragged 417 tokens, 4 heads
 RERUN_CHECK = "splash folded-windows rerun bit-equal [K4]"  # K4's determinism: two launches, the same bits
+F128_RERUN_CHECK = "splash folded-windows f128 rerun bit-equal [K4@F128]"
 CONVERT_SHAPE = (12288, 3072)  # the MLP's layer2 weight, [out, in]
 # K7's first elements: ties, subnormals, signed zeros, +-inf, NaN and values past the bf16 maximum.
 CONVERT_SPECIAL = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 3.4e38, -3.39e38, 1e-40, -1e-45, 1.00390625,
@@ -300,9 +319,9 @@ def ttt_loss_and_grads(fn, a: dict, variant: str, K: int, eta: float, device, dt
     return (out if with_out else loss).detach(), torch.autograd.grad(loss, leaves)
 
 
-def attention_arrays(rng) -> dict:
+def attention_arrays(rng, shape: tuple = ATTENTION_SHAPE) -> dict:
     """q/k/v (bf16 once on the card) and the output cotangent ct of the folded-window checks, numpy float32."""
-    return {n: rng.standard_normal(ATTENTION_SHAPE).astype(np.float32) for n in ("q", "k", "v", "ct")}
+    return {n: rng.standard_normal(shape).astype(np.float32) for n in ("q", "k", "v", "ct")}
 
 
 def attention_out_and_grads(fn, a: dict, device):
@@ -342,7 +361,8 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
     t0 = time.perf_counter()
     rows = {row(r, case[6]) for case in TRAIN_CASES for r in ROWS[case[1]][1:]}
     rows |= {row(ROWS[case[1]][0], case[6]) for case in SAMPLE_CASES} | {"K3", "K3-lse", "K4", "K7"}
-    rows |= {row(r, 0, torch.float32) for rows_ in ROWS.values() for r in rows_} | {"K3" + F128, "K5" + F128}
+    rows |= {row(r, 0, torch.float32) for rows_ in ROWS.values() for r in rows_}
+    rows |= {r + F128 for r in F128_COUNTERS}
     before = {r: launch_count(r) for r in rows}
     checks, tolerances = {}, {}
 
@@ -425,7 +445,29 @@ def kernel_selftest(device: torch.device, log: Optional[Callable[[str], None]] =
                    .to(torch.bfloat16) for _ in range(3))
         with torch.no_grad():
             err = rel_err(kernels["attention"](q, k, v), PLAIN["attention"](q, k, v))
+            lse_err = rel_err(kernels["attention_with_lse"](q, k, v)[1], PLAIN["attention_with_lse"](q, k, v)[1])
         check(f"splash folded-windows f128 fwd [K3{F128}]", err, ATTENTION_FWD_TOL)
+        check(f"splash folded-windows f128 lse [K3-lse{F128}]", lse_err, LSE_TOL)
+        for name, variant, H, NC, nc, K, CS, factor in F128_TRAIN_CASES:
+            if ("f128 train", H, NC) not in shared:
+                shared["f128 train", H, NC] = ttt_arrays(f128_rng, variant, 1, H, NC, CS, F=128)
+            a, eta = take(shared["f128 train", H, NC], nc), eta_scale(variant, CS, factor, F=128)
+            loss_k, grads_k = ttt_loss_and_grads(kernels[f"{variant}_train"], a, variant, K, eta, device)
+            loss_p, grads_p = ttt_loss_and_grads(PLAIN[f"{variant}_train"], a, variant, K, eta, device)
+            check(f"{name} fwd [K5-train{F128}]", rel_err(loss_k, loss_p), FWD_TOL)
+            for g, w, what in zip(grads_k, grads_p, ("dq", "dk", "dv", "dgate")):
+                check(f"{name} {what} [K6{F128}]", rel_err(g, w), GRAD_TOL)
+            check(f"{name} dstate [K6{F128}]", max(rel_err(g, w) for g, w in zip(grads_k[4:], grads_p[4:])),
+                  STATE_GRAD_TOL)
+        a = attention_arrays(f128_rng, F128_ATTENTION_SHAPE)
+        out_k, grads_k = attention_out_and_grads(kernels["attention_train"], a, device)
+        out_p, grads_p = attention_out_and_grads(PLAIN["attention_train"], a, device)
+        check(f"splash folded-windows f128 fwd-lse [K3-lse{F128}]", rel_err(out_k, out_p), ATTENTION_FWD_TOL)
+        for g, w, what in zip(grads_k, grads_p, ("dq", "dk", "dv")):
+            check(f"splash folded-windows f128 {what} [K4{F128}]", rel_err(g, w), ATTENTION_GRAD_TOL)
+        again = attention_out_and_grads(kernels["attention_train"], a, device)[1]
+        differ = bits_differ(torch.cat([g.reshape(-1) for g in grads_k]), torch.cat([g.reshape(-1) for g in again]))
+        exact(F128_RERUN_CHECK, differ, "elements of dq, dk, dv differ between two launches")
 
         a = attention_arrays(rng)
         q, k, v = (torch.from_numpy(a[n]).to(device).to(torch.bfloat16) for n in ("q", "k", "v"))
